@@ -1,0 +1,70 @@
+"""Parameters between the JAX package's pytree and the port's modules.
+
+The JAX ``NerfNetwork`` keeps its parameters as a pytree
+``{"pos_encoding": (L, R, 128), "dir_encoding": nested () tuples,
+"density_net": ((in, out), ...), "rgb_net": ((in, out), ...)}``; the
+same tree, as numpy arrays, is what a snapshot stores. The port's
+``NerfNetwork`` holds the same arrays as parameters named
+``pos_encoding.table`` and ``<net>.weights.<i>``.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ngp_tpu_torch.nn.encodings import Composite
+from ngp_tpu_torch.nn.models import NerfNetwork
+
+
+def _dir_skeleton(enc):
+    """The JAX parameter tree of a parameterless direction encoding."""
+    if isinstance(enc, Composite):
+        return tuple(_dir_skeleton(p) for p in enc.parts)
+    return ()
+
+
+def _check_empty(tree, what: str):
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            _check_empty(t, what)
+    elif tree is not None and np.size(tree) != 0:
+        raise ValueError(f"{what}: expected no parameters, got an array")
+
+
+def nerf_params_from_numpy(tree: Mapping, model: NerfNetwork
+                           ) -> dict[str, torch.Tensor]:
+    """JAX NerfNetwork pytree (numpy leaves) → {parameter name: tensor} on
+    the model's device, shapes checked against the model."""
+    _check_empty(tree.get("dir_encoding", ()), "dir_encoding")
+    flat = {"pos_encoding.table": tree["pos_encoding"]}
+    for net in ("density_net", "rgb_net"):
+        for i, w in enumerate(tree[net]):
+            flat[f"{net}.weights.{i}"] = w
+    own = dict(model.named_parameters())
+    if set(flat) != set(own):
+        raise ValueError(f"parameter names differ: {sorted(flat)} vs "
+                         f"{sorted(own)}")
+    out = {}
+    for name, value in flat.items():
+        a = np.asarray(value, np.float32)
+        if a.shape != tuple(own[name].shape):
+            raise ValueError(f"{name}: shape {a.shape} != "
+                             f"{tuple(own[name].shape)}")
+        out[name] = torch.from_numpy(a.copy()).to(own[name].device)
+    return out
+
+
+def nerf_params_to_numpy(params: Mapping[str, torch.Tensor],
+                         model: NerfNetwork) -> dict:
+    """Inverse of ``nerf_params_from_numpy``: the JAX pytree, numpy
+    leaves."""
+    def mats(net):
+        n = len(getattr(model, net).weights)
+        return tuple(params[f"{net}.weights.{i}"].detach().cpu().numpy()
+                     for i in range(n))
+    return {"pos_encoding": params["pos_encoding.table"].detach().cpu().numpy(),
+            "dir_encoding": _dir_skeleton(model.dir_encoding),
+            "density_net": mats("density_net"),
+            "rgb_net": mats("rgb_net")}

@@ -1,0 +1,71 @@
+"""Shared constants, enums and small math helpers (port of
+``ngp_tpu/common.py``)."""
+from __future__ import annotations
+
+import enum
+import math
+
+import torch
+
+# --- NeRF marching constants (ref: src/testbed_nerf.cu:53-73) ---------------
+NERF_GRIDSIZE = 128            # occupancy grid resolution per cascade
+NERF_CASCADES = 8              # number of cascaded occupancy mips
+NERF_STEPS = 1024              # finest number of steps per unit length
+SQRT3 = math.sqrt(3.0)
+STEPSIZE = SQRT3 / NERF_STEPS
+MIN_CONE_STEPSIZE = STEPSIZE
+# Maximum step size is the width of the coarsest gridsize cell.
+MAX_CONE_STEPSIZE = STEPSIZE * (1 << (NERF_CASCADES - 1)) * NERF_STEPS / NERF_GRIDSIZE
+NERF_MIN_OPTICAL_THICKNESS = 0.01
+NERF_RENDERING_NEAR_DISTANCE = 0.05
+# Loss scale keeps small half-precision gradients alive (ref: testbed.h:272).
+LOSS_SCALE = 128.0
+
+GRID_VOLUME = NERF_GRIDSIZE ** 3
+
+
+class RenderMode(enum.IntEnum):
+    """ref: include/neural-graphics-primitives/common.h:80-92."""
+    AO = 0
+    SHADE = 1
+    NORMALS = 2
+    POSITIONS = 3
+    DEPTH = 4
+    DISTORTION = 5
+    COST = 6
+    SLICE = 7
+    ENCODING_VIS = 8
+
+
+class TonemapCurve(enum.Enum):
+    IDENTITY = "identity"
+    ACES = "aces"
+    HABLE = "hable"
+    REINHARD = "reinhard"
+
+
+class NerfActivation(enum.Enum):
+    """ref: network_to_rgb/network_to_density, src/testbed_nerf.cu:216-258."""
+    NONE = "none"
+    RELU = "relu"
+    LOGISTIC = "logistic"
+    EXPONENTIAL = "exponential"
+
+
+def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
+    """IEC 61966-2-1, matching ref common_device.cuh srgb_to_linear."""
+    return torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+
+
+def network_activation(x: torch.Tensor, activation: NerfActivation):
+    """Apply a NeRF output activation (ref: src/testbed_nerf.cu:216-247)."""
+    if activation == NerfActivation.NONE:
+        return x
+    if activation == NerfActivation.RELU:
+        return torch.clamp(x, min=0.0)
+    if activation == NerfActivation.LOGISTIC:
+        return torch.sigmoid(x)
+    if activation == NerfActivation.EXPONENTIAL:
+        # same generous clamp as the JAX package keeps for safety
+        return torch.exp(torch.clamp(x, -15.0, 15.0))
+    raise ValueError(activation)

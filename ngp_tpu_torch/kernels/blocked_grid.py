@@ -1,0 +1,222 @@
+"""Blocked multiresolution grid: layout math and the plain PyTorch encode
+(port of ``ngp_tpu/kernels/blocked_grid.py``).
+
+Each level's table is ``rows`` rows of 128 lanes; one row holds an
+overlapping block of 4×4×4 vertices × 2 features (stride 3 cells; 2D:
+8×8 vertices, stride 7), so every sample's 2^D interpolation corners lie
+in exactly one row. Coarse ("dense") levels index a raster over blocks;
+fine levels hash the block coordinate (instant-ngp primes) into the
+power-of-two row count. The ``(L, R, 128)`` table layout is the JAX
+package's, so its parameters load unchanged.
+
+``encode_reference`` is the plain version of the CUDA kernel in
+``blocked_grid_cuda.py``: the CPU path, and the oracle the kernel is
+checked against on the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional, Tuple
+
+import torch
+
+LANES = 128
+
+# instant-ngp spatial-hash primes (paper eq. 4; identity along x)
+_HASH_PRIMES = (1, 2654435761, 805459861)
+_U32 = 0xFFFFFFFF
+
+
+def _block_geom(n_dims: int) -> tuple[int, int]:
+    """(vertices per side, stride in cells) for a 128-lane block."""
+    if n_dims == 3:
+        return 4, 3   # 4^3 * 2 = 128
+    if n_dims == 2:
+        return 8, 7   # 8^2 * 2 = 128
+    raise ValueError("blocked grid supports 2D and 3D")
+
+
+def _part_bits(x: torch.Tensor, n_dims: int) -> torch.Tensor:
+    """Interleave zeros between bits. ``x`` is int64 holding uint32 values
+    (torch has little uint32 arithmetic on the CPU); the masks keep every
+    intermediate inside 32 bits."""
+    if n_dims == 2:
+        x = x & 0xFFFF
+        x = (x | (x << 8)) & 0x00FF00FF
+        x = (x | (x << 4)) & 0x0F0F0F0F
+        x = (x | (x << 2)) & 0x33333333
+        return (x | (x << 1)) & 0x55555555
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    return (x | (x << 2)) & 0x09249249
+
+
+def morton_nd(coords: torch.Tensor, n_dims: int) -> torch.Tensor:
+    """coords (..., D) int → Morton code (uint32 values in int64)."""
+    c = coords.to(torch.int64) & _U32
+    out = _part_bits(c[..., 0], n_dims)
+    for d in range(1, n_dims):
+        out = out | (_part_bits(c[..., d], n_dims) << d)
+    return out & _U32
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockedGridMeta:
+    """Static config of the blocked multiresolution grid."""
+
+    n_dims: int
+    n_levels: int
+    base_resolution: int
+    per_level_scale: float
+    log2_rows: int = 11              # rows per level: uniform (L, R, 128) table
+    n_features_per_level: int = 2    # fixed: 2 (packed into the 128 lanes)
+    row_hash: str = "prime"          # "prime" (tcnn-like) | "morton" (legacy)
+
+    @functools.cached_property
+    def level_scales(self) -> Tuple[float, ...]:
+        # Python doubles; cast to f32 only where positions are scaled
+        return tuple(
+            math.exp2(l * math.log2(self.per_level_scale)) * self.base_resolution - 1.0
+            for l in range(self.n_levels))
+
+    @functools.cached_property
+    def level_resolutions(self) -> Tuple[int, ...]:
+        return tuple(int(math.ceil(s)) + 1 for s in self.level_scales)
+
+    @functools.cached_property
+    def level_blocks_per_dim(self) -> Tuple[int, ...]:
+        _, stride = _block_geom(self.n_dims)
+        return tuple((res + stride - 1) // stride for res in self.level_resolutions)
+
+    @property
+    def rows(self) -> int:
+        return 1 << self.log2_rows
+
+    @functools.cached_property
+    def level_is_dense(self) -> Tuple[bool, ...]:
+        """Dense = every block gets its own row (no hashing)."""
+        return tuple(b ** self.n_dims <= self.rows
+                     for b in self.level_blocks_per_dim)
+
+    @property
+    def n_output_dims(self) -> int:
+        return self.n_levels * self.n_features_per_level
+
+    @property
+    def n_params(self) -> int:
+        return self.n_levels * self.rows * LANES
+
+    @classmethod
+    def from_hashgrid_config(cls, enc: dict) -> "BlockedGridMeta":
+        """Map a tcnn HashGrid config onto the blocked grid with matched
+        parameter budget: rows = 2^log2_hashmap_size · F / 128. A
+        ``log2_rows``/``row_hash`` stamped into a snapshot's config wins:
+        a stored table decodes only with the geometry it was trained
+        under."""
+        n_dims = int(enc["n_pos_dims"])
+        F = int(enc.get("n_features_per_level", 2))
+        log2_T = int(enc.get("log2_hashmap_size", 19))
+        log2_rows = int(enc.get("log2_rows",
+                                max(6, log2_T + int(math.log2(F)) - 7)))
+        probe = cls(n_dims=n_dims,
+                    n_levels=int(enc.get("n_levels", 16)),
+                    base_resolution=int(enc.get("base_resolution", 16)),
+                    per_level_scale=float(enc.get("per_level_scale", 2.0)),
+                    log2_rows=log2_rows, n_features_per_level=F,
+                    row_hash=enc.get("row_hash", "prime"))
+        # never allocate more rows than the finest level can address
+        max_blocks = max(b ** n_dims for b in probe.level_blocks_per_dim)
+        log2_needed = max(6, math.ceil(math.log2(max(max_blocks, 1))))
+        return dataclasses.replace(probe,
+                                   log2_rows=min(log2_rows, log2_needed))
+
+    def init_params(self, generator: Optional[torch.Generator] = None,
+                    device=None) -> torch.Tensor:
+        """(L, R, 128) f32 table, uniform ±1e-4 like tcnn."""
+        t = torch.rand((self.n_levels, self.rows, LANES), generator=generator,
+                       device=device, dtype=torch.float32)
+        return t * 2e-4 - 1e-4
+
+
+def lookup_geometry(meta: BlockedGridMeta, pos: torch.Tensor):
+    """Per (sample, level): row id, base-local vertex coords, fractions.
+
+    pos: (N, D) f32 in [0,1]. Returns
+      rows   (L, N) int64    — row within the level's table
+      local  (L, N, D) int64 — base-vertex coords within the block
+      frac   (L, N, D) f32   — interpolation fractions
+    """
+    D, L = meta.n_dims, meta.n_levels
+    _, stride = _block_geom(D)
+    dev = pos.device
+    scales = torch.tensor(meta.level_scales, dtype=torch.float32, device=dev)
+    x = pos.T[None] * scales[:, None, None] + 0.5          # (L, D, N)
+    x0f = torch.floor(x)
+    frac = x - x0f
+    base = x0f.to(torch.int64)                             # vertex base coords
+    block = torch.div(base, stride, rounding_mode="floor")
+    local = base - block * stride                          # ∈ [0, stride)
+    # clamp blocks into the level's block grid (positions slightly ≥ res);
+    # ``local`` above is taken BEFORE this clip, as in the JAX package
+    nblk = torch.tensor(meta.level_blocks_per_dim, dtype=torch.int64,
+                        device=dev)[:, None, None]
+    block = torch.minimum(torch.clamp(block, min=0), nblk - 1)
+
+    # dense: raster index over blocks; hashed: prime hash (or morton) & rows-1
+    bstr = torch.tensor([[b ** d for d in range(D)]
+                         for b in meta.level_blocks_per_dim],
+                        dtype=torch.int64, device=dev)     # (L, D)
+    dense_row = torch.sum(block * bstr[:, :, None], dim=1)  # (L, N)
+    blockT = block.movedim(1, -1)                          # (L, N, D)
+    if meta.row_hash == "morton":
+        h = morton_nd(blockT, D)
+    else:
+        bu = blockT & _U32
+        h = (bu[..., 0] * _HASH_PRIMES[0]) & _U32
+        for d in range(1, D):
+            h = h ^ ((bu[..., d] * _HASH_PRIMES[d]) & _U32)
+    tiled_row = h & (meta.rows - 1)
+    is_dense = torch.tensor(meta.level_is_dense, device=dev)[:, None]
+    rows = torch.where(is_dense, dense_row, tiled_row)     # (L, N)
+    return rows, local.movedim(1, -1), frac.movedim(1, -1)
+
+
+def corner_lanes_and_weights(meta: BlockedGridMeta, local: torch.Tensor,
+                             frac: torch.Tensor):
+    """(L, N, D) local+frac → lanes (L, N, C) int64 (feature-0 lanes) and
+    weights (L, N, C) f32, where C = 2^D. Lane layout within a row:
+    vertex raster index within the block · 2 + feature."""
+    D = meta.n_dims
+    side, _ = _block_geom(D)
+    C = 1 << D
+    cor = torch.tensor([[(c >> d) & 1 for d in range(D)] for c in range(C)],
+                       dtype=torch.int64, device=local.device)  # (C, D)
+    v = local[:, :, None, :] + cor[None, None]             # (L, N, C, D)
+    lane_strides = torch.tensor([side ** d for d in range(D)],
+                                dtype=torch.int64, device=local.device)
+    lanes = torch.sum(v * lane_strides, dim=-1) * meta.n_features_per_level
+    w = torch.where(cor[None, None] > 0, frac[:, :, None, :],
+                    1.0 - frac[:, :, None, :])
+    return lanes, torch.prod(w, dim=-1)
+
+
+def encode_reference(table: torch.Tensor, pos: torch.Tensor,
+                     meta: BlockedGridMeta) -> torch.Tensor:
+    """Plain PyTorch encode: (L, R, 128) table + (N, D) positions →
+    (N, L·F) features, gathering each corner's features directly."""
+    L, F = meta.n_levels, meta.n_features_per_level
+    N = pos.shape[0]
+    rows, local, frac = lookup_geometry(meta, pos)
+    lanes, weights = corner_lanes_and_weights(meta, local, frac)
+    flat = table.reshape(L, -1)                            # (L, R·128)
+    idx = rows[:, :, None] * LANES + lanes                 # (L, N, C)
+    feats = []
+    for f in range(F):
+        vals = torch.gather(flat, 1, (idx + f).reshape(L, -1)).view(idx.shape)
+        feats.append(torch.sum(vals * weights, dim=-1))    # (L, N)
+    out = torch.stack(feats, dim=-1)                       # (L, N, F)
+    return out.transpose(0, 1).reshape(N, L * F)

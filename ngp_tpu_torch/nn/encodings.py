@@ -1,0 +1,149 @@
+"""Input encodings used by the NeRF network (port of
+``ngp_tpu/nn/encodings.py``): Identity, SphericalHarmonics (degree ≤ 4),
+Composite, and the blocked hash grid. Each is an ``nn.Module`` mapping
+(N, n_dims) → (N, n_output_dims); the grid holds its table as a
+parameter."""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ngp_tpu_torch.kernels import blocked_grid_cuda
+from ngp_tpu_torch.kernels.blocked_grid import BlockedGridMeta
+
+
+class Identity(nn.Module):
+    def __init__(self, n_dims: int, scale: float = 1.0, offset: float = 0.0):
+        super().__init__()
+        self.n_dims = n_dims
+        self.scale = scale
+        self.offset = offset
+        self.n_output_dims = n_dims
+
+    def forward(self, x):
+        return x * self.scale + self.offset
+
+
+class SphericalHarmonics(nn.Module):
+    """Real SH basis up to degree 4 (16 coeffs), tcnn's polynomials. Input
+    is the warped direction in [0,1]^3 (ref: warp_direction,
+    src/testbed_nerf.cu:291-294), unwarped here."""
+
+    def __init__(self, n_dims: int = 3, degree: int = 4):
+        super().__init__()
+        if n_dims != 3:
+            raise ValueError("SphericalHarmonics encodes 3D directions")
+        if not (1 <= degree <= 4):
+            raise ValueError("SH degree 1..4 supported")
+        self.degree = degree
+        self.n_output_dims = degree * degree
+
+    def forward(self, dirs01):
+        d = dirs01 * 2.0 - 1.0
+        x, y, z = d[..., 0], d[..., 1], d[..., 2]
+        xy, xz, yz = x * y, x * z, y * z
+        x2, y2, z2 = x * x, y * y, z * z
+        out = [torch.full_like(x, 0.28209479177387814)]
+        if self.degree >= 2:
+            out += [
+                -0.48860251190291987 * y,
+                0.48860251190291987 * z,
+                -0.48860251190291987 * x,
+            ]
+        if self.degree >= 3:
+            out += [
+                1.0925484305920792 * xy,
+                -1.0925484305920792 * yz,
+                0.94617469575755997 * z2 - 0.31539156525251999,
+                -1.0925484305920792 * xz,
+                0.54627421529603959 * x2 - 0.54627421529603959 * y2,
+            ]
+        if self.degree >= 4:
+            out += [
+                0.59004358992664352 * y * (-3.0 * x2 + y2),
+                2.8906114426405538 * xy * z,
+                0.45704579946446572 * y * (1.0 - 5.0 * z2),
+                0.3731763325901154 * z * (5.0 * z2 - 3.0),
+                0.45704579946446572 * x * (1.0 - 5.0 * z2),
+                1.4453057213202769 * z * (x2 - y2),
+                0.59004358992664352 * x * (-x2 + 3.0 * y2),
+            ]
+        return torch.stack(out, dim=-1)
+
+
+class Composite(nn.Module):
+    """Applies nested encodings to consecutive slices of the input
+    (ref: dir_encoding in configs/nerf/base.json)."""
+
+    def __init__(self, parts: Sequence[tuple[int, nn.Module]]):
+        super().__init__()
+        self.dims = [nd for nd, _ in parts]
+        self.parts = nn.ModuleList([e for _, e in parts])
+        self.n_output_dims = sum(e.n_output_dims for e in self.parts)
+
+    def forward(self, x):
+        outs, off = [], 0
+        for nd, enc in zip(self.dims, self.parts):
+            outs.append(enc(x[..., off:off + nd]))
+            off += nd
+        return torch.cat(outs, dim=-1)
+
+
+class BlockedGridEncoding(nn.Module):
+    """The blocked multiresolution grid (see kernels/blocked_grid.py). The
+    encode runs the CUDA kernel on CUDA tensors and the plain PyTorch
+    version on CPU tensors."""
+
+    def __init__(self, meta: BlockedGridMeta,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.meta = meta
+        self.n_output_dims = meta.n_output_dims
+        self.table = nn.Parameter(meta.init_params(generator, device))
+
+    def forward(self, x, max_level=None):
+        out = blocked_grid_cuda.blocked_grid_encode(self.table, x, self.meta)
+        if max_level is None:
+            return out
+        # zero the levels at or above max_level·L (scalar or per sample)
+        L, F = self.meta.n_levels, self.meta.n_features_per_level
+        level_ids = torch.arange(L * F, device=out.device) // F
+        thresh = torch.as_tensor(max_level, device=out.device) * L
+        mask = ((level_ids < thresh) if thresh.dim() == 0
+                else (level_ids[None, :] < thresh[:, None]))
+        return out * mask.to(out.dtype)
+
+
+def create_encoding(n_dims: int, cfg: dict,
+                    generator: Optional[torch.Generator] = None,
+                    device=None) -> nn.Module:
+    """Factory mirroring tcnn::create_encoding (by ``otype``). Grid otypes
+    other than the dense grid map to the blocked grid, as in the JAX
+    package's default."""
+    otype = cfg.get("otype", "Identity").lower()
+    if "grid" in otype:
+        c = dict(cfg)
+        c.setdefault("n_pos_dims", n_dims)
+        if otype.startswith("dense") or c["n_pos_dims"] not in (2, 3):
+            raise NotImplementedError(
+                f"encoding {cfg.get('otype')!r} (tcnn-layout grid) is not "
+                "ported yet")
+        return BlockedGridEncoding(BlockedGridMeta.from_hashgrid_config(c),
+                                   generator, device)
+    if otype == "identity":
+        return Identity(n_dims, cfg.get("scale", 1.0), cfg.get("offset", 0.0))
+    if otype == "sphericalharmonics":
+        return SphericalHarmonics(n_dims, cfg.get("degree", 4))
+    if otype == "composite":
+        parts, remaining = [], n_dims
+        for sub in cfg.get("nested", []):
+            nd = sub.get("n_dims_to_encode", remaining)
+            parts.append((nd, create_encoding(nd, sub, generator, device)))
+            remaining -= nd
+        return Composite(parts)
+    if otype in ("frequency", "oneblob"):
+        raise NotImplementedError(f"encoding {cfg.get('otype')!r} is not "
+                                  "ported yet")
+    raise ValueError(f"unknown encoding otype {cfg.get('otype')!r}")

@@ -1,0 +1,63 @@
+"""The NeRF network (port of ``ngp_tpu/nn/models.py``, ref:
+include/neural-graphics-primitives/nerf_network.h:77-548):
+pos → hash encoding → density MLP (16 outputs, [0] = raw density);
+[density MLP outputs ⊕ dir encoding] → RGB MLP → 3 outputs."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ngp_tpu_torch.common import NerfActivation, network_activation
+from ngp_tpu_torch.config import autofill_hashgrid_config
+from ngp_tpu_torch.nn.encodings import create_encoding
+from ngp_tpu_torch.nn.mlp import MLP
+
+# 1 density + 15 latent features fed to the RGB head
+DENSITY_MLP_OUT = 16
+
+
+class NerfNetwork(nn.Module):
+    """Density + RGB composition with directional encoding.
+
+    ``config`` is a network config as loaded from ``configs/nerf/*.json``;
+    the hash grid is auto-filled for ``aabb_scale`` like the trainer does
+    (desired resolution 2048 · aabb_scale). Inputs are warped: positions in
+    [0,1]^3 (AABB-relative) and directions as (d+1)/2 (ref:
+    warp_position/warp_direction, src/testbed_nerf.cu:267-305).
+
+    ``forward(pos01)`` returns the raw density MLP output (N, 16);
+    ``forward(pos01, dir01)`` returns (rgb_raw (N,3), density_raw (N,)),
+    pre-activation. Both forms work under ``torch.func.functional_call``,
+    which is how the renderer evaluates a given parameter dict.
+    """
+
+    def __init__(self, config: dict, aabb_scale: int = 1,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        enc_cfg = autofill_hashgrid_config(config["encoding"], 3, 2048.0,
+                                           aabb_scale=aabb_scale)
+        self.pos_encoding = create_encoding(3, enc_cfg, generator, device)
+        self.dir_encoding = create_encoding(
+            3, config.get("dir_encoding", {"otype": "SphericalHarmonics",
+                                           "degree": 4}), generator, device)
+        self.density_net = MLP.from_config(
+            self.pos_encoding.n_output_dims, DENSITY_MLP_OUT,
+            config["network"], generator, device)
+        self.rgb_net = MLP.from_config(
+            self.dir_encoding.n_output_dims + DENSITY_MLP_OUT, 3,
+            config.get("rgb_network", config["network"]), generator, device)
+
+    def forward(self, pos01, dir01=None, max_level=None):
+        h = self.density_net(self.pos_encoding(pos01, max_level=max_level))
+        if dir01 is None:
+            return h
+        dfeat = self.dir_encoding(dir01)
+        rgb_raw = self.rgb_net(torch.cat([h, dfeat.to(torch.float32)], -1))
+        return rgb_raw, h[..., 0]
+
+    def density(self, pos01, max_level=None):
+        """Activated density σ, (N,). ref: network_to_density."""
+        return network_activation(self(pos01, max_level=max_level)[..., 0],
+                                  NerfActivation.EXPONENTIAL)

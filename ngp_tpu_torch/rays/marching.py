@@ -1,0 +1,139 @@
+"""Occupancy-grid ray marching and compositing for the renderer (port of
+``ngp_tpu/rays/marching.py``).
+
+Cone stepping t_{k+1} = t_k + clamp(t_k·c, Δm, ΔM) has an exact 3-phase
+closed form, so samples come from a lattice evaluation + occupancy
+filter + compaction.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ngp_tpu_torch.common import MAX_CONE_STEPSIZE, MIN_CONE_STEPSIZE
+from ngp_tpu_torch.grid import occupancy as occ
+from ngp_tpu_torch.rays.camera import ray_aabb_intersect
+
+
+def calc_dt(t, cone_angle):
+    return torch.clamp(t * cone_angle, MIN_CONE_STEPSIZE, MAX_CONE_STEPSIZE)
+
+
+def cone_angle_for(aabb_scale: int) -> float:
+    """ref: src/testbed_nerf.cu:2730 — 1/256 for aabb_scale > 1, else 0."""
+    return 1.0 / 256.0 if aabb_scale > 1 else 0.0
+
+
+def step_lattice_at(t0: torch.Tensor, k: torch.Tensor,
+                    cone_angle: float) -> torch.Tensor:
+    """Closed form of the k-th cone step from t0 at any step indices k
+    (broadcast-compatible shapes):
+      linear  (t < Δm/c):  t_k = t0 + k·Δm
+      geometric:           t_k = t_end_p1 · (1+c)^(k-n1)
+      linear  (t ≥ ΔM/c):  t_k = t_end_p2 + (k-n1-n2)·ΔM
+    cone_angle == 0 → uniform Δm lattice."""
+    k = k.to(torch.float32)
+    dm, dM = MIN_CONE_STEPSIZE, MAX_CONE_STEPSIZE
+    if cone_angle <= 0.0:
+        return t0 + k * dm
+    c = cone_angle
+    ta, tb = dm / c, dM / c
+    n1 = torch.ceil(torch.clamp(ta - t0, min=0.0) / dm)
+    t_p1end = t0 + n1 * dm
+    # f32 like the JAX package, which evaluates log1p(c) on weak-typed f32
+    ratio = torch.log1p(torch.tensor(c, dtype=torch.float32, device=t0.device))
+    n2 = torch.ceil(torch.clamp(torch.log(torch.clamp(
+        tb / torch.clamp(t_p1end, min=1e-10), min=1.0)), min=0.0) / ratio)
+    t_p2end = t_p1end * torch.exp(n2 * ratio)
+    in1 = k < n1
+    in2 = (~in1) & (k < n1 + n2)
+    t_lin = t0 + k * dm
+    t_geo = t_p1end * torch.exp((k - n1) * ratio)
+    t_top = t_p2end + (k - n1 - n2) * dM
+    return torch.where(in1, t_lin, torch.where(in2, t_geo, t_top))
+
+
+def step_lattice(t0: torch.Tensor, cone_angle: float,
+                 n_steps: int) -> torch.Tensor:
+    """(R,) → (R, K) sample times (see step_lattice_at)."""
+    k = torch.arange(n_steps, dtype=torch.float32, device=t0.device)[None, :]
+    return step_lattice_at(t0[:, None], k, cone_angle)
+
+
+def march_rays(bitfield, o, d, generator: Optional[torch.Generator],
+               n_rays: int, march_steps: int, cone_angle: float,
+               max_cascade: int, aabb_min, aabb_size,
+               t_start_min: float = 0.0):
+    """Lattice sample generation. Returns (t, dt, emit), each (R, K). With
+    a generator, the start of each ray is jittered by up to one step."""
+    tmin, tmax = ray_aabb_intersect(o, d, aabb_min, aabb_min + aabb_size)
+    tmin = torch.clamp(tmin, min=t_start_min)
+    if generator is not None:
+        u = torch.rand((n_rays,), generator=generator, device=o.device)
+        t0 = tmin + calc_dt(tmin, cone_angle) * u
+    else:
+        t0 = tmin
+    t = step_lattice(t0, cone_angle, march_steps)          # (R, K)
+    dt = calc_dt(t, cone_angle)
+    pos = o[:, None, :] + t[..., None] * d[:, None, :]
+    inside = (t < tmax[:, None]) & (tmax > tmin)[:, None]
+    flat_pos = pos.reshape(-1, 3)
+    mip = occ.mip_from_dt(dt.reshape(-1), flat_pos, max_cascade)
+    occd = occ.occupied_at(bitfield, flat_pos, mip).reshape(n_rays, -1)
+    return t, dt, inside & occd
+
+
+def merge_excess_samples(emit, dt, cap: int):
+    """Per-ray decimation with dt compensation on an (R, K) lattice window:
+    a ray with more than ``cap`` active samples keeps every m-th
+    (m = ceil(count/cap)), and each kept sample's dt is scaled by the size
+    of the group it stands for, so optical depth is preserved rather than
+    truncated. Returns (keep_mask, dt_effective)."""
+    e = emit.to(torch.int32)
+    c = e.sum(dim=1, keepdim=True)                             # (R, 1)
+    m = torch.clamp(-torch.div(-c, cap, rounding_mode="floor"), min=1)
+    rank = torch.cumsum(e, dim=1) - 1                          # 0-indexed
+    keep = emit & (torch.remainder(rank, m) == 0)
+    group = torch.minimum(m, c - rank).to(dt.dtype)            # ≥1 at kept
+    return keep, torch.where(keep, dt * group, dt)
+
+
+def compact_samples(t, dt, emit):
+    """(R, K) lattice → ray-major sample stream, sized by the live count.
+
+    The JAX package compacts into a static capacity with a sentinel ray id;
+    here the stream has exactly the emitted samples, in the same order
+    (ray by ray, lattice slot ascending), so every ray fits. Returns
+    (t, dt, ray_id, counts, offsets, k_idx) where k_idx is each sample's
+    lattice slot, which ``exclusive_depth`` needs."""
+    counts = emit.sum(dim=1)
+    offsets = torch.cumsum(counts, 0) - counts
+    s_ray, s_k = emit.nonzero(as_tuple=True)
+    return t[s_ray, s_k], dt[s_ray, s_k], s_ray, counts, offsets, s_k
+
+
+def exclusive_depth(sdt, s_ray, s_k, n_rays: int, n_k: int):
+    """Per-sample EXCLUSIVE per-ray optical-depth prefix, computed on the
+    (R, K) lattice (scatter → cumsum along K → gather). One global stream
+    cumsum loses the small per-ray prefixes to f32 quantization once σ
+    sharpens (in the JAX package it made training diverge)."""
+    lat = torch.zeros((n_rays, n_k), dtype=sdt.dtype, device=sdt.device)
+    lat.index_put_((s_ray, s_k), sdt, accumulate=True)
+    excl = torch.cumsum(lat, dim=1) - lat
+    return excl[s_ray, s_k]
+
+
+def composite_samples(sigma, rgb, s_dt, s_ray, s_k, n_rays: int, n_k: int):
+    """Segmented volumetric compositing on a compacted sample stream, with
+    per-ray transmittance from the lattice cumsum (``exclusive_depth``).
+    Returns (rgb_ray (R,3), opacity (R,), weights (S,))."""
+    sdt = sigma * s_dt
+    excl_ray = exclusive_depth(sdt, s_ray, s_k, n_rays, n_k)
+    T = torch.exp(-torch.clamp(excl_ray, 0.0, 88.0))
+    w = T * (1.0 - torch.exp(-sdt))
+    rgb_ray = torch.zeros((n_rays, 3), dtype=rgb.dtype, device=rgb.device)
+    rgb_ray.index_add_(0, s_ray, w[:, None] * rgb)
+    opt_depth = torch.zeros((n_rays,), dtype=sdt.dtype, device=sdt.device)
+    opt_depth.index_add_(0, s_ray, torch.clamp(sdt, max=88.0))
+    return rgb_ray, 1.0 - torch.exp(-opt_depth), w

@@ -1,0 +1,29 @@
+"""The port imports torch and numpy only: every module of ngp_tpu_torch
+imports in a process where ``import jax`` fails, and loads no ngp_tpu
+module."""
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import ngp_tpu_torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+
+def test_port_imports_without_jax():
+    names = sorted(m.name for m in pkgutil.walk_packages(
+        ngp_tpu_torch.__path__, "ngp_tpu_torch."))
+    assert "ngp_tpu_torch.render.nerf_render" in names
+    code = "\n".join([
+        "import importlib, sys",
+        "sys.modules['jax'] = None",     # any `import jax` now raises
+        f"for name in {names!r}:",
+        "    importlib.import_module(name)",
+        "bad = [m for m in sys.modules",
+        "       if m == 'ngp_tpu' or m.startswith(('ngp_tpu.', 'jax.'))]",
+        "assert not bad, bad",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
