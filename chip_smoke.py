@@ -6,20 +6,37 @@
 Phases, each reported on its own line:
   1. device  — requires CUDA; prints the card and its power limit as
                nvidia-smi reports them; turns TF32 off.
-  2. build   — compiles the CUDA kernels from ngp_tpu_torch/csrc.
-  3. kernel  — the blocked-grid encode kernel against its plain PyTorch
-               version at the full NeRF width (16 levels × 8192 rows ×
-               128 lanes, 2^20 positions plus lattice vertices, the
-               corners 0 and 1, and points just outside the unit cube),
-               with both timed by CUDA events.
+  2. build   — compiles the CUDA kernels from ngp_tpu_torch/csrc and
+               prints each one's registers and spills.
+  3. kernels — K1 (encode forward), K2 (table backward) and K4 (int8-table
+               forward) against their plain PyTorch versions at the full
+               NeRF width (16 levels × 8192 rows × 128 lanes; 2^20
+               positions for K1 and K4, the 2^18 of a training batch for
+               K2, plus lattice vertices, the corners 0 and 1, and points
+               just outside the unit cube), each timed against its plain
+               version by CUDA events, in turns.
   4. slice   — the render path a user calls: NerfNetwork from
                configs/nerf/base.json at aabb_scale 4 with seeded random
                weights, an occupancy grid from a full sweep, then three
-               640×360 frames through NerfRenderer.render. The kernel's
-               launch counter must rise during this run. One frame is
+               640×360 frames through NerfRenderer.render. K1's launch
+               counter must rise during this run. One frame is
                rendered again with the plain encode, and a small frame is
                checked against the CPU path (the one tested against the
                JAX package).
+  5. train   — the training path a user calls: NerfTrainer on a synthetic
+               scene of analytic spheres (24 orbit views at 256×256, sRGB
+               uint8), base.json at aabb_scale 4, the bench's trainer
+               config (4096 rays, dynamic live-ray count, both error-map
+               importance samplers) with the int8 grid sweep, for 512
+               steps: warm-up full sweeps, partial sweeps after step 256,
+               error-map CDF rebuilds. Prints ms/step, samples per step,
+               the live ray count, peak memory and the PSNR of a training
+               view before and after; the loss must stay finite, the PSNR
+               rise by PSNR_RISE_DB, and K1, K2 and K4 must all launch.
+               K2 on the positions and cotangent of one real step is
+               held against the plain backward.
+With ``--profile``, a torch.profiler trace of 16 steady training steps is
+broken down by layer as well (written to chiprun_out/).
 Then one JSON line with each kernel's figures, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises: there is no
 fallback to the CPU or to the plain version.
@@ -28,6 +45,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +59,18 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 FRAME_W, FRAME_H, N_FRAMES = 640, 360, 3
 KERNEL_TOL = 1e-5
+# K2 against its plain version, relative to Σ|w·g| of each table entry
+KERNEL_BWD_TOL = 1e-4
+# the training phase
+TRAIN_VIEWS, TRAIN_RES, TRAIN_STEPS, WARMUP_STEPS = 24, 256, 512, 256
+# 512-step runs on an NVIDIA H100 80GB HBM3 at 700 W rose 22.4-23.6 dB
+PSNR_RISE_DB = 15.0
+# the analytic spheres of scripts/make_synth_scene.py (center, radius,
+# linear rgb, sigma), re-implemented here because that script imports jax
+SPHERES = [((0.50, 0.50, 0.45), 0.16, (0.9, 0.25, 0.2), 60.0),
+           ((0.34, 0.62, 0.58), 0.10, (0.2, 0.8, 0.3), 60.0),
+           ((0.66, 0.38, 0.60), 0.09, (0.25, 0.35, 0.9), 60.0),
+           ((0.50, 0.50, 0.22), 0.07, (0.9, 0.85, 0.3), 80.0)]
 
 
 def _cuda_time_ms(fn, iters: int) -> float:
@@ -77,8 +107,17 @@ def phase_build():
     t0 = time.perf_counter()
     bgc.build()
     dt = time.perf_counter() - t0
-    info = [ln.strip() for ln in bgc.build_log.splitlines()
-            if "registers" in ln or "spill" in ln]
+    # ptxas reports each kernel as: entry function, spills, registers
+    info = []
+    for ln in bgc.build_log.splitlines():
+        name = re.search(r"blocked_grid_encode_(fwd_i8|fwd|bwd)_kernel", ln)
+        regs = re.search(r"Used (\d+) registers", ln)
+        spill = re.search(r"(\d+) bytes spill stores", ln)
+        if "entry function" in ln and name:
+            info.append(name.group(0))
+        elif info and (regs or spill):
+            info[-1] += (f" {regs.group(1)} registers" if regs
+                         else f" {spill.group(1)} B spilled,")
     print(f"build: {bgc.library_path().name} in {dt:.2f} s; "
           + " | ".join(info))
 
@@ -96,12 +135,13 @@ def _edge_positions(meta, rng) -> np.ndarray:
     return np.concatenate(pts).astype(np.float32)
 
 
-def phase_kernel(dev) -> dict:
+def _full_width_inputs(dev, n: int):
+    """The base.json blocked grid at aabb_scale 4 (16 levels × 8192 rows),
+    a seeded table at std 0.5, and n random positions plus the edge
+    positions."""
     from ngp_tpu_torch.config import (autofill_hashgrid_config,
                                       load_network_config)
-    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
-    from ngp_tpu_torch.kernels.blocked_grid import (BlockedGridMeta,
-                                                    encode_reference)
+    from ngp_tpu_torch.kernels.blocked_grid import BlockedGridMeta
     enc = autofill_hashgrid_config(
         load_network_config(ROOT / "configs/nerf/base.json")["encoding"], 3,
         2048.0, aabb_scale=4)
@@ -111,41 +151,116 @@ def phase_kernel(dev) -> dict:
     table = torch.randn((meta.n_levels, meta.rows, 128), generator=g,
                         device=dev) * 0.5
     rng = np.random.default_rng(SEED)
-    pos_np = np.concatenate([rng.random((1 << 20, 3), dtype=np.float32),
+    pos_np = np.concatenate([rng.random((n, 3), dtype=np.float32),
                              _edge_positions(meta, rng)])
-    pos = torch.from_numpy(pos_np).to(dev)
+    return meta, table, torch.from_numpy(pos_np).to(dev), rng
+
+
+def _time_in_turns(kern, plain, kern_iters: int = 20, plain_iters: int = 5):
+    """Warm both, then time plain, kernel, kernel, plain (CUDA events)."""
+    for f in (plain, kern):
+        f()
+    p1 = _cuda_time_ms(plain, plain_iters)
+    k1 = _cuda_time_ms(kern, kern_iters)
+    k2 = _cuda_time_ms(kern, kern_iters)
+    p2 = _cuda_time_ms(plain, plain_iters)
+    return (k1, k2), (p1, p2)
+
+
+def _kernel_entry(name: str, line: int, err: float, ks, ps) -> dict:
+    return {"name": name, "route": "cuda",
+            "source": "ngp_tpu_torch/csrc/blocked_grid_encode.cu",
+            "replaces": f"ngp_tpu/kernels/hashgrid_pallas.py:{line}",
+            "max_abs_err": err, "ms": sum(ks) / 2, "plain_ms": sum(ps) / 2}
+
+
+def phase_k1(dev) -> dict:
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import encode_reference
+    meta, table, pos, _ = _full_width_inputs(dev, 1 << 20)
     with torch.no_grad():
         got = bgc.blocked_grid_encode(table, pos, meta)
         ref = encode_reference(table, pos, meta)
         torch.cuda.synchronize()
         if not bool(torch.isfinite(got).all()):
-            raise RuntimeError("kernel output is not finite")
+            raise RuntimeError("K1 output is not finite")
         err = float((got - ref).abs().max())
-        print(f"kernel: blocked_grid_encode_fwd {tuple(table.shape)} x "
+        print(f"K1: blocked_grid_encode_fwd {tuple(table.shape)} x "
               f"{pos.shape[0]} positions: max |kernel - plain| {err:.3e} "
               f"(tolerance {KERNEL_TOL})")
         if not err <= KERNEL_TOL:
-            raise RuntimeError(f"kernel disagrees with plain version: {err}")
+            raise RuntimeError(f"K1 disagrees with its plain version: {err}")
+        p = pos[: 1 << 20]
+        ks, ps = _time_in_turns(lambda: bgc.launch_fwd(table, p, meta),
+                                lambda: encode_reference(table, p, meta))
+    print(f"K1: 2^20 positions x 16 levels: kernel {ks[0]:.4f}/{ks[1]:.4f} "
+          f"ms, plain {ps[0]:.4f}/{ps[1]:.4f} ms")
+    return _kernel_entry("blocked_grid_encode_fwd", 85, err, ks, ps)
 
-        def kern():
-            bgc.blocked_grid_encode(table, pos[: 1 << 20], meta)
 
-        def plain():
-            encode_reference(table, pos[: 1 << 20], meta)
-        for f in (plain, kern):
-            f()
-        # in turns: plain, kernel, kernel, plain
-        p1 = _cuda_time_ms(plain, 5)
-        k1 = _cuda_time_ms(kern, 20)
-        k2 = _cuda_time_ms(kern, 20)
-        p2 = _cuda_time_ms(plain, 5)
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-    print(f"kernel: 2^20 positions x 16 levels: kernel {k1:.4f}/{k2:.4f} ms, "
-          f"plain {p1:.4f}/{p2:.4f} ms")
-    return {"name": "blocked_grid_encode_fwd", "route": "cuda",
-            "source": "ngp_tpu_torch/csrc/blocked_grid_encode.cu",
-            "replaces": "ngp_tpu/kernels/hashgrid_pallas.py:85",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+def phase_k2(dev) -> dict:
+    """K2 at the training batch: 2^18 positions × 16 levels with seeded
+    cotangents. Atomics sum in no fixed order, so each entry is held to
+    KERNEL_BWD_TOL relative to Σ|w·g| of that entry (the plain backward
+    of |g|), and the zero patterns must be equal: the optimizer's
+    zero-gradient skip keys on exact zeros."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import encode_backward_reference
+    meta, _, pos, _ = _full_width_inputs(dev, 1 << 18)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    cot = torch.randn((pos.shape[0], meta.n_levels * 2), generator=g,
+                      device=dev)
+    cot[::5] = 0.0            # rays without samples give zero cotangents
+    with torch.no_grad():
+        got = bgc.launch_bwd(pos, cot, meta)
+        ref = encode_backward_reference(pos, cot, meta)
+        scale = encode_backward_reference(pos, cot.abs(), meta)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError("K2 output is not finite")
+        err = float((got - ref).abs().max())
+        rel = float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
+        zeros_equal = bool(torch.equal(got == 0, ref == 0))
+        print(f"K2: blocked_grid_encode_bwd {pos.shape[0]} positions -> "
+              f"{tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
+              f"relative to sum|w*g| {rel:.3e} (tolerance "
+              f"{KERNEL_BWD_TOL}); zero patterns equal: {zeros_equal} "
+              f"({float((ref == 0).float().mean()):.4f} of entries zero)")
+        if not (rel <= KERNEL_BWD_TOL and zeros_equal):
+            raise RuntimeError("K2 disagrees with its plain version")
+        p, c = pos[: 1 << 18], cot[: 1 << 18]
+        ks, ps = _time_in_turns(lambda: bgc.launch_bwd(p, c, meta),
+                                lambda: encode_backward_reference(p, c, meta))
+    print(f"K2: 2^18 positions x 16 levels: kernel {ks[0]:.4f}/{ks[1]:.4f} "
+          f"ms, plain {ps[0]:.4f}/{ps[1]:.4f} ms")
+    return _kernel_entry("blocked_grid_encode_bwd", 110, err, ks, ps)
+
+
+def phase_k4(dev) -> dict:
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import (encode_reference_i8,
+                                                    quantize_table_i8)
+    meta, table, pos, _ = _full_width_inputs(dev, 1 << 20)
+    with torch.no_grad():
+        tq, qs = quantize_table_i8(table)
+        got = bgc.blocked_grid_encode_i8fwd(table, pos, meta)
+        ref = encode_reference_i8(tq, qs, pos, meta)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(got).all()):
+            raise RuntimeError("K4 output is not finite")
+        err = float((got - ref).abs().max())
+        print(f"K4: blocked_grid_encode_fwd_i8 {tuple(tq.shape)} int8 x "
+              f"{pos.shape[0]} positions: max |kernel - plain| {err:.3e} "
+              f"(tolerance {KERNEL_TOL})")
+        if not err <= KERNEL_TOL:
+            raise RuntimeError(f"K4 disagrees with its plain version: {err}")
+        p = pos[: 1 << 20]
+        ks, ps = _time_in_turns(
+            lambda: bgc.launch_fwd_i8(tq, qs, p, meta),
+            lambda: encode_reference_i8(tq, qs, p, meta))
+    print(f"K4: 2^20 positions x 16 levels: kernel {ks[0]:.4f}/{ks[1]:.4f} "
+          f"ms, plain {ps[0]:.4f}/{ps[1]:.4f} ms")
+    return _kernel_entry("blocked_grid_encode_fwd_i8", 354, err, ks, ps)
 
 
 def orbit_camera(angle: float, radius: float = 2.2,
@@ -203,11 +318,17 @@ def _check_frame(img, W, H):
         raise RuntimeError("opacity outside [0, 1]")
 
 
+def _reset_launches():
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    for k in bgc.launches:
+        bgc.launches[k] = 0
+
+
 def phase_slice(dev) -> int:
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     from ngp_tpu_torch.kernels.blocked_grid import encode_reference
 
-    bgc.launches = 0
+    _reset_launches()
     t0 = time.perf_counter()
     model, grid, renderer, n_cells = build_scene(dev)
     torch.cuda.synchronize()
@@ -233,7 +354,7 @@ def phase_slice(dev) -> int:
               f"{n} samples ({n / dt:.4e} samples/s); mean opacity "
               f"{float(img[..., 3].mean()):.4f}")
         frames.append(img)
-    launches = bgc.launches
+    launches = bgc.launches["blocked_grid_encode_fwd"]
     print(f"slice: blocked_grid_encode_fwd launched {launches} times; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if launches <= 0:
@@ -265,14 +386,341 @@ def phase_slice(dev) -> int:
     return launches
 
 
+def _sphere_field(pos: torch.Tensor):
+    """(rgb, sigma) of the spheres at (N, 3) positions: a smooth shell and
+    a constant core, colours blended by density."""
+    sigma = torch.zeros(pos.shape[0], device=pos.device)
+    rgb = torch.zeros((pos.shape[0], 3), device=pos.device)
+    for c, r, col, sig in SPHERES:
+        d = torch.linalg.vector_norm(pos - torch.tensor(c, device=pos.device),
+                                     dim=-1)
+        add = sig * torch.clamp((r - d) / (0.15 * r), 0.0, 1.0)
+        w = add / torch.clamp(sigma + add, min=1e-9)
+        rgb = rgb * (1 - w[:, None]) + torch.tensor(col, device=pos.device) \
+            * w[:, None]
+        sigma = sigma + add
+    return rgb, sigma
+
+
+def _render_spheres(o, d, n_steps: int = 384, t0: float = 0.05,
+                    t1: float = 2.5):
+    """Brute-force volume render of the spheres along o + t·d → (linear
+    premultiplied rgb, alpha)."""
+    ts = torch.linspace(t0, t1, n_steps, device=o.device)
+    dt = float(ts[1] - ts[0])
+    acc = torch.zeros_like(o)
+    T = torch.ones(o.shape[0], device=o.device)
+    for t in ts:
+        rgb, sigma = _sphere_field(o + t * d)
+        alpha = 1.0 - torch.exp(-sigma * dt)
+        acc += (T * alpha)[:, None] * rgb
+        T = T * (1.0 - alpha)
+    return acc, 1.0 - T
+
+
+def _orbit_xforms(n: int, radius: float = 1.05, seed: int = 0):
+    """NGP camera→world matrices on a jittered orbit around 0.5³ (as
+    scripts/make_synth_scene.py places them)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for i in range(n):
+        ang, elev = i * 2 * math.pi / n, 0.25 + 0.4 * rng.rand()
+        fwd = -np.array([math.cos(ang) * math.cos(elev),
+                         math.sin(ang) * math.cos(elev), math.sin(elev)])
+        right = np.cross(fwd, [0.0, 0.0, 1.0])
+        right /= np.linalg.norm(right)
+        out.append(np.stack([right, np.cross(fwd, right), fwd,
+                             0.5 - radius * fwd], 1))
+    return np.stack(out).astype(np.float32)
+
+
+def build_sphere_dataset(dev, n_views: int, res: int, aabb_scale: int = 4):
+    """The spheres seen from an orbit, rendered on ``dev`` along the
+    trainer's own pixel-centre rays, held as sRGB uint8 RGBA (the path
+    real captures take) in the port's NerfDataset."""
+    from ngp_tpu_torch.common import linear_to_srgb
+    from ngp_tpu_torch.data.nerf_loader import LazyImageArray, NerfDataset
+    xfs = _orbit_xforms(n_views)
+    fl = 1.1 * res
+    px = (torch.arange(res, device=dev, dtype=torch.float32) + 0.5) / res
+    v, u = torch.meshgrid(px, px, indexing="ij")
+    d_cam = torch.stack([(u - 0.5) * res / fl, (v - 0.5) * res / fl,
+                         torch.ones_like(u)], -1).reshape(-1, 3)
+    u8 = np.empty((n_views, res, res, 4), np.uint8)
+    for i, xf in enumerate(torch.from_numpy(xfs).to(dev)):
+        d = d_cam @ xf[:, :3].T
+        d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+        rgb, a = _render_spheres(xf[:, 3].expand_as(d), d)
+        c = linear_to_srgb(torch.clamp(rgb / torch.clamp(a, min=1e-6)[:, None],
+                                       0.0, 1.0))
+        img = torch.cat([c, a[:, None]], -1).reshape(res, res, 4)
+        u8[i] = torch.round(img * 255).to(torch.uint8).cpu().numpy()
+    n = n_views
+    return NerfDataset(
+        images=LazyImageArray(u8), xforms=xfs, xforms_end=xfs.copy(),
+        focal=np.full((n, 2), fl, np.float32),
+        principal=np.full((n, 2), 0.5, np.float32),
+        resolution=np.full((n, 2), res, np.int32),
+        lens_params=np.zeros((n, 7), np.float32), lens_is_opencv=False,
+        depth_images=None, aabb_scale=aabb_scale, scale=1.0,
+        offset=np.zeros(3, np.float32), n_extra_learnable_dims=0,
+        sharpness=np.ones(n, np.float32), paths=[],
+        up=np.array([0.0, 0.0, 1.0], np.float32), images_u8=u8)
+
+
+def make_trainer(dataset, dev, config=None):
+    """The bench's trainer (bench.py: 4096 rays, dynamic live-ray count,
+    both error-map samplers) with the int8 grid sweep, on base.json."""
+    from ngp_tpu_torch.config import load_network_config
+    from ngp_tpu_torch.train.nerf import NerfTrainer, NerfTrainerConfig
+    cfg = config or load_network_config(ROOT / "configs/nerf/base.json")
+    return NerfTrainer(dataset, cfg, seed=SEED, device=dev,
+                       tcfg=NerfTrainerConfig(
+                           n_rays=4096, adapt_rays=False, dynamic_rays=True,
+                           sample_image_proportional_to_error=True,
+                           sample_focal_plane_proportional_to_error=True,
+                           grid_int8=True))
+
+
+def view_psnr(tr, view: int = 0) -> float:
+    """PSNR in sRGB of training view ``view`` rendered with the inference
+    (EMA) parameters over black, as bench.py measures it."""
+    from ngp_tpu_torch.common import linear_to_srgb
+    from ngp_tpu_torch.data.image_io import u8_to_linear_rgba
+    from ngp_tpu_torch.render.nerf_render import NerfRenderer, RenderOptions
+    ds = tr.dataset
+    W, H = (int(x) for x in ds.resolution[view])
+    r = NerfRenderer.for_trainer(tr, RenderOptions(
+        width=W, height=H, background=(0, 0, 0, 0), linear_out=True))
+    img = r.render(tr.inference_params(), tr.grid.bitfield, ds.xforms[view],
+                   W, H, focal=tuple(float(f) for f in ds.focal[view]))
+    _check_frame(img, W, H)
+    gt = torch.from_numpy(u8_to_linear_rgba(ds.images_u8[view])).to(
+        img.device)
+    mse = torch.mean((linear_to_srgb(torch.clamp(img[..., :3], 0, 1))
+                      - linear_to_srgb(torch.clamp(gt[..., :3], 0, 1))) ** 2)
+    return -10.0 * math.log10(max(float(mse), 1e-12))
+
+
+def step_grad_check(tr):
+    """K2 on the positions and cotangent of one real training step,
+    against the plain backward on the same inputs: the step's table
+    gradient, with the K2 phase's tolerance and zero-pattern check.
+    Returns (max |Δ| relative to Σ|w·g|, whether the zero patterns are
+    equal)."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import encode_backward_reference
+    seen = []
+
+    def spy(pos, grad, meta):
+        seen.append((pos, grad, meta))
+        return launch_bwd(pos, grad, meta)
+    launch_bwd = bgc.launch_bwd
+    g = torch.Generator(device=tr.device).manual_seed(SEED + 2)
+    draws = tr.draws(tr.tcfg.n_rays, g).head(tr._n_live)
+    with mock.patch.object(bgc, "launch_bwd", spy):
+        grads = tr._step_grads(draws, tr._error_state())[0]
+    pos, grad, meta = seen[0]
+    got = grads["pos_encoding.table"]
+    with torch.no_grad():
+        ref = encode_backward_reference(pos, grad, meta)
+        scale = encode_backward_reference(pos, grad.abs(), meta)
+    rel = float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
+    return rel, bool(torch.equal(got == 0, ref == 0))
+
+
+def phase_train(dev, n_views: int = TRAIN_VIEWS, res: int = TRAIN_RES,
+                steps: int = TRAIN_STEPS, warmup: int = WARMUP_STEPS,
+                config=None):
+    """Train the spheres through NerfTrainer.train; returns the launch
+    counts of the run and the trainer."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    t0 = time.perf_counter()
+    ds = build_sphere_dataset(dev, n_views, res)
+    tr = make_trainer(ds, dev, config)
+    psnr0 = view_psnr(tr)
+    print(f"train: {n_views} views {res}x{res} built in "
+          f"{time.perf_counter() - t0:.2f} s; PSNR of view 0 before "
+          f"training {psnr0:.2f} dB")
+    cuda = dev.type == "cuda"    # False only in a CPU rehearsal
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    loss_w = tr.train(warmup)
+    sync()
+    t1 = time.perf_counter()
+    loss = tr.train(steps - warmup)
+    sync()
+    t2 = time.perf_counter()
+    launches = dict(bgc.launches)
+    ms_warm = (t1 - t0) * 1e3 / warmup
+    ms = (t2 - t1) * 1e3 / (steps - warmup)
+    n_s = tr.last_samples
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 if cuda \
+        else float("nan")
+    print(f"train: steps 0-{warmup - 1} (full sweeps) {ms_warm:.2f} ms/step; "
+          f"steps {warmup}-{steps - 1} (partial sweeps) {ms:.2f} ms/step; "
+          f"last step {n_s} samples ({n_s / (ms * 1e-3):.4e} samples/s), "
+          f"{tr._n_live} live rays, {tr.last_surviving_segments} segments; "
+          f"loss {loss_w:.4e} -> {loss:.4e}; peak device memory "
+          f"{peak:.2f} GiB")
+    print(f"train: launches in the run {launches}")
+    if (tr.training_step != steps or tr.grid.ema_step
+            != steps // tr.tcfg.n_steps_between_grid_updates):
+        raise RuntimeError(f"trainer at step {tr.training_step}, grid "
+                           f"update {tr.grid.ema_step}")
+    if not (math.isfinite(loss) and math.isfinite(loss_w)):
+        raise RuntimeError(f"training loss is not finite: {loss}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise RuntimeError(f"the training path never launched {missing}")
+    psnr1 = view_psnr(tr)
+    print(f"train: PSNR of view 0 after {steps} steps {psnr1:.2f} dB "
+          f"(+{psnr1 - psnr0:.2f} dB; required +{PSNR_RISE_DB})")
+    if not psnr1 - psnr0 >= PSNR_RISE_DB:
+        raise RuntimeError("training did not raise the PSNR enough")
+    rel, zeros_equal = step_grad_check(tr)
+    print(f"train: one step's table gradient, K2 vs plain backward on its "
+          f"inputs: max |Δ| relative to sum|w*g| {rel:.3e} (tolerance "
+          f"{KERNEL_BWD_TOL}); zero patterns equal: {zeros_equal}")
+    if not (rel <= KERNEL_BWD_TOL and zeros_equal):
+        raise RuntimeError("the step's K2 gradient disagrees with the plain "
+                           "backward")
+    return launches, tr
+
+
+def _attribute_kernels(prof, span_names, main_span: str):
+    """Device work of a trace by the span that launched it. Each kernel,
+    copy or fill is matched through its correlation id to the runtime call
+    that launched it, and counted in every ``record_function`` span on that
+    thread around the call (kernels bound through ctypes belong to no torch
+    op, so the op tree alone misses them). Returns (per-span ms, ms
+    launched from other threads than the one running ``main_span``
+    (autograd's backward), total ms, busy ms: the union of the device
+    intervals)."""
+    from torch.autograd import DeviceType
+    ev = prof.profiler.kineto_results.events()
+    work = [e for e in ev if e.device_type() == DeviceType.CUDA
+            and e.name() not in span_names]
+    launch = {e.correlation_id(): e for e in ev
+              if e.device_type() == DeviceType.CPU
+              and e.name().startswith(("cuda", "cu")) and "Launch" in e.name()
+              or e.name().startswith(("cudaMemcpy", "cudaMemset"))}
+    spans = [e for e in ev if e.device_type() == DeviceType.CPU
+             and e.name() in span_names]
+    main_tids = {e.start_thread_id() for e in spans
+                 if e.name() == main_span}
+    per_span, other, unmatched = {}, 0.0, 0
+    for k in work:
+        r = launch.get(k.correlation_id())
+        ms = k.duration_ns() / 1e6
+        if r is None:
+            unmatched += 1
+            continue
+        if r.start_thread_id() not in main_tids:
+            other += ms
+        for sp in spans:
+            if (sp.start_thread_id() == r.start_thread_id()
+                    and sp.start_ns() <= r.start_ns() <= sp.end_ns()):
+                per_span[sp.name()] = per_span.get(sp.name(), 0.0) + ms
+    if unmatched:
+        print(f"profile: {unmatched} of {len(work)} device events matched no "
+              "launch")
+    busy, end = 0.0, -math.inf
+    for s0, s1 in sorted((k.start_ns(), k.end_ns()) for k in work):
+        busy += max(0, s1 - max(s0, end))
+        end = max(end, s1)
+    total = sum(k.duration_ns() for k in work) / 1e6
+    return per_span, other, total, busy / 1e6
+
+
+def phase_profile(tr, steps: int = 16):
+    """Trace ``steps`` training steps (one grid boundary) with
+    torch.profiler and print the device time of the work launched inside
+    each layer's span (spans nest: the step holds the others, the network
+    forward holds K1, the grid sweep K4). The backward runs on autograd's
+    own thread and is counted apart, K2 within it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import ngp_tpu_torch.train.nerf as tnerf
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+
+    def span(name, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapped
+    layers = [(tr, "_train_step", "step"),
+              (tr, "_sample_pixels", "sample pixels"),
+              (tr, "_build_rays", "build rays"),
+              (tnerf, "march_and_compact_hier", "march"),
+              (tr.model, "apply", "network fwd (K1 + MLPs)"),
+              (bgc, "launch_fwd", "K1 encode fwd"),
+              (bgc, "launch_bwd", "K2 encode bwd"),
+              (tnerf, "apply_update", "Adam"),
+              (tr, "_deposit_error", "error map"),
+              (tr, "_grid_update", "grid sweep"),
+              (bgc, "launch_fwd_i8", "K4 encode fwd i8")]
+    patches = [mock.patch.object(o, a, span(n, getattr(o, a)))
+               for o, a, n in layers]
+    cuda = tr.device.type == "cuda"     # False only in a CPU rehearsal
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+    for p in patches:
+        p.start()
+    try:
+        tr.train(tr.tcfg.n_steps_between_grid_updates
+                 - tr.training_step % tr.tcfg.n_steps_between_grid_updates)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU] + (
+                [ProfilerActivity.CUDA] if cuda else [])) as prof:
+            t0 = time.perf_counter()
+            tr.train(steps)
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for p in patches:
+            p.stop()
+    per_span, other, total, busy = _attribute_kernels(
+        prof, {n for _, _, n in layers}, "step")
+    rows = [(n, per_span.get(n, 0.0)) for _, _, n in layers]
+    rows.insert(6, ("backward (autograd thread)", other))
+    lines = [f"profile: {steps} steps traced in {wall_ms:.1f} ms "
+             f"({wall_ms / steps:.2f} ms/step); device work {total:.2f} ms "
+             f"({total / steps:.3f} ms/step), busy {busy:.2f} ms: idle "
+             f"share {1 - busy / wall_ms:.3f}"]
+    lines += [f"profile: {n:<28s} {ms:9.3f} ms device "
+              f"({ms / steps:.3f} ms/step, {ms / max(total, 1e-9):.3f})"
+              for n, ms in rows]
+    print("\n".join(lines))
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "train_profile.txt").write_text(
+        "\n".join(lines) + "\n\n" + prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=40) + "\n")
+
+
 def main() -> int:
     device = phase_device()
     sys.path.insert(0, str(ROOT))
     dev = torch.device("cuda", 0)
     phase_build()
-    kernel = phase_kernel(dev)
-    kernel["launches"] = phase_slice(dev)
-    print(json.dumps({"kernels": [kernel]}))
+    k1, k2, k4 = phase_k1(dev), phase_k2(dev), phase_k4(dev)
+    phase_slice(dev)
+    launches, tr = phase_train(dev)
+    if "--profile" in sys.argv[1:]:
+        phase_profile(tr)
+    for k in (k1, k2, k4):
+        k["launches"] = launches[k["name"]]
+    print(json.dumps({"kernels": [k1, k2, k4]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))
     return 0

@@ -1,4 +1,5 @@
-"""Parameters between the JAX package's pytree and the port's modules.
+"""State between the JAX package and the port, as numpy: the network
+parameters, the Adam state and the occupancy grid.
 
 The JAX ``NerfNetwork`` keeps its parameters as a pytree
 ``{"pos_encoding": (L, R, 128), "dir_encoding": nested () tuples,
@@ -14,8 +15,10 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from ngp_tpu_torch.grid.occupancy import OccupancyGrid
 from ngp_tpu_torch.nn.encodings import Composite
 from ngp_tpu_torch.nn.models import NerfNetwork
+from ngp_tpu_torch.opt.optimizers import AdamState
 
 
 def _dir_skeleton(enc):
@@ -68,3 +71,46 @@ def nerf_params_to_numpy(params: Mapping[str, torch.Tensor],
             "dir_encoding": _dir_skeleton(model.dir_encoding),
             "density_net": mats("density_net"),
             "rgb_net": mats("rgb_net")}
+
+
+def adam_state_to_numpy(state: AdamState, model: NerfNetwork) -> dict:
+    """The port's optimizer state → the fields of the JAX ``AdamState``:
+    ``step`` (int32 0-d), and ``mu``, ``nu``, ``ema_params`` as JAX
+    parameter pytrees with numpy leaves."""
+    return {"step": np.asarray(state.step, np.int32),
+            "mu": nerf_params_to_numpy(state.mu, model),
+            "nu": nerf_params_to_numpy(state.nu, model),
+            "ema_params": nerf_params_to_numpy(state.ema_params, model)}
+
+
+def adam_state_from_numpy(step, mu: Mapping, nu: Mapping,
+                          ema_params: Mapping,
+                          model: NerfNetwork) -> AdamState:
+    """The JAX ``AdamState`` fields (numpy leaves) → the port's optimizer
+    state, on the model's device."""
+    return AdamState(step=int(np.asarray(step)),
+                     mu=nerf_params_from_numpy(mu, model),
+                     nu=nerf_params_from_numpy(nu, model),
+                     ema_params=nerf_params_from_numpy(ema_params, model))
+
+
+def grid_to_numpy(grid: OccupancyGrid) -> dict:
+    """The port's occupancy grid → the fields of the JAX ``OccupancyGrid``
+    as numpy (``ema_step`` int32 0-d)."""
+    return {"density": grid.density.cpu().numpy(),
+            "bitfield": grid.bitfield.cpu().numpy(),
+            "mean": grid.mean.cpu().numpy(),
+            "ema_step": np.asarray(grid.ema_step, np.int32),
+            "coarse": grid.coarse.cpu().numpy()}
+
+
+def grid_from_numpy(density, bitfield, mean, ema_step, coarse,
+                    device=None) -> OccupancyGrid:
+    """The JAX ``OccupancyGrid`` fields (numpy) → the port's grid."""
+    def t(a, dtype):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+    return OccupancyGrid(density=t(density, torch.float32),
+                         bitfield=t(bitfield, torch.uint8),
+                         mean=t(mean, torch.float32),
+                         ema_step=int(np.asarray(ema_step)),
+                         coarse=t(coarse, torch.uint8))

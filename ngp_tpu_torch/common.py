@@ -5,6 +5,7 @@ from __future__ import annotations
 import enum
 import math
 
+import numpy as np
 import torch
 
 # --- NeRF marching constants (ref: src/testbed_nerf.cu:53-73) ---------------
@@ -37,6 +38,29 @@ class RenderMode(enum.IntEnum):
     ENCODING_VIS = 8
 
 
+class LossType(enum.Enum):
+    L2 = "L2"
+    L1 = "L1"
+    MAPE = "Mape"
+    SMAPE = "Smape"
+    HUBER = "Huber"
+    LOG_L1 = "LogL1"
+    RELATIVE_L2 = "RelativeL2"
+
+
+_LOSS_NAMES = {"l2": LossType.L2, "l1": LossType.L1, "mape": LossType.MAPE,
+               "smape": LossType.SMAPE, "huber": LossType.HUBER,
+               "smoothl1": LossType.HUBER, "logl1": LossType.LOG_L1,
+               "relativel2": LossType.RELATIVE_L2}
+
+
+def loss_type_from_str(s: str) -> LossType:
+    try:
+        return _LOSS_NAMES[s.lower()]
+    except KeyError:
+        raise ValueError(f"unknown loss type {s!r}") from None
+
+
 class TonemapCurve(enum.Enum):
     IDENTITY = "identity"
     ACES = "aces"
@@ -55,6 +79,28 @@ class NerfActivation(enum.Enum):
 def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
     """IEC 61966-2-1, matching ref common_device.cuh srgb_to_linear."""
     return torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+
+
+def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
+    return torch.where(c <= 0.0031308, c * 12.92,
+                       1.055 * torch.clamp(c, min=1e-12) ** (1.0 / 2.4)
+                       - 0.055)
+
+
+def srgb_to_linear_np(c):
+    c = np.asarray(c)
+    return np.where(c <= 0.04045, c / 12.92,
+                    ((np.maximum(c, 0) + 0.055) / 1.055) ** 2.4)
+
+
+def linear_to_srgb_np(c):
+    c = np.asarray(c)
+    return np.where(c <= 0.0031308, c * 12.92,
+                    1.055 * np.maximum(c, 1e-12) ** (1.0 / 2.4) - 0.055)
+
+
+def mse2psnr(mse: float) -> float:
+    return -10.0 * math.log10(max(float(mse), 1e-12))
 
 
 def network_activation(x: torch.Tensor, activation: NerfActivation):

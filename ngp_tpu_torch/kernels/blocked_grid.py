@@ -9,9 +9,10 @@ fine levels hash the block coordinate (instant-ngp primes) into the
 power-of-two row count. The ``(L, R, 128)`` table layout is the JAX
 package's, so its parameters load unchanged.
 
-``encode_reference`` is the plain version of the CUDA kernel in
-``blocked_grid_cuda.py``: the CPU path, and the oracle the kernel is
-checked against on the card.
+``encode_reference``, ``encode_backward_reference`` and
+``encode_reference_i8`` (with ``quantize_table_i8``) are the plain versions
+of the CUDA kernels K1, K2 and K4 wrapped in ``blocked_grid_cuda.py``: the
+CPU path, and the oracles the kernels are checked against on the card.
 """
 from __future__ import annotations
 
@@ -204,19 +205,61 @@ def corner_lanes_and_weights(meta: BlockedGridMeta, local: torch.Tensor,
     return lanes, torch.prod(w, dim=-1)
 
 
+def _corner_index(meta: BlockedGridMeta, pos: torch.Tensor):
+    """Flat (row·128 + feature-0 lane) index (L, N, C) of each sample's
+    corners within its level, and their weights (L, N, C)."""
+    rows, local, frac = lookup_geometry(meta, pos)
+    lanes, weights = corner_lanes_and_weights(meta, local, frac)
+    return rows[:, :, None] * LANES + lanes, weights
+
+
 def encode_reference(table: torch.Tensor, pos: torch.Tensor,
                      meta: BlockedGridMeta) -> torch.Tensor:
     """Plain PyTorch encode: (L, R, 128) table + (N, D) positions →
     (N, L·F) features, gathering each corner's features directly."""
     L, F = meta.n_levels, meta.n_features_per_level
     N = pos.shape[0]
-    rows, local, frac = lookup_geometry(meta, pos)
-    lanes, weights = corner_lanes_and_weights(meta, local, frac)
+    idx, weights = _corner_index(meta, pos)
     flat = table.reshape(L, -1)                            # (L, R·128)
-    idx = rows[:, :, None] * LANES + lanes                 # (L, N, C)
     feats = []
     for f in range(F):
         vals = torch.gather(flat, 1, (idx + f).reshape(L, -1)).view(idx.shape)
         feats.append(torch.sum(vals * weights, dim=-1))    # (L, N)
     out = torch.stack(feats, dim=-1)                       # (L, N, F)
     return out.transpose(0, 1).reshape(N, L * F)
+
+
+def encode_backward_reference(pos: torch.Tensor, grad: torch.Tensor,
+                              meta: BlockedGridMeta) -> torch.Tensor:
+    """Plain table backward of ``encode_reference``: (N, D) positions +
+    (N, L·F) cotangent → dTable (L, R, 128), adding w·g into each corner's
+    feature lanes. Entries no sample touches stay exactly 0."""
+    L, F = meta.n_levels, meta.n_features_per_level
+    N = pos.shape[0]
+    idx, weights = _corner_index(meta, pos)
+    g = grad.reshape(N, L, F).transpose(0, 1)              # (L, N, F)
+    dflat = torch.zeros((L, meta.rows * LANES), dtype=grad.dtype,
+                        device=grad.device)
+    for f in range(F):
+        dflat.scatter_add_(1, (idx + f).reshape(L, -1),
+                           (weights * g[:, :, f:f + 1]).reshape(L, -1))
+    return dflat.view(L, meta.rows, LANES)
+
+
+def quantize_table_i8(table: torch.Tensor):
+    """(L, R, 128) f32 table → (int8 table, (L,) f32 scales), per-level
+    scale ``max|T|/127`` with a 1e-20 floor, rounded half to even
+    (``hashgrid_pallas.py:445-448``)."""
+    scales = torch.clamp(torch.amax(torch.abs(table), dim=(1, 2)),
+                         min=1e-20) / 127.0
+    q = torch.clamp(torch.round(table / scales[:, None, None]), -127, 127)
+    return q.to(torch.int8), scales
+
+
+def encode_reference_i8(table_q: torch.Tensor, scales: torch.Tensor,
+                        pos: torch.Tensor,
+                        meta: BlockedGridMeta) -> torch.Tensor:
+    """Plain int8-table encode: ``encode_reference`` on the dequantised
+    table q·scale."""
+    return encode_reference(table_q.to(torch.float32) * scales[:, None, None],
+                            pos, meta)

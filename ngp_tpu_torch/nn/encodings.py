@@ -93,8 +93,10 @@ class Composite(nn.Module):
 
 class BlockedGridEncoding(nn.Module):
     """The blocked multiresolution grid (see kernels/blocked_grid.py). The
-    encode runs the CUDA kernel on CUDA tensors and the plain PyTorch
-    version on CPU tensors."""
+    encode runs the CUDA kernels on CUDA tensors and the plain PyTorch
+    versions on CPU tensors. ``int8_table`` reads the table quantised to
+    int8 in the forward (K4) and keeps the exact f32 table backward (K2):
+    the JAX package's ``NGP_TPU_ENCODE_INT8=fwd``, as an argument."""
 
     def __init__(self, meta: BlockedGridMeta,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -103,8 +105,16 @@ class BlockedGridEncoding(nn.Module):
         self.n_output_dims = meta.n_output_dims
         self.table = nn.Parameter(meta.init_params(generator, device))
 
-    def forward(self, x, max_level=None):
-        out = blocked_grid_cuda.blocked_grid_encode(self.table, x, self.meta)
+    def resolved_config(self) -> dict:
+        """Layout keys a snapshot must carry: a table decodes only with
+        the row hash and row count it was trained under."""
+        return {"row_hash": self.meta.row_hash,
+                "log2_rows": self.meta.log2_rows}
+
+    def forward(self, x, max_level=None, int8_table: bool = False):
+        encode = (blocked_grid_cuda.blocked_grid_encode_i8fwd if int8_table
+                  else blocked_grid_cuda.blocked_grid_encode)
+        out = encode(self.table, x, self.meta)
         if max_level is None:
             return out
         # zero the levels at or above max_level·L (scalar or per sample)

@@ -49,15 +49,32 @@ class NerfNetwork(nn.Module):
             self.dir_encoding.n_output_dims + DENSITY_MLP_OUT, 3,
             config.get("rgb_network", config["network"]), generator, device)
 
-    def forward(self, pos01, dir01=None, max_level=None):
-        h = self.density_net(self.pos_encoding(pos01, max_level=max_level))
+    def forward(self, pos01, dir01=None, max_level=None,
+                int8_table: bool = False):
+        h = self.density_net(self.pos_encoding(pos01, max_level=max_level,
+                                               int8_table=int8_table))
         if dir01 is None:
             return h
         dfeat = self.dir_encoding(dir01)
         rgb_raw = self.rgb_net(torch.cat([h, dfeat.to(torch.float32)], -1))
         return rgb_raw, h[..., 0]
 
-    def density(self, pos01, max_level=None):
-        """Activated density σ, (N,). ref: network_to_density."""
-        return network_activation(self(pos01, max_level=max_level)[..., 0],
-                                  NerfActivation.EXPONENTIAL)
+    def apply(self, pos01, dir01, max_level=None):
+        """Full forward: (rgb_raw (N,3), density_raw (N,)), pre-activation
+        (ref: the network's 4-channel output)."""
+        return self(pos01, dir01, max_level=max_level)
+
+    def density(self, pos01, max_level=None, int8_table: bool = False):
+        """Activated density σ, (N,). ref: network_to_density.
+        ``int8_table`` encodes through the int8-quantised table (the
+        trainer's grid sweep)."""
+        raw = self(pos01, max_level=max_level, int8_table=int8_table)
+        return network_activation(raw[..., 0], NerfActivation.EXPONENTIAL)
+
+    def matrix_param_names(self) -> set[str]:
+        """Parameters that are MLP weight matrices: L2-regularised and
+        never frozen by the zero-gradient skip (ref: optimize_matrix_params
+        split; the JAX package's ``matrix_mask``). The rest — the hash
+        table — are the non-matrix parameters."""
+        return {name for name, _ in self.named_parameters()
+                if name.startswith(("density_net.", "rgb_net."))}

@@ -1,5 +1,5 @@
-"""Occupancy-grid ray marching and compositing for the renderer (port of
-``ngp_tpu/rays/marching.py``).
+"""Occupancy-grid ray marching and compositing for the renderer and the
+trainer (port of ``ngp_tpu/rays/marching.py``).
 
 Cone stepping t_{k+1} = t_k + clamp(t_k·c, Δm, ΔM) has an exact 3-phase
 closed form, so samples come from a lattice evaluation + occupancy
@@ -61,17 +61,17 @@ def step_lattice(t0: torch.Tensor, cone_angle: float,
     return step_lattice_at(t0[:, None], k, cone_angle)
 
 
-def march_rays(bitfield, o, d, generator: Optional[torch.Generator],
+def march_rays(bitfield, o, d, jitter: Optional[torch.Tensor],
                n_rays: int, march_steps: int, cone_angle: float,
                max_cascade: int, aabb_min, aabb_size,
                t_start_min: float = 0.0):
-    """Lattice sample generation. Returns (t, dt, emit), each (R, K). With
-    a generator, the start of each ray is jittered by up to one step."""
+    """Lattice sample generation. Returns (t, dt, emit), each (R, K).
+    ``jitter`` (R,) in [0,1) offsets the start of each ray by up to one
+    step; None starts at the AABB entry."""
     tmin, tmax = ray_aabb_intersect(o, d, aabb_min, aabb_min + aabb_size)
     tmin = torch.clamp(tmin, min=t_start_min)
-    if generator is not None:
-        u = torch.rand((n_rays,), generator=generator, device=o.device)
-        t0 = tmin + calc_dt(tmin, cone_angle) * u
+    if jitter is not None:
+        t0 = tmin + calc_dt(tmin, cone_angle) * jitter
     else:
         t0 = tmin
     t = step_lattice(t0, cone_angle, march_steps)          # (R, K)
@@ -137,3 +137,97 @@ def composite_samples(sigma, rgb, s_dt, s_ray, s_k, n_rays: int, n_k: int):
     opt_depth = torch.zeros((n_rays,), dtype=sdt.dtype, device=sdt.device)
     opt_depth.index_add_(0, s_ray, torch.clamp(sdt, max=88.0))
     return rgb_ray, 1.0 - torch.exp(-opt_depth), w
+
+
+def _cap_prefix(counts: torch.Tensor, cap: int) -> torch.Tensor:
+    """Which units keep their items when the stream holds ``cap``: a
+    prefix, ending before the first unit that does not fit whole."""
+    return torch.cumsum(counts, 0) <= cap
+
+
+def march_and_compact(bitfield, o, d, jitter, n_rays: int, march_steps: int,
+                      cone_angle: float, max_cascade: int, aabb_min,
+                      aabb_size, capacity: int, ray_mask=None):
+    """The flat training march: every lattice sample gets the bitfield
+    test, and the stream holds ``capacity`` samples, dropping WHOLE RAYS
+    past it (the JAX package's ``compact_samples``). Returns what
+    ``march_and_compact_hier`` returns, with a segment total of 0."""
+    t, dt, emit = march_rays(bitfield, o, d, jitter, n_rays, march_steps,
+                             cone_angle, max_cascade, aabb_min, aabb_size)
+    if ray_mask is not None:
+        emit = emit & ray_mask[:, None]
+    counts = emit.sum(1)
+    total = int(counts.sum())
+    emit = emit & _cap_prefix(counts, capacity)[:, None]
+    s_t, s_dt, s_ray, counts, _, s_k = compact_samples(t, dt, emit)
+    return s_t, s_dt, s_ray, counts, total, 0, s_k
+
+
+def march_and_compact_hier(bitfield, coarse, o, d, jitter, n_rays: int,
+                           march_steps: int, cone_angle: float,
+                           max_cascade: int, aabb_min, aabb_size,
+                           capacity: int, seg: int = 8,
+                           t_start_min: float = 0.0, ray_mask=None):
+    """The training march, in two levels: segments of ``seg`` lattice
+    steps are culled with the conservative 16³ coarse mask (one lookup per
+    segment midpoint), and only the samples of surviving segments get the
+    fine bitfield test.
+
+    Capacity semantics of the JAX package: the segment stream holds
+    ``capacity // seg * 4`` segments and drops WHOLE RAYS past it; the
+    sample stream holds ``capacity`` samples and drops WHOLE SEGMENTS past
+    it (so a ray at the boundary may keep only its front segments). The
+    streams hold exactly the kept items, ray-major and front to back, in
+    the JAX package's order. ``jitter`` (R,) in [0,1) offsets each ray's
+    start by up to one step; None starts at the AABB entry.
+
+    Returns (s_t, s_dt, s_ray, counts, total, seg_total, s_k): per-sample
+    time, step, ray id and lattice slot; per-ray kept counts; the sample
+    total of the kept segments before the sample cap, and the
+    surviving-segment total before the segment cap, which the trainer
+    adapts its live ray count from."""
+    K = march_steps
+    if K % seg:
+        raise ValueError(f"march_steps {K} is not a multiple of {seg}")
+    n_seg = K // seg
+    seg_capacity = capacity // seg * 4
+    tmin, tmax = ray_aabb_intersect(o, d, aabb_min, aabb_min + aabb_size)
+    tmin = torch.clamp(tmin, min=t_start_min)
+    t0 = tmin if jitter is None else tmin + calc_dt(tmin, cone_angle) * jitter
+    t = step_lattice(t0, cone_angle, K)                    # (R, K)
+    dt = calc_dt(t, cone_angle)
+    inside = (t < tmax[:, None]) & (tmax > tmin)[:, None]
+    if ray_mask is not None:
+        inside = inside & ray_mask[:, None]
+
+    # level 1: coarse test at segment midpoints
+    tm = t.view(n_rays, n_seg, seg)[:, :, seg // 2]
+    dm = dt.view(n_rays, n_seg, seg)[:, :, seg // 2]
+    pos_m = (o[:, None, :] + tm[..., None] * d[:, None, :]).reshape(-1, 3)
+    mip_m = occ.mip_from_dt(dm.reshape(-1), pos_m, max_cascade)
+    emit_seg = occ.coarse_occupied_at(coarse, pos_m, mip_m).view(
+        n_rays, n_seg) & inside.view(n_rays, n_seg, seg).any(-1)
+    seg_counts = emit_seg.sum(1)
+    seg_total = int(seg_counts.sum())
+    emit_seg = emit_seg & _cap_prefix(seg_counts, seg_capacity)[:, None]
+    seg_ray, seg_k = emit_seg.nonzero(as_tuple=True)
+
+    # fine test on the surviving segments' samples
+    ks = seg_k[:, None] * seg + torch.arange(seg, device=o.device)[None]
+    t_s = t[seg_ray[:, None], ks]                          # (S1, seg)
+    dt_s = dt[seg_ray[:, None], ks]
+    pos_s = (o[seg_ray][:, None, :] + t_s[..., None]
+             * d[seg_ray][:, None, :]).reshape(-1, 3)
+    mip_s = occ.mip_from_dt(dt_s.reshape(-1), pos_s, max_cascade)
+    emit_fine = inside[seg_ray[:, None], ks] & occ.occupied_at(
+        bitfield, pos_s, mip_s).view(t_s.shape)
+
+    # level 2: the sample stream, whole segments dropped past the cap
+    fine_counts = emit_fine.sum(1)
+    total = int(fine_counts.sum())
+    emit_fine = emit_fine & _cap_prefix(fine_counts, capacity)[:, None]
+    s_seg, s_within = emit_fine.nonzero(as_tuple=True)
+    s_ray = seg_ray[s_seg]
+    counts = torch.bincount(s_ray, minlength=n_rays)
+    return (t_s[s_seg, s_within], dt_s[s_seg, s_within], s_ray, counts,
+            total, seg_total, seg_k[s_seg] * seg + s_within)

@@ -74,6 +74,13 @@ class NerfRenderer:
         # samples the last ``render`` call sent through the network
         self.last_n_samples = 0
 
+    @classmethod
+    def for_trainer(cls, trainer, opts: Optional[RenderOptions] = None):
+        """A renderer of a trainer's scene: its model, AABB, cone angle and
+        cascades."""
+        return cls(trainer.model, trainer.aabb_min, trainer.aabb_size,
+                   trainer.cone_angle, trainer.max_cascade, opts)
+
     def _gen_rays(self, generator, pix0: int, n_rays: int, W: int, H: int,
                   fx: float, fy: float, xf: torch.Tensor, jitter_on: bool):
         """Pixel idx → (o, d) world rays for one chunk, with per-pixel

@@ -1,0 +1,729 @@
+"""NeRF training (port of ``ngp_tpu/train/nerf.py``; ref:
+src/testbed_nerf.cu:1085-1600, 2896-3385).
+
+A step samples pixels (uniformly, or from error-map CDFs), builds their
+rays, marches the closed-form cone lattice through the occupancy grid in
+two levels (``march_and_compact_hier``), runs the network on the compacted
+samples, composites them with per-ray lattice transmittance, and takes the
+loss in sRGB with the density regularisers. Autograd gives the gradients
+(the table's through K2 on the card), Adam updates the parameters in
+place, and the per-ray loss is deposited into the error map. Every 16
+steps the occupancy grid is swept: every cell below step 256, an
+interleaved partial sweep after, through the int8-table encode (K4) when
+``grid_int8`` is set.
+
+None of the JAX package's compile machinery comes across: ``train(n)`` is
+a plain Python loop over single steps, every random draw comes from a
+``torch.Generator`` on the trainer's device, and the ray batch and
+sample stream are sized by what the step produces.
+
+Intended divergences from the JAX package:
+- ``train(n)`` runs exactly n steps; the JAX package runs on to the next
+  16-step boundary for n ≥ 16 (a compile artefact).
+- ``dynamic_rays`` slices the first ``n_live`` of the ``n_rays`` rays
+  drawn, where the JAX package masks the rest: masked rays emit no
+  samples, have a zero ray mask, deposit nothing and are not counted, so
+  the two agree.
+- The table gradient (K2 on the card) sums in f32; the Pallas kernel
+  rounds its row gradients to bf16.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import warnings
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch.func import functional_call
+
+from ngp_tpu_torch.common import (LOSS_SCALE, NERF_MIN_OPTICAL_THICKNESS,
+                                  linear_to_srgb, loss_type_from_str,
+                                  srgb_to_linear)
+from ngp_tpu_torch.grid import occupancy as occ
+from ngp_tpu_torch.nn.models import NerfNetwork
+from ngp_tpu_torch.opt.losses import loss_fn
+from ngp_tpu_torch.opt.optimizers import (AdamConfig, apply_update,
+                                          inference_params, init_state)
+from ngp_tpu_torch.rays.camera import pixel_to_ray_train
+from ngp_tpu_torch.rays.marching import (cone_angle_for, exclusive_depth,
+                                         march_and_compact,
+                                         march_and_compact_hier)
+
+SHARPNESS_RES = 64  # per-image sharpness-map resolution
+SWEEP_CHUNK = 1 << 18  # density evaluations per network call in a sweep
+
+
+def _sharpness_maps(dataset) -> np.ndarray:
+    """(I, S, S) local sharpness per image: mean squared 4-neighbour
+    Laplacian of luminance over tiles, on the sRGB bytes where the dataset
+    has them (ref: compute_sharpness usage)."""
+    S = SHARPNESS_RES
+    u8 = getattr(dataset, "images_u8", None)
+    out = np.zeros((dataset.n_images, S, S), np.float32)
+    for i in range(dataset.n_images):
+        w, h = (int(x) for x in dataset.resolution[i])
+        if u8 is not None:
+            lum = u8[i, :h, :w, :3].astype(np.float32).mean(-1) / 255.0
+        else:
+            lum = dataset.images[i][:h, :w, :3].mean(-1)
+        lap = np.abs(4 * lum[1:-1, 1:-1] - lum[:-2, 1:-1] - lum[2:, 1:-1]
+                     - lum[1:-1, :-2] - lum[1:-1, 2:])
+        ys = np.minimum((np.arange(h - 2, dtype=np.int64) * S)
+                        // max(h - 2, 1), S - 1)
+        xs = np.minimum((np.arange(w - 2, dtype=np.int64) * S)
+                        // max(w - 2, 1), S - 1)
+        idx = (ys[:, None] * S + xs[None, :]).ravel()
+        acc = np.bincount(idx, weights=(lap ** 2).ravel(), minlength=S * S)
+        cnt = np.bincount(idx, minlength=S * S)
+        out[i] = (acc / np.maximum(cnt, 1.0)).reshape(S, S)
+    return out
+
+
+@dataclasses.dataclass
+class NerfTrainerConfig:
+    """The JAX package's trainer options, with its defaults. ``grid_int8``
+    takes the place of its ``NGP_TPU_GRID_INT8`` environment switch. The
+    pose, camera and envmap optimisations (``optimize_*``,
+    ``train_envmap``) and depth supervision are not ported yet and
+    raise."""
+    n_rays: int = 4096               # adapted between steps (power of 2)
+    adapt_rays: bool = True          # False pins n_rays
+    dynamic_rays: bool = False       # adapt the live ray count instead
+    target_batch_size: int = 1 << 18
+    adapt_capacity: bool = False     # shrink the sample cap after step 512
+    march_steps: int = 1024          # lattice length K
+    random_bg_color: bool = True
+    train_in_linear_colors: bool = False
+    color_space_linear: bool = True
+    near_distance: float = 0.2       # ref: testbed.h:675
+    density_grid_decay: float = 0.95
+    n_steps_between_grid_updates: int = 16
+    snap_to_pixel_centers: bool = False
+    hierarchical_march: bool = True
+    optimize_extrinsics: bool = False
+    optimize_exposure: bool = False
+    optimize_focal_length: bool = False
+    optimize_extra_dims: bool = False
+    extrinsic_learning_rate: float = 1e-4
+    exposure_learning_rate: float = 1e-3
+    focal_learning_rate: float = 1e-5
+    extrinsic_l2_reg: float = 1e-4
+    exposure_l2_reg: float = 0.0
+    sample_image_proportional_to_error: bool = False
+    sample_focal_plane_proportional_to_error: bool = False
+    depth_supervision_lambda: float = 0.0
+    depth_loss_type: str = "L1"
+    train_envmap: bool = False
+    optimize_distortion: bool = False
+    error_map_res: int = 32
+    n_steps_between_error_map_updates: int = 128
+    grid_int8: bool = False          # grid sweeps through the int8 encode
+
+
+class StepDraws(NamedTuple):
+    """The random numbers of one step, all in [0, 1)."""
+    u_img: torch.Tensor     # (R,) image choice
+    u_xy: torch.Tensor      # (R, 2) pixel position
+    u_march: torch.Tensor   # (R,) start of each ray within its first step
+    bg: torch.Tensor        # (R, 3) random background colour
+
+    def head(self, n: int) -> "StepDraws":
+        return StepDraws(*(t[:n] for t in self))
+
+
+class StepStats(NamedTuple):
+    loss: torch.Tensor           # RGB loss / 3 (0-d, on the device)
+    total: int                   # samples before the cap
+    seg_total: int               # surviving segments before the cap
+    n_rays_with_samples: torch.Tensor
+
+
+def _check_unported(tc: NerfTrainerConfig, dataset):
+    flags = ("optimize_extrinsics", "optimize_exposure",
+             "optimize_focal_length", "optimize_extra_dims",
+             "optimize_distortion", "train_envmap")
+    on = [f for f in flags if getattr(tc, f)]
+    if on:
+        raise NotImplementedError(f"{', '.join(on)}: camera and envmap "
+                                  "optimisation is not ported yet (needs K3)")
+    if tc.depth_supervision_lambda > 0.0:
+        raise NotImplementedError("depth supervision is not ported yet")
+    if getattr(dataset, "rays", None) is not None:
+        raise NotImplementedError("per-pixel ray sidecars are not ported yet")
+    xe = getattr(dataset, "xforms_end", None)
+    if xe is not None and not np.allclose(dataset.xforms, xe):
+        raise NotImplementedError("rolling shutter is not ported yet")
+    if getattr(dataset, "n_extra_learnable_dims", 0) > 0:
+        raise NotImplementedError("extra learnable dims are not ported yet")
+    if getattr(dataset, "lens_mode", "perspective") not in ("perspective",
+                                                            "opencv"):
+        raise NotImplementedError(f"lens mode {dataset.lens_mode!r} is not "
+                                  "ported yet")
+
+
+class NerfTrainer:
+    """Model, optimizer, occupancy grid and error map for one NeRF scene,
+    on one device."""
+
+    def __init__(self, dataset, config: dict, seed: int = 1337,
+                 tcfg: Optional[NerfTrainerConfig] = None, device="cpu"):
+        self.dataset = dataset
+        self.tcfg = dataclasses.replace(tcfg or NerfTrainerConfig())
+        tc = self.tcfg
+        _check_unported(tc, dataset)
+        self.device = dev = torch.device(device)
+        aabb_scale = int(dataset.aabb_scale)
+        self.aabb_scale = aabb_scale
+        # f32 values, and their f32 sum, as the JAX package computes them
+        self.aabb_min = float(np.float32(0.5 - aabb_scale / 2.0))
+        self.aabb_size = float(np.float32(aabb_scale))
+        self.max_cascade = max(0, int(math.log2(aabb_scale)))
+        self.cone_angle = cone_angle_for(aabb_scale)
+        if self.cone_angle == 0.0 and tc.march_steps < 1024:
+            warnings.warn(f"march_steps={tc.march_steps} covers only part "
+                          "of the unit box with cone_angle 0; rays will "
+                          "terminate early")
+
+        self.generator = torch.Generator(device=dev).manual_seed(seed)
+        self.model = NerfNetwork(config, aabb_scale, generator=self.generator,
+                                 device=dev)
+        self.rgb_loss = loss_fn(loss_type_from_str(
+            config.get("loss", {}).get("otype", "L2")))
+        self.opt_cfg = AdamConfig.from_config(config.get("optimizer", {}),
+                                              loss_scale=LOSS_SCALE)
+        self.params = dict(self.model.named_parameters())
+        self.opt_state = init_state(self.params)
+        self.matrix_names = self.model.matrix_param_names()
+
+        def t(a, dtype=torch.float32):
+            return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+        self._xforms = t(dataset.xforms)
+        self._focal = t(dataset.focal)
+        self._principal = t(dataset.principal)
+        self._resolution = t(dataset.resolution)            # (I, 2) W, H
+        self._lens_params = t(dataset.lens_params)
+        self.grid = occ.init_grid(self.max_cascade, dev)._replace(
+            density=occ.mark_untrained(self.max_cascade, self._xforms,
+                                       self._focal, self._resolution))
+
+        # the pixels as one flat pool with per-image offsets (no padding
+        # to the largest image): sRGB uint8 where the dataset has it,
+        # converted per sampled texel, else linear f16
+        res = np.asarray(dataset.resolution, np.int64)
+        offs = np.concatenate([[0], np.cumsum(res[:, 0] * res[:, 1])])
+        u8 = getattr(dataset, "images_u8", None)
+        src, dtype = ((u8, np.uint8) if u8 is not None
+                      else (dataset.images, np.float16))
+        pool = np.empty((int(offs[-1]), 4), dtype)
+        for i, (w, h) in enumerate(res):
+            pool[offs[i]:offs[i + 1]] = np.asarray(src[i])[:h, :w].reshape(
+                -1, 4)
+        self._pixels = torch.from_numpy(pool).to(dev)
+        self._img_offset = t(offs[:-1], torch.int64)
+
+        I, em = dataset.n_images, tc.error_map_res
+        self.error_map = torch.zeros((I, em, em), device=dev)
+        # sharpness grid (ref: testbed_nerf.cu:1476-1481 deposit, :557
+        # decay): per cell, the sharpest local sharpness of any image that
+        # deposited there; only importance sampling reads it
+        self._use_sharpness = (
+            (tc.sample_image_proportional_to_error
+             or tc.sample_focal_plane_proportional_to_error)
+            and dataset.images is not None)
+        if self._use_sharpness:
+            self._sharpness_maps = t(_sharpness_maps(dataset))
+            self.sharpness_grid = torch.zeros(
+                occ.GRID_VOLUME * (self.max_cascade + 1), device=dev)
+        else:
+            self.sharpness_grid = torch.zeros(1, device=dev)
+
+        self.training_step = 0
+        self.last_loss = 0.0
+        self.last_surviving_segments = 0
+        self.last_samples = 0            # samples of the last step fetched
+        self._capacity = tc.target_batch_size
+        self._n_live = tc.n_rays
+        self._seg_capacity = 0
+        self._warned_segcap = False
+        self._rays_floor = 256
+        # the error-map CDF rebuild interval grows ×1.5 after each rebuild
+        # (ref: testbed_nerf.cu:3022)
+        self._error_map_interval = float(tc.n_steps_between_error_map_updates)
+        self._steps_since_error_map_update = 0
+
+    # ------------------------------------------------------------------
+    # sampling
+    # ------------------------------------------------------------------
+
+    def draws(self, n_rays: int,
+              generator: Optional[torch.Generator] = None) -> StepDraws:
+        g = generator or self.generator
+
+        def u(*shape):
+            return torch.rand(shape, generator=g, device=self.device)
+        return StepDraws(u(n_rays), u(n_rays, 2), u(n_rays), u(n_rays, 3))
+
+    def _error_state(self) -> dict:
+        """Normalised CDFs of the error map, with the MIN_PMF = 0.1 floor
+        (ref: construct_cdf_1d/2d)."""
+        em = self.error_map + 0.1 * torch.mean(self.error_map) + 1e-8
+        row_sums = em.sum(-1)                                   # (I, H)
+        cdf_x = torch.cumsum(em, -1) / row_sums[..., None]
+        cdf_y = torch.cumsum(row_sums, -1) / row_sums.sum(-1)[..., None]
+        img_w = em.sum((1, 2))
+        return {"cdf_x": cdf_x, "cdf_y": cdf_y,
+                "cdf_img": torch.cumsum(img_w, 0) / img_w.sum()}
+
+    def _sample_pixels(self, error_state: dict, u_img: torch.Tensor,
+                       u_xy: torch.Tensor):
+        """Image and pixel per ray from the uniforms: uniform, or a 50/50
+        mixture of uniform and error-CDF draws (ref: image_idx +
+        nerf_random_image_pos_training). Returns (img, xy, texsamp, pdf);
+        pdf is the branch's sampling density, which the deposited loss
+        (not the gradient) is divided by."""
+        tc = self.tcfg
+        I = self.dataset.n_images
+        n = u_img.shape[0]
+        dev = self.device
+        img_uni = torch.clamp((u_img * I).to(torch.int64), 0, I - 1)
+        pdf = torch.ones(n, device=dev)
+        if tc.sample_image_proportional_to_error:
+            # uniform and CDF picks interleaved by parity, so a prefix of
+            # the rays (the live rays of dynamic_rays) keeps both halves
+            cdf_img = error_state["cdf_img"]
+            uni = torch.arange(n, device=dev) % 2 == 0
+            img_cdf = torch.clamp(torch.searchsorted(cdf_img, u_img), 0,
+                                  I - 1)
+            prev = torch.where(img_cdf > 0,
+                               cdf_img[torch.clamp(img_cdf - 1, min=0)], 0.0)
+            pdf = torch.where(uni, 1.0, (cdf_img[img_cdf] - prev) * I)
+            img = torch.where(uni, img_uni, img_cdf)
+        else:
+            img = img_uni
+        if tc.sample_focal_plane_proportional_to_error:
+            em = tc.error_map_res
+            ux, uy = u_xy[:, 0], u_xy[:, 1]
+            uni = ux < 0.5                  # ref: sample_cdf_2d :994-999
+            ux_cdf = torch.clamp((ux - 0.5) / 0.5, 0.0, 1.0)
+
+            def pick(cdf, u):
+                """Cell, its pmf, and the position within it, from one
+                draw (ref: the stratified residual, :1008)."""
+                k = torch.clamp(torch.searchsorted(
+                    cdf, u[:, None].contiguous())[:, 0], 0, em - 1)
+                prev = torch.where(k > 0, torch.gather(
+                    cdf, 1, torch.clamp(k - 1, min=0)[:, None])[:, 0], 0.0)
+                pmf = torch.gather(cdf, 1, k[:, None])[:, 0] - prev
+                j = torch.clamp((u - prev) / torch.clamp(pmf, min=1e-12),
+                                0.0, 1.0)
+                return k, pmf, j
+            row, pmf_y, jy = pick(error_state["cdf_y"][img], uy)
+            col, pmf_x, jx = pick(error_state["cdf_x"][img, row], ux_cdf)
+            xy_cdf = torch.stack([(col + jx) / em, (row + jy) / em], -1)
+            xy_uni = torch.stack([ux / 0.5, uy], -1)
+            xy = torch.where(uni[:, None], xy_uni, xy_cdf)
+            pdf = pdf * torch.where(uni, 1.0, pmf_x * pmf_y * em * em)
+        else:
+            xy = u_xy
+        res = self._resolution[img]
+        if tc.snap_to_pixel_centers:
+            xy = (torch.floor(xy * res) + 0.5) / res
+        pix = torch.minimum(torch.clamp((xy * res).to(torch.int64), min=0),
+                            res.to(torch.int64) - 1)
+        raw = self._pixels[self._img_offset[img] + pix[:, 1]
+                           * res[:, 0].to(torch.int64) + pix[:, 0]]
+        if raw.dtype == torch.uint8:
+            # sRGB uint8 → linear premultiplied
+            c = raw.to(torch.float32) * (1.0 / 255.0)
+            texsamp = torch.cat([srgb_to_linear(c[:, :3]) * c[:, 3:4],
+                                 c[:, 3:4]], -1)
+        else:
+            texsamp = raw.to(torch.float32)
+        return img, xy, texsamp, pdf
+
+    def _build_rays(self, img: torch.Tensor, xy: torch.Tensor):
+        """World rays (o, unit d, |d_raw|) of the sampled pixels."""
+        o, d_raw = pixel_to_ray_train(
+            xy, self._xforms[img], self._focal[img], self._principal[img],
+            self._resolution[img], self._lens_params[img],
+            self.dataset.lens_is_opencv,
+            lens_mode=getattr(self.dataset, "lens_mode", None))
+        d_norm = torch.clamp(torch.linalg.vector_norm(d_raw, dim=-1,
+                                                      keepdim=True), min=1e-9)
+        return o, d_raw / d_norm, d_norm[:, 0]
+
+    def _march(self, o, d, jitter, n_rays: int, capacity: int, ray_mask):
+        """(s_t, s_dt, s_ray, counts, total, seg_total, s_k) of the rays;
+        ``counts`` are the kept samples per ray."""
+        tc = self.tcfg
+        if tc.hierarchical_march:
+            self._seg_capacity = capacity // 8 * 4
+            return march_and_compact_hier(
+                self.grid.bitfield, self.grid.coarse, o, d, jitter, n_rays,
+                tc.march_steps, self.cone_angle, self.max_cascade,
+                self.aabb_min, self.aabb_size, capacity, ray_mask=ray_mask)
+        self._seg_capacity = 0
+        return march_and_compact(
+            self.grid.bitfield, o, d, jitter, n_rays, tc.march_steps,
+            self.cone_angle, self.max_cascade, self.aabb_min, self.aabb_size,
+            capacity, ray_mask=ray_mask)
+
+    # ------------------------------------------------------------------
+    # one training step
+    # ------------------------------------------------------------------
+
+    def _train_step(self, draws: StepDraws, error_state: dict,
+                    capacity: Optional[int] = None) -> StepStats:
+        """One step on the rays of ``draws`` (all of them: the caller
+        slices to the live rays); updates parameters, optimizer state,
+        error map and sharpness grid in place."""
+        grads, stats, deposit = self._step_grads(draws, error_state, capacity)
+        self.opt_state = apply_update(self.params, grads, self.opt_state,
+                                      self.opt_cfg, self.matrix_names)
+        with torch.no_grad():
+            self._deposit_error(*deposit)
+        return stats
+
+    def _step_grads(self, draws: StepDraws, error_state: dict,
+                    capacity: Optional[int] = None):
+        """The forward and backward of one step, changing no parameter,
+        optimizer or error-map state: (gradients by parameter name, stats,
+        the error-map deposit's arguments)."""
+        tc = self.tcfg
+        S = capacity or tc.target_batch_size
+        n = draws.u_img.shape[0]
+        img, xy, texsamp, samp_pdf = self._sample_pixels(
+            error_state, draws.u_img, draws.u_xy)
+        o, d, _ = self._build_rays(img, xy)
+        # masked-away pixels (negative red sentinel) never train
+        ray_ok = texsamp[:, 0] >= 0.0
+        s_t, s_dt, s_ray, counts, total, seg_total, s_k = self._march(
+            o, d, draws.u_march, n, S, ray_ok)
+
+        bg = draws.bg if tc.random_bg_color else torch.ones_like(draws.bg)
+        bg_linear = srgb_to_linear(bg)
+        has_samples = counts > 0
+        n_eff = torch.clamp(has_samples.sum(), min=1)
+        reg_on = (self.grid.mean < NERF_MIN_OPTICAL_THICKNESS).to(
+            torch.float32)
+        # target (ref: :1388-1427), in sRGB unless training in linear
+        rgbtarget = texsamp[:, :3] + (1.0 - texsamp[:, 3:4]) * bg_linear
+        if tc.train_in_linear_colors:
+            bg_out = bg_linear
+        else:
+            rgbtarget = linear_to_srgb(rgbtarget)
+            bg_out = linear_to_srgb(bg_linear)
+
+        pos_w = (o[s_ray] + s_t[:, None] * d[s_ray] - self.aabb_min) \
+            / self.aabb_size
+        rgb_raw, dens_raw = self.model.apply(pos_w, d[s_ray] * 0.5 + 0.5)
+        rgb = torch.sigmoid(rgb_raw.to(torch.float32))
+        sigma = torch.exp(torch.clamp(dens_raw.to(torch.float32), -15.0, 15.0))
+        sdt = sigma * s_dt
+        # per-ray transmittance from a lattice cumsum; one global stream
+        # cumsum loses f32 precision once σ sharpens (see exclusive_depth)
+        excl = exclusive_depth(sdt, s_ray, s_k, n, tc.march_steps)
+        w = torch.exp(-torch.clamp(excl, 0.0, 88.0)) * (1.0 - torch.exp(-sdt))
+        zeros = torch.zeros(n, device=self.device)
+        rgb_ray = torch.zeros((n, 3), device=self.device).index_add(
+            0, s_ray, w[:, None] * rgb)
+        T_end = torch.exp(-zeros.index_add(0, s_ray,
+                                           torch.clamp(sdt, max=88.0)))
+        rgb_ray = rgb_ray + T_end[:, None] * bg_out
+        per_c = self.rgb_loss(rgbtarget, rgb_ray)               # (R, 3)
+        ray_mask = has_samples.to(torch.float32)
+        loss_rgb = torch.sum(per_c * ray_mask[:, None]) / n_eff
+        # density regularisers (ref: :1495-1547), added to dL/draw without
+        # the loss scale
+        near_pen = torch.where((dens_raw > -10.0) & (s_t < tc.near_distance),
+                               1e-4 * dens_raw, 0.0).sum()
+        l1_pen = reg_on * (-1e-4 * torch.clamp(dens_raw, max=0.0)).sum()
+        scaled_loss = (loss_rgb + (near_pen + l1_pen) / LOSS_SCALE) \
+            * LOSS_SCALE
+        names = list(self.params)
+        grads = dict(zip(names, torch.autograd.grad(
+            scaled_loss, [self.params[k] for k in names])))
+        with torch.no_grad():
+            per_ray_loss = per_c.mean(-1) * ray_mask
+            depth_ray = zeros.index_add(0, s_ray, w * s_t)
+        stats = StepStats(loss_rgb.detach() / 3.0, total, seg_total,
+                          has_samples.sum())
+        return grads, stats, (img, xy, o, d, per_ray_loss, samp_pdf,
+                              depth_ray, T_end, has_samples)
+
+    def _deposit_error(self, img, xy, o, d, per_ray_loss, samp_pdf,
+                       depth_ray, T_end, has_samples):
+        """Bilinear deposit of the per-ray loss into the error map, divided
+        by the sampling pdf so oversampled cells do not count twice (ref:
+        :1448, :1465-1491), and scaled down for views blurrier than the
+        sharpest one seen at the ray's hit cell (ref: :1476-1481)."""
+        em = self.tcfg.error_map_res
+        dep = per_ray_loss / torch.clamp(samp_pdf, min=1e-12)
+        if self._use_sharpness:
+            opac = 1.0 - T_end
+            hit = o + (depth_ray / torch.clamp(opac, min=1e-6))[:, None] * d
+            inb = torch.all((hit >= self.aabb_min)
+                            & (hit <= self.aabb_min + self.aabb_size),
+                            -1) & has_samples
+            sp = torch.clamp((xy * SHARPNESS_RES).to(torch.int64), 0,
+                             SHARPNESS_RES - 1)
+            sharp = self._sharpness_maps[img, sp[:, 1], sp[:, 0]] + 1e-6
+            mip = occ.mip_from_pos(hit, self.max_cascade)
+            cell = occ.cell_idx_at(hit, mip) + mip * occ.GRID_VOLUME
+            old = self.sharpness_grid[cell]
+            self.sharpness_grid.scatter_reduce_(
+                0, cell, torch.where(inb, sharp, 0.0), "amax")
+            dep = dep * torch.where(
+                inb, torch.clamp(sharp / torch.maximum(sharp, old),
+                                 min=0.01), 1.0)
+        posf = torch.clamp(xy * em - 0.5, 0.0, em - 1.0 - 1e-4)
+        p0 = torch.clamp(posf.to(torch.int64), max=em - 2)
+        wxy = posf - p0
+        for dy in (0, 1):
+            for dx in (0, 1):
+                wgt = ((wxy[:, 0] if dx else 1 - wxy[:, 0])
+                       * (wxy[:, 1] if dy else 1 - wxy[:, 1]))
+                self.error_map.index_put_(
+                    (img, p0[:, 1] + dy, p0[:, 0] + dx), dep * wgt,
+                    accumulate=True)
+
+    # ------------------------------------------------------------------
+    # occupancy-grid maintenance
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _grid_update(self, full_sweep: bool, jitter=None):
+        """Sweep the occupancy grid with the training parameters, in
+        network calls of SWEEP_CHUNK positions."""
+        tc = self.tcfg
+
+        def density_fn(warped):
+            return torch.cat([self.model.density(c, int8_table=tc.grid_int8)
+                              for c in warped.split(SWEEP_CHUNK)])
+        if full_sweep:
+            n_u, n_n = occ.GRID_VOLUME * (self.max_cascade + 1), 1
+        else:
+            n_u = n_n = occ.GRID_VOLUME // 4
+        self.grid = occ.update_grid(
+            self.grid, density_fn, self.generator, self.max_cascade,
+            decay=tc.density_grid_decay, n_uniform=n_u, n_nonuniform=n_n,
+            aabb_min=self.aabb_min, aabb_size=self.aabb_size, jitter=jitter)
+
+    # ------------------------------------------------------------------
+    # ray budget
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def _march_probe(self, n_rays: int):
+        """(surviving segments, samples) the current grid gives n_rays
+        rays, from a fixed seed (no network)."""
+        g = torch.Generator(device=self.device).manual_seed(0x5E6)
+        dr = self.draws(n_rays, g)
+        img, xy, texsamp, _ = self._sample_pixels(self._error_state(),
+                                                  dr.u_img, dr.u_xy)
+        o, d, _ = self._build_rays(img, xy)
+        out = march_and_compact_hier(
+            self.grid.bitfield, self.grid.coarse, o, d, dr.u_march, n_rays,
+            self.tcfg.march_steps, self.cone_angle, self.max_cascade,
+            self.aabb_min, self.aabb_size, self.tcfg.target_batch_size,
+            ray_mask=texsamp[:, 0] >= 0.0)
+        return out[5], out[4]
+
+    def _probe_ray_budget(self):
+        """Size the ray count to the segment and sample budgets before the
+        first step, so no step trains at a truncating ray count (the
+        reference adapts rays_per_batch from measured counts,
+        ref: src/testbed_nerf.cu:2890-2891)."""
+        tc = self.tcfg
+        if not ((tc.adapt_rays or tc.dynamic_rays) and tc.hierarchical_march):
+            return
+        S = tc.target_batch_size
+        seg_cap = S // 8 * 4
+        if tc.dynamic_rays:
+            segs, total = self._march_probe(tc.n_rays)
+            factor = max(segs / (0.9 * seg_cap), total / (0.9 * S), 1.0)
+            self._n_live = int(np.clip(tc.n_rays / factor, 128, tc.n_rays))
+            return
+        for _ in range(6):
+            n_rays = tc.n_rays
+            segs, total = self._march_probe(n_rays)
+            if (segs <= 0.9 * seg_cap and total <= 0.9 * S) or n_rays <= 32:
+                break
+            factor = max(segs / (0.9 * seg_cap), total / (0.9 * S),
+                         2.0 ** 0.5)
+            new = max(32, 1 << int(math.floor(math.log2(n_rays / factor))))
+            if new == n_rays:
+                break
+            tc.n_rays = new
+        self._rays_floor = min(256, tc.n_rays)
+
+    def _fetch_stats(self, loss: float, measured: int, segs: int,
+                     n_rays: int) -> float:
+        """Adapt the ray count (live count under dynamic_rays) from the last
+        step's counts (ref: NerfCounters::update_after_training)."""
+        tc = self.tcfg
+        self.last_loss = loss
+        cap = self._seg_capacity
+        if cap and segs > cap and not self._warned_segcap:
+            warnings.warn(
+                f"hierarchical march: {segs} surviving segments exceed the "
+                f"{cap} segment capacity — tail rays are dropped this step "
+                "(raise target_batch_size or lower n_rays)")
+            self._warned_segcap = True
+        self.last_surviving_segments = segs
+        self.last_samples = measured
+        if measured > 0 and tc.dynamic_rays:
+            live = max(self._n_live, 1)
+            ideal = live * tc.target_batch_size / measured
+            if cap and segs > 0:
+                ideal = min(ideal, live * 0.9 * cap / segs)
+            ideal = min(ideal, live * 2)
+            self._n_live = int(np.clip(round(ideal), 128, tc.n_rays))
+        elif measured > 0 and tc.adapt_rays:
+            ideal = n_rays * tc.target_batch_size / measured
+            if cap and segs > 0:
+                ideal = min(ideal, n_rays * 0.9 * cap / segs)
+            ideal = min(ideal, n_rays * 2)
+            new_rays = 1 << int(round(math.log2(max(ideal,
+                                                    self._rays_floor))))
+            # lattice cap: n_rays · march_steps ≤ 2^24
+            lattice_cap = max((1 << 24) // tc.march_steps, 256)
+            tc.n_rays = int(min(new_rays, 1 << 18, lattice_cap))
+        if measured > 0 and tc.adapt_capacity and self.training_step >= 512:
+            need = max(measured * 1.25, segs * 2.25, float(1 << 15))
+            self._capacity = int(min(1 << math.ceil(math.log2(need)),
+                                     tc.target_batch_size))
+        return loss
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+
+    def train(self, n_steps: int) -> float:
+        """Train exactly ``n_steps`` more steps; returns the mean loss of
+        the steps since the last 16-step boundary.
+
+        At each boundary (every ``n_steps_between_grid_updates`` steps) the
+        ray count adapts from the last step's counts and the grid is swept:
+        fully below step 256 (the ray budget is probed after the first
+        sweep), partially after (with the sharpness grid's decay). The
+        error-map CDFs are rebuilt at a boundary, or at the start of a
+        call, once the rebuild interval has passed."""
+        tc = self.tcfg
+        cadence = tc.n_steps_between_grid_updates
+        importance = (tc.sample_image_proportional_to_error
+                      or tc.sample_focal_plane_proportional_to_error)
+        loss = self.last_loss
+        err_state = self._error_state()
+        pending = None      # [loss sum, steps, last total, last segs, n_rays]
+        for i in range(n_steps):
+            at_boundary = self.training_step % cadence == 0
+            if at_boundary and pending is not None:
+                loss = self._fetch_stats(float(pending[0]) / pending[1],
+                                         *pending[2:])
+                pending = None
+            if (at_boundary or i == 0) and importance and \
+                    self._steps_since_error_map_update >= \
+                    int(self._error_map_interval):
+                err_state = self._error_state()
+                self._steps_since_error_map_update = 0
+                self._error_map_interval *= 1.5
+            warmup = self.training_step < 256
+            if at_boundary:
+                self._grid_update(full_sweep=warmup)
+                if warmup and self.training_step == 0:
+                    self._probe_ray_budget()
+                if not warmup and self._use_sharpness:
+                    self.sharpness_grid *= tc.density_grid_decay
+            n_rays = tc.n_rays
+            draws = self.draws(n_rays)
+            if tc.dynamic_rays:
+                draws = draws.head(self._n_live)
+            cap = self._capacity if tc.adapt_capacity and not warmup \
+                else tc.target_batch_size
+            stats = self._train_step(draws, err_state, capacity=cap)
+            if pending is None:
+                pending = [stats.loss, 0, 0, 0, n_rays]
+            else:
+                pending[0] = pending[0] + stats.loss
+            pending[1:4] = [pending[1] + 1, stats.total, stats.seg_total]
+            self.training_step += 1
+            self._steps_since_error_map_update += 1
+        if pending is not None:
+            loss = self._fetch_stats(float(pending[0]) / pending[1],
+                                     *pending[2:])
+        return loss
+
+    def inference_params(self) -> dict:
+        return inference_params(self.params, self.opt_state, self.opt_cfg)
+
+    @torch.no_grad()
+    def density_at(self, pos: np.ndarray) -> np.ndarray:
+        """σ at world positions (unwarped), with the inference (EMA)
+        parameters."""
+        warped = (torch.as_tensor(np.asarray(pos, np.float32),
+                                  device=self.device) - self.aabb_min) \
+            / self.aabb_size
+        sigma = functional_call(self.model, self.inference_params(),
+                                (warped,))[..., 0]
+        return torch.exp(torch.clamp(sigma, -15.0, 15.0)).cpu().numpy()
+
+    # snapshot I/O ------------------------------------------------------
+
+    def save_snapshot(self, path, network_config: dict,
+                      include_optimizer_state: bool = False):
+        """Write a snapshot the JAX package's ``NerfTrainer`` loads (ref:
+        Testbed::save_snapshot, src/testbed.cu:3008-3042). The resolved
+        grid layout is stamped into the config; ``include_optimizer_state``
+        stores the Adam step and moments too."""
+        from ngp_tpu_torch import bridge
+        from ngp_tpu_torch.io.snapshot import save_snapshot
+        network_config = {**network_config, "encoding": {
+            **network_config["encoding"],
+            **self.model.pos_encoding.resolved_config()}}
+        adam = bridge.adam_state_to_numpy(self.opt_state, self.model)
+        extra = None
+        if include_optimizer_state:
+            extra = {"ngp_tpu_optimizer": {k: adam[k]
+                                           for k in ("step", "mu", "nu")}}
+        save_snapshot(
+            path, network_config,
+            params=bridge.nerf_params_to_numpy(self.params, self.model),
+            ema_params=adam["ema_params"],
+            density_grid=self.grid.density.cpu().numpy(),
+            max_cascade=self.max_cascade, training_step=self.training_step,
+            aabb_scale=self.aabb_scale, aabb_min=[self.aabb_min] * 3,
+            aabb_max=[float(np.float32(self.aabb_min)
+                            + np.float32(self.aabb_size))] * 3,
+            rays_per_batch=self.tcfg.n_rays, extra=extra)
+
+    def load_snapshot_state(self, path) -> dict:
+        """Restore parameters, EMA, grid (and the Adam step and moments
+        when stored) from a snapshot of either package."""
+        from ngp_tpu_torch import bridge
+        from ngp_tpu_torch.io.snapshot import _unpack_tree, load_snapshot
+        doc = load_snapshot(path)
+        snap = doc["snapshot"]
+
+        def restore(dst: dict, tree):
+            with torch.no_grad():
+                for k, v in bridge.nerf_params_from_numpy(
+                        tree, self.model).items():
+                    dst[k].copy_(v)
+        restore(self.params, snap["ngp_tpu_params"])
+        restore(self.opt_state.ema_params, snap["ngp_tpu_ema_params"])
+        if "ngp_tpu_optimizer" in snap:
+            opt = _unpack_tree(snap["ngp_tpu_optimizer"])
+            restore(self.opt_state.mu, opt["mu"])
+            restore(self.opt_state.nu, opt["nu"])
+            self.opt_state = self.opt_state._replace(step=int(opt["step"]))
+        if "density_grid" in snap:
+            n = self.grid.density.numel()
+            self.grid = occ.rebuild_bitfield(self.grid._replace(
+                density=torch.as_tensor(snap["density_grid"][:n],
+                                        dtype=torch.float32,
+                                        device=self.device)))
+        self.training_step = int(snap.get("training_step", 0))
+        return doc

@@ -153,7 +153,7 @@ def test_wrapper_on_cpu_runs_plain_version_without_launch():
     assert table.shape == (meta.n_levels, meta.rows, 128)
     assert float(table.abs().max()) <= 1e-4
     pos = torch.from_numpy(_positions(kw, n=256))
-    before = blocked_grid_cuda.launches
+    before = dict(blocked_grid_cuda.launches)
     out = blocked_grid_cuda.blocked_grid_encode(table, pos, meta)
     assert blocked_grid_cuda.launches == before
     torch.testing.assert_close(out, tbg.encode_reference(table, pos, meta),

@@ -208,5 +208,8 @@ def test_update_grid_full_sweep():
         tg.bitfield.numpy(),
         tocc.rebuild_bitfield(tg._replace(bitfield=tg.bitfield * 0))
         .bitfield.numpy())
-    with pytest.raises(NotImplementedError):
-        tocc.update_grid(tg, field, g, mc)
+    # the default budget is the partial (interleaved slab) sweep
+    tp = tocc.update_grid(tg, field, g, mc, aabb_min=float(amin),
+                          aabb_size=float(asize))
+    assert tp.ema_step == 2
+    np.testing.assert_array_equal(tp.density.numpy()[::97], -1.0)
