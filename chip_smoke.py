@@ -8,13 +8,15 @@ Phases, each reported on its own line:
                nvidia-smi reports them; turns TF32 off.
   2. build   — compiles the CUDA kernels from ngp_tpu_torch/csrc and
                prints each one's registers and spills.
-  3. kernels — K1 (encode forward), K2 (table backward) and K4 (int8-table
-               forward) against their plain PyTorch versions at the full
+  3. kernels — K1 (encode forward), K2 (table backward), K3 (position
+               backward), K4 (int8-table forward) and K5 (int8 table
+               backward) against their plain PyTorch versions at the full
                NeRF width (16 levels × 8192 rows × 128 lanes; 2^20
                positions for K1 and K4, the 2^18 of a training batch for
-               K2, plus lattice vertices, the corners 0 and 1, and points
-               just outside the unit cube), each timed against its plain
-               version by CUDA events, in turns.
+               K2, K3 and K5, plus lattice vertices, the corners 0 and 1,
+               and points just outside the unit cube), each timed against
+               its plain version by CUDA events, in turns, beside its
+               bound: the bytes it must move at the card's memory rate.
   4. slice   — the render path a user calls: NerfNetwork from
                configs/nerf/base.json at aabb_scale 4 with seeded random
                weights, an occupancy grid from a full sweep, then three
@@ -35,6 +37,18 @@ Phases, each reported on its own line:
                rise by PSNR_RISE_DB, and K1, K2 and K4 must all launch.
                K2 on the positions and cotangent of one real step is
                held against the plain backward.
+  6. pose    — camera optimisation on the same views: every view but
+               view 0 gets a seeded pose error (0.5° about a random axis,
+               0.005 of translation), and the trainer (optimize_extrinsics,
+               optimize_exposure, optimize_focal_length, the ``full`` int8
+               encode and the int8 grid sweep) trains 1024 steps. Prints,
+               at the start and every 256 steps, the PSNR of view 0 and
+               the mean rotation and translation error against the true
+               poses (absolute and relative to view 0); then ms/step and
+               the launch counts of the training; the loss must stay
+               finite, K3, K4 and K5 launch, and the PSNR rise by
+               POSE_PSNR_RISE_DB. K3 and K5 on one real step's inputs are
+               held against their plain versions.
 With ``--profile``, a torch.profiler trace of 16 steady training steps is
 broken down by layer as well (written to chiprun_out/).
 Then one JSON line with each kernel's figures, and as the last line
@@ -61,10 +75,30 @@ FRAME_W, FRAME_H, N_FRAMES = 640, 360, 3
 KERNEL_TOL = 1e-5
 # K2 against its plain version, relative to Σ|w·g| of each table entry
 KERNEL_BWD_TOL = 1e-4
+# K3 against its plain version, relative to Σ|term| of each component: the
+# 256 terms (16 levels × 8 corners × 2 features) cancel, and the two sum
+# them in other orders (the kernel with FMAs)
+KERNEL_POS_TOL = 1e-5
+# K5 against its plain version, relative to Σ_t scale_t·Σ|q| of each
+# entry: the quanta are bit-equal (the same w·g, scale and rounding), but
+# the kernel adds each scale·q by f32 atomics where the plain version sums
+# q exactly within a tile
+KERNEL_I8_TOL = 1e-5
+# the card's published peaks (NVIDIA H100 SXM data sheet): HBM bytes/s and
+# f32 FLOP/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 # the training phase
 TRAIN_VIEWS, TRAIN_RES, TRAIN_STEPS, WARMUP_STEPS = 24, 256, 512, 256
 # 512-step runs on an NVIDIA H100 80GB HBM3 at 700 W rose 22.4-23.6 dB
 PSNR_RISE_DB = 15.0
+# the pose phase: from the trainer's first state the field is a fog for a
+# few hundred steps (a 256-step run ended in it, below view 0's starting
+# PSNR), so the phase trains 1024 steps and reports every 256
+POSE_STEPS, POSE_REPORT_EVERY, POSE_ROT_DEG, POSE_TRANS = 1024, 256, 0.5, 0.005
+# the first 1024-step run on an NVIDIA H100 80GB HBM3 at 700 W rose
+# 19.13 dB; the gate keeps a 9 dB margin
+POSE_PSNR_RISE_DB = 10.0
 # the analytic spheres of scripts/make_synth_scene.py (center, radius,
 # linear rgb, sigma), re-implemented here because that script imports jax
 SPHERES = [((0.50, 0.50, 0.45), 0.16, (0.9, 0.25, 0.2), 60.0),
@@ -110,7 +144,7 @@ def phase_build():
     # ptxas reports each kernel as: entry function, spills, registers
     info = []
     for ln in bgc.build_log.splitlines():
-        name = re.search(r"blocked_grid_encode_(fwd_i8|fwd|bwd)_kernel", ln)
+        name = re.search(r"blocked_grid_encode_\w+?_kernel", ln)
         regs = re.search(r"Used (\d+) registers", ln)
         spill = re.search(r"(\d+) bytes spill stores", ln)
         if "entry function" in ln and name:
@@ -167,11 +201,52 @@ def _time_in_turns(kern, plain, kern_iters: int = 20, plain_iters: int = 5):
     return (k1, k2), (p1, p2)
 
 
-def _kernel_entry(name: str, line: int, err: float, ks, ps) -> dict:
+# floating-point operations per (sample, level), counted from the kernels'
+# source and rounded up: the geometry (9), the 8 corner weights (19), and
+# per kernel the corner arithmetic. Every kernel is far below its byte
+# bound on this count, so its bound is the bytes.
+FLOPS_PER_LOOKUP = {"blocked_grid_encode_fwd": 60,
+                    "blocked_grid_encode_bwd": 44,
+                    "blocked_grid_encode_bwd_pos": 130,
+                    "blocked_grid_encode_fwd_i8": 76,
+                    "blocked_grid_encode_bwd_i8": 110}
+
+
+def _touched_entries(meta, pos) -> int:
+    """Table entries (level, row, lane) the positions' corners read, both
+    features: what a kernel that reads the table must fetch at least."""
+    from ngp_tpu_torch.kernels.blocked_grid import LANES, _corner_index
+    touched = torch.zeros(meta.n_levels * meta.rows * LANES, dtype=torch.bool,
+                          device=pos.device)
+    for chunk in pos.split(1 << 18):
+        idx, _ = _corner_index(meta, chunk)
+        base = torch.arange(meta.n_levels, device=pos.device)[:, None, None] \
+            * (meta.rows * LANES)
+        for f in range(meta.n_features_per_level):
+            touched[(idx + base + f).reshape(-1)] = True
+    return int(touched.sum())
+
+
+def _kernel_entry(name: str, line: int, err: float, ks, ps, n: int, meta,
+                  n_bytes: float) -> dict:
+    """The kernels-line entry: times, error, and the bound of the run's
+    work: max(bytes / HBM rate, flops / f32 rate), in ms."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = FLOPS_PER_LOOKUP[name] * n * meta.n_levels / F32_FLOPS * 1e3
     return {"name": name, "route": "cuda",
             "source": "ngp_tpu_torch/csrc/blocked_grid_encode.cu",
             "replaces": f"ngp_tpu/kernels/hashgrid_pallas.py:{line}",
-            "max_abs_err": err, "ms": sum(ks) / 2, "plain_ms": sum(ps) / 2}
+            "max_abs_err": err, "ms": sum(ks) / 2, "plain_ms": sum(ps) / 2,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "bytes": n_bytes}
+
+
+def _print_times(tag: str, what: str, entry: dict, ks, ps):
+    print(f"{tag}: {what}: kernel {ks[0]:.4f}/{ks[1]:.4f} ms, plain "
+          f"{ps[0]:.4f}/{ps[1]:.4f} ms; bound {entry['bound_ms']:.4f} ms "
+          f"({entry['bytes'] / 1e6:.1f} MB, {entry['bound_by']}): "
+          f"{entry['bound_ms'] / entry['ms']:.3f} of the bound")
 
 
 def phase_k1(dev) -> dict:
@@ -193,9 +268,13 @@ def phase_k1(dev) -> dict:
         p = pos[: 1 << 20]
         ks, ps = _time_in_turns(lambda: bgc.launch_fwd(table, p, meta),
                                 lambda: encode_reference(table, p, meta))
-    print(f"K1: 2^20 positions x 16 levels: kernel {ks[0]:.4f}/{ks[1]:.4f} "
-          f"ms, plain {ps[0]:.4f}/{ps[1]:.4f} ms")
-    return _kernel_entry("blocked_grid_encode_fwd", 85, err, ks, ps)
+        n = p.shape[0]
+        # positions in, features out, the table entries the corners read
+        entry = _kernel_entry("blocked_grid_encode_fwd", 85, err, ks, ps, n,
+                              meta, 12 * n + 4 * 2 * meta.n_levels * n
+                              + 4 * _touched_entries(meta, p))
+    _print_times("K1", "2^20 positions x 16 levels", entry, ks, ps)
+    return entry
 
 
 def phase_k2(dev) -> dict:
@@ -231,9 +310,13 @@ def phase_k2(dev) -> dict:
         p, c = pos[: 1 << 18], cot[: 1 << 18]
         ks, ps = _time_in_turns(lambda: bgc.launch_bwd(p, c, meta),
                                 lambda: encode_backward_reference(p, c, meta))
-    print(f"K2: 2^18 positions x 16 levels: kernel {ks[0]:.4f}/{ks[1]:.4f} "
-          f"ms, plain {ps[0]:.4f}/{ps[1]:.4f} ms")
-    return _kernel_entry("blocked_grid_encode_bwd", 110, err, ks, ps)
+    n = p.shape[0]
+    # positions and cotangent in, the whole table gradient out
+    entry = _kernel_entry("blocked_grid_encode_bwd", 110, err, ks, ps, n,
+                          meta, 12 * n + 4 * 2 * meta.n_levels * n
+                          + 4 * meta.n_params)
+    _print_times("K2", "2^18 positions x 16 levels", entry, ks, ps)
+    return entry
 
 
 def phase_k4(dev) -> dict:
@@ -258,9 +341,129 @@ def phase_k4(dev) -> dict:
         ks, ps = _time_in_turns(
             lambda: bgc.launch_fwd_i8(tq, qs, p, meta),
             lambda: encode_reference_i8(tq, qs, p, meta))
-    print(f"K4: 2^20 positions x 16 levels: kernel {ks[0]:.4f}/{ks[1]:.4f} "
-          f"ms, plain {ps[0]:.4f}/{ps[1]:.4f} ms")
-    return _kernel_entry("blocked_grid_encode_fwd_i8", 354, err, ks, ps)
+        n = p.shape[0]
+        # positions and level scales in, features out, one byte per entry
+        entry = _kernel_entry("blocked_grid_encode_fwd_i8", 354, err, ks, ps,
+                              n, meta, 12 * n + 4 * meta.n_levels
+                              + 4 * 2 * meta.n_levels * n
+                              + _touched_entries(meta, p))
+    _print_times("K4", "2^20 positions x 16 levels", entry, ks, ps)
+    return entry
+
+
+def _cotangent(dev, meta, n: int, seed: int) -> torch.Tensor:
+    """Seeded (n, L·2) cotangents, every fifth sample zero (rays without
+    samples)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cot = torch.randn((n, meta.n_levels * 2), generator=g, device=dev)
+    cot[::5] = 0.0
+    return cot
+
+
+def check_pos_grad(table, pos, cot, meta, got) -> float:
+    """K3's output against the plain position backward: each component
+    within KERNEL_POS_TOL of its Σ|term|. Returns the largest error
+    relative to Σ|term|."""
+    from ngp_tpu_torch.kernels.blocked_grid import (
+        encode_position_backward_reference as plain)
+    with torch.no_grad():
+        ref = plain(table, pos, cot, meta)
+        mag = plain(table, pos, cot, meta, magnitude=True)
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("K3 output is not finite")
+    diff = (got - ref).abs()
+    exact = mag == 0
+    if bool((diff[exact] != 0).any()):
+        raise RuntimeError("K3 is nonzero where every term is zero")
+    return float((diff / mag.clamp(min=1e-30)).max())
+
+
+def check_i8_grad(pos, cot, meta, tile: int, got):
+    """K5's output against the plain int8 backward: each entry within
+    KERNEL_I8_TOL of its Σ_t scale_t·Σ|q|, and exactly 0 where every q is
+    0. Returns (largest error relative to that, max |Δ|, entries whose
+    nonzero quanta cancel to 0 in the plain version, entries that are 0
+    there)."""
+    from ngp_tpu_torch.kernels.blocked_grid import (
+        encode_backward_reference_i8 as plain)
+    with torch.no_grad():
+        ref = plain(pos, cot, meta, tile)
+        mag = plain(pos, cot, meta, tile, magnitude=True)
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError("K5 output is not finite")
+    if bool((got[mag == 0] != 0).any()):
+        raise RuntimeError("K5 is nonzero where every quantum is zero")
+    diff = (got - ref).abs()
+    rel = float((diff / mag.clamp(min=1e-30)).max())
+    cancelled = int(((ref == 0) & (mag > 0)).sum())
+    return rel, float(diff.max()), cancelled, int((ref == 0).sum())
+
+
+def phase_k3(dev) -> dict:
+    """K3 at the training batch: 2^18 positions × 16 levels plus the edge
+    positions, seeded cotangents, the f32 table at std 0.5."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import (
+        encode_position_backward_reference)
+    meta, table, pos, _ = _full_width_inputs(dev, 1 << 18)
+    cot = _cotangent(dev, meta, pos.shape[0], SEED + 3)
+    with torch.no_grad():
+        got = bgc.launch_bwd_pos(table, pos, cot, meta)
+        torch.cuda.synchronize()
+        rel = check_pos_grad(table, pos, cot, meta, got)
+        err = float((got - encode_position_backward_reference(
+            table, pos, cot, meta)).abs().max())
+        print(f"K3: blocked_grid_encode_bwd_pos {pos.shape[0]} positions -> "
+              f"{tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
+              f"relative to sum|term| {rel:.3e} (tolerance {KERNEL_POS_TOL})")
+        if not rel <= KERNEL_POS_TOL:
+            raise RuntimeError("K3 disagrees with its plain version")
+        p, c = pos[: 1 << 18], cot[: 1 << 18]
+        ks, ps = _time_in_turns(
+            lambda: bgc.launch_bwd_pos(table, p, c, meta),
+            lambda: encode_position_backward_reference(table, p, c, meta))
+        n = p.shape[0]
+        # positions, cotangent and the entries the corners read in, dpos out
+        entry = _kernel_entry("blocked_grid_encode_bwd_pos", 157, err, ks, ps,
+                              n, meta, 12 * n + 4 * 2 * meta.n_levels * n
+                              + 4 * _touched_entries(meta, p) + 12 * n)
+    _print_times("K3", "2^18 positions x 16 levels", entry, ks, ps)
+    return entry
+
+
+def phase_k5(dev) -> dict:
+    """K5 on K3's positions, with cotangents seeded apart, in tiles of 2048
+    samples (the tile of a 2^18-sample stream; the last tile partial)."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import (
+        DEFAULT_TILE, encode_backward_reference_i8)
+    meta, _, pos, _ = _full_width_inputs(dev, 1 << 18)
+    cot = _cotangent(dev, meta, pos.shape[0], SEED + 4)
+    tile = DEFAULT_TILE
+    with torch.no_grad():
+        got = bgc.launch_bwd_i8(pos, cot, meta, tile)
+        torch.cuda.synchronize()
+        rel, err, cancelled, zeros = check_i8_grad(pos, cot, meta, tile, got)
+        print(f"K5: blocked_grid_encode_bwd_i8 {pos.shape[0]} positions, tile "
+              f"{tile} -> {tuple(got.shape)}: max |kernel - plain| "
+              f"{err:.3e}, max relative to sum_t scale_t*sum|q| {rel:.3e} "
+              f"(tolerance {KERNEL_I8_TOL}); exact zeros where every q is 0; "
+              f"{zeros / got.numel():.4f} of entries zero in the plain "
+              f"version, {cancelled} of them by cancelling quanta")
+        if not rel <= KERNEL_I8_TOL:
+            raise RuntimeError("K5 disagrees with its plain version")
+        p, c = pos[: 1 << 18], cot[: 1 << 18]
+        ks, ps = _time_in_turns(
+            lambda: bgc.launch_bwd_i8(p, c, meta, tile),
+            lambda: encode_backward_reference_i8(p, c, meta, tile),
+            plain_iters=2)
+    n = p.shape[0]
+    # positions and cotangent in, the whole table gradient out
+    entry = _kernel_entry("blocked_grid_encode_bwd_i8", 383, err, ks, ps, n,
+                          meta, 12 * n + 4 * 2 * meta.n_levels * n
+                          + 4 * meta.n_params)
+    _print_times("K5", "2^18 positions x 16 levels", entry, ks, ps)
+    return entry
 
 
 def orbit_camera(angle: float, radius: float = 2.2,
@@ -468,9 +671,10 @@ def build_sphere_dataset(dev, n_views: int, res: int, aabb_scale: int = 4):
         up=np.array([0.0, 0.0, 1.0], np.float32), images_u8=u8)
 
 
-def make_trainer(dataset, dev, config=None):
+def make_trainer(dataset, dev, config=None, **options):
     """The bench's trainer (bench.py: 4096 rays, dynamic live-ray count,
-    both error-map samplers) with the int8 grid sweep, on base.json."""
+    both error-map samplers) with the int8 grid sweep, on base.json;
+    ``options`` set further NerfTrainerConfig fields."""
     from ngp_tpu_torch.config import load_network_config
     from ngp_tpu_torch.train.nerf import NerfTrainer, NerfTrainerConfig
     cfg = config or load_network_config(ROOT / "configs/nerf/base.json")
@@ -479,7 +683,7 @@ def make_trainer(dataset, dev, config=None):
                            n_rays=4096, adapt_rays=False, dynamic_rays=True,
                            sample_image_proportional_to_error=True,
                            sample_focal_plane_proportional_to_error=True,
-                           grid_int8=True))
+                           grid_int8=True, **options))
 
 
 def view_psnr(tr, view: int = 0) -> float:
@@ -539,7 +743,7 @@ def phase_train(dev, n_views: int = TRAIN_VIEWS, res: int = TRAIN_RES,
     ds = build_sphere_dataset(dev, n_views, res)
     tr = make_trainer(ds, dev, config)
     psnr0 = view_psnr(tr)
-    print(f"train: {n_views} views {res}x{res} built in "
+    print(f"train: {ds.n_images} views {res}x{res} built in "
           f"{time.perf_counter() - t0:.2f} s; PSNR of view 0 before "
           f"training {psnr0:.2f} dB")
     cuda = dev.type == "cuda"    # False only in a CPU rehearsal
@@ -577,7 +781,9 @@ def phase_train(dev, n_views: int = TRAIN_VIEWS, res: int = TRAIN_RES,
                            f"update {tr.grid.ema_step}")
     if not (math.isfinite(loss) and math.isfinite(loss_w)):
         raise RuntimeError(f"training loss is not finite: {loss}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in ("blocked_grid_encode_fwd",
+                           "blocked_grid_encode_bwd",
+                           "blocked_grid_encode_fwd_i8") if launches[k] <= 0]
     if missing:
         raise RuntimeError(f"the training path never launched {missing}")
     psnr1 = view_psnr(tr)
@@ -593,6 +799,158 @@ def phase_train(dev, n_views: int = TRAIN_VIEWS, res: int = TRAIN_RES,
         raise RuntimeError("the step's K2 gradient disagrees with the plain "
                            "backward")
     return launches, tr
+
+
+def _rotation_about(axis: np.ndarray, angle: float) -> np.ndarray:
+    k = axis / np.linalg.norm(axis)
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + math.sin(angle) * K + (1 - math.cos(angle)) * K @ K
+
+
+def perturb_poses(xforms: np.ndarray, seed: int) -> np.ndarray:
+    """Every view but view 0 rotated by POSE_ROT_DEG about a random axis
+    and moved by POSE_TRANS in a random direction."""
+    rng = np.random.default_rng(seed)
+    out = xforms.copy()
+    for i in range(1, len(out)):
+        R = _rotation_about(rng.standard_normal(3), math.radians(POSE_ROT_DEG))
+        t = rng.standard_normal(3)
+        out[i, :, :3] = R @ xforms[i, :, :3]
+        out[i, :, 3] = xforms[i, :, 3] + POSE_TRANS * t / np.linalg.norm(t)
+    return out.astype(np.float32)
+
+
+def _relative_to(xf0: np.ndarray, xf: np.ndarray) -> np.ndarray:
+    """Camera→world ``xf`` in the frame of camera ``xf0``."""
+    R0 = xf0[:, :3]
+    return np.concatenate([R0.T @ xf[:, :3], (R0.T @ (xf[:, 3] - xf0[:, 3]))
+                           [:, None]], 1)
+
+
+def pose_errors(tr, true_xforms: np.ndarray):
+    """Mean rotation error (degrees) and translation error of views 1…
+    of the trainer's optimised poses against the true ones: absolute, and
+    relative to view 0 (each pose in the frame of view 0's own optimised
+    or true pose), which a rigid drift of all poses together does not
+    change. ((rot, trans), (rot relative, trans relative))."""
+    est = [tr.get_camera_extrinsics(i).astype(np.float64)
+           for i in range(len(true_xforms))]
+    true = true_xforms.astype(np.float64)
+
+    def mean_errors(pairs):
+        rot, trans = [], []
+        for e, t in pairs:
+            R = e[:, :3] @ t[:, :3].T
+            # the angle from sin and cos, exact near 0 where acos is not
+            sin = np.linalg.norm([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                                  R[1, 0] - R[0, 1]]) / 2.0
+            rot.append(math.degrees(math.atan2(sin, (np.trace(R) - 1) / 2)))
+            trans.append(float(np.linalg.norm(e[:, 3] - t[:, 3])))
+        return float(np.mean(rot)), float(np.mean(trans))
+    views = range(1, len(true))
+    return (mean_errors((est[i], true[i]) for i in views),
+            mean_errors((_relative_to(est[0], est[i]),
+                         _relative_to(true[0], true[i])) for i in views))
+
+
+def step_kernel_check(tr):
+    """K3 and K5 on the inputs of one real camera-optimising step, against
+    their plain versions: (K3's largest error relative to Σ|term|, K5's
+    relative to Σ_t scale_t·Σ|q|)."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    seen = {}
+
+    def spy(name, fn):
+        def wrapped(*args):
+            seen[name] = args
+            return fn(*args)
+        return wrapped
+    g = torch.Generator(device=tr.device).manual_seed(SEED + 5)
+    draws = tr.draws(tr.tcfg.n_rays, g).head(tr._n_live)
+    with mock.patch.object(bgc, "launch_bwd_pos",
+                           spy("pos", bgc.launch_bwd_pos)), \
+            mock.patch.object(bgc, "launch_bwd_i8",
+                              spy("i8", bgc.launch_bwd_i8)):
+        grads = tr._step_grads(draws, tr._error_state())[0]
+    table, pos, cot, meta = seen["pos"]
+    # K3 is deterministic (no atomics): rerun it on the step's inputs
+    with torch.no_grad():
+        rel_pos = check_pos_grad(table, pos, cot, meta,
+                                 bgc.launch_bwd_pos(table, pos, cot, meta))
+    pos, cot, meta, tile = seen["i8"]
+    rel_i8 = check_i8_grad(pos, cot, meta, tile,
+                           grads["pos_encoding.table"])[0]
+    return rel_pos, rel_i8, tile, pos.shape[0]
+
+
+def phase_pose(dev, ds, steps: int = POSE_STEPS, config=None):
+    """Camera optimisation on ``ds`` with seeded pose errors; returns the
+    launch counts of the run."""
+    import dataclasses as dc
+
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    true_xforms = ds.xforms
+    pert = dc.replace(ds, xforms=perturb_poses(true_xforms, SEED + 6),
+                      xforms_end=None)
+    tr = make_trainer(pert, dev, config, optimize_extrinsics=True,
+                      optimize_exposure=True, optimize_focal_length=True,
+                      encode_int8="full")
+    cuda = dev.type == "cuda"    # False only in a CPU rehearsal
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def report(step, psnr, loss=float("nan")):
+        (rot, trans), (rrot, rtrans) = pose_errors(tr, true_xforms)
+        print(f"pose: step {step}: PSNR of view 0 {psnr:.2f} dB; loss "
+              f"{loss:.4e}; {tr.last_samples} samples, {tr._n_live} live "
+              f"rays; mean pose error of views 1-{ds.n_images - 1} "
+              f"{rot:.4f} deg, {trans:.5f}; relative to view 0 {rrot:.4f} "
+              f"deg, {rtrans:.5f}")
+    psnr0 = view_psnr(tr)
+    report(0, psnr0)
+    # the launches and time of the training alone, in segments between
+    # the checkpoint reports (whose renders launch K1)
+    launches = dict.fromkeys(bgc.launches, 0)
+    train_s = 0.0
+    for start in range(0, steps, POSE_REPORT_EVERY):
+        _reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        loss = tr.train(min(POSE_REPORT_EVERY, steps - start))
+        sync()
+        train_s += time.perf_counter() - t0
+        for k, v in bgc.launches.items():
+            launches[k] += v
+        if not math.isfinite(loss):
+            raise RuntimeError(f"pose training loss is not finite: {loss}")
+        psnr1 = view_psnr(tr)
+        report(tr.training_step, psnr1, loss)
+    print(f"pose: {steps} steps (extrinsics, exposure, focal; int8 full; "
+          f"int8 grid sweep) {train_s * 1e3 / steps:.2f} ms/step; focal "
+          f"delta "
+          f"{tr.cam_params['focal_delta'].cpu().numpy().round(6).tolist()}")
+    print(f"pose: launches in the run {launches}")
+    missing = [k for k in ("blocked_grid_encode_bwd_pos",
+                           "blocked_grid_encode_fwd_i8",
+                           "blocked_grid_encode_bwd_i8")
+               if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"the pose path never launched {missing}")
+    print(f"pose: PSNR of view 0 {psnr0:.2f} -> {psnr1:.2f} dB "
+          f"(+{psnr1 - psnr0:.2f} dB; required +{POSE_PSNR_RISE_DB})")
+    if not psnr1 - psnr0 >= POSE_PSNR_RISE_DB:
+        raise RuntimeError("pose training did not raise the PSNR enough")
+    rel_pos, rel_i8, tile, n = step_kernel_check(tr)
+    print(f"pose: one step's kernels vs plain on its inputs ({n} samples, "
+          f"tile {tile}): K3 max |Δ| relative to sum|term| {rel_pos:.3e} "
+          f"(tolerance {KERNEL_POS_TOL}); K5 relative to "
+          f"sum_t scale_t*sum|q| {rel_i8:.3e} (tolerance {KERNEL_I8_TOL})")
+    if not (rel_pos <= KERNEL_POS_TOL and rel_i8 <= KERNEL_I8_TOL):
+        raise RuntimeError("the step's K3 or K5 disagrees with the plain "
+                           "version")
+    return launches
 
 
 def _attribute_kernels(prof, span_names, main_span: str):
@@ -713,14 +1071,20 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     dev = torch.device("cuda", 0)
     phase_build()
-    k1, k2, k4 = phase_k1(dev), phase_k2(dev), phase_k4(dev)
+    kernels = [phase_k1(dev), phase_k2(dev), phase_k3(dev), phase_k4(dev),
+               phase_k5(dev)]
     phase_slice(dev)
     launches, tr = phase_train(dev)
     if "--profile" in sys.argv[1:]:
         phase_profile(tr)
-    for k in (k1, k2, k4):
-        k["launches"] = launches[k["name"]]
-    print(json.dumps({"kernels": [k1, k2, k4]}))
+    pose_launches = phase_pose(dev, tr.dataset)
+    # each kernel's launches in the run of the path it was ported for: the
+    # training phase (K1, K2, K4), the pose phase (K3, K5)
+    for k in kernels:
+        k["launches"] = (pose_launches if k["name"] in (
+            "blocked_grid_encode_bwd_pos", "blocked_grid_encode_bwd_i8")
+            else launches)[k["name"]]
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))
     return 0

@@ -114,3 +114,29 @@ def grid_from_numpy(density, bitfield, mean, ema_step, coarse,
                          mean=t(mean, torch.float32),
                          ema_step=int(np.asarray(ema_step)),
                          coarse=t(coarse, torch.uint8))
+
+
+def camera_state_to_numpy(trainer) -> tuple[dict, dict, dict]:
+    """The port trainer's camera parameters and their Adam moments → the
+    JAX trainer's ``cam_params``, ``cam_m`` and ``cam_v`` (dicts of numpy
+    arrays with the same keys)."""
+    return tuple({k: v.detach().cpu().numpy() for k, v in d.items()}
+                 for d in (trainer.cam_params, trainer.cam_m, trainer.cam_v))
+
+
+def camera_state_from_numpy(trainer, cam_params: Mapping, cam_m: Mapping,
+                            cam_v: Mapping):
+    """Load the JAX trainer's ``cam_params``, ``cam_m`` and ``cam_v`` into
+    the port trainer, in place; the keys and shapes must match."""
+    for own, src in ((trainer.cam_params, cam_params),
+                     (trainer.cam_m, cam_m), (trainer.cam_v, cam_v)):
+        if set(own) != set(src):
+            raise ValueError(f"camera keys differ: {sorted(src)} vs "
+                             f"{sorted(own)}")
+        for k, t in own.items():
+            a = np.asarray(src[k], np.float32)
+            if a.shape != tuple(t.shape):
+                raise ValueError(f"camera {k}: shape {a.shape} != "
+                                 f"{tuple(t.shape)}")
+            with torch.no_grad():
+                t.copy_(torch.from_numpy(a.copy()))

@@ -1,5 +1,5 @@
-// Blocked hash-grid encode kernels for Hopper (sm_90a), one thread per
-// (sample, level) each, sharing one lookup-geometry function:
+// Blocked hash-grid encode kernels for Hopper (sm_90a), sharing one
+// lookup-geometry function; one thread per (sample, level), except K3:
 //
 //   K1 blocked_grid_encode_fwd_kernel    (L, R, 128) f32 table + (N, 3) f32
 //      positions -> (N, L*2) f32 features, sample-major.
@@ -7,9 +7,17 @@
 //   K2 blocked_grid_encode_bwd_kernel    (N, 3) positions + (N, L*2) f32
 //      cotangent -> dTable (L, R, 128) f32 (zeroed by the caller).
 //      Replaces hashgrid_pallas.py:_bwd_table_kernel.
+//   K3 blocked_grid_encode_bwd_pos_kernel f32 table + positions + cotangent
+//      -> dpos (N, 3) f32; one thread per sample, looping over the levels.
+//      Replaces hashgrid_pallas.py:_bwd_frac_kernel and the einsum that
+//      chains its dfrac to dpos.
 //   K4 blocked_grid_encode_fwd_i8_kernel (L, R, 128) int8 table + (L,) f32
 //      per-level scales + positions -> (N, L*2) f32 features.
 //      Replaces hashgrid_pallas.py:_fwd_kernel_i8.
+//   K5 blocked_grid_encode_bwd_i8{_max,}_kernel positions + cotangent ->
+//      dTable with the products w*g quantised to int8 per (level, sample
+//      tile): pass 1 takes each tile's max |w*g|, pass 2 is K2's scatter
+//      of scale*q. Replaces hashgrid_pallas.py:_bwd_table_kernel_i8.
 //
 // The TPU kernels bring each sample's table row to the sample with a
 // one-hot matmul, because the TPU has no fast gather, and keep the lookup
@@ -32,6 +40,14 @@
 //    samples add into the same addresses and serialise there. This first
 //    version adds scalar atomics per lane and does nothing yet against the
 //    contention; the sum order, and so the last bits, vary between runs.
+//  - K3: the same scattered corner reads as K1 (the f32 table, even in the
+//    int8 modes, as the JAX package's int8 backward reuses the f32 K3),
+//    plus the cotangent; it writes only 12 bytes per sample.
+//  - K5: K2's atomics, minus those of zero quanta, after a first pass
+//    that reads the positions and cotangent once more. The TPU sums the
+//    quanta of a tile exactly in int32 before scaling; here each scale*q
+//    is added in f32, so entries differ from that sum by f32 rounding of
+//    the order (the checks are relative to sum_t scale_t * sum|q|).
 //
 // Numerics: x = pos * scale + 0.5 is rounded twice (__fmul_rn, __fadd_rn),
 // like the separate multiply and add of the reference; a fused multiply-add
@@ -194,6 +210,102 @@ __global__ void blocked_grid_encode_bwd_kernel(
   }
 }
 
+// K3: one thread per sample, looping over the levels in order, so dpos is
+// summed as the reference's einsum over levels: no atomics, deterministic.
+__global__ void blocked_grid_encode_bwd_pos_kernel(
+    const float* __restrict__ pos, const float* __restrict__ table,
+    const float* __restrict__ grad, float* __restrict__ dpos,
+    const LevelParams lp, int n, int n_levels, int log2_rows,
+    int morton_hash) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float acc[kDims] = {0.f, 0.f, 0.f};
+  for (int l = 0; l < n_levels; ++l) {
+    const float2 gv = __ldg(reinterpret_cast<const float2*>(grad + (size_t)i * n_levels * 2) + l);
+    if (gv.x == 0.f && gv.y == 0.f) continue;   // adds only zeros
+    const Lookup g = lookup_geometry(pos, i, l, lp, log2_rows, morton_hash);
+    const float* rowp = table + (((size_t)l << log2_rows) + g.row) * kLanes + g.base_lane;
+    float dfrac[kDims] = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < kCorners; ++c) {
+      const float2 v = __ldg(reinterpret_cast<const float2*>(rowp + corner_offset(c)));
+      // d/dw of the output at this corner, summed over the two features
+      const float gg = v.x * gv.x + v.y * gv.y;
+#pragma unroll
+      for (int d = 0; d < kDims; ++d) {
+        float prod = 1.f;
+#pragma unroll
+        for (int dd = 0; dd < kDims; ++dd) {
+          if (dd != d) prod *= ((c >> dd) & 1) ? g.frac[dd] : 1.f - g.frac[dd];
+        }
+        dfrac[d] += ((c >> d) & 1) ? gg * prod : -(gg * prod);
+      }
+    }
+    const float s = lp.scale[l];
+#pragma unroll
+    for (int d = 0; d < kDims; ++d) acc[d] += dfrac[d] * s;
+  }
+#pragma unroll
+  for (int d = 0; d < kDims; ++d) dpos[(size_t)i * kDims + d] = acc[d];
+}
+
+// K5, pass 1: the largest |w*g| of each (level, sample tile) into
+// tile_max[l * n_tiles + t], as float bits. For non-negative floats the
+// bit patterns order as the values, so an unsigned atomicMax is exact and
+// order-free. A warp lies inside one tile (tiles are powers of two of at
+// least 32 samples), so it reduces first and adds one atomic.
+__global__ void blocked_grid_encode_bwd_i8_max_kernel(
+    const float* __restrict__ pos, const float* __restrict__ grad,
+    unsigned int* __restrict__ tile_max, const LevelParams lp, int n,
+    int n_levels, int log2_rows, int morton_hash, int log2_tile,
+    int n_tiles) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int l = blockIdx.y;
+  float m = 0.f;
+  if (i < n) {
+    const float2 gv = __ldg(reinterpret_cast<const float2*>(grad + (size_t)i * n_levels * 2) + l);
+    if (gv.x != 0.f || gv.y != 0.f) {
+      const Lookup g = lookup_geometry(pos, i, l, lp, log2_rows, morton_hash);
+#pragma unroll
+      for (int c = 0; c < kCorners; ++c) {
+        const float w = corner_weight(g, c);
+        m = fmaxf(m, fmaxf(fabsf(__fmul_rn(w, gv.x)), fabsf(__fmul_rn(w, gv.y))));
+      }
+    }
+  }
+  const unsigned int bits = __reduce_max_sync(0xffffffffu, __float_as_uint(m));
+  if ((threadIdx.x & 31) == 0 && bits != 0u && i < n)
+    atomicMax(tile_max + (size_t)l * n_tiles + (i >> log2_tile), bits);
+}
+
+// K5, pass 2: K2's scatter, adding scale * q with the tile's scale
+// max(tile_max, 1e-20) / 127 and q = clip(rint((w*g) / scale), +-127).
+// A zero q adds nothing, so entries whose every q is 0 stay exactly 0.
+__global__ void blocked_grid_encode_bwd_i8_kernel(
+    const float* __restrict__ pos, const float* __restrict__ grad,
+    const unsigned int* __restrict__ tile_max, float* __restrict__ dtable,
+    const LevelParams lp, int n, int n_levels, int log2_rows,
+    int morton_hash, int log2_tile, int n_tiles) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int l = blockIdx.y;
+  if (i >= n) return;
+  const float2 gv = __ldg(reinterpret_cast<const float2*>(grad + (size_t)i * n_levels * 2) + l);
+  if (gv.x == 0.f && gv.y == 0.f) return;
+  const float tmax = __uint_as_float(__ldg(tile_max + (size_t)l * n_tiles + (i >> log2_tile)));
+  const float scale = __fdiv_rn(fmaxf(tmax, 1e-20f), 127.f);
+  const Lookup g = lookup_geometry(pos, i, l, lp, log2_rows, morton_hash);
+  float* rowp = dtable + (((size_t)l << log2_rows) + g.row) * kLanes + g.base_lane;
+#pragma unroll
+  for (int c = 0; c < kCorners; ++c) {
+    const float w = corner_weight(g, c);
+    float* p = rowp + corner_offset(c);
+    const float q0 = fminf(fmaxf(rintf(__fdiv_rn(__fmul_rn(w, gv.x), scale)), -127.f), 127.f);
+    const float q1 = fminf(fmaxf(rintf(__fdiv_rn(__fmul_rn(w, gv.y), scale)), -127.f), 127.f);
+    if (q0 != 0.f) atomicAdd(p, __fmul_rn(q0, scale));
+    if (q1 != 0.f) atomicAdd(p + 1, __fmul_rn(q1, scale));
+  }
+}
+
 int fill_levels(LevelParams* lp, const float* scales,
                 const int* blocks_per_dim, const unsigned char* is_dense,
                 int n, int n_levels, int log2_rows) {
@@ -263,6 +375,48 @@ extern "C" int ngp_blocked_grid_encode_bwd(
   blocked_grid_encode_bwd_kernel<<<grid_for(n, n_levels), kThreads, 0,
                                    static_cast<cudaStream_t>(stream)>>>(
       pos, grad, dtable, lp, n, n_levels, log2_rows, morton_hash);
+  return (int)cudaGetLastError();
+}
+
+// K3: dpos (N, 3) is written in full; no zeroing needed.
+extern "C" int ngp_blocked_grid_encode_bwd_pos(
+    const float* pos, const float* table, const float* grad, float* dpos,
+    const float* scales, const int* blocks_per_dim,
+    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+    int morton_hash, void* stream) {
+  LevelParams lp = {};
+  const int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n,
+                             n_levels, log2_rows);
+  if (rc != 0) return rc;
+  blocked_grid_encode_bwd_pos_kernel<<<(n + kThreads - 1) / kThreads,
+                                       kThreads, 0,
+                                       static_cast<cudaStream_t>(stream)>>>(
+      pos, table, grad, dpos, lp, n, n_levels, log2_rows, morton_hash);
+  return (int)cudaGetLastError();
+}
+
+// K5, both passes on one stream. tile_max (L * ceil(n / 2^log2_tile)
+// uint32) and dtable must be zeroed by the caller.
+extern "C" int ngp_blocked_grid_encode_bwd_i8(
+    const float* pos, const float* grad, unsigned int* tile_max,
+    float* dtable, const float* scales, const int* blocks_per_dim,
+    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+    int morton_hash, int log2_tile, void* stream) {
+  LevelParams lp = {};
+  int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                       log2_rows);
+  if (rc != 0) return rc;
+  if (log2_tile < 5 || log2_tile > 30) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (int)(((long long)n + (1LL << log2_tile) - 1) >> log2_tile);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  blocked_grid_encode_bwd_i8_max_kernel<<<grid_for(n, n_levels), kThreads, 0, s>>>(
+      pos, grad, tile_max, lp, n, n_levels, log2_rows, morton_hash, log2_tile,
+      n_tiles);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  blocked_grid_encode_bwd_i8_kernel<<<grid_for(n, n_levels), kThreads, 0, s>>>(
+      pos, grad, tile_max, dtable, lp, n, n_levels, log2_rows, morton_hash,
+      log2_tile, n_tiles);
   return (int)cudaGetLastError();
 }
 

@@ -9,10 +9,12 @@ fine levels hash the block coordinate (instant-ngp primes) into the
 power-of-two row count. The ``(L, R, 128)`` table layout is the JAX
 package's, so its parameters load unchanged.
 
-``encode_reference``, ``encode_backward_reference`` and
-``encode_reference_i8`` (with ``quantize_table_i8``) are the plain versions
-of the CUDA kernels K1, K2 and K4 wrapped in ``blocked_grid_cuda.py``: the
-CPU path, and the oracles the kernels are checked against on the card.
+``encode_reference``, ``encode_backward_reference``,
+``encode_position_backward_reference``, ``encode_reference_i8`` (with
+``quantize_table_i8``) and ``encode_backward_reference_i8`` are the plain
+versions of the CUDA kernels K1, K2, K3, K4 and K5 wrapped in
+``blocked_grid_cuda.py``: the CPU path, and the oracles the kernels are
+checked against on the card.
 """
 from __future__ import annotations
 
@@ -202,7 +204,12 @@ def corner_lanes_and_weights(meta: BlockedGridMeta, local: torch.Tensor,
     lanes = torch.sum(v * lane_strides, dim=-1) * meta.n_features_per_level
     w = torch.where(cor[None, None] > 0, frac[:, :, None, :],
                     1.0 - frac[:, :, None, :])
-    return lanes, torch.prod(w, dim=-1)
+    # the product in dimension order, as the kernels multiply: the int8
+    # backward quantises w·g, so its plain version needs the same bits
+    weights = w[..., 0]
+    for d in range(1, D):
+        weights = weights * w[..., d]
+    return lanes, weights
 
 
 def _corner_index(meta: BlockedGridMeta, pos: torch.Tensor):
@@ -246,12 +253,117 @@ def encode_backward_reference(pos: torch.Tensor, grad: torch.Tensor,
     return dflat.view(L, meta.rows, LANES)
 
 
+def encode_position_backward_reference(table: torch.Tensor, pos: torch.Tensor,
+                                       grad: torch.Tensor,
+                                       meta: BlockedGridMeta,
+                                       magnitude: bool = False
+                                       ) -> torch.Tensor:
+    """Plain position backward of ``encode_reference``, written out as the
+    Pallas ``_bwd_frac_kernel`` computes it: per level and dimension d,
+    dfrac_d = Σ_c Σ_f (g_f · T[c, f]) · Π_{d'≠d} w_{d'}(c) · (2·bit_d(c) − 1),
+    then dpos = Σ_l dfrac · scale_l in level order. Reads the f32 table
+    (the Pallas kernel rounds it to bf16). (N, D) f32.
+
+    ``magnitude`` sums the terms' absolute values instead: the scale that
+    the sum's rounding error is relative to (the terms cancel)."""
+    L, F, D = meta.n_levels, meta.n_features_per_level, meta.n_dims
+    N = pos.shape[0]
+    rows, local, frac = lookup_geometry(meta, pos)
+    lanes, _ = corner_lanes_and_weights(meta, local, frac)
+    idx = rows[:, :, None] * LANES + lanes                 # (L, N, C)
+    flat = table.reshape(L, -1)
+    g = grad.reshape(N, L, F).transpose(0, 1)              # (L, N, F)
+    C = 1 << D
+    bits = torch.tensor([[(c >> d) & 1 for d in range(D)] for c in range(C)],
+                        dtype=torch.int64, device=pos.device)  # (C, D)
+    w = torch.where(bits[None, None] > 0, frac[:, :, None, :],
+                    1.0 - frac[:, :, None, :])             # (L, N, C, D)
+    # d/dw of the output, per corner and feature: g_f · T[c, f]
+    gG = [g[:, :, f:f + 1] * torch.gather(flat, 1, (idx + f).reshape(L, -1)
+                                          ).view(idx.shape)
+          for f in range(F)]                               # F × (L, N, C)
+    if magnitude:
+        gG = [torch.abs(t) for t in gG]
+    dfrac = []
+    for d in range(D):
+        prod = torch.ones_like(w[..., 0])
+        for dd in range(D):
+            if dd != d:
+                prod = prod * w[..., dd]
+        sign = (bits[:, d] * 2 - 1).to(pos.dtype)          # (C,)
+        if magnitude:
+            sign = torch.ones_like(sign)
+        dfrac.append(sum(torch.sum(t * prod * sign, dim=-1) for t in gG))
+    dfrac = torch.stack(dfrac, dim=-1)                     # (L, N, D)
+    scales = torch.tensor(meta.level_scales, dtype=torch.float32,
+                          device=pos.device)
+    dpos = dfrac[0] * scales[0]
+    for l in range(1, L):
+        dpos = dpos + dfrac[l] * scales[l]
+    return dpos
+
+
+def _div127(x: torch.Tensor) -> torch.Tensor:
+    """x / 127, correctly rounded as the JAX package and the kernels divide:
+    PyTorch on CUDA multiplies by the reciprocal of a Python-number
+    divisor, which is an ulp off for some x."""
+    return x / torch.tensor(127.0, device=x.device)
+
+
+# Sample tile of the Pallas kernels (hashgrid_pallas.py:32): the int8 table
+# backward quantises its cotangents per (level, tile of samples)
+DEFAULT_TILE = 2048
+
+
+def eff_tile(n: int, tile: int = DEFAULT_TILE) -> int:
+    """The sample tile the Pallas kernels use for a stream of n samples:
+    ``tile``, clamped to the stream padded to a power of two ≥ 512
+    (``hashgrid_pallas._eff_tile``)."""
+    p = 1 << max(int(n - 1).bit_length(), 9)
+    return min(tile, p)
+
+
+def encode_backward_reference_i8(pos: torch.Tensor, grad: torch.Tensor,
+                                 meta: BlockedGridMeta, tile: int,
+                                 magnitude: bool = False) -> torch.Tensor:
+    """Plain table backward of the ``full`` int8 mode (Pallas
+    ``_bwd_table_kernel_i8``): per level and per tile of ``tile`` samples,
+    in tile order, the products w·g are quantised with the tile's scale
+    ``max(max|w·g|, 1e-20) / 127`` to q = clip(round_half_even(w·g /
+    scale), ±127); each table entry sums its q exactly in integers within
+    the tile and adds ``f32(Σq) · scale`` across tiles. Entries whose every
+    q is 0 stay exactly 0. (L, R, 128) f32.
+
+    ``magnitude`` sums |q| instead: Σ_t scale_t · Σ|q|, the scale that a
+    sum in another order is held to."""
+    L, F = meta.n_levels, meta.n_features_per_level
+    N = pos.shape[0]
+    idx, weights = _corner_index(meta, pos)                # (L, N, C)
+    g = grad.reshape(N, L, F).transpose(0, 1)              # (L, N, F)
+    wg = weights[:, :, :, None] * g[:, :, None, :]         # (L, N, C, F)
+    ent = idx[:, :, :, None] + torch.arange(F, device=pos.device)
+    dflat = torch.zeros((L, meta.rows * LANES), dtype=torch.float32,
+                        device=pos.device)
+    for l in range(L):
+        for t0 in range(0, N, tile):
+            v = wg[l, t0:t0 + tile].reshape(-1)
+            scale = _div127(torch.clamp(torch.amax(torch.abs(v)), min=1e-20))
+            q = torch.clamp(torch.round(v / scale), -127, 127).to(torch.int32)
+            if magnitude:
+                q = torch.abs(q)
+            qsum = torch.zeros(meta.rows * LANES, dtype=torch.int32,
+                               device=pos.device)
+            qsum.scatter_add_(0, ent[l, t0:t0 + tile].reshape(-1), q)
+            dflat[l] += qsum.to(torch.float32) * scale
+    return dflat.view(L, meta.rows, LANES)
+
+
 def quantize_table_i8(table: torch.Tensor):
     """(L, R, 128) f32 table → (int8 table, (L,) f32 scales), per-level
     scale ``max|T|/127`` with a 1e-20 floor, rounded half to even
     (``hashgrid_pallas.py:445-448``)."""
-    scales = torch.clamp(torch.amax(torch.abs(table), dim=(1, 2)),
-                         min=1e-20) / 127.0
+    scales = _div127(torch.clamp(torch.amax(torch.abs(table), dim=(1, 2)),
+                                 min=1e-20))
     q = torch.clamp(torch.round(table / scales[:, None, None]), -127, 127)
     return q.to(torch.int8), scales
 

@@ -1,11 +1,13 @@
 """Wrappers of the hand-written CUDA blocked-grid kernels: K1 (encode
-forward), K2 (table backward) and K4 (int8-table forward).
+forward), K2 (table backward), K3 (position backward), K4 (int8-table
+forward) and K5 (int8 table backward).
 
-``blocked_grid_encode`` and ``blocked_grid_encode_i8fwd`` are the entry
-points. Both pick by the device of the tensors they are given: CPU tensors
-go to the plain PyTorch versions in ``blocked_grid.py``, CUDA tensors to the
-kernels in ``ngp_tpu_torch/csrc/blocked_grid_encode.cu``; anything else
-raises. There is no fallback from a kernel to its plain version.
+``blocked_grid_encode``, ``blocked_grid_encode_i8fwd`` and
+``blocked_grid_encode_int8`` are the entry points. They pick by the device
+of the tensors they are given: CPU tensors go to the plain PyTorch
+versions in ``blocked_grid.py``, CUDA tensors to the kernels in
+``ngp_tpu_torch/csrc/blocked_grid_encode.cu``; anything else raises. There
+is no fallback from a kernel to its plain version.
 
 The kernels are compiled with ``nvcc`` into a shared library with a plain C
 interface on first use (into ``build/ngp_tpu_torch/`` at the repository
@@ -20,15 +22,15 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ngp_tpu_torch.kernels.blocked_grid import (LANES, BlockedGridMeta,
-                                                encode_backward_reference,
-                                                encode_reference,
-                                                encode_reference_i8,
-                                                quantize_table_i8)
+from ngp_tpu_torch.kernels.blocked_grid import (
+    LANES, BlockedGridMeta, eff_tile, encode_backward_reference,
+    encode_backward_reference_i8, encode_position_backward_reference,
+    encode_reference, encode_reference_i8, quantize_table_i8)
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -40,7 +42,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # only where its kernel is launched, so a run can show that its main path
 # went through the kernels.
 launches = {"blocked_grid_encode_fwd": 0, "blocked_grid_encode_bwd": 0,
-            "blocked_grid_encode_fwd_i8": 0}
+            "blocked_grid_encode_bwd_pos": 0, "blocked_grid_encode_fwd_i8": 0,
+            "blocked_grid_encode_bwd_i8": 0}
 
 _lib = None
 build_log = ""
@@ -85,9 +88,14 @@ def build() -> ctypes.CDLL:
     lib.ngp_blocked_grid_encode_fwd.argtypes = [vp, vp, vp] + levels
     lib.ngp_blocked_grid_encode_bwd.argtypes = [vp, vp, vp] + levels
     lib.ngp_blocked_grid_encode_fwd_i8.argtypes = [vp, vp, vp, vp] + levels
+    lib.ngp_blocked_grid_encode_bwd_pos.argtypes = [vp, vp, vp, vp] + levels
+    lib.ngp_blocked_grid_encode_bwd_i8.argtypes = ([vp, vp, vp, vp]
+                                                   + levels[:-1] + [ci, vp])
     for fn in (lib.ngp_blocked_grid_encode_fwd,
                lib.ngp_blocked_grid_encode_bwd,
-               lib.ngp_blocked_grid_encode_fwd_i8):
+               lib.ngp_blocked_grid_encode_bwd_pos,
+               lib.ngp_blocked_grid_encode_fwd_i8,
+               lib.ngp_blocked_grid_encode_bwd_i8):
         fn.restype = ci
     lib.ngp_cuda_error_string.argtypes = [ci]
     lib.ngp_cuda_error_string.restype = ctypes.c_char_p
@@ -122,6 +130,14 @@ def _check_table(table: torch.Tensor, meta: BlockedGridMeta,
     if tuple(table.shape) != (meta.n_levels, meta.rows, LANES):
         raise ValueError(f"table shape {tuple(table.shape)} != "
                          f"{(meta.n_levels, meta.rows, LANES)}")
+
+
+def _check_cotangent(pos: torch.Tensor, grad: torch.Tensor,
+                     meta: BlockedGridMeta):
+    if grad.dtype != torch.float32 or tuple(grad.shape) != (
+            pos.shape[0], meta.n_levels * 2):
+        raise ValueError(f"cotangent must be float32 (N, L·2), got "
+                         f"{grad.dtype} {tuple(grad.shape)}")
 
 
 def _level_args(meta: BlockedGridMeta, pos: torch.Tensor):
@@ -187,10 +203,7 @@ def launch_bwd(pos: torch.Tensor, grad: torch.Tensor,
     """K2: (N, 3) positions + (N, L·2) f32 cotangent → dTable
     (L, R, 128) f32."""
     _check(meta, pos, grad)
-    if grad.dtype != torch.float32 or tuple(grad.shape) != (
-            pos.shape[0], meta.n_levels * 2):
-        raise ValueError(f"cotangent must be float32 (N, L·2), got "
-                         f"{grad.dtype} {tuple(grad.shape)}")
+    _check_cotangent(pos, grad, meta)
     dtable = torch.zeros((meta.n_levels, meta.rows, LANES),
                          dtype=torch.float32, device=pos.device)
     if pos.shape[0] == 0:
@@ -202,17 +215,67 @@ def launch_bwd(pos: torch.Tensor, grad: torch.Tensor,
     return dtable
 
 
+def launch_bwd_pos(table: torch.Tensor, pos: torch.Tensor,
+                   grad: torch.Tensor, meta: BlockedGridMeta) -> torch.Tensor:
+    """K3: (L, R, 128) f32 table + (N, 3) positions + (N, L·2) f32
+    cotangent → dpos (N, 3) f32."""
+    _check(meta, pos, table, grad)
+    _check_table(table, meta, torch.float32)
+    _check_cotangent(pos, grad, meta)
+    dpos = torch.empty((pos.shape[0], 3), dtype=torch.float32,
+                       device=pos.device)
+    if pos.shape[0] == 0:
+        return dpos
+    lib = build()
+    args, _keep = _level_args(meta, pos)
+    _run("blocked_grid_encode_bwd_pos", lib.ngp_blocked_grid_encode_bwd_pos,
+         pos.data_ptr(), table.data_ptr(), grad.data_ptr(), dpos.data_ptr(),
+         *args)
+    return dpos
+
+
+def launch_bwd_i8(pos: torch.Tensor, grad: torch.Tensor,
+                  meta: BlockedGridMeta, tile: int) -> torch.Tensor:
+    """K5: (N, 3) positions + (N, L·2) f32 cotangent → dTable (L, R, 128)
+    f32, the products w·g quantised to int8 per (level, tile of ``tile``
+    samples)."""
+    _check(meta, pos, grad)
+    _check_cotangent(pos, grad, meta)
+    if tile < 32 or tile & (tile - 1):
+        raise ValueError(f"int8 backward tile must be a power of two ≥ 32, "
+                         f"got {tile}")
+    dtable = torch.zeros((meta.n_levels, meta.rows, LANES),
+                         dtype=torch.float32, device=pos.device)
+    if pos.shape[0] == 0:
+        return dtable
+    n_tiles = -(-pos.shape[0] // tile)
+    tile_max = torch.zeros((meta.n_levels, n_tiles), dtype=torch.int32,
+                           device=pos.device)
+    lib = build()
+    args, _keep = _level_args(meta, pos)
+    _run("blocked_grid_encode_bwd_i8", lib.ngp_blocked_grid_encode_bwd_i8,
+         pos.data_ptr(), grad.data_ptr(), tile_max.data_ptr(),
+         dtable.data_ptr(), *args[:-1], tile.bit_length() - 1, args[-1])
+    return dtable
+
+
+# int8 modes of the encode (the JAX package's NGP_TPU_ENCODE_INT8): "" the
+# f32 table; "fwd" the int8 forward (K4) with the exact f32 backward (K2);
+# "full" the int8 forward and the int8-quantised table backward (K5). The
+# position gradient (K3) reads the f32 table in every mode.
+INT8_MODES = ("", "fwd", "full")
+
+
 class _BlockedGridEncode(torch.autograd.Function):
-    """Encode forward (K1, or K4 on the int8-quantised table) with the
-    table backward (K2) on CUDA; the plain versions of all three on the
-    CPU. The int8 forward keeps the exact f32 backward, as the JAX
-    package's ``blocked_grid_encode_i8fwd``."""
+    """Encode forward (K1, or K4 on the int8-quantised table), table
+    backward (K2, or K5 in the ``full`` mode) and position backward (K3) on
+    CUDA; the plain versions of all five on the CPU."""
 
     @staticmethod
-    def forward(ctx, table, pos, meta, int8_table):
-        ctx.meta = meta
+    def forward(ctx, table, pos, meta, mode, tile):
+        ctx.meta, ctx.mode, ctx.tile = meta, mode, tile
         ctx.save_for_backward(table, pos)
-        if int8_table:
+        if mode:
             table_q, qscales = quantize_table_i8(table)
             if pos.is_cuda:
                 return launch_fwd_i8(table_q, qscales, pos, meta)
@@ -228,33 +291,34 @@ class _BlockedGridEncode(torch.autograd.Function):
         grad = grad.contiguous()
         d_table = d_pos = None
         if ctx.needs_input_grad[0]:
-            d_table = (launch_bwd(pos, grad, meta) if pos.is_cuda
-                       else encode_backward_reference(pos, grad, meta))
+            if ctx.mode == "full":
+                d_table = (launch_bwd_i8(pos, grad, meta, ctx.tile)
+                           if pos.is_cuda else
+                           encode_backward_reference_i8(pos, grad, meta,
+                                                        ctx.tile))
+            else:
+                d_table = (launch_bwd(pos, grad, meta) if pos.is_cuda
+                           else encode_backward_reference(pos, grad, meta))
         if ctx.needs_input_grad[1]:
-            if pos.is_cuda:
-                raise NotImplementedError(
-                    "position gradient of the blocked-grid encode needs K3 "
-                    "(hashgrid_pallas.py:_bwd_frac_kernel), not ported yet")
-            with torch.enable_grad():
-                p = pos.detach().requires_grad_()
-                out = encode_reference(table.detach(), p, meta)
-                d_pos, = torch.autograd.grad(out, p, grad)
-        return d_table, d_pos, None, None
+            d_pos = (launch_bwd_pos(table, pos, grad, meta) if pos.is_cuda
+                     else encode_position_backward_reference(table, pos,
+                                                             grad, meta))
+        return d_table, d_pos, None, None, None
 
 
-def _encode(table, pos, meta, int8_table: bool):
+def _encode(table, pos, meta, mode: str, tile: int):
     if not (table.device.type == pos.device.type
             and pos.device.type in ("cpu", "cuda")):
         raise ValueError(f"blocked_grid_encode: unsupported devices "
                          f"{table.device} / {pos.device}")
-    return _BlockedGridEncode.apply(table, pos, meta, int8_table)
+    return _BlockedGridEncode.apply(table, pos, meta, mode, tile)
 
 
 def blocked_grid_encode(table: torch.Tensor, pos: torch.Tensor,
                         meta: BlockedGridMeta) -> torch.Tensor:
     """(L, R, 128) table + (N, D) positions → (N, L·2) features; K1 forward,
-    K2 table backward."""
-    return _encode(table, pos, meta, False)
+    K2 table backward, K3 position backward."""
+    return _encode(table, pos, meta, "", 0)
 
 
 def blocked_grid_encode_i8fwd(table: torch.Tensor, pos: torch.Tensor,
@@ -262,4 +326,29 @@ def blocked_grid_encode_i8fwd(table: torch.Tensor, pos: torch.Tensor,
     """The encode on the int8-quantised table (per-level scale
     ``max|T|/127``): K4 forward, the exact K2 table backward (port of
     ``hashgrid_pallas.blocked_grid_encode_i8fwd``)."""
-    return _encode(table, pos, meta, True)
+    return _encode(table, pos, meta, "fwd", 0)
+
+
+def blocked_grid_encode_int8(table: torch.Tensor, pos: torch.Tensor,
+                             meta: BlockedGridMeta,
+                             tile: Optional[int] = None) -> torch.Tensor:
+    """The ``full`` int8 encode (port of
+    ``hashgrid_pallas.blocked_grid_encode_int8``): K4 forward, and the table
+    backward K5 with the cotangent products quantised per (level, tile of
+    ``tile`` samples). ``tile`` defaults to ``eff_tile(N)``; a caller whose
+    JAX counterpart runs on a padded stream passes that stream's tile."""
+    return _encode(table, pos, meta, "full",
+                   eff_tile(pos.shape[0]) if tile is None else tile)
+
+
+def encode_mode(table: torch.Tensor, pos: torch.Tensor,
+                meta: BlockedGridMeta, mode: str = "",
+                tile: Optional[int] = None) -> torch.Tensor:
+    """The encode in one of ``INT8_MODES``."""
+    if mode == "full":
+        return blocked_grid_encode_int8(table, pos, meta, tile)
+    if mode == "fwd":
+        return blocked_grid_encode_i8fwd(table, pos, meta)
+    if mode == "":
+        return blocked_grid_encode(table, pos, meta)
+    raise ValueError(f"int8 mode must be one of {INT8_MODES}, got {mode!r}")

@@ -94,9 +94,11 @@ class Composite(nn.Module):
 class BlockedGridEncoding(nn.Module):
     """The blocked multiresolution grid (see kernels/blocked_grid.py). The
     encode runs the CUDA kernels on CUDA tensors and the plain PyTorch
-    versions on CPU tensors. ``int8_table`` reads the table quantised to
-    int8 in the forward (K4) and keeps the exact f32 table backward (K2):
-    the JAX package's ``NGP_TPU_ENCODE_INT8=fwd``, as an argument."""
+    versions on CPU tensors. ``int8`` is the JAX package's
+    ``NGP_TPU_ENCODE_INT8``, as an argument: ``"fwd"`` reads the table
+    quantised to int8 in the forward (K4) and keeps the exact f32 table
+    backward (K2); ``"full"`` quantises the table backward's cotangents
+    too (K5), per tile of ``tile`` samples."""
 
     def __init__(self, meta: BlockedGridMeta,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -111,10 +113,10 @@ class BlockedGridEncoding(nn.Module):
         return {"row_hash": self.meta.row_hash,
                 "log2_rows": self.meta.log2_rows}
 
-    def forward(self, x, max_level=None, int8_table: bool = False):
-        encode = (blocked_grid_cuda.blocked_grid_encode_i8fwd if int8_table
-                  else blocked_grid_cuda.blocked_grid_encode)
-        out = encode(self.table, x, self.meta)
+    def forward(self, x, max_level=None, int8: str = "",
+                tile: Optional[int] = None):
+        out = blocked_grid_cuda.encode_mode(self.table, x, self.meta, int8,
+                                            tile)
         if max_level is None:
             return out
         # zero the levels at or above max_level·L (scalar or per sample)

@@ -1,7 +1,7 @@
 """The NeRF network (port of ``ngp_tpu/nn/models.py``, ref:
 include/neural-graphics-primitives/nerf_network.h:77-548):
 pos → hash encoding → density MLP (16 outputs, [0] = raw density);
-[density MLP outputs ⊕ dir encoding] → RGB MLP → 3 outputs."""
+[density MLP outputs ⊕ dir encoding ⊕ extra dims] → RGB MLP → 3 outputs."""
 from __future__ import annotations
 
 from typing import Optional
@@ -31,17 +31,24 @@ class NerfNetwork(nn.Module):
     ``forward(pos01, dir01)`` returns (rgb_raw (N,3), density_raw (N,)),
     pre-activation. Both forms work under ``torch.func.functional_call``,
     which is how the renderer evaluates a given parameter dict.
+
+    ``n_extra_dims`` per-image latent dims (trained by the trainer) join
+    the direction: the dir encoding runs over 3 + E dims, and
+    ``forward``/``apply`` then need ``extra`` (N, E).
     """
 
     def __init__(self, config: dict, aabb_scale: int = 1,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 n_extra_dims: int = 0):
         super().__init__()
+        self.n_extra_dims = n_extra_dims
         enc_cfg = autofill_hashgrid_config(config["encoding"], 3, 2048.0,
                                            aabb_scale=aabb_scale)
         self.pos_encoding = create_encoding(3, enc_cfg, generator, device)
         self.dir_encoding = create_encoding(
-            3, config.get("dir_encoding", {"otype": "SphericalHarmonics",
-                                           "degree": 4}), generator, device)
+            3 + n_extra_dims,
+            config.get("dir_encoding", {"otype": "SphericalHarmonics",
+                                        "degree": 4}), generator, device)
         self.density_net = MLP.from_config(
             self.pos_encoding.n_output_dims, DENSITY_MLP_OUT,
             config["network"], generator, device)
@@ -49,26 +56,33 @@ class NerfNetwork(nn.Module):
             self.dir_encoding.n_output_dims + DENSITY_MLP_OUT, 3,
             config.get("rgb_network", config["network"]), generator, device)
 
-    def forward(self, pos01, dir01=None, max_level=None,
-                int8_table: bool = False):
+    def forward(self, pos01, dir01=None, max_level=None, extra=None,
+                int8: str = "", tile: Optional[int] = None):
         h = self.density_net(self.pos_encoding(pos01, max_level=max_level,
-                                               int8_table=int8_table))
+                                               int8=int8, tile=tile))
         if dir01 is None:
             return h
-        dfeat = self.dir_encoding(dir01)
+        if (extra is None) != (self.n_extra_dims == 0):
+            raise ValueError(f"the network has {self.n_extra_dims} extra "
+                             "dims: pass extra (N, E) exactly when E > 0")
+        din = dir01 if extra is None else torch.cat([dir01, extra], -1)
+        dfeat = self.dir_encoding(din)
         rgb_raw = self.rgb_net(torch.cat([h, dfeat.to(torch.float32)], -1))
         return rgb_raw, h[..., 0]
 
-    def apply(self, pos01, dir01, max_level=None):
+    def apply(self, pos01, dir01, extra=None, max_level=None, int8: str = "",
+              tile: Optional[int] = None):
         """Full forward: (rgb_raw (N,3), density_raw (N,)), pre-activation
-        (ref: the network's 4-channel output)."""
-        return self(pos01, dir01, max_level=max_level)
+        (ref: the network's 4-channel output). ``int8`` and ``tile`` select
+        the encode's int8 mode (``BlockedGridEncoding``)."""
+        return self(pos01, dir01, max_level=max_level, extra=extra, int8=int8,
+                    tile=tile)
 
-    def density(self, pos01, max_level=None, int8_table: bool = False):
-        """Activated density σ, (N,). ref: network_to_density.
-        ``int8_table`` encodes through the int8-quantised table (the
-        trainer's grid sweep)."""
-        raw = self(pos01, max_level=max_level, int8_table=int8_table)
+    def density(self, pos01, max_level=None, int8: str = ""):
+        """Activated density σ, (N,). ref: network_to_density. ``int8``
+        encodes through the int8-quantised table (the trainer's grid
+        sweep)."""
+        raw = self(pos01, max_level=max_level, int8=int8)
         return network_activation(raw[..., 0], NerfActivation.EXPONENTIAL)
 
     def matrix_param_names(self) -> set[str]:

@@ -6,11 +6,18 @@ rays, marches the closed-form cone lattice through the occupancy grid in
 two levels (``march_and_compact_hier``), runs the network on the compacted
 samples, composites them with per-ray lattice transmittance, and takes the
 loss in sRGB with the density regularisers. Autograd gives the gradients
-(the table's through K2 on the card), Adam updates the parameters in
-place, and the per-ray loss is deposited into the error map. Every 16
-steps the occupancy grid is swept: every cell below step 256, an
-interleaved partial sweep after, through the int8-table encode (K4) when
-``grid_int8`` is set.
+(the table's through K2 on the card, or K5 under ``encode_int8="full"``),
+Adam updates the parameters in place, and the per-ray loss is deposited
+into the error map. Every 16 steps the occupancy grid is swept: every cell
+below step 256, an interleaved partial sweep after, through the int8-table
+encode (K4) when ``grid_int8`` or ``encode_int8`` is set.
+
+With any of the ``optimize_*`` flags or ``train_envmap``, the camera
+parameters (per-image pose deltas, exposure, the focal delta, per-image
+extra dims, the envmap, the distortion grid) join the loss: the march takes
+detached rays, the loss takes rays built with gradient, so pose, focal and
+distortion gradients flow through the sample positions (K3 on the card).
+They are trained by their own Adam without bias correction.
 
 None of the JAX package's compile machinery comes across: ``train(n)`` is
 a plain Python loop over single steps, every random draw comes from a
@@ -25,7 +32,10 @@ Intended divergences from the JAX package:
   samples, have a zero ray mask, deposit nothing and are not counted, so
   the two agree.
 - The table gradient (K2 on the card) sums in f32; the Pallas kernel
-  rounds its row gradients to bf16.
+  rounds its row gradients to bf16. The position gradient (K3) reads the
+  f32 table; the Pallas kernel rounds it to bf16.
+- ``extra_dims`` start from a ``torch.Generator`` draw (seed + 1), not
+  from the JAX key: the two give other numbers from one seed.
 """
 from __future__ import annotations
 
@@ -42,7 +52,10 @@ from ngp_tpu_torch.common import (LOSS_SCALE, NERF_MIN_OPTICAL_THICKNESS,
                                   linear_to_srgb, loss_type_from_str,
                                   srgb_to_linear)
 from ngp_tpu_torch.grid import occupancy as occ
+from ngp_tpu_torch.kernels.blocked_grid import eff_tile
+from ngp_tpu_torch.kernels.blocked_grid_cuda import INT8_MODES
 from ngp_tpu_torch.nn.models import NerfNetwork
+from ngp_tpu_torch.nn.trainable_buffer import DistortionGrid, Envmap
 from ngp_tpu_torch.opt.losses import loss_fn
 from ngp_tpu_torch.opt.optimizers import (AdamConfig, apply_update,
                                           inference_params, init_state)
@@ -84,10 +97,10 @@ def _sharpness_maps(dataset) -> np.ndarray:
 @dataclasses.dataclass
 class NerfTrainerConfig:
     """The JAX package's trainer options, with its defaults. ``grid_int8``
-    takes the place of its ``NGP_TPU_GRID_INT8`` environment switch. The
-    pose, camera and envmap optimisations (``optimize_*``,
-    ``train_envmap``) and depth supervision are not ported yet and
-    raise."""
+    takes the place of its ``NGP_TPU_GRID_INT8`` environment switch and
+    ``encode_int8`` (``""``, ``"fwd"`` or ``"full"``) that of
+    ``NGP_TPU_ENCODE_INT8``. Depth supervision is not ported yet and
+    raises."""
     n_rays: int = 4096               # adapted between steps (power of 2)
     adapt_rays: bool = True          # False pins n_rays
     dynamic_rays: bool = False       # adapt the live ray count instead
@@ -120,6 +133,7 @@ class NerfTrainerConfig:
     error_map_res: int = 32
     n_steps_between_error_map_updates: int = 128
     grid_int8: bool = False          # grid sweeps through the int8 encode
+    encode_int8: str = ""            # int8 mode of the training encode
 
 
 class StepDraws(NamedTuple):
@@ -141,13 +155,9 @@ class StepStats(NamedTuple):
 
 
 def _check_unported(tc: NerfTrainerConfig, dataset):
-    flags = ("optimize_extrinsics", "optimize_exposure",
-             "optimize_focal_length", "optimize_extra_dims",
-             "optimize_distortion", "train_envmap")
-    on = [f for f in flags if getattr(tc, f)]
-    if on:
-        raise NotImplementedError(f"{', '.join(on)}: camera and envmap "
-                                  "optimisation is not ported yet (needs K3)")
+    if tc.encode_int8 not in INT8_MODES:
+        raise ValueError(f"encode_int8 must be one of {INT8_MODES}, got "
+                         f"{tc.encode_int8!r}")
     if tc.depth_supervision_lambda > 0.0:
         raise NotImplementedError("depth supervision is not ported yet")
     if getattr(dataset, "rays", None) is not None:
@@ -155,20 +165,35 @@ def _check_unported(tc: NerfTrainerConfig, dataset):
     xe = getattr(dataset, "xforms_end", None)
     if xe is not None and not np.allclose(dataset.xforms, xe):
         raise NotImplementedError("rolling shutter is not ported yet")
-    if getattr(dataset, "n_extra_learnable_dims", 0) > 0:
-        raise NotImplementedError("extra learnable dims are not ported yet")
     if getattr(dataset, "lens_mode", "perspective") not in ("perspective",
                                                             "opencv"):
         raise NotImplementedError(f"lens mode {dataset.lens_mode!r} is not "
                                   "ported yet")
 
 
+def camera_adam(cam: dict, grads: dict, m: dict, v: dict, lrs: dict,
+                enabled: dict):
+    """One step of the camera Adam (ref: AdamOptimizer /
+    RotationAdamOptimizer, adam_optimizer.h:22,93; the JAX package's
+    ``_train_step_impl`` :682-706): β 0.9/0.99, ε 1e-8, no bias
+    correction, the loss scale divided out. Every key's moments move; only
+    enabled keys' parameters do. In place."""
+    with torch.no_grad():
+        for k in cam:
+            g = grads[k] / LOSS_SCALE
+            m[k].mul_(0.9).add_(0.1 * g)
+            v[k].mul_(0.99).add_(0.01 * g * g)
+            if enabled[k]:
+                cam[k].sub_(lrs[k] * m[k] / (torch.sqrt(v[k]) + 1e-8))
+
+
 class NerfTrainer:
-    """Model, optimizer, occupancy grid and error map for one NeRF scene,
-    on one device."""
+    """Model, optimizer, occupancy grid, error map and camera parameters
+    for one NeRF scene, on one device (the card unless the caller asks for
+    another)."""
 
     def __init__(self, dataset, config: dict, seed: int = 1337,
-                 tcfg: Optional[NerfTrainerConfig] = None, device="cpu"):
+                 tcfg: Optional[NerfTrainerConfig] = None, device="cuda"):
         self.dataset = dataset
         self.tcfg = dataclasses.replace(tcfg or NerfTrainerConfig())
         tc = self.tcfg
@@ -187,8 +212,9 @@ class NerfTrainer:
                           "terminate early")
 
         self.generator = torch.Generator(device=dev).manual_seed(seed)
+        E = int(getattr(dataset, "n_extra_learnable_dims", 0))
         self.model = NerfNetwork(config, aabb_scale, generator=self.generator,
-                                 device=dev)
+                                 device=dev, n_extra_dims=E)
         self.rgb_loss = loss_fn(loss_type_from_str(
             config.get("loss", {}).get("otype", "L2")))
         self.opt_cfg = AdamConfig.from_config(config.get("optimizer", {}),
@@ -238,6 +264,28 @@ class NerfTrainer:
                 occ.GRID_VOLUME * (self.max_cascade + 1), device=dev)
         else:
             self.sharpness_grid = torch.zeros(1, device=dev)
+
+        # camera parameters (ngp_tpu/train/nerf.py:261-288): per-image pose
+        # deltas (axis-angle, translation), exposure, the focal delta,
+        # per-image extra dims; the envmap and the distortion grid when
+        # trained. Their Adam moments start at zero.
+        g_extra = torch.Generator(device=dev).manual_seed(seed + 1)
+        self.cam_params = {
+            "rot": torch.zeros((I, 3), device=dev),
+            "trans": torch.zeros((I, 3), device=dev),
+            "exposure": torch.zeros((I, 3), device=dev),
+            "focal_delta": torch.zeros(2, device=dev),
+            "extra_dims": 1e-4 * torch.randn((I, max(E, 1)),
+                                             generator=g_extra, device=dev)}
+        self.envmap = Envmap()
+        self.distortion = DistortionGrid(tuple(
+            config.get("distortion_map", {}).get("resolution", [32, 32])))
+        if tc.train_envmap:
+            self.cam_params["envmap"] = self.envmap.init_params(dev)
+        if tc.optimize_distortion:
+            self.cam_params["distortion"] = self.distortion.init_params(dev)
+        self.cam_m = {k: torch.zeros_like(v) for k, v in self.cam_params.items()}
+        self.cam_v = {k: torch.zeros_like(v) for k, v in self.cam_params.items()}
 
         self.training_step = 0
         self.last_loss = 0.0
@@ -343,13 +391,49 @@ class NerfTrainer:
             texsamp = raw.to(torch.float32)
         return img, xy, texsamp, pdf
 
-    def _build_rays(self, img: torch.Tensor, xy: torch.Tensor):
-        """World rays (o, unit d, |d_raw|) of the sampled pixels."""
+    @staticmethod
+    def _rodrigues(rot: torch.Tensor) -> torch.Tensor:
+        """Axis-angle (N, 3) → rotation matrices (N, 3, 3), with a smoothed
+        norm: d‖r‖/dr is NaN at r = 0, where the deltas start."""
+        theta = torch.sqrt(torch.sum(rot * rot, -1, keepdim=True) + 1e-24)
+        k = rot / theta
+        z = torch.zeros_like(k[..., 0])
+        K = torch.stack([torch.stack([z, -k[..., 2], k[..., 1]], -1),
+                         torch.stack([k[..., 2], z, -k[..., 0]], -1),
+                         torch.stack([-k[..., 1], k[..., 0], z], -1)], -2)
+        st = torch.sin(theta)[..., None]
+        ct = torch.cos(theta)[..., None]
+        eye = torch.eye(3, dtype=rot.dtype, device=rot.device)
+        return eye + st * K + (1 - ct) * (K @ K)
+
+    def _build_rays(self, img: torch.Tensor, xy: torch.Tensor,
+                    cam: Optional[dict] = None):
+        """World rays (o, unit d, |d_raw|) of the sampled pixels, with the
+        pose, focal and distortion deltas of ``cam`` (default: the
+        trainer's camera parameters) where their flags are on
+        (ngp_tpu/train/nerf.py:428-471)."""
+        tc = self.tcfg
+        cam = self.cam_params if cam is None else cam
+        xf = self._xforms[img]
+        if tc.optimize_extrinsics:
+            R = self._rodrigues(cam["rot"][img])
+            xf = torch.cat([R @ xf[:, :, :3],
+                            (xf[:, :, 3] + cam["trans"][img])[:, :, None]], -1)
+        focal = self._focal[img]
+        if tc.optimize_focal_length:
+            focal = focal * (1.0 + cam["focal_delta"])[None]
         o, d_raw = pixel_to_ray_train(
-            xy, self._xforms[img], self._focal[img], self._principal[img],
+            xy, xf, focal, self._principal[img],
             self._resolution[img], self._lens_params[img],
             self.dataset.lens_is_opencv,
             lens_mode=getattr(self.dataset, "lens_mode", None))
+        if tc.optimize_distortion:
+            # the learned offset of the camera-space xy direction, rotated
+            # into the world (the JAX package's approximation of the
+            # reference's pre-rotation add, :1188-1190)
+            off2 = self.distortion.sample(cam["distortion"], xy)
+            off3 = torch.cat([off2, torch.zeros_like(off2[:, :1])], -1)
+            d_raw = d_raw + torch.einsum("nij,nj->ni", xf[:, :, :3], off3)
         d_norm = torch.clamp(torch.linalg.vector_norm(d_raw, dim=-1,
                                                       keepdim=True), min=1e-9)
         return o, d_raw / d_norm, d_norm[:, 0]
@@ -378,29 +462,60 @@ class NerfTrainer:
                     capacity: Optional[int] = None) -> StepStats:
         """One step on the rays of ``draws`` (all of them: the caller
         slices to the live rays); updates parameters, optimizer state,
-        error map and sharpness grid in place."""
-        grads, stats, deposit = self._step_grads(draws, error_state, capacity)
+        camera parameters, error map and sharpness grid in place."""
+        grads, cam_grads, stats, deposit = self._step_grads(
+            draws, error_state, capacity)
         self.opt_state = apply_update(self.params, grads, self.opt_state,
                                       self.opt_cfg, self.matrix_names)
+        if cam_grads is not None:
+            camera_adam(self.cam_params, cam_grads, self.cam_m, self.cam_v,
+                        *self._camera_schedule())
         with torch.no_grad():
             self._deposit_error(*deposit)
         return stats
 
+    def _camera_schedule(self):
+        """(learning rate, enabled) of each camera parameter
+        (ngp_tpu/train/nerf.py:685-697)."""
+        tc = self.tcfg
+        lrs = {"rot": tc.extrinsic_learning_rate,
+               "trans": tc.extrinsic_learning_rate,
+               "exposure": tc.exposure_learning_rate,
+               "focal_delta": tc.focal_learning_rate,
+               "extra_dims": 1e-3, "envmap": 1e-2, "distortion": 1e-4}
+        enabled = {"rot": tc.optimize_extrinsics,
+                   "trans": tc.optimize_extrinsics,
+                   "exposure": tc.optimize_exposure,
+                   "focal_delta": tc.optimize_focal_length,
+                   "extra_dims": tc.optimize_extra_dims,
+                   "envmap": tc.train_envmap,
+                   "distortion": tc.optimize_distortion}
+        return lrs, enabled
+
     def _step_grads(self, draws: StepDraws, error_state: dict,
                     capacity: Optional[int] = None):
         """The forward and backward of one step, changing no parameter,
-        optimizer or error-map state: (gradients by parameter name, stats,
-        the error-map deposit's arguments)."""
+        optimizer or error-map state: (gradients by parameter name, camera
+        gradients by key or None, stats, the error-map deposit's
+        arguments)."""
         tc = self.tcfg
         S = capacity or tc.target_batch_size
         n = draws.u_img.shape[0]
         img, xy, texsamp, samp_pdf = self._sample_pixels(
             error_state, draws.u_img, draws.u_xy)
-        o, d, _ = self._build_rays(img, xy)
+        # whether the camera parameters join the loss
+        train_cam = (tc.optimize_extrinsics or tc.optimize_exposure
+                     or tc.optimize_focal_length or tc.optimize_extra_dims
+                     or tc.train_envmap or tc.optimize_distortion)
+        cam = ({k: v.detach().requires_grad_() for k, v in
+                self.cam_params.items()} if train_cam else self.cam_params)
+        o, d, _ = self._build_rays(img, xy, cam)
         # masked-away pixels (negative red sentinel) never train
         ray_ok = texsamp[:, 0] >= 0.0
+        # the march's sample times stay fixed (piecewise-constant sampling);
+        # the loss takes the rays with their camera gradient
         s_t, s_dt, s_ray, counts, total, seg_total, s_k = self._march(
-            o, d, draws.u_march, n, S, ray_ok)
+            o.detach(), d.detach(), draws.u_march, n, S, ray_ok)
 
         bg = draws.bg if tc.random_bg_color else torch.ones_like(draws.bg)
         bg_linear = srgb_to_linear(bg)
@@ -408,17 +523,33 @@ class NerfTrainer:
         n_eff = torch.clamp(has_samples.sum(), min=1)
         reg_on = (self.grid.mean < NERF_MIN_OPTICAL_THICKNESS).to(
             torch.float32)
-        # target (ref: :1388-1427), in sRGB unless training in linear
-        rgbtarget = texsamp[:, :3] + (1.0 - texsamp[:, 3:4]) * bg_linear
+        # target (ref: :1388-1427), with the per-image exposure scale 2^e
+        # and the envmap over the background, in sRGB unless training in
+        # linear
+        if tc.train_envmap:
+            env = self.envmap.sample(cam["envmap"], d)
+            bg_lin = env[:, :3] + bg_linear * (1.0 - env[:, 3:4])
+        else:
+            bg_lin = bg_linear
+        rgb_in = texsamp[:, :3]
+        if tc.optimize_exposure:
+            rgb_in = torch.exp2(cam["exposure"][img]) * rgb_in
+        rgbtarget = rgb_in + (1.0 - texsamp[:, 3:4]) * bg_lin
         if tc.train_in_linear_colors:
-            bg_out = bg_linear
+            bg_out = bg_linear      # the JAX package's choice, envmap or not
         else:
             rgbtarget = linear_to_srgb(rgbtarget)
-            bg_out = linear_to_srgb(bg_linear)
+            bg_out = linear_to_srgb(bg_lin)
 
         pos_w = (o[s_ray] + s_t[:, None] * d[s_ray] - self.aabb_min) \
             / self.aabb_size
-        rgb_raw, dens_raw = self.model.apply(pos_w, d[s_ray] * 0.5 + 0.5)
+        extra = (cam["extra_dims"][img][s_ray]
+                 if self.model.n_extra_dims > 0 else None)
+        # the int8 backward's tiles are those of the JAX step's stream of
+        # capacity S, not of the live samples
+        rgb_raw, dens_raw = self.model.apply(
+            pos_w, d[s_ray] * 0.5 + 0.5, extra=extra, int8=tc.encode_int8,
+            tile=eff_tile(S))
         rgb = torch.sigmoid(rgb_raw.to(torch.float32))
         sigma = torch.exp(torch.clamp(dens_raw.to(torch.float32), -15.0, 15.0))
         sdt = sigma * s_dt
@@ -440,18 +571,30 @@ class NerfTrainer:
         near_pen = torch.where((dens_raw > -10.0) & (s_t < tc.near_distance),
                                1e-4 * dens_raw, 0.0).sum()
         l1_pen = reg_on * (-1e-4 * torch.clamp(dens_raw, max=0.0)).sum()
-        scaled_loss = (loss_rgb + (near_pen + l1_pen) / LOSS_SCALE) \
-            * LOSS_SCALE
+        reg = (near_pen + l1_pen) / LOSS_SCALE
+        if tc.optimize_extrinsics:
+            reg = reg + tc.extrinsic_l2_reg * (torch.sum(cam["rot"] ** 2)
+                                               + torch.sum(cam["trans"] ** 2))
+        scaled_loss = (loss_rgb + reg) * LOSS_SCALE
         names = list(self.params)
-        grads = dict(zip(names, torch.autograd.grad(
-            scaled_loss, [self.params[k] for k in names])))
+        cam_keys = list(cam) if train_cam else []
+        g = torch.autograd.grad(
+            scaled_loss, [self.params[k] for k in names]
+            + [cam[k] for k in cam_keys], allow_unused=True)
+        grads = dict(zip(names, g[:len(names)]))
+        cam_grads = None
+        if train_cam:
+            # keys the loss does not reach get zeros, as under jax.grad
+            cam_grads = {k: torch.zeros_like(cam[k]) if gk is None else gk
+                         for k, gk in zip(cam_keys, g[len(names):])}
         with torch.no_grad():
             per_ray_loss = per_c.mean(-1) * ray_mask
             depth_ray = zeros.index_add(0, s_ray, w * s_t)
         stats = StepStats(loss_rgb.detach() / 3.0, total, seg_total,
                           has_samples.sum())
-        return grads, stats, (img, xy, o, d, per_ray_loss, samp_pdf,
-                              depth_ray, T_end, has_samples)
+        return grads, cam_grads, stats, (img, xy, o.detach(), d.detach(),
+                                         per_ray_loss, samp_pdf, depth_ray,
+                                         T_end.detach(), has_samples)
 
     def _deposit_error(self, img, xy, o, d, per_ray_loss, samp_pdf,
                        depth_ray, T_end, has_samples):
@@ -498,9 +641,12 @@ class NerfTrainer:
         """Sweep the occupancy grid with the training parameters, in
         network calls of SWEEP_CHUNK positions."""
         tc = self.tcfg
+        # the int8 forward (K4) when either switch is on, as the JAX
+        # package's sweep reads NGP_TPU_ENCODE_INT8 too
+        int8 = "fwd" if tc.grid_int8 or tc.encode_int8 else ""
 
         def density_fn(warped):
-            return torch.cat([self.model.density(c, int8_table=tc.grid_int8)
+            return torch.cat([self.model.density(c, int8=int8)
                               for c in warped.split(SWEEP_CHUNK)])
         if full_sweep:
             n_u, n_n = occ.GRID_VOLUME * (self.max_cascade + 1), 1
@@ -658,6 +804,17 @@ class NerfTrainer:
 
     def inference_params(self) -> dict:
         return inference_params(self.params, self.opt_state, self.opt_cfg)
+
+    def get_camera_extrinsics(self, img: int) -> np.ndarray:
+        """The optimised camera→world (3, 4) of image ``img`` (ref:
+        export_camera_extrinsics, src/testbed_nerf.cu:2557)."""
+        with torch.no_grad():
+            xf = self._xforms[img]
+            R = self._rodrigues(self.cam_params["rot"][img][None])[0]
+            out = torch.cat([R @ xf[:, :3],
+                             (xf[:, 3] + self.cam_params["trans"][img])[:, None]],
+                            -1)
+        return out.cpu().numpy()
 
     @torch.no_grad()
     def density_at(self, pos: np.ndarray) -> np.ndarray:

@@ -221,7 +221,8 @@ def trainers():
     kw = dict(n_rays=512, sample_image_proportional_to_error=True,
               sample_focal_plane_proportional_to_error=True)
     return (ds, jnerf.NerfTrainer(ds, cfg, tcfg=jnerf.NerfTrainerConfig(**kw)),
-            tnerf.NerfTrainer(ds, cfg, tcfg=tnerf.NerfTrainerConfig(**kw)))
+            tnerf.NerfTrainer(ds, cfg, tcfg=tnerf.NerfTrainerConfig(**kw),
+                              device="cpu"))
 
 
 def test_trainer_init_state_matches_jax(trainers):

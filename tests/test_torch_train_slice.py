@@ -43,7 +43,7 @@ def trained():
     """The sphere scene at aabb_scale 1, trained 20 steps and then 44
     more, with the squared error of a training view after each call."""
     ds, cfg = sphere_scene(n_images=8, aabb_scale=1)
-    tr = tnerf.NerfTrainer(ds, cfg, seed=3,
+    tr = tnerf.NerfTrainer(ds, cfg, seed=3, device="cpu",
                            tcfg=tnerf.NerfTrainerConfig(**TRAIN_KW))
     loss = [tr.train(20)]
     state = dict(step=tr.training_step, ema_step=tr.grid.ema_step,
@@ -91,8 +91,9 @@ def test_port_snapshot_renders_in_jax_as_in_the_port(trained, tmp_path):
     np.testing.assert_array_equal(
         np.asarray(jtr.opt_state.nu["pos_encoding"]),
         tr.opt_state.nu["pos_encoding.table"].numpy())
-    back = tnerf.NerfTrainer(ds, cfg, tcfg=tnerf.NerfTrainerConfig(
-        n_rays=256, adapt_rays=False))
+    back = tnerf.NerfTrainer(ds, cfg, device="cpu",
+                             tcfg=tnerf.NerfTrainerConfig(n_rays=256,
+                                                          adapt_rays=False))
     back.load_snapshot_state(path)
     assert back.opt_state.step == 64
     for k, v in tr.params.items():

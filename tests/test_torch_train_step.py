@@ -61,7 +61,8 @@ def step_pair():
     ``apply_update``."""
     ds, cfg = sphere_scene()
     jtr = jnerf.NerfTrainer(ds, cfg, tcfg=jnerf.NerfTrainerConfig(**TRAIN_KW))
-    ttr = tnerf.NerfTrainer(ds, cfg, tcfg=tnerf.NerfTrainerConfig(**TRAIN_KW))
+    ttr = tnerf.NerfTrainer(ds, cfg, tcfg=tnerf.NerfTrainerConfig(**TRAIN_KW),
+                            device="cpu")
     rng = np.random.default_rng(0)
     tree = jax.tree.map(np.array, jtr.params)
     # a table with structure, so the field has both empty and dense space
