@@ -1,14 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``ngp_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile] [--kernels]
 
 Phases, each reported on its own line:
   1. device  — requires CUDA; prints the card and its power limit as
                nvidia-smi reports them; turns TF32 off.
   2. build   — compiles the CUDA kernels from ngp_tpu_torch/csrc and
                prints each one's registers and spills.
-  3. kernels — K1 (encode forward), K2 (table backward), K3 (position
+  3. slice   — the render path a user calls: NerfNetwork from
+               configs/nerf/base.json at aabb_scale 4 with seeded random
+               weights, an occupancy grid from a full sweep, then three
+               640×360 frames through NerfRenderer.render (ms/frame after
+               the first). K1's launch counter must rise during the
+               frames. One frame is rendered again with the plain encode,
+               and a small frame is checked against the CPU path (the one
+               tested against the JAX package). Then frame 0 is rendered
+               once more to capture the positions of its largest encode
+               call (ray-major, t rising: the render path's own K1 input).
+  4. kernels — K1 (encode forward), K2 (table backward), K3 (position
                backward), K4 (int8-table forward) and K5 (int8 table
                backward) against their plain PyTorch versions at the full
                NeRF width (16 levels × 8192 rows × 128 lanes; 2^20
@@ -17,14 +27,8 @@ Phases, each reported on its own line:
                and points just outside the unit cube), each timed against
                its plain version by CUDA events, in turns, beside its
                bound: the bytes it must move at the card's memory rate.
-  4. slice   — the render path a user calls: NerfNetwork from
-               configs/nerf/base.json at aabb_scale 4 with seeded random
-               weights, an occupancy grid from a full sweep, then three
-               640×360 frames through NerfRenderer.render. K1's launch
-               counter must rise during this run. One frame is
-               rendered again with the plain encode, and a small frame is
-               checked against the CPU path (the one tested against the
-               JAX package).
+               K1 and K2 again on the captured ray-ordered positions
+               (tiled to 2^20 for K1, the first 2^18 for K2).
   5. train   — the training path a user calls: NerfTrainer on a synthetic
                scene of analytic spheres (24 orbit views at 256×256, sRGB
                uint8), base.json at aabb_scale 4, the bench's trainer
@@ -49,11 +53,15 @@ Phases, each reported on its own line:
                finite, K3, K4 and K5 launch, and the PSNR rise by
                POSE_PSNR_RISE_DB. K3 and K5 on one real step's inputs are
                held against their plain versions.
-With ``--profile``, a torch.profiler trace of 16 steady training steps is
-broken down by layer as well (written to chiprun_out/).
-Then one JSON line with each kernel's figures, and as the last line
-``{"ok": true, "device": {...}}``. Any failure raises: there is no
-fallback to the CPU or to the plain version.
+With ``--profile``, torch.profiler traces of one slice frame (K1's device
+ms and launches in it) and of 16 steady training steps are broken down by
+layer as well (the steps' table also to a file, see ``phase_profile``).
+``--kernels`` runs phases 1, 2 and 4 alone, on a scene of its own, and
+ends with the kernels' JSON line.
+Then one JSON line with each kernel's figures (K1's and K2's ray-ordered
+ones under "ray_ordered"), and as the last line ``{"ok": true, "device":
+{...}}``. Any failure raises: there is no fallback to the CPU or to the
+plain version.
 """
 from __future__ import annotations
 
@@ -72,6 +80,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 FRAME_W, FRAME_H, N_FRAMES = 640, 360, 3
+FOCAL = (500.0, 500.0)
 KERNEL_TOL = 1e-5
 # K2 against its plain version, relative to Σ|w·g| of each table entry
 KERNEL_BWD_TOL = 1e-4
@@ -136,15 +145,12 @@ def phase_device() -> dict:
     return {"kind": name, "count": torch.cuda.device_count(), "smi": smi}
 
 
-def phase_build():
-    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
-    t0 = time.perf_counter()
-    bgc.build()
-    dt = time.perf_counter() - t0
-    # ptxas reports each kernel as: entry function, spills, registers
+def kernel_registers(build_log: str) -> str:
+    """Each kernel's spills and registers, from nvcc's ``-Xptxas -v``
+    output (entry function, then spills, then registers)."""
     info = []
-    for ln in bgc.build_log.splitlines():
-        name = re.search(r"blocked_grid_encode_\w+?_kernel", ln)
+    for ln in build_log.splitlines():
+        name = re.search(r"blocked_grid_encode_(?:fwd|bwd)\w*?kernel", ln)
         regs = re.search(r"Used (\d+) registers", ln)
         spill = re.search(r"(\d+) bytes spill stores", ln)
         if "entry function" in ln and name:
@@ -152,8 +158,16 @@ def phase_build():
         elif info and (regs or spill):
             info[-1] += (f" {regs.group(1)} registers" if regs
                          else f" {spill.group(1)} B spilled,")
+    return " | ".join(info)
+
+
+def phase_build():
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    t0 = time.perf_counter()
+    bgc.build()
+    dt = time.perf_counter() - t0
     print(f"build: {bgc.library_path().name} in {dt:.2f} s; "
-          + " | ".join(info))
+          + kernel_registers(bgc.build_log))
 
 
 def _edge_positions(meta, rng) -> np.ndarray:
@@ -249,74 +263,127 @@ def _print_times(tag: str, what: str, entry: dict, ks, ps):
           f"{entry['bound_ms'] / entry['ms']:.3f} of the bound")
 
 
-def phase_k1(dev) -> dict:
+def check_k1(table, pos, meta, what: str) -> float:
+    """K1 against its plain version on ``pos``; returns max |Δ|."""
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     from ngp_tpu_torch.kernels.blocked_grid import encode_reference
-    meta, table, pos, _ = _full_width_inputs(dev, 1 << 20)
     with torch.no_grad():
-        got = bgc.blocked_grid_encode(table, pos, meta)
+        got = bgc.launch_fwd(table, pos, meta)
         ref = encode_reference(table, pos, meta)
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise RuntimeError("K1 output is not finite")
-        err = float((got - ref).abs().max())
-        print(f"K1: blocked_grid_encode_fwd {tuple(table.shape)} x "
-              f"{pos.shape[0]} positions: max |kernel - plain| {err:.3e} "
-              f"(tolerance {KERNEL_TOL})")
-        if not err <= KERNEL_TOL:
-            raise RuntimeError(f"K1 disagrees with its plain version: {err}")
-        p = pos[: 1 << 20]
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"K1 output is not finite ({what})")
+    err = float((got - ref).abs().max())
+    print(f"K1: blocked_grid_encode_fwd {tuple(table.shape)} x "
+          f"{pos.shape[0]} {what} positions: max |kernel - plain| "
+          f"{err:.3e} (tolerance {KERNEL_TOL})")
+    if not err <= KERNEL_TOL:
+        raise RuntimeError(f"K1 disagrees with its plain version ({what}): "
+                           f"{err}")
+    return err
+
+
+def time_k1(table, p, meta, err: float, what: str) -> dict:
+    """K1 and its plain version timed in turns on ``p``, with the bound of
+    these inputs: positions in, features out, the table entries the
+    corners read."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import encode_reference
+    with torch.no_grad():
         ks, ps = _time_in_turns(lambda: bgc.launch_fwd(table, p, meta),
                                 lambda: encode_reference(table, p, meta))
-        n = p.shape[0]
-        # positions in, features out, the table entries the corners read
-        entry = _kernel_entry("blocked_grid_encode_fwd", 85, err, ks, ps, n,
-                              meta, 12 * n + 4 * 2 * meta.n_levels * n
-                              + 4 * _touched_entries(meta, p))
-    _print_times("K1", "2^20 positions x 16 levels", entry, ks, ps)
+    n = p.shape[0]
+    entry = _kernel_entry("blocked_grid_encode_fwd", 85, err, ks, ps, n,
+                          meta, 12 * n + 4 * 2 * meta.n_levels * n
+                          + 4 * _touched_entries(meta, p))
+    _print_times("K1", f"{n} {what} positions x {meta.n_levels} levels",
+                 entry, ks, ps)
     return entry
 
 
-def phase_k2(dev) -> dict:
-    """K2 at the training batch: 2^18 positions × 16 levels with seeded
-    cotangents. Atomics sum in no fixed order, so each entry is held to
-    KERNEL_BWD_TOL relative to Σ|w·g| of that entry (the plain backward
-    of |g|), and the zero patterns must be equal: the optimizer's
-    zero-gradient skip keys on exact zeros."""
+def check_k2(pos, cot, meta, what: str) -> float:
+    """K2 against its plain version. Atomics sum in no fixed order, so each
+    entry is held to KERNEL_BWD_TOL relative to Σ|w·g| of that entry (the
+    plain backward of |g|), and the zero patterns must be equal: the
+    optimizer's zero-gradient skip keys on exact zeros. Returns max |Δ|."""
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     from ngp_tpu_torch.kernels.blocked_grid import encode_backward_reference
-    meta, _, pos, _ = _full_width_inputs(dev, 1 << 18)
-    g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    cot = torch.randn((pos.shape[0], meta.n_levels * 2), generator=g,
-                      device=dev)
-    cot[::5] = 0.0            # rays without samples give zero cotangents
     with torch.no_grad():
         got = bgc.launch_bwd(pos, cot, meta)
         ref = encode_backward_reference(pos, cot, meta)
         scale = encode_backward_reference(pos, cot.abs(), meta)
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise RuntimeError("K2 output is not finite")
-        err = float((got - ref).abs().max())
-        rel = float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
-        zeros_equal = bool(torch.equal(got == 0, ref == 0))
-        print(f"K2: blocked_grid_encode_bwd {pos.shape[0]} positions -> "
-              f"{tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
-              f"relative to sum|w*g| {rel:.3e} (tolerance "
-              f"{KERNEL_BWD_TOL}); zero patterns equal: {zeros_equal} "
-              f"({float((ref == 0).float().mean()):.4f} of entries zero)")
-        if not (rel <= KERNEL_BWD_TOL and zeros_equal):
-            raise RuntimeError("K2 disagrees with its plain version")
-        p, c = pos[: 1 << 18], cot[: 1 << 18]
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"K2 output is not finite ({what})")
+    err = float((got - ref).abs().max())
+    rel = float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
+    zeros_equal = bool(torch.equal(got == 0, ref == 0))
+    print(f"K2: blocked_grid_encode_bwd {pos.shape[0]} {what} positions -> "
+          f"{tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
+          f"relative to sum|w*g| {rel:.3e} (tolerance {KERNEL_BWD_TOL}); "
+          f"zero patterns equal: {zeros_equal} "
+          f"({float((ref == 0).float().mean()):.4f} of entries zero)")
+    if not (rel <= KERNEL_BWD_TOL and zeros_equal):
+        raise RuntimeError(f"K2 disagrees with its plain version ({what})")
+    return err
+
+
+def time_k2(p, c, meta, err: float, what: str) -> dict:
+    """K2 (with the zero fill of its output) and its plain version timed in
+    turns; the bound: positions and cotangent in, the whole table gradient
+    out."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import encode_backward_reference
+    with torch.no_grad():
         ks, ps = _time_in_turns(lambda: bgc.launch_bwd(p, c, meta),
                                 lambda: encode_backward_reference(p, c, meta))
     n = p.shape[0]
-    # positions and cotangent in, the whole table gradient out
     entry = _kernel_entry("blocked_grid_encode_bwd", 110, err, ks, ps, n,
                           meta, 12 * n + 4 * 2 * meta.n_levels * n
                           + 4 * meta.n_params)
-    _print_times("K2", "2^18 positions x 16 levels", entry, ks, ps)
+    _print_times("K2", f"{n} {what} positions x {meta.n_levels} levels",
+                 entry, ks, ps)
     return entry
+
+
+def _ray_ordered(entry: dict, ray: dict) -> dict:
+    """``entry`` (uniform inputs) with the ray-ordered run's figures under
+    "ray_ordered" and the larger error of the two."""
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+            "max_abs_err")
+    entry["ray_ordered"] = {k: ray[k] for k in keys}
+    entry["max_abs_err"] = max(entry["max_abs_err"], ray["max_abs_err"])
+    return entry
+
+
+def phase_k1(dev, ray=None) -> dict:
+    """K1 at 2^20 uniform positions (checked with the edge positions too)
+    and, given ``ray`` (``ray_ordered_inputs``), at the render path's own
+    2^20 positions."""
+    meta, table, pos, _ = _full_width_inputs(dev, 1 << 20)
+    err = check_k1(table, pos, meta, "uniform+edge")
+    entry = time_k1(table, pos[: 1 << 20], meta, err, "uniform")
+    if ray is None:
+        return entry
+    err = check_k1(table, ray["k1_pos"], meta, "ray-ordered")
+    return _ray_ordered(entry, time_k1(table, ray["k1_pos"], meta, err,
+                                       "ray-ordered"))
+
+
+def phase_k2(dev, ray=None) -> dict:
+    """K2 at the training batch: 2^18 uniform positions × 16 levels (checked
+    with the edge positions too) with seeded cotangents, every fifth row
+    zero (rays without samples); given ``ray``, at the first 2^18 of the
+    render path's positions too."""
+    meta, _, pos, _ = _full_width_inputs(dev, 1 << 18)
+    cot = _cotangent(dev, meta, pos.shape[0], SEED + 1)
+    err = check_k2(pos, cot, meta, "uniform+edge")
+    entry = time_k2(pos[: 1 << 18], cot[: 1 << 18], meta, err, "uniform")
+    if ray is None:
+        return entry
+    err = check_k2(ray["k2_pos"], ray["k2_cot"], meta, "ray-ordered")
+    return _ray_ordered(entry, time_k2(ray["k2_pos"], ray["k2_cot"], meta,
+                                       err, "ray-ordered"))
 
 
 def phase_k4(dev) -> dict:
@@ -511,6 +578,57 @@ def build_scene(dev, aabb_scale: int = 4, sweep_chunk: int = 1 << 18):
     return model, grid, renderer, n_cells
 
 
+def capture_ray_positions(renderer, bitfield, cam, width: int, height: int,
+                          focal):
+    """Render one frame spp 1 and return the positions of its largest
+    encode call, as the encode wrapper handed them to K1 (or, for CPU
+    tensors, to K1's plain version), and each sample's ray id: the stream
+    ``compact_samples`` emits, ray-major with t rising along each ray."""
+    import ngp_tpu_torch.render.nerf_render as nr
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    name = "launch_fwd" if bitfield.is_cuda else "encode_reference"
+    encode, compact = getattr(bgc, name), nr.compact_samples
+    seen, rays = [], []
+
+    def spy_encode(table, pos, meta):
+        seen.append(pos.clone())
+        return encode(table, pos, meta)
+
+    def spy_compact(*args):
+        out = compact(*args)
+        rays.append(out[2])
+        return out
+    with mock.patch.object(bgc, name, spy_encode), \
+            mock.patch.object(nr, "compact_samples", spy_compact):
+        renderer.render(None, bitfield, cam, width, height, focal=focal,
+                        spp=1)
+    if [p.shape[0] for p in seen] != [r.shape[0] for r in rays]:
+        raise RuntimeError("the frame's encode calls do not match its "
+                           "compacted sample streams")
+    k = max(range(len(seen)), key=lambda j: seen[j].shape[0])
+    return seen[k], rays[k]
+
+
+def ray_ordered_inputs(dev, renderer=None, bitfield=None) -> dict:
+    """K1's and K2's inputs as the render path sends them: the positions of
+    the largest encode call of the slice phase's frame 0 (scene from
+    ``build_scene`` unless given), tiled up to 2^20 for K1; the first 2^18
+    of those for K2, with seeded cotangents, every fifth row zero."""
+    if renderer is None:
+        _, grid, renderer, _ = build_scene(dev)
+        bitfield = grid.bitfield
+    pos, rays = capture_ray_positions(renderer, bitfield, orbit_camera(0.0),
+                                      FRAME_W, FRAME_H, FOCAL)
+    n = pos.shape[0]
+    k1_pos = pos.repeat(-(-(1 << 20) // n), 1)[: 1 << 20].contiguous()
+    meta = renderer.model.pos_encoding.meta
+    print(f"ray: the largest encode call of frame 0 took {n} samples on "
+          f"{int(torch.unique(rays).numel())} rays (tiled to 2^20 for K1)")
+    k2_pos = k1_pos[: 1 << 18]
+    return {"k1_pos": k1_pos, "k2_pos": k2_pos,
+            "k2_cot": _cotangent(dev, meta, k2_pos.shape[0], SEED + 1)}
+
+
 def _check_frame(img, W, H):
     if tuple(img.shape) != (H, W, 4):
         raise RuntimeError(f"frame shape {tuple(img.shape)} != {(H, W, 4)}")
@@ -527,7 +645,9 @@ def _reset_launches():
         bgc.launches[k] = 0
 
 
-def phase_slice(dev) -> int:
+def phase_slice(dev):
+    """The render path; returns (K1's launches in its frames, the renderer,
+    the bitfield)."""
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     from ngp_tpu_torch.kernels.blocked_grid import encode_reference
 
@@ -541,14 +661,14 @@ def phase_slice(dev) -> int:
           f"(incl. model init); mean σΔt {float(grid.mean):.4e}; "
           f"{occupied:.3f} of bitfield bytes set")
     cams = [orbit_camera(2 * math.pi * i / N_FRAMES) for i in range(N_FRAMES)]
-    focal = (500.0, 500.0)
-    frames = []
+    frames, frame_ms = [], []
     torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
     for i, cam in enumerate(cams):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         img = renderer.render(None, grid.bitfield, cam, FRAME_W, FRAME_H,
-                              focal=focal, spp=1)
+                              focal=FOCAL, spp=1)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         _check_frame(img, FRAME_W, FRAME_H)
@@ -557,8 +677,10 @@ def phase_slice(dev) -> int:
               f"{n} samples ({n / dt:.4e} samples/s); mean opacity "
               f"{float(img[..., 3].mean()):.4f}")
         frames.append(img)
+        frame_ms.append(dt * 1e3)
     launches = bgc.launches["blocked_grid_encode_fwd"]
-    print(f"slice: blocked_grid_encode_fwd launched {launches} times; peak "
+    print(f"slice: {np.mean(frame_ms[1:]):.2f} ms/frame after the first; "
+          f"blocked_grid_encode_fwd launched {launches} times; peak "
           f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if launches <= 0:
         raise RuntimeError("the render path never launched the kernel")
@@ -566,7 +688,7 @@ def phase_slice(dev) -> int:
     # frame 0 again with the plain encode in place of the kernel
     with mock.patch.object(bgc, "blocked_grid_encode", encode_reference):
         plain = renderer.render(None, grid.bitfield, cams[0], FRAME_W,
-                                FRAME_H, focal=focal, spp=1)
+                                FRAME_H, focal=FOCAL, spp=1)
     d = (plain - frames[0]).abs()
     print(f"slice: frame 0 kernel vs plain encode: mean |Δ| "
           f"{float(d.mean()):.3e}, max {float(d.max()):.3e}")
@@ -586,7 +708,7 @@ def phase_slice(dev) -> int:
           f"{float(err.mean()):.3e}, {within:.4f} of pixels within 2e-3")
     if not (float(err.mean()) <= 2e-4 and within >= 0.995):
         raise RuntimeError("GPU render disagrees with the CPU path")
-    return launches
+    return launches, renderer, grid.bitfield
 
 
 def _sphere_field(pos: torch.Tensor):
@@ -1066,16 +1188,82 @@ def phase_profile(tr, steps: int = 16):
             sort_by="self_device_time_total", row_limit=40) + "\n")
 
 
+def phase_profile_frame(renderer, bitfield):
+    """Trace one slice frame with torch.profiler: the device time of the
+    work launched inside each render layer's span, and K1's launches."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import ngp_tpu_torch.render.nerf_render as nr
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+
+    def span(name, fn):
+        def wrapped(*args, **kwargs):
+            with record_function(name):
+                return fn(*args, **kwargs)
+        return wrapped
+    layers = [(renderer, "render", "frame"),
+              (nr, "march_rays", "march_rays"),
+              (nr, "merge_excess_samples", "merge_excess_samples"),
+              (nr, "compact_samples", "compact_samples"),
+              (renderer.model, "forward", "network (K1 + MLPs)"),
+              (bgc, "launch_fwd", "K1 encode fwd"),
+              (nr, "composite_samples", "composite_samples")]
+    patches = [mock.patch.object(o, a, span(n, getattr(o, a)))
+               for o, a, n in layers]
+    for p in patches:
+        p.start()
+    try:
+        _reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            renderer.render(None, bitfield, orbit_camera(0.0), FRAME_W,
+                            FRAME_H, focal=FOCAL, spp=1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for p in patches:
+            p.stop()
+    k1_launches = bgc.launches["blocked_grid_encode_fwd"]
+    per_span, _, total, busy = _attribute_kernels(
+        prof, {n for _, _, n in layers}, "frame")
+    lines = [f"profile: frame 0 {FRAME_W}x{FRAME_H} traced in {wall_ms:.1f} "
+             f"ms; device work {total:.2f} ms, busy {busy:.2f} ms: idle "
+             f"share {1 - busy / wall_ms:.3f}; K1 "
+             f"{per_span.get('K1 encode fwd', 0.0):.3f} ms device in "
+             f"{k1_launches} launches"]
+    lines += [f"profile: frame {n:<24s} {per_span.get(n, 0.0):9.3f} ms device"
+              for _, _, n in layers]
+    print("\n".join(lines))
+
+
+def kernel_phases(dev, ray) -> list:
+    """K1–K5 against their plain versions, timed; K1 and K2 on the
+    render path's ray-ordered inputs too."""
+    return [phase_k1(dev, ray), phase_k2(dev, ray), phase_k3(dev),
+            phase_k4(dev), phase_k5(dev)]
+
+
 def main() -> int:
+    args = sys.argv[1:]
     device = phase_device()
     sys.path.insert(0, str(ROOT))
     dev = torch.device("cuda", 0)
     phase_build()
-    kernels = [phase_k1(dev), phase_k2(dev), phase_k3(dev), phase_k4(dev),
-               phase_k5(dev)]
-    phase_slice(dev)
+    if "--kernels" in args:
+        # the kernel phases alone, on their own scene: no main path is run,
+        # so no launch counts and no "ok" line
+        kernels = kernel_phases(dev, ray_ordered_inputs(dev))
+        print(json.dumps({"kernels": kernels}))
+        return 0
+    _, renderer, bitfield = phase_slice(dev)
+    if "--profile" in args:
+        phase_profile_frame(renderer, bitfield)
+    kernels = kernel_phases(dev, ray_ordered_inputs(dev, renderer, bitfield))
+    del renderer, bitfield
     launches, tr = phase_train(dev)
-    if "--profile" in sys.argv[1:]:
+    if "--profile" in args:
         phase_profile(tr)
     pose_launches = phase_pose(dev, tr.dataset)
     # each kernel's launches in the run of the path it was ported for: the

@@ -12,11 +12,14 @@ is no fallback from a kernel to its plain version.
 The kernels are compiled with ``nvcc`` into a shared library with a plain C
 interface on first use (into ``build/ngp_tpu_torch/`` at the repository
 root, named by a hash of the sources and flags, so an unchanged tree is
-not rebuilt) and loaded with ``ctypes``.
+not rebuilt) and loaded with ``ctypes``. K1 and K2 are launched as
+``launch_plan`` sizes them: one thread per (sample, level), neighbouring
+threads on neighbouring levels of one sample.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -66,6 +69,45 @@ def library_path() -> Path:
     return BUILD_DIR / f"libngp_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
+def compile_library(sources, out: Path) -> str:
+    """nvcc ``sources`` into the shared library ``out``; returns nvcc's
+    output (with ``-Xptxas -v``: each kernel's registers and spills)."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def load_library(path: Path) -> ctypes.CDLL:
+    """Load a library built from ``csrc`` and declare its entry points."""
+    lib = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    levels = [vp, vp, vp, ci, ci, ci, ci, vp]   # per-level arrays … stream
+    planned = levels[:-1] + [ci, ci, ci, vp]    # … blocks, threads, log2 group
+    lib.ngp_blocked_grid_encode_fwd.argtypes = [vp, vp, vp] + planned
+    lib.ngp_blocked_grid_encode_bwd.argtypes = [vp, vp, vp] + planned
+    lib.ngp_blocked_grid_encode_fwd_i8.argtypes = [vp, vp, vp, vp] + levels
+    lib.ngp_blocked_grid_encode_bwd_pos.argtypes = [vp, vp, vp, vp] + levels
+    lib.ngp_blocked_grid_encode_bwd_i8.argtypes = ([vp, vp, vp, vp]
+                                                   + levels[:-1] + [ci, vp])
+    lib.ngp_blocked_grid_group.argtypes = [ci]
+    for fn in (lib.ngp_blocked_grid_encode_fwd,
+               lib.ngp_blocked_grid_encode_bwd,
+               lib.ngp_blocked_grid_encode_bwd_pos,
+               lib.ngp_blocked_grid_encode_fwd_i8,
+               lib.ngp_blocked_grid_encode_bwd_i8,
+               lib.ngp_blocked_grid_group):
+        fn.restype = ci
+    lib.ngp_cuda_error_string.argtypes = [ci]
+    lib.ngp_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def build() -> ctypes.CDLL:
     """Compile (if the sources changed) and load the kernel library."""
     global _lib, build_log
@@ -73,34 +115,60 @@ def build() -> ctypes.CDLL:
         return _lib
     out = library_path()
     if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *map(str, sorted(CSRC.glob("*.cu")))]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    levels = [vp, vp, vp, ci, ci, ci, ci, vp]   # per-level arrays … stream
-    lib.ngp_blocked_grid_encode_fwd.argtypes = [vp, vp, vp] + levels
-    lib.ngp_blocked_grid_encode_bwd.argtypes = [vp, vp, vp] + levels
-    lib.ngp_blocked_grid_encode_fwd_i8.argtypes = [vp, vp, vp, vp] + levels
-    lib.ngp_blocked_grid_encode_bwd_pos.argtypes = [vp, vp, vp, vp] + levels
-    lib.ngp_blocked_grid_encode_bwd_i8.argtypes = ([vp, vp, vp, vp]
-                                                   + levels[:-1] + [ci, vp])
-    for fn in (lib.ngp_blocked_grid_encode_fwd,
-               lib.ngp_blocked_grid_encode_bwd,
-               lib.ngp_blocked_grid_encode_bwd_pos,
-               lib.ngp_blocked_grid_encode_fwd_i8,
-               lib.ngp_blocked_grid_encode_bwd_i8):
-        fn.restype = ci
-    lib.ngp_cuda_error_string.argtypes = [ci]
-    lib.ngp_cuda_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+        build_log = compile_library(sorted(CSRC.glob("*.cu")), out)
+    _lib = load_library(out)
+    return _lib
+
+
+# threads per block of K1's and K2's launches
+THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """A launch of K1 or K2 over the (sample, level) pairs: ``groups``
+    level groups of ``width`` levels (grid y), each covered by ``blocks``
+    blocks of ``threads`` threads (grid x). Thread t of block b in group k
+    takes pair p = b·threads + t: sample p // width, level k·width + p %
+    width. Threads past sample n - 1 are idle."""
+    n: int
+    n_levels: int
+    width: int
+    threads: int
+    blocks: int
+    groups: int
+
+    @property
+    def log2_width(self) -> int:
+        return self.width.bit_length() - 1
+
+    def pairs(self):
+        """(sample, level) of every thread, each (groups, blocks·threads),
+        in thread order; a sample ≥ n marks an idle thread."""
+        p = np.arange(self.blocks * self.threads, dtype=np.int64)
+        sample = np.broadcast_to(p // self.width, (self.groups, p.size))
+        level = np.arange(self.groups)[:, None] * self.width \
+            + p % self.width
+        return sample, level
+
+
+def launch_plan(n: int, n_levels: int, group: int,
+                threads: int = THREADS) -> LaunchPlan:
+    """Size K1's or K2's launch for n samples × n_levels levels, with the
+    kernel's level group ``group`` (a power of two, the library's
+    ``ngp_blocked_grid_group``). Groups are ``group`` levels wide, or,
+    where that does not divide n_levels, as wide as the largest power of
+    two that does: no group is ragged, and each sample's group is 8·width
+    contiguous bytes of output, aligned to 8·width."""
+    if group < 1 or group & (group - 1) or group > 32:
+        raise ValueError(f"level group must be a power of two ≤ 32, got "
+                         f"{group}")
+    if threads < 32 or threads > 1024 or threads % 32:
+        raise ValueError(f"threads per block must be whole warps ≤ 1024, "
+                         f"got {threads}")
+    width = min(group, n_levels & -n_levels)
+    return LaunchPlan(n, n_levels, width, threads,
+                      -(-n * width // threads), n_levels // width)
 
 
 def _check(meta: BlockedGridMeta, pos: torch.Tensor, *tensors):
@@ -140,17 +208,32 @@ def _check_cotangent(pos: torch.Tensor, grad: torch.Tensor,
                          f"{grad.dtype} {tuple(grad.shape)}")
 
 
+def level_arrays(meta: BlockedGridMeta):
+    """The per-level parameters every kernel takes: f32 scales, int32
+    blocks per dimension, uint8 dense flags."""
+    return (np.asarray(meta.level_scales, np.float32),
+            np.asarray(meta.level_blocks_per_dim, np.int32),
+            np.asarray(meta.level_is_dense, np.uint8))
+
+
 def _level_args(meta: BlockedGridMeta, pos: torch.Tensor):
     """The per-level host arrays and scalars every entry point takes, in
     order; the arrays are returned too, to stay alive over the call."""
-    arrays = (np.asarray(meta.level_scales, np.float32),
-              np.asarray(meta.level_blocks_per_dim, np.int32),
-              np.asarray(meta.level_is_dense, np.uint8))
+    arrays = level_arrays(meta)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     args = [a.ctypes.data for a in arrays] + [
         pos.shape[0], meta.n_levels, meta.log2_rows,
         int(meta.row_hash == "morton"), stream]
     return args, arrays
+
+
+def _planned_args(meta: BlockedGridMeta, pos: torch.Tensor, backward: bool):
+    """``_level_args`` with K1's (or K2's) launch plan before the stream."""
+    args, arrays = _level_args(meta, pos)
+    plan = launch_plan(pos.shape[0], meta.n_levels,
+                       build().ngp_blocked_grid_group(int(backward)))
+    return args[:-1] + [plan.blocks, plan.threads, plan.log2_width,
+                        args[-1]], arrays
 
 
 def _run(name: str, fn, *args):
@@ -171,7 +254,7 @@ def launch_fwd(table: torch.Tensor, pos: torch.Tensor,
     if pos.shape[0] == 0:
         return out
     lib = build()
-    args, _keep = _level_args(meta, pos)
+    args, _keep = _planned_args(meta, pos, backward=False)
     _run("blocked_grid_encode_fwd", lib.ngp_blocked_grid_encode_fwd,
          pos.data_ptr(), table.data_ptr(), out.data_ptr(), *args)
     return out
@@ -209,7 +292,7 @@ def launch_bwd(pos: torch.Tensor, grad: torch.Tensor,
     if pos.shape[0] == 0:
         return dtable
     lib = build()
-    args, _keep = _level_args(meta, pos)
+    args, _keep = _planned_args(meta, pos, backward=True)
     _run("blocked_grid_encode_bwd", lib.ngp_blocked_grid_encode_bwd,
          pos.data_ptr(), grad.data_ptr(), dtable.data_ptr(), *args)
     return dtable
