@@ -25,10 +25,13 @@ Phases, each reported on its own line:
                positions for K1 and K4, the 2^18 of a training batch for
                K2, K3 and K5, plus lattice vertices, the corners 0 and 1,
                and points just outside the unit cube), each timed against
-               its plain version by CUDA events, in turns, beside its
+               its plain version in turns (the kernel by CUDA-graph
+               replays, the plain version by CUDA events), beside its
                bound: the bytes it must move at the card's memory rate.
                K1 and K2 again on the captured ray-ordered positions
-               (tiled to 2^20 for K1, the first 2^18 for K2).
+               (tiled to 2^20 for K1, the first 2^18 for K2); K4 also at
+               the 2^18 positions of one grid-sweep call, and the table's
+               int8 quantisation alone.
   5. train   — the training path a user calls: NerfTrainer on a synthetic
                scene of analytic spheres (24 orbit views at 256×256, sRGB
                uint8), base.json at aabb_scale 4, the bench's trainer
@@ -40,7 +43,10 @@ Phases, each reported on its own line:
                view before and after; the loss must stay finite, the PSNR
                rise by PSNR_RISE_DB, and K1, K2 and K4 must all launch.
                K2 on the positions and cotangent of one real step is
-               held against the plain backward.
+               held against the plain backward, and K4 on the trainer's
+               own grid-sweep positions (the first 2^18-position call of
+               a full sweep and of a partial one) against its plain
+               version, timed beside it.
   6. pose    — camera optimisation on the same views: every view but
                view 0 gets a seeded pose error (0.5° about a random axis,
                0.005 of translation), and the trainer (optimize_extrinsics,
@@ -56,10 +62,13 @@ Phases, each reported on its own line:
 With ``--profile``, torch.profiler traces of one slice frame (K1's device
 ms and launches in it) and of 16 steady training steps are broken down by
 layer as well (the steps' table also to a file, see ``phase_profile``).
-``--kernels`` runs phases 1, 2 and 4 alone, on a scene of its own, and
-ends with the kernels' JSON line.
+``--kernels`` runs phases 1, 2 and 4 alone, on a scene of its own (K4's
+sweep positions from an untrained trainer), and ends with the kernels'
+JSON line.
 Then one JSON line with each kernel's figures (K1's and K2's ray-ordered
-ones under "ray_ordered"), and as the last line ``{"ok": true, "device":
+ones under "ray_ordered", K4's at 2^18 uniform positions under
+"uniform_2e18" and on the sweep's positions under "sweep_ordered"), and as
+the last line ``{"ok": true, "device":
 {...}}``. Any failure raises: there is no fallback to the CPU or to the
 plain version.
 """
@@ -125,6 +134,23 @@ def _cuda_time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_time_ms(fn, iters: int) -> float:
+    """Device ms per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed, so the host's launch overhead (the wrappers' Python
+    and ctypes, tens of µs a call) does not hide a kernel shorter than it.
+    What ``fn`` allocates comes from the graph's pool."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    ms = _cuda_time_ms(graph.replay, 1) / iters
+    del graph
+    return ms
 
 
 def phase_device() -> dict:
@@ -205,12 +231,14 @@ def _full_width_inputs(dev, n: int):
 
 
 def _time_in_turns(kern, plain, kern_iters: int = 20, plain_iters: int = 5):
-    """Warm both, then time plain, kernel, kernel, plain (CUDA events)."""
+    """Warm both, then time plain, kernel, kernel, plain: the kernel by
+    CUDA-graph replays (device time), the plain version by CUDA events
+    around eager calls."""
     for f in (plain, kern):
         f()
     p1 = _cuda_time_ms(plain, plain_iters)
-    k1 = _cuda_time_ms(kern, kern_iters)
-    k2 = _cuda_time_ms(kern, kern_iters)
+    k1 = _graph_time_ms(kern, kern_iters)
+    k2 = _graph_time_ms(kern, kern_iters)
     p2 = _cuda_time_ms(plain, plain_iters)
     return (k1, k2), (p1, p2)
 
@@ -346,13 +374,17 @@ def time_k2(p, c, meta, err: float, what: str) -> dict:
     return entry
 
 
-def _ray_ordered(entry: dict, ray: dict) -> dict:
-    """``entry`` (uniform inputs) with the ray-ordered run's figures under
-    "ray_ordered" and the larger error of the two."""
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "bytes",
-            "max_abs_err")
-    entry["ray_ordered"] = {k: ray[k] for k in keys}
-    entry["max_abs_err"] = max(entry["max_abs_err"], ray["max_abs_err"])
+def _figures(entry: dict) -> dict:
+    """The figures of one input set of a kernel entry."""
+    return {k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "bytes", "max_abs_err")}
+
+
+def _sub_entry(entry: dict, other: dict, key: str) -> dict:
+    """``entry`` (uniform inputs) with ``other``'s figures under ``key``
+    (another input set) and the larger error of the two."""
+    entry[key] = _figures(other)
+    entry["max_abs_err"] = max(entry["max_abs_err"], other["max_abs_err"])
     return entry
 
 
@@ -366,8 +398,8 @@ def phase_k1(dev, ray=None) -> dict:
     if ray is None:
         return entry
     err = check_k1(table, ray["k1_pos"], meta, "ray-ordered")
-    return _ray_ordered(entry, time_k1(table, ray["k1_pos"], meta, err,
-                                       "ray-ordered"))
+    return _sub_entry(entry, time_k1(table, ray["k1_pos"], meta, err,
+                                     "ray-ordered"), "ray_ordered")
 
 
 def phase_k2(dev, ray=None) -> dict:
@@ -382,39 +414,112 @@ def phase_k2(dev, ray=None) -> dict:
     if ray is None:
         return entry
     err = check_k2(ray["k2_pos"], ray["k2_cot"], meta, "ray-ordered")
-    return _ray_ordered(entry, time_k2(ray["k2_pos"], ray["k2_cot"], meta,
-                                       err, "ray-ordered"))
+    return _sub_entry(entry, time_k2(ray["k2_pos"], ray["k2_cot"], meta,
+                                     err, "ray-ordered"), "ray_ordered")
 
 
-def phase_k4(dev) -> dict:
+def check_k4(tq, qs, pos, meta, what: str) -> float:
+    """K4 against its plain version on ``pos``; returns max |Δ|."""
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
-    from ngp_tpu_torch.kernels.blocked_grid import (encode_reference_i8,
-                                                    quantize_table_i8)
-    meta, table, pos, _ = _full_width_inputs(dev, 1 << 20)
+    from ngp_tpu_torch.kernels.blocked_grid import encode_reference_i8
     with torch.no_grad():
-        tq, qs = quantize_table_i8(table)
-        got = bgc.blocked_grid_encode_i8fwd(table, pos, meta)
+        got = bgc.launch_fwd_i8(tq, qs, pos, meta)
         ref = encode_reference_i8(tq, qs, pos, meta)
         torch.cuda.synchronize()
-        if not bool(torch.isfinite(got).all()):
-            raise RuntimeError("K4 output is not finite")
-        err = float((got - ref).abs().max())
-        print(f"K4: blocked_grid_encode_fwd_i8 {tuple(tq.shape)} int8 x "
-              f"{pos.shape[0]} positions: max |kernel - plain| {err:.3e} "
-              f"(tolerance {KERNEL_TOL})")
-        if not err <= KERNEL_TOL:
-            raise RuntimeError(f"K4 disagrees with its plain version: {err}")
-        p = pos[: 1 << 20]
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"K4 output is not finite ({what})")
+    err = float((got - ref).abs().max())
+    print(f"K4: blocked_grid_encode_fwd_i8 {tuple(tq.shape)} int8 x "
+          f"{pos.shape[0]} {what} positions: max |kernel - plain| {err:.3e} "
+          f"(tolerance {KERNEL_TOL})")
+    if not err <= KERNEL_TOL:
+        raise RuntimeError(f"K4 disagrees with its plain version ({what}): "
+                           f"{err}")
+    return err
+
+
+def time_k4(tq, qs, p, meta, err: float, what: str) -> dict:
+    """K4 and its plain version timed in turns on ``p``; the bound:
+    positions and level scales in, features out, one byte per table entry
+    the corners read."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import encode_reference_i8
+    with torch.no_grad():
         ks, ps = _time_in_turns(
             lambda: bgc.launch_fwd_i8(tq, qs, p, meta),
             lambda: encode_reference_i8(tq, qs, p, meta))
-        n = p.shape[0]
-        # positions and level scales in, features out, one byte per entry
-        entry = _kernel_entry("blocked_grid_encode_fwd_i8", 354, err, ks, ps,
-                              n, meta, 12 * n + 4 * meta.n_levels
-                              + 4 * 2 * meta.n_levels * n
-                              + _touched_entries(meta, p))
-    _print_times("K4", "2^20 positions x 16 levels", entry, ks, ps)
+    n = p.shape[0]
+    entry = _kernel_entry("blocked_grid_encode_fwd_i8", 354, err, ks, ps, n,
+                          meta, 12 * n + 4 * meta.n_levels
+                          + 4 * 2 * meta.n_levels * n
+                          + _touched_entries(meta, p))
+    _print_times("K4", f"{n} {what} positions x {meta.n_levels} levels",
+                 entry, ks, ps)
+    return entry
+
+
+def phase_k4(dev) -> dict:
+    """K4 at 2^20 uniform positions (checked with the edge positions too)
+    and at the 2^18 of one grid-sweep call; the int8 quantisation of the
+    table, which the sweep runs once per sweep, timed alone."""
+    from ngp_tpu_torch.kernels.blocked_grid import quantize_table_i8
+    meta, table, pos, _ = _full_width_inputs(dev, 1 << 20)
+    with torch.no_grad():
+        tq, qs = quantize_table_i8(table)
+        quant = [_cuda_time_ms(lambda: quantize_table_i8(table), 10)
+                 for _ in range(2)]
+    print(f"K4: quantize_table_i8 of the {table.numel() * 4 / 2**20:.0f} MiB "
+          f"f32 table alone: {quant[0]:.4f}/{quant[1]:.4f} ms")
+    err = check_k4(tq, qs, pos, meta, "uniform+edge")
+    entry = time_k4(tq, qs, pos[: 1 << 20], meta, err, "uniform")
+    entry["quantize_ms"] = sum(quant) / 2
+    return _sub_entry(entry, time_k4(tq, qs, pos[: 1 << 18], meta, err,
+                                     "uniform"), "uniform_2e18")
+
+
+def sweep_ordered_inputs(tr) -> dict:
+    """The positions of the first network call (SWEEP_CHUNK = 2^18) of a
+    full grid sweep and of a partial one of trainer ``tr``, as the sweep
+    hands them to K4 (or, for CPU tensors, to its plain version): cascade
+    0's cells in linear x-fastest order with jitter, and the first z-slabs
+    of the partial sweep's phase. The trainer's grid and generator are
+    left as they were."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    encode = bgc.encode_quantized
+    out = {}
+    for name, full in (("full", True), ("partial", False)):
+        seen = []
+
+        def spy(tq, qs, pos, meta):
+            if not seen:
+                seen.append(pos.clone())
+            return encode(tq, qs, pos, meta)
+        grid, rng = tr.grid, tr.generator.get_state()
+        with mock.patch.object(bgc, "encode_quantized", spy):
+            tr._grid_update(full)
+        tr.grid = grid
+        tr.generator.set_state(rng)
+        out[name] = seen[0]
+    print(f"sweep: captured the first call of a full and of a partial grid "
+          f"sweep: {out['full'].shape[0]} and {out['partial'].shape[0]} "
+          f"positions")
+    return out
+
+
+def phase_k4_sweep(dev, entry: dict, sweep: dict) -> dict:
+    """K4 on the grid sweep's own positions (``sweep_ordered_inputs``),
+    checked and timed, under ``entry["sweep_ordered"]``."""
+    from ngp_tpu_torch.kernels.blocked_grid import quantize_table_i8
+    meta, table, _, _ = _full_width_inputs(dev, 1)
+    with torch.no_grad():
+        tq, qs = quantize_table_i8(table)
+    parts = {}
+    for name, p in sweep.items():
+        err = check_k4(tq, qs, p, meta, f"{name}-sweep")
+        parts[name] = time_k4(tq, qs, p, meta, err, f"{name}-sweep")
+    entry["sweep_ordered"] = {k: _figures(e) for k, e in parts.items()}
+    entry["max_abs_err"] = max([entry["max_abs_err"]]
+                               + [e["max_abs_err"] for e in parts.values()])
     return entry
 
 
@@ -1124,8 +1229,9 @@ def phase_profile(tr, steps: int = 16):
     """Trace ``steps`` training steps (one grid boundary) with
     torch.profiler and print the device time of the work launched inside
     each layer's span (spans nest: the step holds the others, the network
-    forward holds K1, the grid sweep K4). The backward runs on autograd's
-    own thread and is counted apart, K2 within it."""
+    forward holds K1, the grid sweep K4 and the table's int8 quantisation).
+    The backward runs on autograd's own thread and is counted apart, K2
+    within it."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import ngp_tpu_torch.train.nerf as tnerf
@@ -1146,7 +1252,10 @@ def phase_profile(tr, steps: int = 16):
               (tnerf, "apply_update", "Adam"),
               (tr, "_deposit_error", "error map"),
               (tr, "_grid_update", "grid sweep"),
-              (bgc, "launch_fwd_i8", "K4 encode fwd i8")]
+              (bgc, "launch_fwd_i8", "K4 encode fwd i8"),
+              # the sweep's own call and the int8 training encode's
+              (tnerf, "quantize_table_i8", "int8 quantisation"),
+              (bgc, "quantize_table_i8", "int8 quantisation")]
     patches = [mock.patch.object(o, a, span(n, getattr(o, a)))
                for o, a, n in layers]
     cuda = tr.device.type == "cuda"     # False only in a CPU rehearsal
@@ -1171,7 +1280,8 @@ def phase_profile(tr, steps: int = 16):
             p.stop()
     per_span, other, total, busy = _attribute_kernels(
         prof, {n for _, _, n in layers}, "step")
-    rows = [(n, per_span.get(n, 0.0)) for _, _, n in layers]
+    rows = [(n, per_span.get(n, 0.0))
+            for n in dict.fromkeys(n for _, _, n in layers)]
     rows.insert(6, ("backward (autograd thread)", other))
     lines = [f"profile: {steps} steps traced in {wall_ms:.1f} ms "
              f"({wall_ms / steps:.2f} ms/step); device work {total:.2f} ms "
@@ -1245,6 +1355,10 @@ def kernel_phases(dev, ray) -> list:
             phase_k4(dev), phase_k5(dev)]
 
 
+def _named(kernels: list, name: str) -> dict:
+    return next(k for k in kernels if k["name"] == name)
+
+
 def main() -> int:
     args = sys.argv[1:]
     device = phase_device()
@@ -1252,9 +1366,13 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     phase_build()
     if "--kernels" in args:
-        # the kernel phases alone, on their own scene: no main path is run,
-        # so no launch counts and no "ok" line
+        # the kernel phases alone, on their own scene and an untrained
+        # trainer's sweep: no main path is run, so no launch counts and no
+        # "ok" line
         kernels = kernel_phases(dev, ray_ordered_inputs(dev))
+        tr = make_trainer(build_sphere_dataset(dev, 2, 32), dev)
+        phase_k4_sweep(dev, _named(kernels, "blocked_grid_encode_fwd_i8"),
+                       sweep_ordered_inputs(tr))
         print(json.dumps({"kernels": kernels}))
         return 0
     _, renderer, bitfield = phase_slice(dev)
@@ -1263,6 +1381,8 @@ def main() -> int:
     kernels = kernel_phases(dev, ray_ordered_inputs(dev, renderer, bitfield))
     del renderer, bitfield
     launches, tr = phase_train(dev)
+    phase_k4_sweep(dev, _named(kernels, "blocked_grid_encode_fwd_i8"),
+                   sweep_ordered_inputs(tr))
     if "--profile" in args:
         phase_profile(tr)
     pose_launches = phase_pose(dev, tr.dataset)

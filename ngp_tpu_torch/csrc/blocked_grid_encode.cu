@@ -1,6 +1,7 @@
 // Blocked hash-grid encode kernels for Hopper (sm_90a), sharing one
 // lookup-geometry function; one thread per (sample, level), except K3. In
-// K1 and K2 neighbouring lanes take neighbouring levels of one sample:
+// K1, K2, K4 and K5 neighbouring lanes take neighbouring levels of one
+// sample:
 //
 //   K1 blocked_grid_encode_fwd_kernel    (L, R, 128) f32 table + (N, 3) f32
 //      positions -> (N, L*2) f32 features, sample-major.
@@ -34,10 +35,12 @@
 // What bounds them on this card:
 //  - K1, K4: random reads scattered inside table rows (64 MiB f32 or
 //    16 MiB int8 at the full NeRF width: 16 levels x 8192 rows), bound by
-//    the sectors gathered from L2, not by arithmetic. K4 reads a quarter of
-//    K1's bytes per corner. K1 groups levels so its output leaves in whole
-//    sectors (its note below); K4 keeps the first design, one level per
-//    block row.
+//    the sectors gathered from L2, not by arithmetic. Both group levels so
+//    the output leaves in whole sectors (K1's note below). K4 reads a
+//    quarter of K1's bytes per corner: a lookup's 8 corners lie in 2
+//    sectors of its row and come in 2-4 aligned line loads; the whole
+//    int8 table fits in L2, so its group is set by the sweep alone (K4's
+//    note below).
 //  - K2: f32 vector reductions into L2. Coarse dense levels have few rows,
 //    so many samples add into the same addresses and serialise there; K2
 //    sums equal addresses inside the warp first (its note below). The sum
@@ -45,11 +48,16 @@
 //  - K3: the same scattered corner reads as K1 (the f32 table, even in the
 //    int8 modes, as the JAX package's int8 backward reuses the f32 K3),
 //    plus the cotangent; it writes only 12 bytes per sample.
-//  - K5: K2's atomics, minus those of zero quanta, after a first pass
-//    that reads the positions and cotangent once more. The TPU sums the
-//    quanta of a tile exactly in int32 before scaling; here each scale*q
-//    is added in f32, so entries differ from that sum by f32 rounding of
-//    the order (the checks are relative to sum_t scale_t * sum|q|).
+//  - K5: K2's reductions, minus those whose quanta are all 0, after a
+//    first pass that reads the positions and cotangent once more (but
+//    computes no row). Corners x and x + 1 go as one float4 reduction
+//    where aligned. Its group is 4, as K2's: the f32 gradient is 4 MiB
+//    per level, so a group of 16 spreads its reductions over 64 MiB,
+//    more than L2 (1.6x slower in the sweep). Lanes of a warp on the same
+//    cell sum their quanta as integers, exactly, as the TPU sums a tile's
+//    quanta in int32 before scaling; the sums of different warps meet in
+//    f32, so entries differ from the TPU's by f32 rounding of the order
+//    (the checks are relative to sum_t scale_t * sum|q|).
 //
 // Numerics: x = pos * scale + 0.5 is rounded twice (__fmul_rn, __fadd_rn),
 // like the separate multiply and add of the reference; a fused multiply-add
@@ -72,15 +80,18 @@ constexpr int kSide = 4;     // vertices per block side (4^3 * 2 = 128 lanes)
 constexpr int kStride = 3;   // blocks overlap with a stride of 3 cells
 constexpr int kCorners = 1 << kDims;
 
-// Levels per thread group of K1 and K2: a group's threads cover one
-// sample's levels side by side (see the plan in
+// Levels per thread group of K1, K2, K4 and K5: a group's threads cover
+// one sample's levels side by side (see the plan in
 // ngp_tpu_torch/kernels/blocked_grid_cuda.py, launch_plan). Where a group
 // does not divide the level count, the plan narrows it to the largest
-// power of two that does. 4 was the fastest of 4, 8 and 16 for both
-// kernels on uniform and on ray-ordered positions on an H100
-// (scripts/encode_group_sweep.py; PERF.md).
+// power of two that does. Each is the fastest of 4, 8 and 16 on an H100
+// (scripts/encode_group_sweep.py; PERF.md): 4 for K1 and K2 on uniform
+// and ray-ordered positions, 16 for K4 on uniform and grid-sweep
+// positions, 4 for K5 on uniform positions and a training step's.
 constexpr int kGroupFwd = 4;
 constexpr int kGroupBwd = 4;
+constexpr int kGroupI8 = 16;
+constexpr int kGroupI8Bwd = 4;
 
 struct LevelParams {
   float scale[kMaxLevels];
@@ -99,10 +110,10 @@ __device__ __forceinline__ Level level_of(const LevelParams& lp, int l) {
   return {lp.scale[l], lp.blocks_per_dim[l], lp.is_dense[l]};
 }
 
-// K1 and K2 give neighbouring lanes neighbouring levels, so a warp indexes
-// the levels with a lane-varying index: from the parameter space that is
-// served one address at a time. The group's levels are staged in shared
-// memory once per block instead. A block covers `width` levels
+// K1, K2, K4 and K5 give neighbouring lanes neighbouring levels, so a warp
+// indexes the levels with a lane-varying index: from the parameter space
+// that is served one address at a time. The group's levels are staged in
+// shared memory once per block instead. A block covers `width` levels
 // blockIdx.y * width + [0, width).
 __device__ __forceinline__ void stage_group_levels(Level* s, const LevelParams& lp,
                                                    int width) {
@@ -133,6 +144,25 @@ struct Lookup {
   float frac[kDims];
 };
 
+// Sample i's coordinate along d on a level's vertex lattice
+__device__ __forceinline__ float lattice_coord(const float* __restrict__ pos,
+                                               int i, int d, float scale) {
+  return __fadd_rn(__fmul_rn(pos[(size_t)i * kDims + d], scale), 0.5f);
+}
+
+// The fractions alone (what the corner weights need), bit-equal to
+// lookup_geometry's
+__device__ __forceinline__ Lookup lookup_fractions(
+    const float* __restrict__ pos, int i, float scale) {
+  Lookup g = {};
+#pragma unroll
+  for (int d = 0; d < kDims; ++d) {
+    const float x = lattice_coord(pos, i, d, scale);
+    g.frac[d] = __fsub_rn(x, floorf(x));
+  }
+  return g;
+}
+
 __device__ __forceinline__ Lookup lookup_geometry(
     const float* __restrict__ pos, int i, const Level& lv, int log2_rows,
     int morton_hash) {
@@ -143,7 +173,7 @@ __device__ __forceinline__ Lookup lookup_geometry(
   int block[kDims], local[kDims];
 #pragma unroll
   for (int d = 0; d < kDims; ++d) {
-    const float x = __fadd_rn(__fmul_rn(pos[(size_t)i * kDims + d], scale), 0.5f);
+    const float x = lattice_coord(pos, i, d, scale);
     const float x0 = floorf(x);
     g.frac[d] = __fsub_rn(x, x0);
     const int base = (int)x0;
@@ -245,26 +275,68 @@ __global__ void blocked_grid_encode_fwd_kernel(
   reinterpret_cast<float2*>(out)[(size_t)q.i * n_levels + q.l] = make_float2(f0, f1);
 }
 
+// Byte k of x as a signed int8 value
+__device__ __forceinline__ int sbyte(uint32_t x, int k) {
+  return (int)(x << (24 - 8 * k)) >> 24;
+}
+
+// K4. K1's mapping and whole-sector stores. An int8 row is 128 bytes, one
+// cache line: vertex (x, y, z) holds its two features at byte
+// 2 * (x + 4y + 16z), so a z-plane of the block (16 vertices) is one
+// 32-byte sector, and a (y, z) line of 4 vertices is 8 contiguous bytes,
+// 8-aligned, at byte 8 * (y + 4z). A lookup's 8 corners lie on the 4
+// lines (y or y + 1, z or z + 1), in 2 sectors: each line is one aligned
+// 8-byte load, from which the x and x + 1 corners (bytes 2x .. 2x + 3,
+// x <= 2) come by one byte permute. That is 4 loads per lookup where the
+// first design made 8 two-byte ones; where y is even, lines y and y + 1
+// are 16-byte aligned and come in one 16-byte load (2 loads for 2/3 of
+// lookups: 5-9 % faster on every input set of the sweep). The table is 1
+// MiB per level at the NeRF width, all 16 levels 16 MiB, inside the 50 MB
+// L2 at once: unlike K1's, K4's group is not held down by the table slice
+// in flight, and the widest group (16: all levels of a sample in one
+// group, each position read once) was the fastest. As the 16-byte loads'
+// gain suggests, what bounds K4 now is the gathers' line lookups in L1 (a
+// warp's load touches up to 32 lines), not bytes.
 __global__ void blocked_grid_encode_fwd_i8_kernel(
     const float* __restrict__ pos, const int8_t* __restrict__ table,
     const float* __restrict__ qscale, float* __restrict__ out,
     const LevelParams lp, int n, int n_levels, int log2_rows,
-    int morton_hash) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int l = blockIdx.y;
-  if (i >= n) return;
-  const Lookup g = lookup_geometry(pos, i, level_of(lp, l), log2_rows, morton_hash);
-  const int8_t* rowp = table + (((size_t)l << log2_rows) + g.row) * kLanes + g.base_lane;
-  const float s = __ldg(qscale + l);
+    int morton_hash, int log2_group) {
+  __shared__ Level levels[kGroupI8];
+  stage_group_levels(levels, lp, 1 << log2_group);
+  const Pair q = pair_of_thread(log2_group);
+  if (q.i >= n) return;
+  const Lookup g = lookup_geometry(pos, q.i, levels[q.j], log2_rows, morton_hash);
+  // byte 8 * (y + 4z) of the base corner's line; its x corner at byte 2x
+  const int8_t* linep = table + (((size_t)q.l << log2_rows) + g.row) * kLanes
+                        + (g.base_lane & ~7);
+  const uint32_t sel = 0x3210u + 0x2222u * (uint32_t)((g.base_lane & 7) >> 1);
+  uint2 line[4];   // (dy, dz) = (k & 1, k >> 1)
+  if ((g.base_lane & 8) == 0) {   // y even
+    const uint4 a = __ldg(reinterpret_cast<const uint4*>(linep));
+    const uint4 b = __ldg(reinterpret_cast<const uint4*>(linep + 8 * kSide));
+    line[0] = make_uint2(a.x, a.y);
+    line[1] = make_uint2(a.z, a.w);
+    line[2] = make_uint2(b.x, b.y);
+    line[3] = make_uint2(b.z, b.w);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      line[k] = __ldg(reinterpret_cast<const uint2*>(linep + 8 * ((k & 1) + kSide * (k >> 1))));
+  }
+  const float s = __ldg(qscale + q.l);
   float f0 = 0.f, f1 = 0.f;
 #pragma unroll
-  for (int c = 0; c < kCorners; ++c) {
-    const float w = corner_weight(g, c);
-    const char2 q = __ldg(reinterpret_cast<const char2*>(rowp + corner_offset(c)));
-    f0 += __fmul_rn((float)q.x, s) * w;
-    f1 += __fmul_rn((float)q.y, s) * w;
+  for (int c = 0; c < kCorners; c += 2) {
+    // corners c (x) and c + 1 (x + 1): bytes q0(x) q1(x) q0(x+1) q1(x+1)
+    const uint32_t v = __byte_perm(line[c >> 1].x, line[c >> 1].y, sel);
+    const float w0 = corner_weight(g, c), w1 = corner_weight(g, c + 1);
+    f0 += __fmul_rn((float)sbyte(v, 0), s) * w0;
+    f1 += __fmul_rn((float)sbyte(v, 1), s) * w0;
+    f0 += __fmul_rn((float)sbyte(v, 2), s) * w1;
+    f1 += __fmul_rn((float)sbyte(v, 3), s) * w1;
   }
-  reinterpret_cast<float2*>(out + (size_t)i * n_levels * 2)[l] = make_float2(f0, f1);
+  reinterpret_cast<float2*>(out)[(size_t)q.i * n_levels + q.l] = make_float2(f0, f1);
 }
 
 // A denormal flushed to zero, as the reductions into L2 flush what they
@@ -384,20 +456,26 @@ __global__ void blocked_grid_encode_bwd_pos_kernel(
 // K5, pass 1: the largest |w*g| of each (level, sample tile) into
 // tile_max[l * n_tiles + t], as float bits. For non-negative floats the
 // bit patterns order as the values, so an unsigned atomicMax is exact and
-// order-free. A warp lies inside one tile (tiles are powers of two of at
-// least 32 samples), so it reduces first and adds one atomic.
+// order-free. K1's mapping, so the cotangent is read as whole sectors; the
+// weights need only the fractions, no row. A warp holds 32 / width
+// consecutive samples, aligned to 32 / width, and tiles are powers of two
+// of at least 32 samples, so the warp lies inside one tile: the lanes of
+// level j (j, j + width, ...) reduce by shuffles at xor distances width,
+// 2 * width, ..., and lane j adds one atomic for its level.
 __global__ void blocked_grid_encode_bwd_i8_max_kernel(
     const float* __restrict__ pos, const float* __restrict__ grad,
     unsigned int* __restrict__ tile_max, const LevelParams lp, int n,
-    int n_levels, int log2_rows, int morton_hash, int log2_tile,
-    int n_tiles) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int l = blockIdx.y;
+    int n_levels, int log2_group, int log2_tile, int n_tiles) {
+  __shared__ Level levels[kGroupI8Bwd];
+  const int width = 1 << log2_group;
+  stage_group_levels(levels, lp, width);
+  const Pair q = pair_of_thread(log2_group);
+  // every lane runs to the end: the warp's lanes reduce together below
   float m = 0.f;
-  if (i < n) {
-    const float2 gv = __ldg(reinterpret_cast<const float2*>(grad + (size_t)i * n_levels * 2) + l);
+  if (q.i < n) {
+    const float2 gv = __ldg(reinterpret_cast<const float2*>(grad) + (size_t)q.i * n_levels + q.l);
     if (gv.x != 0.f || gv.y != 0.f) {
-      const Lookup g = lookup_geometry(pos, i, level_of(lp, l), log2_rows, morton_hash);
+      const Lookup g = lookup_fractions(pos, q.i, levels[q.j].scale);
 #pragma unroll
       for (int c = 0; c < kCorners; ++c) {
         const float w = corner_weight(g, c);
@@ -405,36 +483,101 @@ __global__ void blocked_grid_encode_bwd_i8_max_kernel(
       }
     }
   }
-  const unsigned int bits = __reduce_max_sync(0xffffffffu, __float_as_uint(m));
-  if ((threadIdx.x & 31) == 0 && bits != 0u && i < n)
-    atomicMax(tile_max + (size_t)l * n_tiles + (i >> log2_tile), bits);
+  unsigned int bits = __float_as_uint(m);
+  for (int d = width; d < 32; d <<= 1)
+    bits = max(bits, __shfl_xor_sync(0xffffffffu, bits, d));
+  // lane j < width holds level j of the warp's first sample, in its tile
+  if ((int)(threadIdx.x & 31) < width && bits != 0u)
+    atomicMax(tile_max + (size_t)q.l * n_tiles + (q.i >> log2_tile), bits);
+}
+
+// One quantum: q = clip(rint((w*g) / scale), +-127)
+__device__ __forceinline__ int quantum(float w, float g, float scale) {
+  return (int)fminf(fmaxf(rintf(__fdiv_rn(__fmul_rn(w, g), scale)), -127.f), 127.f);
 }
 
 // K5, pass 2: K2's scatter, adding scale * q with the tile's scale
-// max(tile_max, 1e-20) / 127 and q = clip(rint((w*g) / scale), +-127).
-// A zero q adds nothing, so entries whose every q is 0 stay exactly 0.
+// max(tile_max, 1e-20) / 127, on K2's mapping: one float2 reduction per
+// corner, or one float4 for corners x and x + 1 where x is even (16-byte
+// aligned; 16 % faster on uniform positions, equal on a training step's),
+// skipped where all its quanta are 0, so an entry whose every q is 0
+// stays exactly 0 (adding +0.0 to a neighbour leaves it unchanged).
+// Lanes of a warp on the same row and base corner (found by
+// __match_any_sync) are on one level and, as the warp lies inside one
+// tile, share one scale: the lowest sums its peers' quanta as integers,
+// exactly, and adds scale * sum once. The 16 quanta of a lookup travel
+// packed as bytes, 4 shuffles per peer. Unlike K2's sums, none needs a
+// flush: every scale is at least 1e-20 / 127, so every scale * q with
+// q != 0 is a normal float.
 __global__ void blocked_grid_encode_bwd_i8_kernel(
     const float* __restrict__ pos, const float* __restrict__ grad,
     const unsigned int* __restrict__ tile_max, float* __restrict__ dtable,
     const LevelParams lp, int n, int n_levels, int log2_rows,
-    int morton_hash, int log2_tile, int n_tiles) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int l = blockIdx.y;
-  if (i >= n) return;
-  const float2 gv = __ldg(reinterpret_cast<const float2*>(grad + (size_t)i * n_levels * 2) + l);
-  if (gv.x == 0.f && gv.y == 0.f) return;
-  const float tmax = __uint_as_float(__ldg(tile_max + (size_t)l * n_tiles + (i >> log2_tile)));
-  const float scale = __fdiv_rn(fmaxf(tmax, 1e-20f), 127.f);
-  const Lookup g = lookup_geometry(pos, i, level_of(lp, l), log2_rows, morton_hash);
-  float* rowp = dtable + (((size_t)l << log2_rows) + g.row) * kLanes + g.base_lane;
+    int morton_hash, int log2_group, int log2_tile, int n_tiles) {
+  __shared__ Level levels[kGroupI8Bwd];
+  stage_group_levels(levels, lp, 1 << log2_group);
+  const Pair q = pair_of_thread(log2_group);
+  // every lane runs to the end: the warp's lanes vote together below
+  float2 gv = make_float2(0.f, 0.f);
+  if (q.i < n) gv = __ldg(reinterpret_cast<const float2*>(grad) + (size_t)q.i * n_levels + q.l);
+  const bool live = gv.x != 0.f || gv.y != 0.f;
+  float scale = 0.f;
+  float* rowp = nullptr;
+  // the quanta (q0, q1) of corners 2k and 2k + 1 as the 4 bytes of packed[k]
+  uint32_t packed[kCorners / 2] = {0u, 0u, 0u, 0u};
+  if (live) {
+    const float tmax = __uint_as_float(__ldg(tile_max + (size_t)q.l * n_tiles + (q.i >> log2_tile)));
+    scale = __fdiv_rn(fmaxf(tmax, 1e-20f), 127.f);
+    const Lookup g = lookup_geometry(pos, q.i, levels[q.j], log2_rows, morton_hash);
+    rowp = dtable + (((size_t)q.l << log2_rows) + g.row) * kLanes + g.base_lane;
 #pragma unroll
-  for (int c = 0; c < kCorners; ++c) {
-    const float w = corner_weight(g, c);
+    for (int c = 0; c < kCorners; ++c) {
+      const float w = corner_weight(g, c);
+      const uint32_t b = (uint32_t)(quantum(w, gv.x, scale) & 0xff)
+                         | ((uint32_t)(quantum(w, gv.y, scale) & 0xff) << 8);
+      packed[c >> 1] |= b << (16 * (c & 1));
+    }
+  }
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const unsigned peers = __match_any_sync(
+      full, live ? reinterpret_cast<unsigned long long>(rowp) : (unsigned long long)lane);
+  int sum[2 * kCorners];   // feature f of corner c at 2c + f
+#pragma unroll
+  for (int k = 0; k < 2 * kCorners; ++k) sum[k] = sbyte(packed[k >> 2], k & 3);
+  const int rounds = __reduce_max_sync(full, __popc(peers)) - 1;
+  unsigned rest = peers & (peers - 1);          // the peers after the lowest
+  for (int r = 0; r < rounds; ++r) {
+    const int src = rest ? __ffs(rest) - 1 : lane;
+    rest &= rest - 1;
+    uint32_t hp[kCorners / 2];
+#pragma unroll
+    for (int k = 0; k < kCorners / 2; ++k) hp[k] = __shfl_sync(full, packed[k], src);
+    if (src != lane) {
+#pragma unroll
+      for (int k = 0; k < 2 * kCorners; ++k) sum[k] += sbyte(hp[k >> 2], k & 3);
+    }
+  }
+  if (!live || lane != __ffs(peers) - 1) return;
+  // corners c and c + 1 (x and x + 1) are 4 adjacent floats
+  const bool paired = (reinterpret_cast<uintptr_t>(rowp) & 15) == 0;
+#pragma unroll
+  for (int c = 0; c < kCorners; c += 2) {
+    const int* a = sum + 2 * c;     // q0, q1 of corner c, then of c + 1
     float* p = rowp + corner_offset(c);
-    const float q0 = fminf(fmaxf(rintf(__fdiv_rn(__fmul_rn(w, gv.x), scale)), -127.f), 127.f);
-    const float q1 = fminf(fmaxf(rintf(__fdiv_rn(__fmul_rn(w, gv.y), scale)), -127.f), 127.f);
-    if (q0 != 0.f) atomicAdd(p, __fmul_rn(q0, scale));
-    if (q1 != 0.f) atomicAdd(p + 1, __fmul_rn(q1, scale));
+    if (paired) {
+      if ((a[0] | a[1] | a[2] | a[3]) != 0)
+        atomicAdd(reinterpret_cast<float4*>(p),
+                  make_float4(__fmul_rn((float)a[0], scale), __fmul_rn((float)a[1], scale),
+                              __fmul_rn((float)a[2], scale), __fmul_rn((float)a[3], scale)));
+    } else {
+      if ((a[0] | a[1]) != 0)
+        atomicAdd(reinterpret_cast<float2*>(p),
+                  make_float2(__fmul_rn((float)a[0], scale), __fmul_rn((float)a[1], scale)));
+      if ((a[2] | a[3]) != 0)
+        atomicAdd(reinterpret_cast<float2*>(p + 2),
+                  make_float2(__fmul_rn((float)a[2], scale), __fmul_rn((float)a[3], scale)));
+    }
   }
 }
 
@@ -454,11 +597,7 @@ int fill_levels(LevelParams* lp, const float* scales,
 
 constexpr int kThreads = 256;
 
-dim3 grid_for(int n, int n_levels) {
-  return dim3((n + kThreads - 1) / kThreads, n_levels);
-}
-
-// Checks a pair launch of K1 or K2 (kernels/blocked_grid_cuda.py,
+// Checks a pair launch of K1, K2, K4 or K5 (kernels/blocked_grid_cuda.py,
 // launch_plan): groups of the largest power of two dividing both `group`
 // and n_levels, `threads` per block (whole warps), and exactly the
 // `blocks` per group that cover n samples.
@@ -472,28 +611,43 @@ int check_plan(int n, int n_levels, int group, int blocks, int threads,
   return 0;
 }
 
+// The per-level parameters and the plan of a pair launch, checked.
+int prepare(LevelParams* lp, const float* scales, const int* blocks_per_dim,
+            const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+            int group, int blocks, int threads, int log2_group) {
+  const int rc = fill_levels(lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                             log2_rows);
+  return rc != 0 ? rc : check_plan(n, n_levels, group, blocks, threads, log2_group);
+}
+
 }  // namespace
 
-// K1's and K2's level groups, so the wrapper can plan their launches.
-extern "C" int ngp_blocked_grid_group(int backward) {
-  return backward ? kGroupBwd : kGroupFwd;
+// The level group of kernel 0 = K1, 1 = K2, 2 = K4, 3 = K5, so the
+// wrapper can plan their launches; -1 for any other.
+extern "C" int ngp_blocked_grid_group(int kernel) {
+  switch (kernel) {
+    case 0: return kGroupFwd;
+    case 1: return kGroupBwd;
+    case 2: return kGroupI8;
+    case 3: return kGroupI8Bwd;
+    default: return -1;
+  }
 }
 
 // Each entry point launches on `stream` (a cudaStream_t passed as a
 // pointer) and returns the cudaError_t of the launch; 0 on success.
 // Per-level arrays are host memory, n_levels entries each; they travel in
-// the kernel's parameters. Tensors are device memory, contiguous. K1 and
-// K2 take the wrapper's launch plan (blocks and threads per level group,
-// log2 of the group's width).
+// the kernel's parameters. Tensors are device memory, contiguous. K1, K2,
+// K4 and K5 take the wrapper's launch plan (blocks and threads per level
+// group, log2 of the group's width).
 extern "C" int ngp_blocked_grid_encode_fwd(
     const float* pos, const float* table, float* out,
     const float* scales, const int* blocks_per_dim,
     const unsigned char* is_dense, int n, int n_levels, int log2_rows,
     int morton_hash, int blocks, int threads, int log2_group, void* stream) {
   LevelParams lp = {};
-  int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
-                       log2_rows);
-  if (rc == 0) rc = check_plan(n, n_levels, kGroupFwd, blocks, threads, log2_group);
+  const int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                         log2_rows, kGroupFwd, blocks, threads, log2_group);
   if (rc != 0) return rc;
   blocked_grid_encode_fwd_kernel<<<dim3(blocks, n_levels >> log2_group), threads,
                                    0, static_cast<cudaStream_t>(stream)>>>(
@@ -505,14 +659,16 @@ extern "C" int ngp_blocked_grid_encode_fwd_i8(
     const float* pos, const int8_t* table, const float* qscale, float* out,
     const float* scales, const int* blocks_per_dim,
     const unsigned char* is_dense, int n, int n_levels, int log2_rows,
-    int morton_hash, void* stream) {
+    int morton_hash, int blocks, int threads, int log2_group, void* stream) {
   LevelParams lp = {};
-  const int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n,
-                             n_levels, log2_rows);
+  const int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                         log2_rows, kGroupI8, blocks, threads, log2_group);
   if (rc != 0) return rc;
-  blocked_grid_encode_fwd_i8_kernel<<<grid_for(n, n_levels), kThreads, 0,
+  blocked_grid_encode_fwd_i8_kernel<<<dim3(blocks, n_levels >> log2_group),
+                                      threads, 0,
                                       static_cast<cudaStream_t>(stream)>>>(
-      pos, table, qscale, out, lp, n, n_levels, log2_rows, morton_hash);
+      pos, table, qscale, out, lp, n, n_levels, log2_rows, morton_hash,
+      log2_group);
   return (int)cudaGetLastError();
 }
 
@@ -523,9 +679,8 @@ extern "C" int ngp_blocked_grid_encode_bwd(
     const unsigned char* is_dense, int n, int n_levels, int log2_rows,
     int morton_hash, int blocks, int threads, int log2_group, void* stream) {
   LevelParams lp = {};
-  int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
-                       log2_rows);
-  if (rc == 0) rc = check_plan(n, n_levels, kGroupBwd, blocks, threads, log2_group);
+  const int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                         log2_rows, kGroupBwd, blocks, threads, log2_group);
   if (rc != 0) return rc;
   blocked_grid_encode_bwd_kernel<<<dim3(blocks, n_levels >> log2_group), threads,
                                    0, static_cast<cudaStream_t>(stream)>>>(
@@ -550,28 +705,30 @@ extern "C" int ngp_blocked_grid_encode_bwd_pos(
   return (int)cudaGetLastError();
 }
 
-// K5, both passes on one stream. tile_max (L * ceil(n / 2^log2_tile)
-// uint32) and dtable must be zeroed by the caller.
+// K5, both passes on one stream, on one plan. tile_max (L * ceil(n /
+// 2^log2_tile) uint32) and dtable must be zeroed by the caller. A tile of
+// at least 32 samples holds every warp's samples whole.
 extern "C" int ngp_blocked_grid_encode_bwd_i8(
     const float* pos, const float* grad, unsigned int* tile_max,
     float* dtable, const float* scales, const int* blocks_per_dim,
     const unsigned char* is_dense, int n, int n_levels, int log2_rows,
-    int morton_hash, int log2_tile, void* stream) {
+    int morton_hash, int blocks, int threads, int log2_group, int log2_tile,
+    void* stream) {
   LevelParams lp = {};
-  int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
-                       log2_rows);
+  int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                   log2_rows, kGroupI8Bwd, blocks, threads, log2_group);
   if (rc != 0) return rc;
   if (log2_tile < 5 || log2_tile > 30) return (int)cudaErrorInvalidValue;
   const int n_tiles = (int)(((long long)n + (1LL << log2_tile) - 1) >> log2_tile);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  blocked_grid_encode_bwd_i8_max_kernel<<<grid_for(n, n_levels), kThreads, 0, s>>>(
-      pos, grad, tile_max, lp, n, n_levels, log2_rows, morton_hash, log2_tile,
-      n_tiles);
+  const dim3 grid(blocks, n_levels >> log2_group);
+  blocked_grid_encode_bwd_i8_max_kernel<<<grid, threads, 0, s>>>(
+      pos, grad, tile_max, lp, n, n_levels, log2_group, log2_tile, n_tiles);
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  blocked_grid_encode_bwd_i8_kernel<<<grid_for(n, n_levels), kThreads, 0, s>>>(
+  blocked_grid_encode_bwd_i8_kernel<<<grid, threads, 0, s>>>(
       pos, grad, tile_max, dtable, lp, n, n_levels, log2_rows, morton_hash,
-      log2_tile, n_tiles);
+      log2_group, log2_tile, n_tiles);
   return (int)cudaGetLastError();
 }
 

@@ -2,19 +2,21 @@
 forward), K2 (table backward), K3 (position backward), K4 (int8-table
 forward) and K5 (int8 table backward).
 
-``blocked_grid_encode``, ``blocked_grid_encode_i8fwd`` and
-``blocked_grid_encode_int8`` are the entry points. They pick by the device
-of the tensors they are given: CPU tensors go to the plain PyTorch
-versions in ``blocked_grid.py``, CUDA tensors to the kernels in
-``ngp_tpu_torch/csrc/blocked_grid_encode.cu``; anything else raises. There
-is no fallback from a kernel to its plain version.
+``blocked_grid_encode``, ``blocked_grid_encode_i8fwd``,
+``blocked_grid_encode_int8`` and ``encode_quantized`` are the entry
+points. They pick by the device of the tensors they are given: CPU
+tensors go to the plain PyTorch versions in ``blocked_grid.py``, CUDA
+tensors to the kernels in ``ngp_tpu_torch/csrc/blocked_grid_encode.cu``;
+anything else raises. There is no fallback from a kernel to its plain
+version.
 
 The kernels are compiled with ``nvcc`` into a shared library with a plain C
 interface on first use (into ``build/ngp_tpu_torch/`` at the repository
 root, named by a hash of the sources and flags, so an unchanged tree is
-not rebuilt) and loaded with ``ctypes``. K1 and K2 are launched as
+not rebuilt) and loaded with ``ctypes``. K1, K2, K4 and K5 are launched as
 ``launch_plan`` sizes them: one thread per (sample, level), neighbouring
-threads on neighbouring levels of one sample.
+threads on neighbouring levels of one sample, in level groups of each
+kernel's own width (``ngp_blocked_grid_group``).
 """
 from __future__ import annotations
 
@@ -91,10 +93,10 @@ def load_library(path: Path) -> ctypes.CDLL:
     planned = levels[:-1] + [ci, ci, ci, vp]    # … blocks, threads, log2 group
     lib.ngp_blocked_grid_encode_fwd.argtypes = [vp, vp, vp] + planned
     lib.ngp_blocked_grid_encode_bwd.argtypes = [vp, vp, vp] + planned
-    lib.ngp_blocked_grid_encode_fwd_i8.argtypes = [vp, vp, vp, vp] + levels
+    lib.ngp_blocked_grid_encode_fwd_i8.argtypes = [vp, vp, vp, vp] + planned
     lib.ngp_blocked_grid_encode_bwd_pos.argtypes = [vp, vp, vp, vp] + levels
     lib.ngp_blocked_grid_encode_bwd_i8.argtypes = ([vp, vp, vp, vp]
-                                                   + levels[:-1] + [ci, vp])
+                                                   + planned[:-1] + [ci, vp])
     lib.ngp_blocked_grid_group.argtypes = [ci]
     for fn in (lib.ngp_blocked_grid_encode_fwd,
                lib.ngp_blocked_grid_encode_bwd,
@@ -120,17 +122,24 @@ def build() -> ctypes.CDLL:
     return _lib
 
 
-# threads per block of K1's and K2's launches
+# threads per block of the planned launches (K1, K2, K4, K5)
 THREADS = 256
+
+# the kernels ``ngp_blocked_grid_group`` knows, by launch name
+GROUP_KERNELS = ("blocked_grid_encode_fwd", "blocked_grid_encode_bwd",
+                 "blocked_grid_encode_fwd_i8", "blocked_grid_encode_bwd_i8")
+# the level groups scripts/encode_group_sweep.py times each kernel at; the
+# source's groups are the fastest of these
+SWEPT_GROUPS = (4, 8, 16)
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """A launch of K1 or K2 over the (sample, level) pairs: ``groups``
-    level groups of ``width`` levels (grid y), each covered by ``blocks``
-    blocks of ``threads`` threads (grid x). Thread t of block b in group k
-    takes pair p = b·threads + t: sample p // width, level k·width + p %
-    width. Threads past sample n - 1 are idle."""
+    """A launch of K1, K2, K4 or K5 over the (sample, level) pairs:
+    ``groups`` level groups of ``width`` levels (grid y), each covered by
+    ``blocks`` blocks of ``threads`` threads (grid x). Thread t of block b
+    in group k takes pair p = b·threads + t: sample p // width, level
+    k·width + p % width. Threads past sample n - 1 are idle."""
     n: int
     n_levels: int
     width: int
@@ -154,7 +163,7 @@ class LaunchPlan:
 
 def launch_plan(n: int, n_levels: int, group: int,
                 threads: int = THREADS) -> LaunchPlan:
-    """Size K1's or K2's launch for n samples × n_levels levels, with the
+    """Size a planned launch for n samples × n_levels levels, with the
     kernel's level group ``group`` (a power of two, the library's
     ``ngp_blocked_grid_group``). Groups are ``group`` levels wide, or,
     where that does not divide n_levels, as wide as the largest power of
@@ -227,13 +236,28 @@ def _level_args(meta: BlockedGridMeta, pos: torch.Tensor):
     return args, arrays
 
 
-def _planned_args(meta: BlockedGridMeta, pos: torch.Tensor, backward: bool):
-    """``_level_args`` with K1's (or K2's) launch plan before the stream."""
+def kernel_plan(name: str, n: int, meta: BlockedGridMeta) -> LaunchPlan:
+    """The launch plan of kernel ``name`` (one of ``GROUP_KERNELS``) for n
+    samples, with its level group as the library was built with it."""
+    return launch_plan(n, meta.n_levels, build().ngp_blocked_grid_group(
+        GROUP_KERNELS.index(name)))
+
+
+def _planned_args(meta: BlockedGridMeta, pos: torch.Tensor, plan: LaunchPlan):
+    """``_level_args`` with a launch plan before the stream."""
     args, arrays = _level_args(meta, pos)
-    plan = launch_plan(pos.shape[0], meta.n_levels,
-                       build().ngp_blocked_grid_group(int(backward)))
     return args[:-1] + [plan.blocks, plan.threads, plan.log2_width,
                         args[-1]], arrays
+
+
+def check_warps_in_tiles(plan: LaunchPlan, tile: int):
+    """K5 reduces each warp's maxima and sums its quanta under one tile's
+    scale: every warp's 32 / width samples, which start at a multiple of
+    32 / width, must lie inside one tile of ``tile`` samples."""
+    per_warp = 32 // plan.width
+    if plan.threads % 32 or tile < per_warp or tile % per_warp:
+        raise ValueError(f"a warp of {per_warp} samples does not lie inside "
+                         f"one tile of {tile}")
 
 
 def _run(name: str, fn, *args):
@@ -254,7 +278,8 @@ def launch_fwd(table: torch.Tensor, pos: torch.Tensor,
     if pos.shape[0] == 0:
         return out
     lib = build()
-    args, _keep = _planned_args(meta, pos, backward=False)
+    args, _keep = _planned_args(meta, pos, kernel_plan(
+        "blocked_grid_encode_fwd", pos.shape[0], meta))
     _run("blocked_grid_encode_fwd", lib.ngp_blocked_grid_encode_fwd,
          pos.data_ptr(), table.data_ptr(), out.data_ptr(), *args)
     return out
@@ -274,7 +299,8 @@ def launch_fwd_i8(table_q: torch.Tensor, qscales: torch.Tensor,
     if pos.shape[0] == 0:
         return out
     lib = build()
-    args, _keep = _level_args(meta, pos)
+    args, _keep = _planned_args(meta, pos, kernel_plan(
+        "blocked_grid_encode_fwd_i8", pos.shape[0], meta))
     _run("blocked_grid_encode_fwd_i8", lib.ngp_blocked_grid_encode_fwd_i8,
          pos.data_ptr(), table_q.data_ptr(), qscales.data_ptr(),
          out.data_ptr(), *args)
@@ -292,7 +318,8 @@ def launch_bwd(pos: torch.Tensor, grad: torch.Tensor,
     if pos.shape[0] == 0:
         return dtable
     lib = build()
-    args, _keep = _planned_args(meta, pos, backward=True)
+    args, _keep = _planned_args(meta, pos, kernel_plan(
+        "blocked_grid_encode_bwd", pos.shape[0], meta))
     _run("blocked_grid_encode_bwd", lib.ngp_blocked_grid_encode_bwd,
          pos.data_ptr(), grad.data_ptr(), dtable.data_ptr(), *args)
     return dtable
@@ -335,7 +362,9 @@ def launch_bwd_i8(pos: torch.Tensor, grad: torch.Tensor,
     tile_max = torch.zeros((meta.n_levels, n_tiles), dtype=torch.int32,
                            device=pos.device)
     lib = build()
-    args, _keep = _level_args(meta, pos)
+    plan = kernel_plan("blocked_grid_encode_bwd_i8", pos.shape[0], meta)
+    check_warps_in_tiles(plan, tile)
+    args, _keep = _planned_args(meta, pos, plan)
     _run("blocked_grid_encode_bwd_i8", lib.ngp_blocked_grid_encode_bwd_i8,
          pos.data_ptr(), grad.data_ptr(), tile_max.data_ptr(),
          dtable.data_ptr(), *args[:-1], tile.bit_length() - 1, args[-1])
@@ -359,10 +388,7 @@ class _BlockedGridEncode(torch.autograd.Function):
         ctx.meta, ctx.mode, ctx.tile = meta, mode, tile
         ctx.save_for_backward(table, pos)
         if mode:
-            table_q, qscales = quantize_table_i8(table)
-            if pos.is_cuda:
-                return launch_fwd_i8(table_q, qscales, pos, meta)
-            return encode_reference_i8(table_q, qscales, pos, meta)
+            return encode_quantized(*quantize_table_i8(table), pos, meta)
         if pos.is_cuda:
             return launch_fwd(table, pos, meta)
         return encode_reference(table, pos, meta)
@@ -422,6 +448,19 @@ def blocked_grid_encode_int8(table: torch.Tensor, pos: torch.Tensor,
     JAX counterpart runs on a padded stream passes that stream's tile."""
     return _encode(table, pos, meta, "full",
                    eff_tile(pos.shape[0]) if tile is None else tile)
+
+
+def encode_quantized(table_q: torch.Tensor, qscales: torch.Tensor,
+                     pos: torch.Tensor, meta: BlockedGridMeta) -> torch.Tensor:
+    """The int8 forward (K4) on a table already quantised by
+    ``quantize_table_i8``, for callers that encode many chunks of positions
+    through one unchanged table (the grid sweep). Nothing is
+    differentiated: the int8 table carries no gradient."""
+    if pos.is_cuda:
+        return launch_fwd_i8(table_q, qscales, pos, meta)
+    if pos.device.type != "cpu":
+        raise ValueError(f"encode_quantized: unsupported device {pos.device}")
+    return encode_reference_i8(table_q, qscales, pos, meta)
 
 
 def encode_mode(table: torch.Tensor, pos: torch.Tensor,

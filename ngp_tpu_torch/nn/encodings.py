@@ -98,7 +98,9 @@ class BlockedGridEncoding(nn.Module):
     ``NGP_TPU_ENCODE_INT8``, as an argument: ``"fwd"`` reads the table
     quantised to int8 in the forward (K4) and keeps the exact f32 table
     backward (K2); ``"full"`` quantises the table backward's cotangents
-    too (K5), per tile of ``tile`` samples."""
+    too (K5), per tile of ``tile`` samples. ``quantized``, the pair
+    ``quantize_table_i8(self.table)`` gave, encodes through it (K4) without
+    quantising again and without a gradient (the grid sweep's chunks)."""
 
     def __init__(self, meta: BlockedGridMeta,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -114,9 +116,12 @@ class BlockedGridEncoding(nn.Module):
                 "log2_rows": self.meta.log2_rows}
 
     def forward(self, x, max_level=None, int8: str = "",
-                tile: Optional[int] = None):
-        out = blocked_grid_cuda.encode_mode(self.table, x, self.meta, int8,
-                                            tile)
+                tile: Optional[int] = None, quantized=None):
+        if quantized is not None:
+            out = blocked_grid_cuda.encode_quantized(*quantized, x, self.meta)
+        else:
+            out = blocked_grid_cuda.encode_mode(self.table, x, self.meta,
+                                                int8, tile)
         if max_level is None:
             return out
         # zero the levels at or above max_level·L (scalar or per sample)

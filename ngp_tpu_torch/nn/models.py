@@ -57,9 +57,10 @@ class NerfNetwork(nn.Module):
             config.get("rgb_network", config["network"]), generator, device)
 
     def forward(self, pos01, dir01=None, max_level=None, extra=None,
-                int8: str = "", tile: Optional[int] = None):
+                int8: str = "", tile: Optional[int] = None, quantized=None):
         h = self.density_net(self.pos_encoding(pos01, max_level=max_level,
-                                               int8=int8, tile=tile))
+                                               int8=int8, tile=tile,
+                                               quantized=quantized))
         if dir01 is None:
             return h
         if (extra is None) != (self.n_extra_dims == 0):
@@ -78,11 +79,14 @@ class NerfNetwork(nn.Module):
         return self(pos01, dir01, max_level=max_level, extra=extra, int8=int8,
                     tile=tile)
 
-    def density(self, pos01, max_level=None, int8: str = ""):
+    def density(self, pos01, max_level=None, int8: str = "",
+                quantized=None):
         """Activated density σ, (N,). ref: network_to_density. ``int8``
-        encodes through the int8-quantised table (the trainer's grid
-        sweep)."""
-        raw = self(pos01, max_level=max_level, int8=int8)
+        encodes through the int8-quantised table; ``quantized``, the
+        encoding's table as ``quantize_table_i8`` gave it, through that
+        pair without quantising again (the trainer's grid sweep)."""
+        raw = self(pos01, max_level=max_level, int8=int8,
+                   quantized=quantized)
         return network_activation(raw[..., 0], NerfActivation.EXPONENTIAL)
 
     def matrix_param_names(self) -> set[str]:

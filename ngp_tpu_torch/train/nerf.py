@@ -10,7 +10,8 @@ loss in sRGB with the density regularisers. Autograd gives the gradients
 Adam updates the parameters in place, and the per-ray loss is deposited
 into the error map. Every 16 steps the occupancy grid is swept: every cell
 below step 256, an interleaved partial sweep after, through the int8-table
-encode (K4) when ``grid_int8`` or ``encode_int8`` is set.
+encode (K4, on the table quantised once per sweep) when ``grid_int8`` or
+``encode_int8`` is set.
 
 With any of the ``optimize_*`` flags or ``train_envmap``, the camera
 parameters (per-image pose deltas, exposure, the focal delta, per-image
@@ -52,7 +53,7 @@ from ngp_tpu_torch.common import (LOSS_SCALE, NERF_MIN_OPTICAL_THICKNESS,
                                   linear_to_srgb, loss_type_from_str,
                                   srgb_to_linear)
 from ngp_tpu_torch.grid import occupancy as occ
-from ngp_tpu_torch.kernels.blocked_grid import eff_tile
+from ngp_tpu_torch.kernels.blocked_grid import eff_tile, quantize_table_i8
 from ngp_tpu_torch.kernels.blocked_grid_cuda import INT8_MODES
 from ngp_tpu_torch.nn.models import NerfNetwork
 from ngp_tpu_torch.nn.trainable_buffer import DistortionGrid, Envmap
@@ -642,11 +643,15 @@ class NerfTrainer:
         network calls of SWEEP_CHUNK positions."""
         tc = self.tcfg
         # the int8 forward (K4) when either switch is on, as the JAX
-        # package's sweep reads NGP_TPU_ENCODE_INT8 too
-        int8 = "fwd" if tc.grid_int8 or tc.encode_int8 else ""
+        # package's sweep reads NGP_TPU_ENCODE_INT8 too. The table does not
+        # change inside a sweep, so it is quantised once for all chunks
+        # (the JAX package quantises it in every chunk's call, to the same
+        # bits).
+        quantized = (quantize_table_i8(self.model.pos_encoding.table)
+                     if tc.grid_int8 or tc.encode_int8 else None)
 
         def density_fn(warped):
-            return torch.cat([self.model.density(c, int8=int8)
+            return torch.cat([self.model.density(c, quantized=quantized)
                               for c in warped.split(SWEEP_CHUNK)])
         if full_sweep:
             n_u, n_n = occ.GRID_VOLUME * (self.max_cascade + 1), 1

@@ -1,25 +1,37 @@
 #!/usr/bin/env python3
-"""Times K1 (encode forward) and K2 (table backward) of
-``ngp_tpu_torch/csrc/blocked_grid_encode.cu`` at each level group G of a
-sweep, beside an earlier version of that source, on one NVIDIA GPU.
+"""Times the planned kernels of ``ngp_tpu_torch/csrc/blocked_grid_encode.cu``
+(K1 encode forward, K2 table backward, K4 int8-table forward, K5 int8 table
+backward) at each level group G of a sweep, beside an earlier version of
+that source, on one NVIDIA GPU.
 
     python3 scripts/encode_group_sweep.py [--baseline OLD.cu]
-        [--sources OTHER.cu ...] [--groups 4 8 16]
+        [--sources OTHER.cu ...] [--groups 4 8 16] [--kernels K4 K5]
 
-For each G the source, and each of ``--sources`` (other versions of it
-with the same entry points), is copied with ``kGroupFwd = kGroupBwd = G``
-and built into ``build/ngp_tpu_torch/sweep/``. ``--baseline`` builds an
-earlier version of the source whose K1 and K2 entry points take no launch
-plan (one thread per (sample, level), a grid of (N/256, L)). Every library
-is checked against the plain versions, with chip_smoke.py's tolerances, on
-chip_smoke.py's inputs: 2^20 uniform positions for K1 and 2^18 for K2, with
-the edge positions, and the render path's ray-ordered positions
-(``chip_smoke.ray_ordered_inputs``). Then each case is timed by CUDA events
-in turns (baseline, each G, each G in reverse, baseline), and K2 also with
-the cotangents of the dense levels alone and of the hashed levels alone (a
-zero cotangent adds nothing), and the zero fill of K2's output alone. Prints a line per measurement, each library's registers and
-spills, and the atomics the compiler emitted for K2 where ``cuobjdump`` is
-found.
+For each G the source, and each of ``--sources`` (other versions of it with
+the same entry points), is copied with every level group (``kGroupFwd``,
+``kGroupBwd``, ``kGroupI8``, ``kGroupI8Bwd``) set to G and built into
+``build/ngp_tpu_torch/sweep/``, all builds at once. ``--baseline``
+builds an earlier version of the source whose K1 and K2 take a launch plan
+and whose K4 and K5 do not (one level per block row, a grid of (N/256, L)):
+the parent of the K4/K5 redesign.
+
+Inputs, at the full NeRF width: K1 at 2^20 uniform and ray-ordered
+positions, K2 at 2^18 of each (``chip_smoke.ray_ordered_inputs``); K4 at
+2^20 and 2^18 uniform positions and on the grid sweep's own positions (the
+first 2^18-position call of a full and of a partial sweep,
+``chip_smoke.sweep_ordered_inputs``); K5 at 2^18 uniform positions and on
+the positions and cotangent of one training step of a trainer with
+``encode_int8="full"`` trained ``TRAIN_STEPS`` steps on the sphere views.
+Every library is first checked against the plain versions with
+chip_smoke.py's tolerances. Then each case is timed in turns (baseline,
+each variant, each variant in reverse, baseline) by CUDA-graph replays
+(``chip_smoke._graph_time_ms``: device time, without the wrappers' host
+overhead, which is as long as the smaller cases' kernels). Last, the
+trainer's full and partial grid sweeps are traced with the table
+quantised once and once per network call (as before the sweep took a
+quantised pair), in turns: device and wall ms per sweep. Prints a line
+per measurement, each library's registers and spills, and K2's and K5's
+reductions in SASS where ``cuobjdump`` is found.
 """
 from __future__ import annotations
 
@@ -29,6 +41,8 @@ import re
 import shutil
 import subprocess
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from pathlib import Path
 from unittest import mock
@@ -40,14 +54,18 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc  # noqa: E402
-from ngp_tpu_torch.kernels.blocked_grid import LANES  # noqa: E402
+from ngp_tpu_torch.kernels.blocked_grid import (  # noqa: E402
+    LANES, DEFAULT_TILE, quantize_table_i8)
 
 SWEEP_DIR = bgc.BUILD_DIR / "sweep"
 ITERS = 20
+GROUP_CONSTANTS = ("kGroupFwd", "kGroupBwd", "kGroupI8", "kGroupI8Bwd")
+TRAIN_VIEWS, TRAIN_RES, TRAIN_STEPS = 24, 128, 512
 
 
 def _with_groups(src: str, group: int) -> str:
-    for k in ("kGroupFwd", "kGroupBwd"):
+    """``src`` with every level group set to ``group``."""
+    for k in GROUP_CONSTANTS:
         src, n = re.subn(rf"constexpr int {k} = \d+;",
                          f"constexpr int {k} = {group};", src)
         if n != 1:
@@ -55,162 +73,273 @@ def _with_groups(src: str, group: int) -> str:
     return src
 
 
-def _build(name: str, src: str):
-    path = SWEEP_DIR / f"{name}.cu"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(src)
-    out = SWEEP_DIR / f"lib{name}.so"
-    log = bgc.compile_library([path], out)
-    print(f"sweep: built {name}: {cs.kernel_registers(log)}")
-    return out
+def _build_all(sources: dict) -> dict:
+    """nvcc every {name: source text} at once; returns {name: library}."""
+    SWEEP_DIR.mkdir(parents=True, exist_ok=True)
+
+    def one(item):
+        name, src = item
+        path = SWEEP_DIR / f"{name}.cu"
+        path.write_text(src)
+        out = SWEEP_DIR / f"lib{name}.so"
+        return name, out, bgc.compile_library([path], out)
+    with ThreadPoolExecutor(len(sources)) as ex:
+        built = list(ex.map(one, sources.items()))
+    for name, _, log in built:
+        print(f"sweep: built {name}: {cs.kernel_registers(log)}")
+    return {name: out for name, out, _ in built}
 
 
-def _k2_atomics(lib_path: Path) -> str:
-    """The reduction and atomic instructions of K2's SASS."""
+def _reductions(lib_path: Path) -> str:
+    """The reduction and atomic instructions of K2's and K5's SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return "cuobjdump not found"
     sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
                           text=True).stdout
-    ops, inside = {}, False
+    ops, fn = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            inside = "blocked_grid_encode_bwd_kernel" in ln
-        elif inside:
+            fn = next((k for k, name in (
+                ("K2", "blocked_grid_encode_bwd_kernel"),
+                ("K5 pass 1", "blocked_grid_encode_bwd_i8_max_kernel"),
+                ("K5 pass 2", "blocked_grid_encode_bwd_i8_kernel"))
+                if name in ln), None)
+        elif fn:
             m = re.search(r"\b((?:RED|ATOM)\S*)", ln)
             if m:
-                ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+                key = f"{fn} {m.group(1)}"
+                ops[key] = ops.get(key, 0) + 1
     return ", ".join(f"{k} x{v}" for k, v in sorted(ops.items())) or "none"
 
 
 class Baseline:
-    """K1 and K2 of an earlier source: entry points without a plan."""
+    """An earlier source: K1 and K2 through the current wrappers (the same
+    planned entry points), K4 and K5 through its own plan-less ones."""
 
     def __init__(self, path: Path):
-        self.lib = ctypes.CDLL(str(path))
+        self.lib = bgc.load_library(path)
+        # a second handle, so these entry points keep their own signatures
+        raw = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        for fn in (self.lib.ngp_blocked_grid_encode_fwd,
-                   self.lib.ngp_blocked_grid_encode_bwd):
-            fn.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, vp]
-            fn.restype = ci
+        levels = [vp, vp, vp, ci, ci, ci, ci]
+        self.k4 = raw.ngp_blocked_grid_encode_fwd_i8
+        self.k4.argtypes = [vp, vp, vp, vp] + levels + [vp]
+        self.k5 = raw.ngp_blocked_grid_encode_bwd_i8
+        self.k5.argtypes = [vp, vp, vp, vp] + levels + [ci, vp]
+        self.k4.restype = self.k5.restype = ci
 
-    def fwd(self, table, pos, meta):
+    def fwd_i8(self, tq, qs, pos, meta):
         out = torch.empty((pos.shape[0], meta.n_levels * 2),
                           dtype=torch.float32, device=pos.device)
         args, _keep = bgc._level_args(meta, pos)
-        if self.lib.ngp_blocked_grid_encode_fwd(
-                pos.data_ptr(), table.data_ptr(), out.data_ptr(), *args):
-            raise RuntimeError("baseline K1 launch failed")
+        if self.k4(pos.data_ptr(), tq.data_ptr(), qs.data_ptr(),
+                   out.data_ptr(), *args):
+            raise RuntimeError("baseline K4 launch failed")
         return out
 
-    def bwd(self, pos, grad, meta):
+    def bwd_i8(self, pos, grad, meta, tile):
         dtable = torch.zeros((meta.n_levels, meta.rows, LANES),
                              dtype=torch.float32, device=pos.device)
+        tile_max = torch.zeros((meta.n_levels, -(-pos.shape[0] // tile)),
+                               dtype=torch.int32, device=pos.device)
         args, _keep = bgc._level_args(meta, pos)
-        if self.lib.ngp_blocked_grid_encode_bwd(
-                pos.data_ptr(), grad.data_ptr(), dtable.data_ptr(), *args):
-            raise RuntimeError("baseline K2 launch failed")
+        if self.k5(pos.data_ptr(), grad.data_ptr(), tile_max.data_ptr(),
+                   dtable.data_ptr(), *args[:-1], tile.bit_length() - 1,
+                   args[-1]):
+            raise RuntimeError("baseline K5 launch failed")
         return dtable
 
 
 @contextmanager
 def active(variant):
-    """bgc.launch_fwd / launch_bwd run ``variant``: a Baseline, or a
-    library of the current source (through the wrappers themselves)."""
+    """The wrappers launch ``variant``'s kernels: a Baseline's, or those of
+    a library of the current source."""
     if isinstance(variant, Baseline):
-        with mock.patch.object(bgc, "launch_fwd", variant.fwd), \
-                mock.patch.object(bgc, "launch_bwd", variant.bwd):
+        with mock.patch.object(bgc, "_lib", variant.lib), \
+                mock.patch.object(bgc, "launch_fwd_i8", variant.fwd_i8), \
+                mock.patch.object(bgc, "launch_bwd_i8", variant.bwd_i8):
             yield
     else:
         with mock.patch.object(bgc, "_lib", variant):
             yield
 
 
-def _level_cotangent(cot, meta, keep):
-    """``cot`` with the cotangent of every level not in ``keep`` zeroed."""
-    out = cot.clone().view(cot.shape[0], meta.n_levels, 2)
-    drop = [l for l in range(meta.n_levels) if l not in keep]
-    out[:, drop] = 0.0
-    return out.view(cot.shape)
+def training_inputs(dev):
+    """A trainer with ``encode_int8="full"`` trained TRAIN_STEPS steps on
+    the sphere views, and K5's inputs in one step of it (positions,
+    cotangent, meta, tile)."""
+    tr = cs.make_trainer(cs.build_sphere_dataset(dev, TRAIN_VIEWS, TRAIN_RES),
+                         dev, encode_int8="full")
+    tr.train(TRAIN_STEPS)
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        return launch(*args)
+    launch = bgc.launch_bwd_i8
+    g = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
+    draws = tr.draws(tr.tcfg.n_rays, g).head(tr._n_live)
+    with mock.patch.object(bgc, "launch_bwd_i8", spy):
+        tr._step_grads(draws, tr._error_state())
+    pos, cot, meta, tile = seen[0]
+    print(f"sweep: trainer after {tr.training_step} steps; one step's K5 "
+          f"inputs: {pos.shape[0]} samples, tile {tile}")
+    return tr, (pos, cot, meta, tile)
+
+
+def _check_k5(pos, cot, meta, tile, what: str):
+    got = bgc.launch_bwd_i8(pos, cot, meta, tile)
+    torch.cuda.synchronize()
+    rel = cs.check_i8_grad(pos, cot, meta, tile, got)[0]
+    print(f"K5: {what}: max relative to sum_t scale_t*sum|q| {rel:.3e} "
+          f"(tolerance {cs.KERNEL_I8_TOL}); exact zeros where every q is 0")
+    if not rel <= cs.KERNEL_I8_TOL:
+        raise RuntimeError(f"K5 disagrees with its plain version ({what})")
+
+
+def _traced(fn):
+    """(device ms, wall ms) of one call of ``fn`` under torch.profiler: the
+    device time is the sum of every kernel, copy and fill it ran."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return cs._attribute_kernels(prof, set(), "")[2], wall
+
+
+def time_grid_sweep(tr):
+    """A full and a partial grid sweep of ``tr`` with the table quantised
+    once and once per network call (as the sweep did before it took a
+    quantised pair), traced in turns (once, per call, per call, once):
+    device ms and wall ms per sweep. And the quantisation alone (CUDA
+    events)."""
+    table = tr.model.pos_encoding.table
+    density = tr.model.density
+
+    def per_call(pos01, quantized=None, **kw):
+        return density(pos01, int8="fwd" if quantized is not None else "",
+                       **kw)
+    grid = tr.grid
+    with torch.no_grad():
+        for full in (True, False):
+            def once():
+                tr._grid_update(full)
+
+            def chunked():
+                with mock.patch.object(tr.model, "density", per_call):
+                    tr._grid_update(full)
+            modes = {"once": once, "per call": chunked}
+            once()
+            times = {k: [] for k in modes}
+            for name in list(modes) + list(modes)[::-1]:
+                times[name].append(_traced(modes[name]))
+            print(f"sweep: {'full' if full else 'partial'} grid sweep, "
+                  "table quantised " + "; ".join(
+                      f"{k}: device {t[0][0]:.4f}/{t[1][0]:.4f} ms, wall "
+                      f"{t[0][1]:.4f}/{t[1][1]:.4f} ms"
+                      for k, t in times.items()))
+        quant = [cs._cuda_time_ms(lambda: quantize_table_i8(table), 10)
+                 for _ in range(2)]
+    tr.grid = grid
+    print(f"sweep: quantize_table_i8 alone {quant[0]:.4f}/{quant[1]:.4f} ms")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path,
-                    help="an earlier blocked_grid_encode.cu (no launch plan)")
+                    help="an earlier blocked_grid_encode.cu (K4 and K5 "
+                         "without a launch plan)")
     ap.add_argument("--sources", type=Path, nargs="*", default=[],
                     help="other versions of the source, same entry points")
-    ap.add_argument("--groups", type=int, nargs="+", default=[4, 8, 16])
+    ap.add_argument("--groups", type=int, nargs="+",
+                    default=list(bgc.SWEPT_GROUPS))
+    ap.add_argument("--kernels", nargs="+", default=["K4", "K5"],
+                    choices=["K1", "K2", "K4", "K5"])
     args = ap.parse_args()
     cs.phase_device()
     dev = torch.device("cuda", 0)
 
     sources = {"": bgc.CSRC / "blocked_grid_encode.cu"}
     sources.update({f"{p.stem}-": p for p in args.sources})
-    variants, names, atomics = [], [], {}
+    texts = {}
     if args.baseline:
-        path = _build("baseline", args.baseline.read_text())
-        variants.append(Baseline(path))
-        names.append("baseline")
-        atomics["baseline"] = _k2_atomics(path)
-    for label, src in sources.items():
+        texts["baseline"] = args.baseline.read_text()
+    for label, path in sources.items():
+        src = path.read_text()
         for g in args.groups:
-            name = f"{label}G{g}"
-            path = _build(name, _with_groups(src.read_text(), g))
-            variants.append(bgc.load_library(path))
-            names.append(name)
-            atomics[name] = _k2_atomics(path)
-    for n, a in atomics.items():
-        print(f"sweep: {n}: K2's atomics in SASS: {a}")
+            texts[f"{label}G{g}"] = _with_groups(src, g)
+    with ThreadPoolExecutor(1) as ex:
+        own = ex.submit(bgc.build)     # the tree's library, for the sweep
+        libs = _build_all(texts)
+        own.result()
+    variants = {name: Baseline(path) if name == "baseline"
+                else bgc.load_library(path) for name, path in libs.items()}
+    for name, path in libs.items():
+        print(f"sweep: {name}: reductions in SASS: {_reductions(path)}")
 
     meta, table, pos_u, _ = cs._full_width_inputs(dev, 1 << 20)
     _, _, pos_u2, _ = cs._full_width_inputs(dev, 1 << 18)
     cot_u = cs._cotangent(dev, meta, pos_u2.shape[0], cs.SEED + 1)
-    ray = cs.ray_ordered_inputs(dev)
-    for name, v in zip(names, variants):
-        with active(v):
-            cs.check_k1(table, pos_u, meta, f"{name} uniform+edge")
-            cs.check_k1(table, ray["k1_pos"], meta, f"{name} ray-ordered")
-            cs.check_k2(pos_u2, cot_u, meta, f"{name} uniform+edge")
-            cs.check_k2(ray["k2_pos"], ray["k2_cot"], meta,
-                        f"{name} ray-ordered")
-
-    dense = [l for l in range(meta.n_levels) if meta.level_is_dense[l]]
-    hashed = [l for l in range(meta.n_levels) if l not in dense]
-    p1, c1 = pos_u2[: 1 << 18], cot_u[: 1 << 18]
-    p2, c2 = ray["k2_pos"], ray["k2_cot"]
-    k1 = lambda p: lambda: bgc.launch_fwd(table, p, meta)  # noqa: E731
-    k2 = lambda p, c: lambda: bgc.launch_bwd(p, c, meta)  # noqa: E731
-    cases = {
-        "K1 uniform": k1(pos_u[: 1 << 20]),
-        "K1 ray": k1(ray["k1_pos"]),
-        "K2 uniform": k2(p1, c1),
-        "K2 ray": k2(p2, c2),
-        f"K2 uniform, dense levels {dense[0]}-{dense[-1]} alone":
-            k2(p1, _level_cotangent(c1, meta, dense)),
-        f"K2 uniform, hashed levels {hashed[0]}-{hashed[-1]} alone":
-            k2(p1, _level_cotangent(c1, meta, hashed)),
-        f"K2 ray, dense levels {dense[0]}-{dense[-1]} alone":
-            k2(p2, _level_cotangent(c2, meta, dense)),
-        f"K2 ray, hashed levels {hashed[0]}-{hashed[-1]} alone":
-            k2(p2, _level_cotangent(c2, meta, hashed)),
-    }
-    times = {case: {n: [] for n in names} for case in cases}
-    order = list(zip(names, variants))
     with torch.no_grad():
-        fill = [cs._cuda_time_ms(lambda: torch.zeros(
-            (meta.n_levels, meta.rows, LANES), device=dev), ITERS)
-            for _ in range(2)]
-        print(f"sweep: K2's zero fill of {meta.n_params * 4 / 2**20:.0f} MiB "
-              f"alone: {fill[0]:.4f}/{fill[1]:.4f} ms")
-        for case, fn in cases.items():
+        tq, qs = quantize_table_i8(table)
+    cases = {}
+    if {"K1", "K2"} & set(args.kernels):
+        ray = cs.ray_ordered_inputs(dev)
+    if "K1" in args.kernels:
+        for what, p in (("uniform", pos_u[: 1 << 20]),
+                        ("ray", ray["k1_pos"])):
+            cases[f"K1 {what}"] = (
+                lambda p=p, what=what: cs.check_k1(table, p, meta, what),
+                lambda p=p: bgc.launch_fwd(table, p, meta))
+    if "K2" in args.kernels:
+        for what, p, c in (("uniform", pos_u2[: 1 << 18], cot_u[: 1 << 18]),
+                           ("ray", ray["k2_pos"], ray["k2_cot"])):
+            cases[f"K2 {what}"] = (
+                lambda p=p, c=c, what=what: cs.check_k2(p, c, meta, what),
+                lambda p=p, c=c: bgc.launch_bwd(p, c, meta))
+    if {"K4", "K5"} & set(args.kernels):
+        tr, (sp, sc, smeta, stile) = training_inputs(dev)
+        sweep = cs.sweep_ordered_inputs(tr)
+    if "K4" in args.kernels:
+        for what, p in (("uniform 2^20", pos_u[: 1 << 20]),
+                        ("uniform 2^18", pos_u2[: 1 << 18]),
+                        ("full-sweep 2^18", sweep["full"]),
+                        ("partial-sweep 2^18", sweep["partial"])):
+            cases[f"K4 {what}"] = (
+                lambda p=p, what=what: cs.check_k4(tq, qs, p, meta, what),
+                lambda p=p: bgc.launch_fwd_i8(tq, qs, p, meta))
+    if "K5" in args.kernels:
+        for what, p, c, m, t in (
+                ("uniform 2^18", pos_u2[: 1 << 18], cot_u[: 1 << 18], meta,
+                 DEFAULT_TILE),
+                (f"one step ({sp.shape[0]})", sp, sc, smeta, stile)):
+            cases[f"K5 {what}"] = (
+                lambda p=p, c=c, m=m, t=t, what=what: _check_k5(
+                    p, c, m, t, what),
+                lambda p=p, c=c, m=m, t=t: bgc.launch_bwd_i8(p, c, m, t))
+    for name, v in variants.items():
+        with active(v), torch.no_grad():
+            print(f"sweep: checking {name}")
+            for check, _ in cases.values():
+                check()
+
+    order = list(variants.items())
+    times = {case: {n: [] for n in variants} for case in cases}
+    with torch.no_grad():
+        for case, (_, fn) in cases.items():
             for name, v in order + order[::-1]:
                 with active(v):
-                    fn()
-                    times[case][name].append(cs._cuda_time_ms(fn, ITERS))
+                    times[case][name].append(cs._graph_time_ms(fn, ITERS))
             print(f"sweep: {case}: " + "; ".join(
                 f"{n} {t[0]:.4f}/{t[1]:.4f} ms"
                 for n, t in times[case].items()))
+    if "K4" in args.kernels:
+        time_grid_sweep(tr)
     return 0
 
 

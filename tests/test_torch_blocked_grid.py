@@ -2,6 +2,10 @@
 (ngp_tpu_torch/kernels/blocked_grid.py) with the JAX package: the same
 numpy inputs go through both. The CUDA kernel itself runs only on the
 card; chip_smoke.py holds it against the plain version there."""
+import contextlib
+from unittest import mock
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -13,6 +17,24 @@ from ngp_tpu.config import load_network_config as j_load
 from ngp_tpu_torch.config import autofill_hashgrid_config as t_autofill
 from ngp_tpu_torch.config import load_network_config as t_load
 from ngp_tpu_torch.kernels import blocked_grid_cuda
+
+@contextlib.contextmanager
+def pallas_calls_in_turn():
+    """Each ``pallas_call`` finishes before the caller dispatches its next
+    operation. Dispatched eagerly, the JAX package's kernels (one call per
+    level group, with gathers between) otherwise race the TPU
+    interpreter's callbacks, whose own operations then queue behind the
+    next group's and wait for a computation that waits for them: the
+    process hangs in about one run in four."""
+    from jax.experimental import pallas as pl
+    pallas_call = pl.pallas_call
+
+    def in_turn(*args, **kwargs):
+        kernel = pallas_call(*args, **kwargs)
+        return lambda *a: jax.block_until_ready(kernel(*a))
+    with mock.patch.object(pl, "pallas_call", in_turn):
+        yield
+
 
 META_FIELDS = ("n_dims", "n_levels", "base_resolution", "per_level_scale",
                "log2_rows", "n_features_per_level", "row_hash",
@@ -137,7 +159,7 @@ def test_plain_encode_matches_pallas_kernel_interpret():
     got = blocked_grid_cuda.blocked_grid_encode(
         torch.from_numpy(table), torch.from_numpy(pos),
         tbg.BlockedGridMeta(**kw)).numpy()
-    with pltpu.force_tpu_interpret_mode():
+    with pltpu.force_tpu_interpret_mode(), pallas_calls_in_turn():
         ref = np.asarray(blocked_grid_encode(table, pos,
                                              jbg.BlockedGridMeta(**kw), 256))
     # K1 rounds the table to bf16 in its selection matmul; the port reads

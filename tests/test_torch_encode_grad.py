@@ -13,7 +13,8 @@ import torch
 import ngp_tpu.kernels.blocked_grid as jbg
 import ngp_tpu_torch.kernels.blocked_grid as tbg
 from ngp_tpu_torch.kernels import blocked_grid_cuda
-from test_torch_blocked_grid import SMALL, SMALL_IDS, _positions
+from test_torch_blocked_grid import (SMALL, SMALL_IDS, _positions,
+                                     pallas_calls_in_turn)
 
 # a meta whose Pallas kernels run several row-width groups (as in
 # tests/test_pallas_interpret.py)
@@ -67,7 +68,7 @@ def test_encode_backward_reference_matches_pallas_interpret():
     got = tbg.encode_backward_reference(
         torch.from_numpy(pos), torch.from_numpy(cot),
         tbg.BlockedGridMeta(**MULTIGROUP)).numpy()
-    with pltpu.force_tpu_interpret_mode():
+    with pltpu.force_tpu_interpret_mode(), pallas_calls_in_turn():
         ref = np.asarray(jax.grad(lambda t: jnp.sum(
             blocked_grid_encode(t, pos, jm, 256) * cot))(table))
     np.testing.assert_allclose(got, ref, rtol=5e-2, atol=4e-3)
@@ -150,7 +151,7 @@ def test_i8_forward_matches_pallas_interpret():
     np.testing.assert_array_equal(
         got, tbg.encode_reference_i8(tq, sc, torch.from_numpy(pos),
                                      meta).numpy())
-    with pltpu.force_tpu_interpret_mode():
+    with pltpu.force_tpu_interpret_mode(), pallas_calls_in_turn():
         ref = np.asarray(blocked_grid_encode_i8fwd(
             table, pos, jbg.BlockedGridMeta(**MULTIGROUP), 256))
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)

@@ -13,7 +13,8 @@ import torch
 import ngp_tpu.kernels.blocked_grid as jbg
 import ngp_tpu_torch.kernels.blocked_grid as tbg
 from ngp_tpu_torch.kernels import blocked_grid_cuda
-from test_torch_blocked_grid import SMALL, SMALL_IDS, _positions
+from test_torch_blocked_grid import (SMALL, SMALL_IDS, _positions,
+                                     pallas_calls_in_turn)
 from test_torch_encode_grad import MULTIGROUP, _inputs
 
 METAS = SMALL + [MULTIGROUP]
@@ -67,7 +68,7 @@ def test_position_backward_reference_matches_pallas_interpret():
     table, pos, cot = _inputs(MULTIGROUP, seed=12, n=512)
     got, mag = _plain_pos_grad(table, pos, cot, MULTIGROUP)
     jm = jbg.BlockedGridMeta(**MULTIGROUP)
-    with pltpu.force_tpu_interpret_mode():
+    with pltpu.force_tpu_interpret_mode(), pallas_calls_in_turn():
         ref = np.asarray(jax.grad(lambda p: jnp.sum(
             blocked_grid_encode(table, p, jm, 256) * cot))(pos))
     assert np.all(np.abs(got - ref) <= 2.0 ** -8 * mag)

@@ -1,7 +1,7 @@
-"""The launch plan of K1 and K2 (``blocked_grid_cuda.launch_plan``): which
-(sample, level) pair each thread takes, and the per-level parameters the
-kernels are handed, against the JAX package's meta. The kernels run only
-on the card; chip_smoke.py checks their results there."""
+"""The launch plan of K1, K2, K4 and K5 (``blocked_grid_cuda.launch_plan``):
+which (sample, level) pair each thread takes, and the per-level parameters
+the kernels are handed, against the JAX package's meta. The kernels run
+only on the card; chip_smoke.py checks their results there."""
 import re
 from pathlib import Path
 
@@ -19,15 +19,23 @@ LEVELS = [1, 2, 4, 8, 12, 16, 24, 32]
 SAMPLES = [1, 31, 32, 1000, 65539]
 
 
+# each planned kernel's level-group constant in the CUDA source
+GROUP_CONSTANTS = {"blocked_grid_encode_fwd": "kGroupFwd",
+                   "blocked_grid_encode_bwd": "kGroupBwd",
+                   "blocked_grid_encode_fwd_i8": "kGroupI8",
+                   "blocked_grid_encode_bwd_i8": "kGroupI8Bwd"}
+
+
 def _kernel_groups():
-    """kGroupFwd and kGroupBwd as the CUDA source sets them."""
+    """The level groups of K1, K2, K4 and K5 as the CUDA source sets them,
+    by launch name."""
     src = (bgc.CSRC / "blocked_grid_encode.cu").read_text()
-    return [int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
-            for k in ("kGroupFwd", "kGroupBwd")]
+    return {name: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+            for name, k in GROUP_CONSTANTS.items()}
 
 
 # the kernels' own groups and every group the sweep of PERF.md timed
-GROUPS = sorted({4, 8, 16, *_kernel_groups()})
+GROUPS = sorted({4, 8, 16, *_kernel_groups().values()})
 
 
 @pytest.fixture(autouse=True)
