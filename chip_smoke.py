@@ -28,10 +28,13 @@ Phases, each reported on its own line:
                its plain version in turns (the kernel by CUDA-graph
                replays, the plain version by CUDA events), beside its
                bound: the bytes it must move at the card's memory rate.
-               K1 and K2 again on the captured ray-ordered positions
-               (tiled to 2^20 for K1, the first 2^18 for K2); K4 also at
-               the 2^18 positions of one grid-sweep call, and the table's
-               int8 quantisation alone.
+               K1, K2 and K3 again on the captured ray-ordered positions
+               (tiled to 2^20 for K1, the first 2^18 for K2 and K3, with
+               K2's cotangent); K4 also at the 2^18 positions of one
+               grid-sweep call, and the table's int8 quantisation alone.
+               K3 reports its level group G and is launched twice on
+               each input set: the two results must be bit-equal (it sums
+               across levels in a fixed order, without atomics).
   5. train   — the training path a user calls: NerfTrainer on a synthetic
                scene of analytic spheres (24 orbit views at 256×256, sRGB
                uint8), base.json at aabb_scale 4, the bench's trainer
@@ -58,16 +61,18 @@ Phases, each reported on its own line:
                the launch counts of the training; the loss must stay
                finite, K3, K4 and K5 launch, and the PSNR rise by
                POSE_PSNR_RISE_DB. K3 and K5 on one real step's inputs are
-               held against their plain versions.
+               held against their plain versions (K3 launched twice,
+               bit-equal) and timed there beside their bounds.
 With ``--profile``, torch.profiler traces of one slice frame (K1's device
 ms and launches in it) and of 16 steady training steps are broken down by
 layer as well (the steps' table also to a file, see ``phase_profile``).
 ``--kernels`` runs phases 1, 2 and 4 alone, on a scene of its own (K4's
 sweep positions from an untrained trainer), and ends with the kernels'
 JSON line.
-Then one JSON line with each kernel's figures (K1's and K2's ray-ordered
-ones under "ray_ordered", K4's at 2^18 uniform positions under
-"uniform_2e18" and on the sweep's positions under "sweep_ordered"), and as
+Then one JSON line with each kernel's figures (K1's, K2's and K3's
+ray-ordered ones under "ray_ordered", K3's and K5's on one pose step under
+"pose_step", K4's at 2^18 uniform positions under "uniform_2e18" and on
+the sweep's positions under "sweep_ordered"), and as
 the last line ``{"ok": true, "device":
 {...}}``. Any failure raises: there is no fallback to the CPU or to the
 plain version.
@@ -269,18 +274,41 @@ def _touched_entries(meta, pos) -> int:
     return int(touched.sum())
 
 
+def kernel_bytes(name: str, meta, p) -> int:
+    """The bytes kernel ``name`` must move on positions ``p``, each input
+    read once and each output written once: the positions, the cotangent
+    in or the features out, and the table entries the corners read (K1,
+    K3, K4; one byte each for K4's int8 table, with its level scales) or
+    the whole table gradient (K2, K5); K3 also writes dpos."""
+    n, n_levels = p.shape[0], meta.n_levels
+    moved = 12 * n + 4 * 2 * n_levels * n
+    if name in ("blocked_grid_encode_bwd", "blocked_grid_encode_bwd_i8"):
+        return moved + 4 * meta.n_params
+    if name == "blocked_grid_encode_fwd_i8":
+        return moved + 4 * n_levels + _touched_entries(meta, p)
+    dpos = 12 * n if name == "blocked_grid_encode_bwd_pos" else 0
+    return moved + 4 * _touched_entries(meta, p) + dpos
+
+
+def kernel_bound(name: str, n: int, meta, n_bytes: float):
+    """The bound of kernel ``name``'s work on n samples that move
+    ``n_bytes``: (max(bytes / HBM rate, flops / f32 rate) in ms, "bytes"
+    or "operations", whichever sets it)."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = FLOPS_PER_LOOKUP[name] * n * meta.n_levels / F32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def _kernel_entry(name: str, line: int, err: float, ks, ps, n: int, meta,
                   n_bytes: float) -> dict:
     """The kernels-line entry: times, error, and the bound of the run's
-    work: max(bytes / HBM rate, flops / f32 rate), in ms."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = FLOPS_PER_LOOKUP[name] * n * meta.n_levels / F32_FLOPS * 1e3
+    work (``kernel_bound``)."""
+    bound_ms, bound_by = kernel_bound(name, n, meta, n_bytes)
     return {"name": name, "route": "cuda",
             "source": "ngp_tpu_torch/csrc/blocked_grid_encode.cu",
             "replaces": f"ngp_tpu/kernels/hashgrid_pallas.py:{line}",
             "max_abs_err": err, "ms": sum(ks) / 2, "plain_ms": sum(ps) / 2,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "bytes": n_bytes}
 
 
@@ -322,8 +350,8 @@ def time_k1(table, p, meta, err: float, what: str) -> dict:
                                 lambda: encode_reference(table, p, meta))
     n = p.shape[0]
     entry = _kernel_entry("blocked_grid_encode_fwd", 85, err, ks, ps, n,
-                          meta, 12 * n + 4 * 2 * meta.n_levels * n
-                          + 4 * _touched_entries(meta, p))
+                          meta, kernel_bytes("blocked_grid_encode_fwd", meta,
+                                             p))
     _print_times("K1", f"{n} {what} positions x {meta.n_levels} levels",
                  entry, ks, ps)
     return entry
@@ -367,8 +395,8 @@ def time_k2(p, c, meta, err: float, what: str) -> dict:
                                 lambda: encode_backward_reference(p, c, meta))
     n = p.shape[0]
     entry = _kernel_entry("blocked_grid_encode_bwd", 110, err, ks, ps, n,
-                          meta, 12 * n + 4 * 2 * meta.n_levels * n
-                          + 4 * meta.n_params)
+                          meta, kernel_bytes("blocked_grid_encode_bwd", meta,
+                                             p))
     _print_times("K2", f"{n} {what} positions x {meta.n_levels} levels",
                  entry, ks, ps)
     return entry
@@ -450,9 +478,8 @@ def time_k4(tq, qs, p, meta, err: float, what: str) -> dict:
             lambda: encode_reference_i8(tq, qs, p, meta))
     n = p.shape[0]
     entry = _kernel_entry("blocked_grid_encode_fwd_i8", 354, err, ks, ps, n,
-                          meta, 12 * n + 4 * meta.n_levels
-                          + 4 * 2 * meta.n_levels * n
-                          + _touched_entries(meta, p))
+                          meta, kernel_bytes("blocked_grid_encode_fwd_i8",
+                                             meta, p))
     _print_times("K4", f"{n} {what} positions x {meta.n_levels} levels",
                  entry, ks, ps)
     return entry
@@ -532,24 +559,6 @@ def _cotangent(dev, meta, n: int, seed: int) -> torch.Tensor:
     return cot
 
 
-def check_pos_grad(table, pos, cot, meta, got) -> float:
-    """K3's output against the plain position backward: each component
-    within KERNEL_POS_TOL of its Σ|term|. Returns the largest error
-    relative to Σ|term|."""
-    from ngp_tpu_torch.kernels.blocked_grid import (
-        encode_position_backward_reference as plain)
-    with torch.no_grad():
-        ref = plain(table, pos, cot, meta)
-        mag = plain(table, pos, cot, meta, magnitude=True)
-    if not bool(torch.isfinite(got).all()):
-        raise RuntimeError("K3 output is not finite")
-    diff = (got - ref).abs()
-    exact = mag == 0
-    if bool((diff[exact] != 0).any()):
-        raise RuntimeError("K3 is nonzero where every term is zero")
-    return float((diff / mag.clamp(min=1e-30)).max())
-
-
 def check_i8_grad(pos, cot, meta, tile: int, got):
     """K5's output against the plain int8 backward: each entry within
     KERNEL_I8_TOL of its Σ_t scale_t·Σ|q|, and exactly 0 where every q is
@@ -571,44 +580,81 @@ def check_i8_grad(pos, cot, meta, tile: int, got):
     return rel, float(diff.max()), cancelled, int((ref == 0).sum())
 
 
-def phase_k3(dev) -> dict:
-    """K3 at the training batch: 2^18 positions × 16 levels plus the edge
-    positions, seeded cotangents, the f32 table at std 0.5."""
+def check_k3(table, pos, cot, meta, what: str) -> float:
+    """K3 against the plain position backward: each component within
+    KERNEL_POS_TOL of its Σ|term|, and exactly 0 where every term is. It
+    is launched twice: the two results must be bit-equal, as the kernel
+    sums across lanes and level groups in an order fixed by its plan.
+    Returns max |Δ|."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import (
+        encode_position_backward_reference as plain)
+    with torch.no_grad():
+        got = bgc.launch_bwd_pos(table, pos, cot, meta)
+        again = bgc.launch_bwd_pos(table, pos, cot, meta)
+        ref = plain(table, pos, cot, meta)
+        mag = plain(table, pos, cot, meta, magnitude=True)
+    if not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"K3 output is not finite ({what})")
+    diff = (got - ref).abs()
+    if bool((diff[mag == 0] != 0).any()):
+        raise RuntimeError(f"K3 is nonzero where every term is zero ({what})")
+    rel, err = float((diff / mag.clamp(min=1e-30)).max()), float(diff.max())
+    same = bool(torch.equal(got.view(torch.int32), again.view(torch.int32)))
+    print(f"K3: blocked_grid_encode_bwd_pos {pos.shape[0]} {what} positions "
+          f"-> {tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
+          f"relative to sum|term| {rel:.3e} (tolerance {KERNEL_POS_TOL}); "
+          f"exact zeros where every term is 0; a second launch bit-equal: "
+          f"{same}")
+    if not (rel <= KERNEL_POS_TOL and same):
+        raise RuntimeError(f"K3 disagrees with its plain version or itself "
+                           f"({what})")
+    return err
+
+
+def time_k3(table, p, c, meta, err: float, what: str) -> dict:
+    """K3 and its plain version timed in turns on ``p``, ``c``; the
+    bound: positions, cotangent and the entries the corners read in, dpos
+    out."""
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     from ngp_tpu_torch.kernels.blocked_grid import (
         encode_position_backward_reference)
-    meta, table, pos, _ = _full_width_inputs(dev, 1 << 18)
-    cot = _cotangent(dev, meta, pos.shape[0], SEED + 3)
     with torch.no_grad():
-        got = bgc.launch_bwd_pos(table, pos, cot, meta)
-        torch.cuda.synchronize()
-        rel = check_pos_grad(table, pos, cot, meta, got)
-        err = float((got - encode_position_backward_reference(
-            table, pos, cot, meta)).abs().max())
-        print(f"K3: blocked_grid_encode_bwd_pos {pos.shape[0]} positions -> "
-              f"{tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
-              f"relative to sum|term| {rel:.3e} (tolerance {KERNEL_POS_TOL})")
-        if not rel <= KERNEL_POS_TOL:
-            raise RuntimeError("K3 disagrees with its plain version")
-        p, c = pos[: 1 << 18], cot[: 1 << 18]
         ks, ps = _time_in_turns(
             lambda: bgc.launch_bwd_pos(table, p, c, meta),
             lambda: encode_position_backward_reference(table, p, c, meta))
-        n = p.shape[0]
-        # positions, cotangent and the entries the corners read in, dpos out
-        entry = _kernel_entry("blocked_grid_encode_bwd_pos", 157, err, ks, ps,
-                              n, meta, 12 * n + 4 * 2 * meta.n_levels * n
-                              + 4 * _touched_entries(meta, p) + 12 * n)
-    _print_times("K3", "2^18 positions x 16 levels", entry, ks, ps)
+    n = p.shape[0]
+    entry = _kernel_entry("blocked_grid_encode_bwd_pos", 157, err, ks, ps, n,
+                          meta, kernel_bytes("blocked_grid_encode_bwd_pos",
+                                             meta, p))
+    entry["G"] = bgc.kernel_plan("blocked_grid_encode_bwd_pos", n, meta).width
+    _print_times("K3", f"{n} {what} positions x {meta.n_levels} levels, G "
+                 f"{entry['G']}", entry, ks, ps)
     return entry
+
+
+def phase_k3(dev, ray=None) -> dict:
+    """K3 at the training batch: 2^18 positions × 16 levels plus the edge
+    positions, seeded cotangents, the f32 table at std 0.5; given ``ray``
+    (``ray_ordered_inputs``), on K2's 2^18 ray-ordered positions and
+    cotangent too."""
+    meta, table, pos, _ = _full_width_inputs(dev, 1 << 18)
+    cot = _cotangent(dev, meta, pos.shape[0], SEED + 3)
+    err = check_k3(table, pos, cot, meta, "uniform+edge")
+    entry = time_k3(table, pos[: 1 << 18], cot[: 1 << 18], meta, err,
+                    "uniform")
+    if ray is None:
+        return entry
+    err = check_k3(table, ray["k2_pos"], ray["k2_cot"], meta, "ray-ordered")
+    return _sub_entry(entry, time_k3(table, ray["k2_pos"], ray["k2_cot"],
+                                     meta, err, "ray-ordered"), "ray_ordered")
 
 
 def phase_k5(dev) -> dict:
     """K5 on K3's positions, with cotangents seeded apart, in tiles of 2048
     samples (the tile of a 2^18-sample stream; the last tile partial)."""
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
-    from ngp_tpu_torch.kernels.blocked_grid import (
-        DEFAULT_TILE, encode_backward_reference_i8)
+    from ngp_tpu_torch.kernels.blocked_grid import DEFAULT_TILE
     meta, _, pos, _ = _full_width_inputs(dev, 1 << 18)
     cot = _cotangent(dev, meta, pos.shape[0], SEED + 4)
     tile = DEFAULT_TILE
@@ -624,17 +670,26 @@ def phase_k5(dev) -> dict:
               f"version, {cancelled} of them by cancelling quanta")
         if not rel <= KERNEL_I8_TOL:
             raise RuntimeError("K5 disagrees with its plain version")
-        p, c = pos[: 1 << 18], cot[: 1 << 18]
+    return time_k5(pos[: 1 << 18], cot[: 1 << 18], meta, tile, err,
+                   "uniform")
+
+
+def time_k5(p, c, meta, tile: int, err: float, what: str) -> dict:
+    """K5 (with the zero fills of its outputs) and its plain version
+    timed in turns; the bound: positions and cotangent in, the whole table
+    gradient out."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import encode_backward_reference_i8
+    with torch.no_grad():
         ks, ps = _time_in_turns(
             lambda: bgc.launch_bwd_i8(p, c, meta, tile),
             lambda: encode_backward_reference_i8(p, c, meta, tile),
             plain_iters=2)
-    n = p.shape[0]
-    # positions and cotangent in, the whole table gradient out
-    entry = _kernel_entry("blocked_grid_encode_bwd_i8", 383, err, ks, ps, n,
-                          meta, 12 * n + 4 * 2 * meta.n_levels * n
-                          + 4 * meta.n_params)
-    _print_times("K5", "2^18 positions x 16 levels", entry, ks, ps)
+    entry = _kernel_entry("blocked_grid_encode_bwd_i8", 383, err, ks, ps,
+                          p.shape[0], meta,
+                          kernel_bytes("blocked_grid_encode_bwd_i8", meta, p))
+    _print_times("K5", f"{p.shape[0]} {what} positions x {meta.n_levels} "
+                 f"levels, tile {tile}", entry, ks, ps)
     return entry
 
 
@@ -933,25 +988,42 @@ def view_psnr(tr, view: int = 0) -> float:
     return -10.0 * math.log10(max(float(mse), 1e-12))
 
 
+def capture_step(tr, seed: int, *names):
+    """One training step of ``tr`` (no update) on draws from ``seed``,
+    with the arguments of the first call of each of the wrappers ``names``
+    of blocked_grid_cuda in it. Returns (the step's gradients, {name:
+    arguments})."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    seen = {}
+
+    def spy(name, fn):
+        def wrapped(*args):
+            seen.setdefault(name, args)
+            return fn(*args)
+        return wrapped
+    g = torch.Generator(device=tr.device).manual_seed(seed)
+    draws = tr.draws(tr.tcfg.n_rays, g).head(tr._n_live)
+    patches = [mock.patch.object(bgc, n, spy(n, getattr(bgc, n)))
+               for n in names]
+    for p in patches:
+        p.start()
+    try:
+        grads = tr._step_grads(draws, tr._error_state())[0]
+    finally:
+        for p in patches:
+            p.stop()
+    return grads, seen
+
+
 def step_grad_check(tr):
     """K2 on the positions and cotangent of one real training step,
     against the plain backward on the same inputs: the step's table
     gradient, with the K2 phase's tolerance and zero-pattern check.
     Returns (max |Δ| relative to Σ|w·g|, whether the zero patterns are
     equal)."""
-    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     from ngp_tpu_torch.kernels.blocked_grid import encode_backward_reference
-    seen = []
-
-    def spy(pos, grad, meta):
-        seen.append((pos, grad, meta))
-        return launch_bwd(pos, grad, meta)
-    launch_bwd = bgc.launch_bwd
-    g = torch.Generator(device=tr.device).manual_seed(SEED + 2)
-    draws = tr.draws(tr.tcfg.n_rays, g).head(tr._n_live)
-    with mock.patch.object(bgc, "launch_bwd", spy):
-        grads = tr._step_grads(draws, tr._error_state())[0]
-    pos, grad, meta = seen[0]
+    grads, seen = capture_step(tr, SEED + 2, "launch_bwd")
+    pos, grad, meta = seen["launch_bwd"]
     got = grads["pos_encoding.table"]
     with torch.no_grad():
         ref = encode_backward_reference(pos, grad, meta)
@@ -1080,39 +1152,35 @@ def pose_errors(tr, true_xforms: np.ndarray):
                          _relative_to(true[0], true[i])) for i in views))
 
 
-def step_kernel_check(tr):
-    """K3 and K5 on the inputs of one real camera-optimising step, against
-    their plain versions: (K3's largest error relative to Σ|term|, K5's
-    relative to Σ_t scale_t·Σ|q|)."""
-    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
-    seen = {}
-
-    def spy(name, fn):
-        def wrapped(*args):
-            seen[name] = args
-            return fn(*args)
-        return wrapped
-    g = torch.Generator(device=tr.device).manual_seed(SEED + 5)
-    draws = tr.draws(tr.tcfg.n_rays, g).head(tr._n_live)
-    with mock.patch.object(bgc, "launch_bwd_pos",
-                           spy("pos", bgc.launch_bwd_pos)), \
-            mock.patch.object(bgc, "launch_bwd_i8",
-                              spy("i8", bgc.launch_bwd_i8)):
-        grads = tr._step_grads(draws, tr._error_state())[0]
-    table, pos, cot, meta = seen["pos"]
-    # K3 is deterministic (no atomics): rerun it on the step's inputs
-    with torch.no_grad():
-        rel_pos = check_pos_grad(table, pos, cot, meta,
-                                 bgc.launch_bwd_pos(table, pos, cot, meta))
-    pos, cot, meta, tile = seen["i8"]
-    rel_i8 = check_i8_grad(pos, cot, meta, tile,
-                           grads["pos_encoding.table"])[0]
-    return rel_pos, rel_i8, tile, pos.shape[0]
+def step_kernel_check(tr) -> dict:
+    """K3 and K5 on the inputs of one real camera-optimising step: K3
+    checked against its plain version and itself (``check_k3``, run again
+    on the step's inputs: it is deterministic), the step's own K5 table
+    gradient against the plain int8 backward; then both timed there beside
+    their bounds. Returns their kernels-line entries, by kernel."""
+    grads, seen = capture_step(tr, SEED + 5, "launch_bwd_pos",
+                               "launch_bwd_i8")
+    table, pos, cot, meta = seen["launch_bwd_pos"]
+    err = check_k3(table, pos, cot, meta, "pose-step")
+    k3 = time_k3(table, pos, cot, meta, err, "pose-step")
+    pos, cot, meta, tile = seen["launch_bwd_i8"]
+    rel, err, _, _ = check_i8_grad(pos, cot, meta, tile,
+                                   grads["pos_encoding.table"])
+    print(f"K5: one pose step's table gradient ({pos.shape[0]} samples, "
+          f"tile {tile}) vs plain on its inputs: max relative to "
+          f"sum_t scale_t*sum|q| {rel:.3e} (tolerance {KERNEL_I8_TOL})")
+    if not rel <= KERNEL_I8_TOL:
+        raise RuntimeError("the step's K5 gradient disagrees with the plain "
+                           "version")
+    return {"blocked_grid_encode_bwd_pos": k3,
+            "blocked_grid_encode_bwd_i8": time_k5(pos, cot, meta, tile, err,
+                                                  "pose-step")}
 
 
 def phase_pose(dev, ds, steps: int = POSE_STEPS, config=None):
     """Camera optimisation on ``ds`` with seeded pose errors; returns the
-    launch counts of the run."""
+    launch counts of the run, and K3's and K5's kernels-line entries on one
+    step's inputs (``step_kernel_check``)."""
     import dataclasses as dc
 
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
@@ -1169,15 +1237,7 @@ def phase_pose(dev, ds, steps: int = POSE_STEPS, config=None):
           f"(+{psnr1 - psnr0:.2f} dB; required +{POSE_PSNR_RISE_DB})")
     if not psnr1 - psnr0 >= POSE_PSNR_RISE_DB:
         raise RuntimeError("pose training did not raise the PSNR enough")
-    rel_pos, rel_i8, tile, n = step_kernel_check(tr)
-    print(f"pose: one step's kernels vs plain on its inputs ({n} samples, "
-          f"tile {tile}): K3 max |Δ| relative to sum|term| {rel_pos:.3e} "
-          f"(tolerance {KERNEL_POS_TOL}); K5 relative to "
-          f"sum_t scale_t*sum|q| {rel_i8:.3e} (tolerance {KERNEL_I8_TOL})")
-    if not (rel_pos <= KERNEL_POS_TOL and rel_i8 <= KERNEL_I8_TOL):
-        raise RuntimeError("the step's K3 or K5 disagrees with the plain "
-                           "version")
-    return launches
+    return launches, step_kernel_check(tr)
 
 
 def _attribute_kernels(prof, span_names, main_span: str):
@@ -1349,9 +1409,9 @@ def phase_profile_frame(renderer, bitfield):
 
 
 def kernel_phases(dev, ray) -> list:
-    """K1–K5 against their plain versions, timed; K1 and K2 on the
+    """K1–K5 against their plain versions, timed; K1, K2 and K3 on the
     render path's ray-ordered inputs too."""
-    return [phase_k1(dev, ray), phase_k2(dev, ray), phase_k3(dev),
+    return [phase_k1(dev, ray), phase_k2(dev, ray), phase_k3(dev, ray),
             phase_k4(dev), phase_k5(dev)]
 
 
@@ -1385,13 +1445,15 @@ def main() -> int:
                    sweep_ordered_inputs(tr))
     if "--profile" in args:
         phase_profile(tr)
-    pose_launches = phase_pose(dev, tr.dataset)
+    pose_launches, pose_step = phase_pose(dev, tr.dataset)
     # each kernel's launches in the run of the path it was ported for: the
-    # training phase (K1, K2, K4), the pose phase (K3, K5)
+    # training phase (K1, K2, K4), the pose phase (K3, K5), whose kernels
+    # were also timed on one step's inputs
     for k in kernels:
-        k["launches"] = (pose_launches if k["name"] in (
-            "blocked_grid_encode_bwd_pos", "blocked_grid_encode_bwd_i8")
-            else launches)[k["name"]]
+        k["launches"] = (pose_launches if k["name"] in pose_step
+                         else launches)[k["name"]]
+        if k["name"] in pose_step:
+            _sub_entry(k, pose_step[k["name"]], "pose_step")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))

@@ -1,7 +1,6 @@
 // Blocked hash-grid encode kernels for Hopper (sm_90a), sharing one
-// lookup-geometry function; one thread per (sample, level), except K3. In
-// K1, K2, K4 and K5 neighbouring lanes take neighbouring levels of one
-// sample:
+// lookup-geometry function; one thread per (sample, level), neighbouring
+// lanes on neighbouring levels of one sample:
 //
 //   K1 blocked_grid_encode_fwd_kernel    (L, R, 128) f32 table + (N, 3) f32
 //      positions -> (N, L*2) f32 features, sample-major.
@@ -10,7 +9,8 @@
 //      cotangent -> dTable (L, R, 128) f32 (zeroed by the caller).
 //      Replaces hashgrid_pallas.py:_bwd_table_kernel.
 //   K3 blocked_grid_encode_bwd_pos_kernel f32 table + positions + cotangent
-//      -> dpos (N, 3) f32; one thread per sample, looping over the levels.
+//      -> dpos (N, 3) f32, summed across levels by shuffles and, between
+//      level groups, by a second pass, in a fixed order (no atomics).
 //      Replaces hashgrid_pallas.py:_bwd_frac_kernel and the einsum that
 //      chains its dfrac to dpos.
 //   K4 blocked_grid_encode_fwd_i8_kernel (L, R, 128) int8 table + (L,) f32
@@ -47,7 +47,8 @@
 //    order, and so the last bits, vary between runs.
 //  - K3: the same scattered corner reads as K1 (the f32 table, even in the
 //    int8 modes, as the JAX package's int8 backward reuses the f32 K3),
-//    plus the cotangent; it writes only 12 bytes per sample.
+//    plus the cotangent; it writes only 12 bytes per sample (and 12 per
+//    sample and level group of partial sums, read back once).
 //  - K5: K2's reductions, minus those whose quanta are all 0, after a
 //    first pass that reads the positions and cotangent once more (but
 //    computes no row). Corners x and x + 1 go as one float4 reduction
@@ -68,6 +69,7 @@
 // does after its exact int8 selection.
 #include <algorithm>
 #include <cfloat>
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -80,16 +82,19 @@ constexpr int kSide = 4;     // vertices per block side (4^3 * 2 = 128 lanes)
 constexpr int kStride = 3;   // blocks overlap with a stride of 3 cells
 constexpr int kCorners = 1 << kDims;
 
-// Levels per thread group of K1, K2, K4 and K5: a group's threads cover
-// one sample's levels side by side (see the plan in
+// Levels per thread group of each kernel: a group's threads cover one
+// sample's levels side by side (see the plan in
 // ngp_tpu_torch/kernels/blocked_grid_cuda.py, launch_plan). Where a group
 // does not divide the level count, the plan narrows it to the largest
 // power of two that does. Each is the fastest of 4, 8 and 16 on an H100
 // (scripts/encode_group_sweep.py; PERF.md): 4 for K1 and K2 on uniform
 // and ray-ordered positions, 16 for K4 on uniform and grid-sweep
-// positions, 4 for K5 on uniform positions and a training step's.
+// positions, 4 for K5 on uniform positions and a training step's, 16 for
+// K3 on ray-ordered positions and a camera-optimising step's (8 was 8 %
+// faster on uniform positions).
 constexpr int kGroupFwd = 4;
 constexpr int kGroupBwd = 4;
+constexpr int kGroupPos = 16;
 constexpr int kGroupI8 = 16;
 constexpr int kGroupI8Bwd = 4;
 
@@ -110,7 +115,7 @@ __device__ __forceinline__ Level level_of(const LevelParams& lp, int l) {
   return {lp.scale[l], lp.blocks_per_dim[l], lp.is_dense[l]};
 }
 
-// K1, K2, K4 and K5 give neighbouring lanes neighbouring levels, so a warp
+// Every kernel gives neighbouring lanes neighbouring levels, so a warp
 // indexes the levels with a lane-varying index: from the parameter space
 // that is served one address at a time. The group's levels are staged in
 // shared memory once per block instead. A block covers `width` levels
@@ -214,7 +219,7 @@ __device__ __forceinline__ float corner_weight(const Lookup& g, int c) {
   return w;
 }
 
-// The (sample, level) pair of a thread of K1 or K2: pair p covers sample
+// The (sample, level) pair of a thread: pair p covers sample
 // p >> log2_group and level blockIdx.y * width + (p & (width - 1)), so a
 // group of `width` neighbouring lanes holds one sample's levels.
 struct Pair {
@@ -227,6 +232,18 @@ __device__ __forceinline__ Pair pair_of_thread(int log2_group) {
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const int j = (int)(p & ((1 << log2_group) - 1));
   return {(int)(p >> log2_group), j, (int)(blockIdx.y << log2_group) + j};
+}
+
+// The features of corners c and c + 1 (x and x + 1 at one y, z) of a
+// lookup at rowp: 4 adjacent floats, 16-byte aligned where x is even
+// (`paired`, base_lane & 2 == 0), so one load there instead of two.
+__device__ __forceinline__ float4 corner_pair(const float* __restrict__ rowp, int c,
+                                              bool paired) {
+  const float* p = rowp + corner_offset(c);
+  if (paired) return __ldg(reinterpret_cast<const float4*>(p));
+  const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+  const float2 b = __ldg(reinterpret_cast<const float2*>(p + 2));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 // K1. A group of lanes covers one sample's levels side by side, so each
@@ -251,21 +268,11 @@ __global__ void blocked_grid_encode_fwd_kernel(
   if (q.i >= n) return;
   const Lookup g = lookup_geometry(pos, q.i, levels[q.j], log2_rows, morton_hash);
   const float* rowp = table + (((size_t)q.l << log2_rows) + g.row) * kLanes + g.base_lane;
-  // corners c and c + 1 (x and x + 1 at one y, z) are 4 adjacent floats,
-  // 16-byte aligned where x is even: one load instead of two there
   const bool paired = (g.base_lane & 2) == 0;
   float f0 = 0.f, f1 = 0.f;
 #pragma unroll
   for (int c = 0; c < kCorners; c += 2) {
-    const float* p = rowp + corner_offset(c);
-    float4 v;
-    if (paired) {
-      v = __ldg(reinterpret_cast<const float4*>(p));
-    } else {
-      const float2 a = __ldg(reinterpret_cast<const float2*>(p));
-      const float2 b = __ldg(reinterpret_cast<const float2*>(p + 2));
-      v = make_float4(a.x, a.y, b.x, b.y);
-    }
+    const float4 v = corner_pair(rowp, c, paired);
     const float w0 = corner_weight(g, c), w1 = corner_weight(g, c + 1);
     f0 += v.x * w0;
     f1 += v.y * w0;
@@ -414,43 +421,88 @@ __global__ void blocked_grid_encode_bwd_kernel(
     atomicAdd(reinterpret_cast<float2*>(rowp + corner_offset(c)), sum[c]);
 }
 
-// K3: one thread per sample, looping over the levels in order, so dpos is
-// summed as the reference's einsum over levels: no atomics, deterministic.
+// K3's corner term: adds corner c's share of d/dfrac to dfrac, given gg,
+// the output's derivative by the corner's weight (summed over the two
+// features): +-gg * the product of the other dimensions' weights.
+__device__ __forceinline__ void add_corner_dfrac(float* dfrac, const Lookup& g, int c,
+                                                 float gg) {
+#pragma unroll
+  for (int d = 0; d < kDims; ++d) {
+    float prod = 1.f;
+#pragma unroll
+    for (int dd = 0; dd < kDims; ++dd) {
+      if (dd != d) prod *= ((c >> dd) & 1) ? g.frac[dd] : 1.f - g.frac[dd];
+    }
+    dfrac[d] += ((c >> d) & 1) ? gg * prod : -(gg * prod);
+  }
+}
+
+// K3, pass 1. K1's mapping: each group's cotangent is read as whole
+// sectors (a float2 per lane), each position once per group, corners x
+// and x + 1 as one 16-byte load where aligned. Each lane forms its level's
+// dfrac * scale; the group's lanes sum those by xor butterflies (at
+// distances 1, 2, ..., width / 2): a lane and its partner add the same two
+// values, and IEEE addition commutes, so every lane of the group ends
+// with the same bits and the order is fixed by the plan alone. The group's
+// sum goes to `out`: dpos itself where one group covers all levels, else
+// the group's partial (groups, N, 3), which pass 2 adds up in group order.
+// Lane j of a group stores the components d = j, j + width, ..., so a
+// warp stores its samples' 12 bytes each contiguously. A zero cotangent
+// adds only zeros: such a lane skips its loads, not the shuffles, and
+// where every term is 0 the sum is exactly 0. Unlike K1's, K3's group is
+// 16, a sample's levels in one half-warp: at the NeRF width no partials
+// and no second pass; the whole 64 MiB table is then in flight, which
+// cost 8 % on uniform positions against G = 8, but the path's own inputs
+// (a pose step's ~10^4 samples, ray-ordered samples whose neighbours share
+// rows) gained 5-14 % over G = 8.
 __global__ void blocked_grid_encode_bwd_pos_kernel(
     const float* __restrict__ pos, const float* __restrict__ table,
-    const float* __restrict__ grad, float* __restrict__ dpos,
+    const float* __restrict__ grad, float* __restrict__ out,
     const LevelParams lp, int n, int n_levels, int log2_rows,
-    int morton_hash) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+    int morton_hash, int log2_group) {
+  __shared__ Level levels[kGroupPos];
+  const int width = 1 << log2_group;
+  stage_group_levels(levels, lp, width);
+  const Pair q = pair_of_thread(log2_group);
+  // every lane runs to the end: the group's lanes sum together below
+  float2 gv = make_float2(0.f, 0.f);
+  if (q.i < n) gv = __ldg(reinterpret_cast<const float2*>(grad) + (size_t)q.i * n_levels + q.l);
   float acc[kDims] = {0.f, 0.f, 0.f};
-  for (int l = 0; l < n_levels; ++l) {
-    const float2 gv = __ldg(reinterpret_cast<const float2*>(grad + (size_t)i * n_levels * 2) + l);
-    if (gv.x == 0.f && gv.y == 0.f) continue;   // adds only zeros
-    const Lookup g = lookup_geometry(pos, i, level_of(lp, l), log2_rows, morton_hash);
-    const float* rowp = table + (((size_t)l << log2_rows) + g.row) * kLanes + g.base_lane;
+  if (gv.x != 0.f || gv.y != 0.f) {
+    const Level lv = levels[q.j];
+    const Lookup g = lookup_geometry(pos, q.i, lv, log2_rows, morton_hash);
+    const float* rowp = table + (((size_t)q.l << log2_rows) + g.row) * kLanes + g.base_lane;
+    const bool paired = (g.base_lane & 2) == 0;
     float dfrac[kDims] = {0.f, 0.f, 0.f};
 #pragma unroll
-    for (int c = 0; c < kCorners; ++c) {
-      const float2 v = __ldg(reinterpret_cast<const float2*>(rowp + corner_offset(c)));
-      // d/dw of the output at this corner, summed over the two features
-      const float gg = v.x * gv.x + v.y * gv.y;
-#pragma unroll
-      for (int d = 0; d < kDims; ++d) {
-        float prod = 1.f;
-#pragma unroll
-        for (int dd = 0; dd < kDims; ++dd) {
-          if (dd != d) prod *= ((c >> dd) & 1) ? g.frac[dd] : 1.f - g.frac[dd];
-        }
-        dfrac[d] += ((c >> d) & 1) ? gg * prod : -(gg * prod);
-      }
+    for (int c = 0; c < kCorners; c += 2) {
+      const float4 v = corner_pair(rowp, c, paired);
+      add_corner_dfrac(dfrac, g, c, v.x * gv.x + v.y * gv.y);
+      add_corner_dfrac(dfrac, g, c + 1, v.z * gv.x + v.w * gv.y);
     }
-    const float s = lp.scale[l];
 #pragma unroll
-    for (int d = 0; d < kDims; ++d) acc[d] += dfrac[d] * s;
+    for (int d = 0; d < kDims; ++d) acc[d] = dfrac[d] * lv.scale;
   }
+  for (int m = 1; m < width; m <<= 1) {
 #pragma unroll
-  for (int d = 0; d < kDims; ++d) dpos[(size_t)i * kDims + d] = acc[d];
+    for (int d = 0; d < kDims; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], m);
+  }
+  if (q.i >= n) return;
+  float* o = out + ((size_t)blockIdx.y * n + q.i) * kDims;
+  for (int d = q.j; d < kDims; d += width) o[d] = d == 0 ? acc[0] : d == 1 ? acc[1] : acc[2];
+}
+
+// K3, pass 2: dpos = the partials of groups 0, 1, ... added in that order,
+// one thread per (sample, component), as the reference's sum over levels
+// runs in level order.
+__global__ void blocked_grid_encode_bwd_pos_sum_kernel(
+    const float* __restrict__ partial, float* __restrict__ dpos, int n3,
+    int groups) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n3) return;
+  float s = __ldg(partial + t);
+  for (int k = 1; k < groups; ++k) s += __ldg(partial + (size_t)k * n3 + t);
+  dpos[t] = s;
 }
 
 // K5, pass 1: the largest |w*g| of each (level, sample tile) into
@@ -597,7 +649,7 @@ int fill_levels(LevelParams* lp, const float* scales,
 
 constexpr int kThreads = 256;
 
-// Checks a pair launch of K1, K2, K4 or K5 (kernels/blocked_grid_cuda.py,
+// Checks a pair launch of K1–K5 (kernels/blocked_grid_cuda.py,
 // launch_plan): groups of the largest power of two dividing both `group`
 // and n_levels, `threads` per block (whole warps), and exactly the
 // `blocks` per group that cover n samples.
@@ -622,14 +674,15 @@ int prepare(LevelParams* lp, const float* scales, const int* blocks_per_dim,
 
 }  // namespace
 
-// The level group of kernel 0 = K1, 1 = K2, 2 = K4, 3 = K5, so the
-// wrapper can plan their launches; -1 for any other.
+// The level group of kernel 0 = K1, 1 = K2, 2 = K4, 3 = K5, 4 = K3, so
+// the wrapper can plan their launches; -1 for any other.
 extern "C" int ngp_blocked_grid_group(int kernel) {
   switch (kernel) {
     case 0: return kGroupFwd;
     case 1: return kGroupBwd;
     case 2: return kGroupI8;
     case 3: return kGroupI8Bwd;
+    case 4: return kGroupPos;
     default: return -1;
   }
 }
@@ -637,8 +690,8 @@ extern "C" int ngp_blocked_grid_group(int kernel) {
 // Each entry point launches on `stream` (a cudaStream_t passed as a
 // pointer) and returns the cudaError_t of the launch; 0 on success.
 // Per-level arrays are host memory, n_levels entries each; they travel in
-// the kernel's parameters. Tensors are device memory, contiguous. K1, K2,
-// K4 and K5 take the wrapper's launch plan (blocks and threads per level
+// the kernel's parameters. Tensors are device memory, contiguous. Every
+// kernel takes the wrapper's launch plan (blocks and threads per level
 // group, log2 of the group's width).
 extern "C" int ngp_blocked_grid_encode_fwd(
     const float* pos, const float* table, float* out,
@@ -688,20 +741,32 @@ extern "C" int ngp_blocked_grid_encode_bwd(
   return (int)cudaGetLastError();
 }
 
-// K3: dpos (N, 3) is written in full; no zeroing needed.
+// K3: dpos (N, 3) is written in full; no zeroing needed. Where the plan
+// has more than one level group, `partial` holds (groups, N, 3) floats of
+// scratch (written in full by pass 1, read by pass 2 on the same stream);
+// it may be null for a single group.
 extern "C" int ngp_blocked_grid_encode_bwd_pos(
     const float* pos, const float* table, const float* grad, float* dpos,
-    const float* scales, const int* blocks_per_dim,
+    float* partial, const float* scales, const int* blocks_per_dim,
     const unsigned char* is_dense, int n, int n_levels, int log2_rows,
-    int morton_hash, void* stream) {
+    int morton_hash, int blocks, int threads, int log2_group, void* stream) {
   LevelParams lp = {};
-  const int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n,
-                             n_levels, log2_rows);
+  int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                   log2_rows, kGroupPos, blocks, threads, log2_group);
   if (rc != 0) return rc;
-  blocked_grid_encode_bwd_pos_kernel<<<(n + kThreads - 1) / kThreads,
-                                       kThreads, 0,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      pos, table, grad, dpos, lp, n, n_levels, log2_rows, morton_hash);
+  const int groups = n_levels >> log2_group;
+  if ((groups > 1 && partial == nullptr) || n > INT_MAX / kDims)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  blocked_grid_encode_bwd_pos_kernel<<<dim3(blocks, groups), threads, 0, s>>>(
+      pos, table, grad, groups > 1 ? partial : dpos, lp, n, n_levels,
+      log2_rows, morton_hash, log2_group);
+  rc = (int)cudaGetLastError();
+  if (rc != 0 || groups == 1) return rc;
+  const int n3 = n * kDims;
+  blocked_grid_encode_bwd_pos_sum_kernel<<<(n3 + kThreads - 1) / kThreads,
+                                           kThreads, 0, s>>>(partial, dpos, n3,
+                                                             groups);
   return (int)cudaGetLastError();
 }
 

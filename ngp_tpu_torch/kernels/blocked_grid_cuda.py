@@ -13,8 +13,8 @@ version.
 The kernels are compiled with ``nvcc`` into a shared library with a plain C
 interface on first use (into ``build/ngp_tpu_torch/`` at the repository
 root, named by a hash of the sources and flags, so an unchanged tree is
-not rebuilt) and loaded with ``ctypes``. K1, K2, K4 and K5 are launched as
-``launch_plan`` sizes them: one thread per (sample, level), neighbouring
+not rebuilt) and loaded with ``ctypes``. Every kernel is launched as
+``launch_plan`` sizes it: one thread per (sample, level), neighbouring
 threads on neighbouring levels of one sample, in level groups of each
 kernel's own width (``ngp_blocked_grid_group``).
 """
@@ -94,7 +94,7 @@ def load_library(path: Path) -> ctypes.CDLL:
     lib.ngp_blocked_grid_encode_fwd.argtypes = [vp, vp, vp] + planned
     lib.ngp_blocked_grid_encode_bwd.argtypes = [vp, vp, vp] + planned
     lib.ngp_blocked_grid_encode_fwd_i8.argtypes = [vp, vp, vp, vp] + planned
-    lib.ngp_blocked_grid_encode_bwd_pos.argtypes = [vp, vp, vp, vp] + levels
+    lib.ngp_blocked_grid_encode_bwd_pos.argtypes = [vp] * 5 + planned
     lib.ngp_blocked_grid_encode_bwd_i8.argtypes = ([vp, vp, vp, vp]
                                                    + planned[:-1] + [ci, vp])
     lib.ngp_blocked_grid_group.argtypes = [ci]
@@ -122,12 +122,14 @@ def build() -> ctypes.CDLL:
     return _lib
 
 
-# threads per block of the planned launches (K1, K2, K4, K5)
+# threads per block of the planned launches
 THREADS = 256
 
-# the kernels ``ngp_blocked_grid_group`` knows, by launch name
+# the kernels ``ngp_blocked_grid_group`` knows, by launch name, in the
+# order of its argument
 GROUP_KERNELS = ("blocked_grid_encode_fwd", "blocked_grid_encode_bwd",
-                 "blocked_grid_encode_fwd_i8", "blocked_grid_encode_bwd_i8")
+                 "blocked_grid_encode_fwd_i8", "blocked_grid_encode_bwd_i8",
+                 "blocked_grid_encode_bwd_pos")
 # the level groups scripts/encode_group_sweep.py times each kernel at; the
 # source's groups are the fastest of these
 SWEPT_GROUPS = (4, 8, 16)
@@ -135,7 +137,7 @@ SWEPT_GROUPS = (4, 8, 16)
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
-    """A launch of K1, K2, K4 or K5 over the (sample, level) pairs:
+    """A launch of a kernel over the (sample, level) pairs:
     ``groups`` level groups of ``width`` levels (grid y), each covered by
     ``blocks`` blocks of ``threads`` threads (grid x). Thread t of block b
     in group k takes pair p = b·threads + t: sample p // width, level
@@ -332,15 +334,19 @@ def launch_bwd_pos(table: torch.Tensor, pos: torch.Tensor,
     _check(meta, pos, table, grad)
     _check_table(table, meta, torch.float32)
     _check_cotangent(pos, grad, meta)
-    dpos = torch.empty((pos.shape[0], 3), dtype=torch.float32,
-                       device=pos.device)
-    if pos.shape[0] == 0:
+    n = pos.shape[0]
+    dpos = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
+    if n == 0:
         return dpos
     lib = build()
-    args, _keep = _level_args(meta, pos)
+    plan = kernel_plan("blocked_grid_encode_bwd_pos", n, meta)
+    # each level group's sum, added up in group order by the second pass
+    partial = (torch.empty((plan.groups, n, 3), dtype=torch.float32,
+                           device=pos.device) if plan.groups > 1 else None)
+    args, _keep = _planned_args(meta, pos, plan)
     _run("blocked_grid_encode_bwd_pos", lib.ngp_blocked_grid_encode_bwd_pos,
          pos.data_ptr(), table.data_ptr(), grad.data_ptr(), dpos.data_ptr(),
-         *args)
+         None if partial is None else partial.data_ptr(), *args)
     return dpos
 
 

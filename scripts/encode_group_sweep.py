@@ -1,42 +1,51 @@
 #!/usr/bin/env python3
-"""Times the planned kernels of ``ngp_tpu_torch/csrc/blocked_grid_encode.cu``
-(K1 encode forward, K2 table backward, K4 int8-table forward, K5 int8 table
-backward) at each level group G of a sweep, beside an earlier version of
-that source, on one NVIDIA GPU.
+"""Times the kernels of ``ngp_tpu_torch/csrc/blocked_grid_encode.cu`` (K1
+encode forward, K2 table backward, K3 position backward, K4 int8-table
+forward, K5 int8 table backward) at each level group G of a sweep, beside
+an earlier version of that source, on one NVIDIA GPU.
 
     python3 scripts/encode_group_sweep.py [--baseline OLD.cu]
-        [--sources OTHER.cu ...] [--groups 4 8 16] [--kernels K4 K5]
+        [--sources OTHER.cu ...] [--groups 4 8 16] [--kernels K3]
 
 For each G the source, and each of ``--sources`` (other versions of it with
 the same entry points), is copied with every level group (``kGroupFwd``,
-``kGroupBwd``, ``kGroupI8``, ``kGroupI8Bwd``) set to G and built into
-``build/ngp_tpu_torch/sweep/``, all builds at once. ``--baseline``
-builds an earlier version of the source whose K1 and K2 take a launch plan
-and whose K4 and K5 do not (one level per block row, a grid of (N/256, L)):
-the parent of the K4/K5 redesign.
+``kGroupBwd``, ``kGroupPos``, ``kGroupI8``, ``kGroupI8Bwd``) set to G and
+built into ``build/ngp_tpu_torch/sweep/``, all builds at once.
+``--baseline`` builds an earlier version of the source whose K1, K2, K4
+and K5 take a launch plan and whose K3 does not (one thread per sample
+over the levels, a grid of N/256 blocks): the parent of the K3 redesign,
+commit 1f1d465.
 
 Inputs, at the full NeRF width: K1 at 2^20 uniform and ray-ordered
-positions, K2 at 2^18 of each (``chip_smoke.ray_ordered_inputs``); K4 at
-2^20 and 2^18 uniform positions and on the grid sweep's own positions (the
-first 2^18-position call of a full and of a partial sweep,
+positions, K2 and K3 at 2^18 of each (``chip_smoke.ray_ordered_inputs``,
+K3 with K2's cotangent) and K3 also on the inputs of one camera-optimising
+step of a trainer with pose, exposure and focal optimisation and
+``encode_int8="full"``, trained ``TRAIN_STEPS`` steps on the sphere views
+with seeded pose errors (the pose phase of chip_smoke.py); K4 at 2^20 and
+2^18 uniform positions and on the grid sweep's own positions (the first
+2^18-position call of a full and of a partial sweep,
 ``chip_smoke.sweep_ordered_inputs``); K5 at 2^18 uniform positions and on
 the positions and cotangent of one training step of a trainer with
 ``encode_int8="full"`` trained ``TRAIN_STEPS`` steps on the sphere views.
 Every library is first checked against the plain versions with
-chip_smoke.py's tolerances. Then each case is timed in turns (baseline,
-each variant, each variant in reverse, baseline) by CUDA-graph replays
+chip_smoke.py's tolerances (K3 also against a second launch of itself:
+bit-equal). Then each case is timed in turns (baseline, each variant, each
+variant in reverse, baseline) by CUDA-graph replays
 (``chip_smoke._graph_time_ms``: device time, without the wrappers' host
-overhead, which is as long as the smaller cases' kernels). Last, the
-trainer's full and partial grid sweeps are traced with the table
+overhead, which is as long as the smaller cases' kernels), and its plain
+version twice by CUDA events, beside the case's bound
+(``chip_smoke.kernel_bytes`` at the card's memory rate). With K4, the K5
+trainer's full and partial grid sweeps are traced last with the table
 quantised once and once per network call (as before the sweep took a
 quantised pair), in turns: device and wall ms per sweep. Prints a line
-per measurement, each library's registers and spills, and K2's and K5's
-reductions in SASS where ``cuobjdump`` is found.
+per measurement, each library's registers and spills, and the reductions
+and atomics of K2's, K3's and K5's SASS where ``cuobjdump`` is found.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import re
 import shutil
 import subprocess
@@ -55,11 +64,14 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc  # noqa: E402
 from ngp_tpu_torch.kernels.blocked_grid import (  # noqa: E402
-    LANES, DEFAULT_TILE, quantize_table_i8)
+    DEFAULT_TILE, encode_backward_reference, encode_backward_reference_i8,
+    encode_position_backward_reference, encode_reference,
+    encode_reference_i8, quantize_table_i8)
 
 SWEEP_DIR = bgc.BUILD_DIR / "sweep"
 ITERS = 20
-GROUP_CONSTANTS = ("kGroupFwd", "kGroupBwd", "kGroupI8", "kGroupI8Bwd")
+GROUP_CONSTANTS = ("kGroupFwd", "kGroupBwd", "kGroupPos", "kGroupI8",
+                   "kGroupI8Bwd")
 TRAIN_VIEWS, TRAIN_RES, TRAIN_STEPS = 24, 128, 512
 
 
@@ -91,7 +103,8 @@ def _build_all(sources: dict) -> dict:
 
 
 def _reductions(lib_path: Path) -> str:
-    """The reduction and atomic instructions of K2's and K5's SASS."""
+    """The reduction and atomic instructions of K2's, K3's and K5's
+    SASS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return "cuobjdump not found"
@@ -102,6 +115,7 @@ def _reductions(lib_path: Path) -> str:
         if "Function :" in ln:
             fn = next((k for k, name in (
                 ("K2", "blocked_grid_encode_bwd_kernel"),
+                ("K3", "blocked_grid_encode_bwd_pos"),
                 ("K5 pass 1", "blocked_grid_encode_bwd_i8_max_kernel"),
                 ("K5 pass 2", "blocked_grid_encode_bwd_i8_kernel"))
                 if name in ln), None)
@@ -114,41 +128,26 @@ def _reductions(lib_path: Path) -> str:
 
 
 class Baseline:
-    """An earlier source: K1 and K2 through the current wrappers (the same
-    planned entry points), K4 and K5 through its own plan-less ones."""
+    """An earlier source: K1, K2, K4 and K5 through the current wrappers
+    (the same planned entry points), K3 through its own plan-less one."""
 
     def __init__(self, path: Path):
         self.lib = bgc.load_library(path)
-        # a second handle, so these entry points keep their own signatures
+        # a second handle, so this entry point keeps its own signature
         raw = ctypes.CDLL(str(path))
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        levels = [vp, vp, vp, ci, ci, ci, ci]
-        self.k4 = raw.ngp_blocked_grid_encode_fwd_i8
-        self.k4.argtypes = [vp, vp, vp, vp] + levels + [vp]
-        self.k5 = raw.ngp_blocked_grid_encode_bwd_i8
-        self.k5.argtypes = [vp, vp, vp, vp] + levels + [ci, vp]
-        self.k4.restype = self.k5.restype = ci
+        self.k3 = raw.ngp_blocked_grid_encode_bwd_pos
+        self.k3.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+        self.k3.restype = ci
 
-    def fwd_i8(self, tq, qs, pos, meta):
-        out = torch.empty((pos.shape[0], meta.n_levels * 2),
-                          dtype=torch.float32, device=pos.device)
+    def bwd_pos(self, table, pos, grad, meta):
+        dpos = torch.empty((pos.shape[0], 3), dtype=torch.float32,
+                           device=pos.device)
         args, _keep = bgc._level_args(meta, pos)
-        if self.k4(pos.data_ptr(), tq.data_ptr(), qs.data_ptr(),
-                   out.data_ptr(), *args):
-            raise RuntimeError("baseline K4 launch failed")
-        return out
-
-    def bwd_i8(self, pos, grad, meta, tile):
-        dtable = torch.zeros((meta.n_levels, meta.rows, LANES),
-                             dtype=torch.float32, device=pos.device)
-        tile_max = torch.zeros((meta.n_levels, -(-pos.shape[0] // tile)),
-                               dtype=torch.int32, device=pos.device)
-        args, _keep = bgc._level_args(meta, pos)
-        if self.k5(pos.data_ptr(), grad.data_ptr(), tile_max.data_ptr(),
-                   dtable.data_ptr(), *args[:-1], tile.bit_length() - 1,
-                   args[-1]):
-            raise RuntimeError("baseline K5 launch failed")
-        return dtable
+        if self.k3(pos.data_ptr(), table.data_ptr(), grad.data_ptr(),
+                   dpos.data_ptr(), *args):
+            raise RuntimeError("baseline K3 launch failed")
+        return dpos
 
 
 @contextmanager
@@ -157,35 +156,30 @@ def active(variant):
     a library of the current source."""
     if isinstance(variant, Baseline):
         with mock.patch.object(bgc, "_lib", variant.lib), \
-                mock.patch.object(bgc, "launch_fwd_i8", variant.fwd_i8), \
-                mock.patch.object(bgc, "launch_bwd_i8", variant.bwd_i8):
+                mock.patch.object(bgc, "launch_bwd_pos", variant.bwd_pos):
             yield
     else:
         with mock.patch.object(bgc, "_lib", variant):
             yield
 
 
-def training_inputs(dev):
-    """A trainer with ``encode_int8="full"`` trained TRAIN_STEPS steps on
-    the sphere views, and K5's inputs in one step of it (positions,
-    cotangent, meta, tile)."""
-    tr = cs.make_trainer(cs.build_sphere_dataset(dev, TRAIN_VIEWS, TRAIN_RES),
-                         dev, encode_int8="full")
+def step_inputs(dev, launch: str, **options):
+    """A trainer (``chip_smoke.make_trainer`` with ``options``) trained
+    TRAIN_STEPS steps on the sphere views, their poses perturbed as the
+    pose phase perturbs them where it optimises them, and the arguments of
+    the wrapper ``launch`` in one step of it."""
+    ds = cs.build_sphere_dataset(dev, TRAIN_VIEWS, TRAIN_RES)
+    if options.get("optimize_extrinsics"):
+        ds = dataclasses.replace(
+            ds, xforms=cs.perturb_poses(ds.xforms, cs.SEED + 6),
+            xforms_end=None)
+    tr = cs.make_trainer(ds, dev, **options)
     tr.train(TRAIN_STEPS)
-    seen = []
-
-    def spy(*args):
-        seen.append(args)
-        return launch(*args)
-    launch = bgc.launch_bwd_i8
-    g = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
-    draws = tr.draws(tr.tcfg.n_rays, g).head(tr._n_live)
-    with mock.patch.object(bgc, "launch_bwd_i8", spy):
-        tr._step_grads(draws, tr._error_state())
-    pos, cot, meta, tile = seen[0]
-    print(f"sweep: trainer after {tr.training_step} steps; one step's K5 "
-          f"inputs: {pos.shape[0]} samples, tile {tile}")
-    return tr, (pos, cot, meta, tile)
+    args = cs.capture_step(tr, cs.SEED + 5, launch)[1][launch]
+    pos = args[1] if launch == "launch_bwd_pos" else args[0]
+    print(f"sweep: trainer ({', '.join(options)}) after {tr.training_step} "
+          f"steps; one step's {launch} inputs: {pos.shape[0]} samples")
+    return tr, args
 
 
 def _check_k5(pos, cot, meta, tile, what: str):
@@ -252,14 +246,14 @@ def time_grid_sweep(tr):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", type=Path,
-                    help="an earlier blocked_grid_encode.cu (K4 and K5 "
-                         "without a launch plan)")
+                    help="an earlier blocked_grid_encode.cu (K3 without a "
+                         "launch plan)")
     ap.add_argument("--sources", type=Path, nargs="*", default=[],
                     help="other versions of the source, same entry points")
     ap.add_argument("--groups", type=int, nargs="+",
                     default=list(bgc.SWEPT_GROUPS))
-    ap.add_argument("--kernels", nargs="+", default=["K4", "K5"],
-                    choices=["K1", "K2", "K4", "K5"])
+    ap.add_argument("--kernels", nargs="+", default=["K3"],
+                    choices=["K1", "K2", "K3", "K4", "K5"])
     args = ap.parse_args()
     cs.phase_device()
     dev = torch.device("cuda", 0)
@@ -287,23 +281,47 @@ def main() -> int:
     cot_u = cs._cotangent(dev, meta, pos_u2.shape[0], cs.SEED + 1)
     with torch.no_grad():
         tq, qs = quantize_table_i8(table)
+    # case -> (check, kernel, plain version, kernel name, positions, meta)
     cases = {}
-    if {"K1", "K2"} & set(args.kernels):
+    if {"K1", "K2", "K3"} & set(args.kernels):
         ray = cs.ray_ordered_inputs(dev)
     if "K1" in args.kernels:
         for what, p in (("uniform", pos_u[: 1 << 20]),
                         ("ray", ray["k1_pos"])):
             cases[f"K1 {what}"] = (
                 lambda p=p, what=what: cs.check_k1(table, p, meta, what),
-                lambda p=p: bgc.launch_fwd(table, p, meta))
+                lambda p=p: bgc.launch_fwd(table, p, meta),
+                lambda p=p: encode_reference(table, p, meta),
+                "blocked_grid_encode_fwd", p, meta)
     if "K2" in args.kernels:
         for what, p, c in (("uniform", pos_u2[: 1 << 18], cot_u[: 1 << 18]),
                            ("ray", ray["k2_pos"], ray["k2_cot"])):
             cases[f"K2 {what}"] = (
                 lambda p=p, c=c, what=what: cs.check_k2(p, c, meta, what),
-                lambda p=p, c=c: bgc.launch_bwd(p, c, meta))
+                lambda p=p, c=c: bgc.launch_bwd(p, c, meta),
+                lambda p=p, c=c: encode_backward_reference(p, c, meta),
+                "blocked_grid_encode_bwd", p, meta)
+    if "K3" in args.kernels:
+        _, (ptab, pp, pc, pmeta) = step_inputs(
+            dev, "launch_bwd_pos", optimize_extrinsics=True,
+            optimize_exposure=True, optimize_focal_length=True,
+            encode_int8="full")
+        cot_3 = cs._cotangent(dev, meta, pos_u2.shape[0], cs.SEED + 3)
+        for what, t, p, c, m in (
+                ("uniform 2^18", table, pos_u2[: 1 << 18], cot_3[: 1 << 18],
+                 meta),
+                ("ray 2^18", table, ray["k2_pos"], ray["k2_cot"], meta),
+                (f"pose step ({pp.shape[0]})", ptab, pp, pc, pmeta)):
+            cases[f"K3 {what}"] = (
+                lambda t=t, p=p, c=c, m=m, what=what: cs.check_k3(
+                    t, p, c, m, what),
+                lambda t=t, p=p, c=c, m=m: bgc.launch_bwd_pos(t, p, c, m),
+                lambda t=t, p=p, c=c, m=m: encode_position_backward_reference(
+                    t, p, c, m),
+                "blocked_grid_encode_bwd_pos", p, m)
     if {"K4", "K5"} & set(args.kernels):
-        tr, (sp, sc, smeta, stile) = training_inputs(dev)
+        tr, (sp, sc, smeta, stile) = step_inputs(dev, "launch_bwd_i8",
+                                                 encode_int8="full")
         sweep = cs.sweep_ordered_inputs(tr)
     if "K4" in args.kernels:
         for what, p in (("uniform 2^20", pos_u[: 1 << 20]),
@@ -312,7 +330,9 @@ def main() -> int:
                         ("partial-sweep 2^18", sweep["partial"])):
             cases[f"K4 {what}"] = (
                 lambda p=p, what=what: cs.check_k4(tq, qs, p, meta, what),
-                lambda p=p: bgc.launch_fwd_i8(tq, qs, p, meta))
+                lambda p=p: bgc.launch_fwd_i8(tq, qs, p, meta),
+                lambda p=p: encode_reference_i8(tq, qs, p, meta),
+                "blocked_grid_encode_fwd_i8", p, meta)
     if "K5" in args.kernels:
         for what, p, c, m, t in (
                 ("uniform 2^18", pos_u2[: 1 << 18], cot_u[: 1 << 18], meta,
@@ -321,23 +341,33 @@ def main() -> int:
             cases[f"K5 {what}"] = (
                 lambda p=p, c=c, m=m, t=t, what=what: _check_k5(
                     p, c, m, t, what),
-                lambda p=p, c=c, m=m, t=t: bgc.launch_bwd_i8(p, c, m, t))
+                lambda p=p, c=c, m=m, t=t: bgc.launch_bwd_i8(p, c, m, t),
+                lambda p=p, c=c, m=m, t=t: encode_backward_reference_i8(
+                    p, c, m, t),
+                "blocked_grid_encode_bwd_i8", p, m)
     for name, v in variants.items():
         with active(v), torch.no_grad():
             print(f"sweep: checking {name}")
-            for check, _ in cases.values():
+            for check, *_ in cases.values():
                 check()
 
     order = list(variants.items())
     times = {case: {n: [] for n in variants} for case in cases}
     with torch.no_grad():
-        for case, (_, fn) in cases.items():
+        for case, (_, fn, plain, kernel, p, m) in cases.items():
             for name, v in order + order[::-1]:
                 with active(v):
                     times[case][name].append(cs._graph_time_ms(fn, ITERS))
+            plain()
+            plain_ms = [cs._cuda_time_ms(plain, 2) for _ in range(2)]
+            n_bytes = cs.kernel_bytes(kernel, m, p)
+            bound_ms, bound_by = cs.kernel_bound(kernel, p.shape[0], m,
+                                                 n_bytes)
             print(f"sweep: {case}: " + "; ".join(
                 f"{n} {t[0]:.4f}/{t[1]:.4f} ms"
-                for n, t in times[case].items()))
+                for n, t in times[case].items())
+                + f"; plain {plain_ms[0]:.4f}/{plain_ms[1]:.4f} ms; bound "
+                f"{bound_ms:.4f} ms ({n_bytes / 1e6:.1f} MB, {bound_by})")
     if "K4" in args.kernels:
         time_grid_sweep(tr)
     return 0

@@ -1,4 +1,4 @@
-"""The launch plan of K1, K2, K4 and K5 (``blocked_grid_cuda.launch_plan``):
+"""The launch plan of K1–K5 (``blocked_grid_cuda.launch_plan``):
 which (sample, level) pair each thread takes, and the per-level parameters
 the kernels are handed, against the JAX package's meta. The kernels run
 only on the card; chip_smoke.py checks their results there."""
@@ -23,12 +23,13 @@ SAMPLES = [1, 31, 32, 1000, 65539]
 GROUP_CONSTANTS = {"blocked_grid_encode_fwd": "kGroupFwd",
                    "blocked_grid_encode_bwd": "kGroupBwd",
                    "blocked_grid_encode_fwd_i8": "kGroupI8",
-                   "blocked_grid_encode_bwd_i8": "kGroupI8Bwd"}
+                   "blocked_grid_encode_bwd_i8": "kGroupI8Bwd",
+                   "blocked_grid_encode_bwd_pos": "kGroupPos"}
 
 
 def _kernel_groups():
-    """The level groups of K1, K2, K4 and K5 as the CUDA source sets them,
-    by launch name."""
+    """The level groups of K1–K5 as the CUDA source sets them, by launch
+    name."""
     src = (bgc.CSRC / "blocked_grid_encode.cu").read_text()
     return {name: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
             for name, k in GROUP_CONSTANTS.items()}
