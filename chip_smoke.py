@@ -63,13 +63,28 @@ Phases, each reported on its own line:
                POSE_PSNR_RISE_DB. K3 and K5 on one real step's inputs are
                held against their plain versions (K3 launched twice,
                bit-equal) and timed there beside their bounds.
+  7. testbed — the user surface, under NGP_TPU_GRID_INT8=1 as bench.py
+               runs: the train phase's views and 4 held-out ones written
+               to build/testbed_smoke as PNGs with transforms.json files;
+               ``python -m ngp_tpu_torch.run``'s main with --n_steps 0 (the
+               held-out PSNR before training), then 512 steps with a
+               snapshot, held-out PSNR/SSIM and 640×360 screenshots (the
+               ``iteration=`` lines finite and exact, the PSNR rise at
+               least PSNR_RISE_DB); the CLI's screenshot of training view 0
+               from the snapshot against the runner's frame of it, bit for
+               bit; a Testbed loaded from the snapshot renders every render
+               mode, ACES, a crop box, a DoF frame and a motion-blurred
+               camera-path frame (each gated and timed; K3 must launch in
+               the NORMALS frame); the Blender plugin's flow. K1, K2, K3
+               and K4 must launch in the phase.
 With ``--profile``, torch.profiler traces of one slice frame (K1's device
 ms and launches in it) and of 16 steady training steps are broken down by
 layer as well (the steps' table also to a file, see ``phase_profile``).
 ``--kernels`` runs phases 1, 2 and 4 alone, on a scene of its own (K4's
 sweep positions from an untrained trainer), and ends with the kernels'
 JSON line.
-Then one JSON line with each kernel's figures (K1's, K2's and K3's
+Then the script's total seconds, one JSON line with each kernel's
+figures and its launches in the testbed phase (K1's, K2's and K3's
 ray-ordered ones under "ray_ordered", K3's and K5's on one pose step under
 "pose_step", K4's at 2^18 uniform positions under "uniform_2e18" and on
 the sweep's positions under "sweep_ordered"), and as
@@ -122,12 +137,17 @@ POSE_STEPS, POSE_REPORT_EVERY, POSE_ROT_DEG, POSE_TRANS = 1024, 256, 0.5, 0.005
 # the first 1024-step run on an NVIDIA H100 80GB HBM3 at 700 W rose
 # 19.13 dB; the gate keeps a 9 dB margin
 POSE_PSNR_RISE_DB = 10.0
+# the testbed phase: the runner trains TESTBED_STEPS on the train phase's
+# views written to disk, and its held-out PSNR on TESTBED_HELD_OUT other
+# views must rise by PSNR_RISE_DB
+TESTBED_STEPS, TESTBED_HELD_OUT = 512, 4
 # the analytic spheres of scripts/make_synth_scene.py (center, radius,
 # linear rgb, sigma), re-implemented here because that script imports jax
 SPHERES = [((0.50, 0.50, 0.45), 0.16, (0.9, 0.25, 0.2), 60.0),
            ((0.34, 0.62, 0.58), 0.10, (0.2, 0.8, 0.3), 60.0),
            ((0.66, 0.38, 0.60), 0.09, (0.25, 0.35, 0.9), 60.0),
            ((0.50, 0.50, 0.22), 0.07, (0.9, 0.85, 0.3), 80.0)]
+SPHERE_FOCAL = 1.1   # the sphere views' focal length, in image widths
 
 
 def _cuda_time_ms(fn, iters: int) -> float:
@@ -903,13 +923,15 @@ def _render_spheres(o, d, n_steps: int = 384, t0: float = 0.05,
     return acc, 1.0 - T
 
 
-def _orbit_xforms(n: int, radius: float = 1.05, seed: int = 0):
+def _orbit_xforms(n: int, radius: float = 1.05, seed: int = 0,
+                  phase: float = 0.0):
     """NGP camera→world matrices on a jittered orbit around 0.5³ (as
-    scripts/make_synth_scene.py places them)."""
+    scripts/make_synth_scene.py places them); ``phase`` turns the azimuths
+    by that fraction of the spacing."""
     rng = np.random.RandomState(seed)
     out = []
     for i in range(n):
-        ang, elev = i * 2 * math.pi / n, 0.25 + 0.4 * rng.rand()
+        ang, elev = (i + phase) * 2 * math.pi / n, 0.25 + 0.4 * rng.rand()
         fwd = -np.array([math.cos(ang) * math.cos(elev),
                          math.sin(ang) * math.cos(elev), math.sin(elev)])
         right = np.cross(fwd, [0.0, 0.0, 1.0])
@@ -919,19 +941,17 @@ def _orbit_xforms(n: int, radius: float = 1.05, seed: int = 0):
     return np.stack(out).astype(np.float32)
 
 
-def build_sphere_dataset(dev, n_views: int, res: int, aabb_scale: int = 4):
-    """The spheres seen from an orbit, rendered on ``dev`` along the
-    trainer's own pixel-centre rays, held as sRGB uint8 RGBA (the path
-    real captures take) in the port's NerfDataset."""
+def sphere_views(dev, xfs: np.ndarray, res: int) -> np.ndarray:
+    """The spheres seen by cameras ``xfs`` (focal SPHERE_FOCAL·res, centred
+    principal point), rendered on ``dev`` along the trainer's own
+    pixel-centre rays, as sRGB uint8 RGBA (the path real captures take)."""
     from ngp_tpu_torch.common import linear_to_srgb
-    from ngp_tpu_torch.data.nerf_loader import LazyImageArray, NerfDataset
-    xfs = _orbit_xforms(n_views)
-    fl = 1.1 * res
+    fl = SPHERE_FOCAL * res
     px = (torch.arange(res, device=dev, dtype=torch.float32) + 0.5) / res
     v, u = torch.meshgrid(px, px, indexing="ij")
     d_cam = torch.stack([(u - 0.5) * res / fl, (v - 0.5) * res / fl,
                          torch.ones_like(u)], -1).reshape(-1, 3)
-    u8 = np.empty((n_views, res, res, 4), np.uint8)
+    u8 = np.empty((len(xfs), res, res, 4), np.uint8)
     for i, xf in enumerate(torch.from_numpy(xfs).to(dev)):
         d = d_cam @ xf[:, :3].T
         d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
@@ -940,6 +960,16 @@ def build_sphere_dataset(dev, n_views: int, res: int, aabb_scale: int = 4):
                                        0.0, 1.0))
         img = torch.cat([c, a[:, None]], -1).reshape(res, res, 4)
         u8[i] = torch.round(img * 255).to(torch.uint8).cpu().numpy()
+    return u8
+
+
+def build_sphere_dataset(dev, n_views: int, res: int, aabb_scale: int = 4):
+    """The spheres seen from an orbit (``sphere_views``) in the port's
+    NerfDataset."""
+    from ngp_tpu_torch.data.nerf_loader import LazyImageArray, NerfDataset
+    xfs = _orbit_xforms(n_views)
+    fl = SPHERE_FOCAL * res
+    u8 = sphere_views(dev, xfs, res)
     n = n_views
     return NerfDataset(
         images=LazyImageArray(u8), xforms=xfs, xforms_end=xfs.copy(),
@@ -1240,6 +1270,342 @@ def phase_pose(dev, ds, steps: int = POSE_STEPS, config=None):
     return launches, step_kernel_check(tr)
 
 
+class _Tee:
+    """Standard output copied into a buffer while it is printed."""
+
+    def __init__(self):
+        self.lines = []
+        self._out = sys.stdout
+
+    def write(self, text):
+        self.lines.append(text)
+        return self._out.write(text)
+
+    def flush(self):
+        self._out.flush()
+
+    def text(self) -> str:
+        return "".join(self.lines)
+
+
+def _run_entry(main, argv) -> str:
+    """Call an entry point's ``main(argv)`` in this process (the launch
+    counters see its kernels); returns what it printed. It must return 0."""
+    import contextlib
+    tee = _Tee()
+    with contextlib.redirect_stdout(tee):
+        rc = main(argv)
+    if rc != 0:
+        raise RuntimeError(f"{main.__module__}.main returned {rc}")
+    return tee.text()
+
+
+def _nerf_transforms(xfs: np.ndarray, res: int, files: list) -> dict:
+    """A transforms.json in NeRF convention (identity world mapping) for
+    the sphere views ``xfs`` stored as ``files``."""
+    from ngp_tpu_torch.data.nerf_loader import ngp_matrix_to_nerf
+    frames = []
+    for xf, name in zip(xfs, files):
+        m = np.eye(4)
+        m[:3] = ngp_matrix_to_nerf(xf, 1.0, np.zeros(3, np.float32))
+        frames.append({"file_path": name, "transform_matrix": m.tolist()})
+    fl = SPHERE_FOCAL * res
+    return {"aabb_scale": 4, "scale": 1.0, "offset": [0.0, 0.0, 0.0],
+            "fl_x": fl, "fl_y": fl, "cx": res / 2, "cy": res / 2, "w": res,
+            "h": res, "frames": frames}
+
+
+def write_sphere_scene(dev, root: Path, n_train: int = TRAIN_VIEWS,
+                       n_test: int = TESTBED_HELD_OUT, res: int = TRAIN_RES):
+    """The sphere scene on disk as a user brings one: ``transforms.json``
+    over ``train/r_*.png`` (the train phase's orbit) and
+    ``transforms_test.json`` over ``test/r_*.png`` (held-out views at other
+    azimuths and elevations). Returns the two JSON paths."""
+    from PIL import Image
+    root.mkdir(parents=True)
+    paths = []
+    for split, xfs in (("train", _orbit_xforms(n_train)),
+                       ("test", _orbit_xforms(n_test, seed=1, phase=0.3))):
+        (root / split).mkdir()
+        files = [f"{split}/r_{i:03d}.png" for i in range(len(xfs))]
+        for name, img in zip(files, sphere_views(dev, xfs, res)):
+            Image.fromarray(img).save(root / name)
+        path = root / ("transforms.json" if split == "train"
+                       else "transforms_test.json")
+        path.write_text(json.dumps(_nerf_transforms(xfs, res, files)))
+        paths.append(path)
+    return paths
+
+
+def _check_iterations(out: str, n_steps: int) -> list:
+    """The runner's ``iteration=<n> loss=<l>`` lines: finite losses and
+    step counts that rise in equal reports to exactly ``n_steps``."""
+    its = [(int(a), float(b)) for a, b in
+           re.findall(r"^iteration=(\d+) loss=(\S+)", out, re.M)]
+    report = max(n_steps // 20, 1)
+    want = list(range(report, n_steps, report)) + [n_steps]
+    if [i for i, _ in its] != want:
+        raise RuntimeError(f"iteration lines {[i for i, _ in its]} != {want}")
+    if not all(math.isfinite(v) for _, v in its):
+        raise RuntimeError(f"non-finite loss in the iteration lines: {its}")
+    return its
+
+
+def _held_out_psnr(out: str) -> tuple:
+    """(mean PSNR, mean SSIM) of the runner's held-out line."""
+    m = re.findall(r"^PSNR=(\S+) .* SSIM=(\S+)$", out, re.M)
+    if len(m) != 1:
+        raise RuntimeError("the runner printed no held-out PSNR line")
+    return float(m[0][0]), float(m[0][1])
+
+
+def _read_png(path: Path) -> np.ndarray:
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im)
+
+
+def _timed_frame(tb, what: str, **kw) -> np.ndarray:
+    """One FRAME_W × FRAME_H Testbed.render frame, gated (finite, (H, W,
+    4), opacity in [0, 1]) and timed."""
+    W, H = FRAME_W, FRAME_H
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = tb.render(W, H, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _check_frame(torch.from_numpy(img), W, H)
+    print(f"testbed: {what} {W}x{H} in {ms:.1f} ms; mean opacity "
+          f"{float(img[..., 3].mean()):.4f}, mean rgb "
+          f"{float(img[..., :3].mean()):.4f}")
+    return img
+
+
+def _scatter_sums(values, s_ray, s_k, n_rays: int, n_k: int):
+    """``marching.ray_sums`` by scatter-add: the same sums in no fixed
+    order on the card (the renderer's sums before they took a fixed
+    order), to time against it."""
+    out = values.new_zeros((n_rays,) + tuple(values.shape[1:]))
+    return out.index_add_(0, s_ray, values)
+
+
+def testbed_frames(tb, dev, root: Path) -> dict:
+    """Every render mode once at 640×360 (spp 1), then ACES, a crop box, a
+    DoF frame (spp 4) and a frame motion-blurred along a two-keyframe
+    camera path, from training view 0 (its vertical field of view); K3
+    must launch in the NORMALS frame. The SHADE frame is timed again in
+    turns through Testbed.render and NerfRenderer.render (its per-ray sums
+    in a fixed order and by scatter-add). Returns K3's launches in the
+    NORMALS frame."""
+    from types import SimpleNamespace
+
+    from ngp_tpu_torch.common import RenderMode, TonemapCurve
+    from ngp_tpu_torch.io.camera_path import CameraKeyframe, CameraPath
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+
+    # the training view's field of view across the frame's height
+    tb._view_focal = tb._view_focal * (FRAME_H / tb._view_res[1])
+    k3 = 0
+    for mode in RenderMode:
+        tb.render_mode = mode
+        before = bgc.launches["blocked_grid_encode_bwd_pos"]
+        _timed_frame(tb, f"{mode.name} frame")
+        if mode == RenderMode.NORMALS:
+            k3 = bgc.launches["blocked_grid_encode_bwd_pos"] - before
+            print(f"testbed: the NORMALS frame launched "
+                  f"blocked_grid_encode_bwd_pos {k3} times")
+            if k3 <= 0:
+                raise RuntimeError("the NORMALS frame never launched K3")
+    tb.render_mode = RenderMode.SHADE
+    _timed_frame(tb, "SHADE frame again")
+    # the same frame through Testbed.render and through the renderer
+    # itself, the latter with the per-ray sums in a fixed order and by
+    # scatter-add, in turns (host clock around each, with synchronizes)
+    import ngp_tpu_torch.rays.marching as marching
+    r = tb._nerf_renderer(FRAME_W, FRAME_H)
+    focal = tuple(float(f) for f in tb._view_focal)
+
+    def timed(way):
+        sums = _scatter_sums if way == "scatter" else marching.ray_sums
+        with mock.patch.object(marching, "ray_sums", sums):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if way == "testbed":
+                tb.render(FRAME_W, FRAME_H)
+            else:
+                r.render(tb.trainer.inference_params(),
+                         tb.trainer.grid.bitfield, tb.camera_matrix,
+                         FRAME_W, FRAME_H, focal=focal, spp=1)
+            torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+    order = ["testbed", "direct", "scatter", "scatter", "direct", "testbed"]
+    ms = {}
+    for way in order:
+        ms.setdefault(way, []).append(timed(way))
+    print("testbed: the SHADE frame in turns: " + "; ".join(
+        f"{way} {a:.1f}/{b:.1f} ms" for way, (a, b) in ms.items())
+        + " (Testbed.render; NerfRenderer.render; the same with "
+        "scatter-add per-ray sums)")
+    tb.tonemap_curve = TonemapCurve.ACES
+    _timed_frame(tb, "SHADE frame, ACES tonemap")
+    tb.tonemap_curve = TonemapCurve.IDENTITY
+    tb.render_aabb = SimpleNamespace(min=np.array([0.0, 0.0, 0.0]),
+                                     max=np.array([1.0, 1.0, 0.45]))
+    _timed_frame(tb, "SHADE frame, crop box z <= 0.45")
+    tb.render_aabb = None
+    tb.aperture_size, tb.scale = 0.02, 1.05   # focus on the scene centre
+    _timed_frame(tb, "DoF frame (aperture 0.02, spp 4)", spp=4)
+    tb.aperture_size, tb.scale = 0.0, 1.0
+    xf0 = np.asarray(tb.camera_matrix, np.float32)
+    path = root / "camera_path.json"
+    CameraPath([CameraKeyframe.from_matrix(xf0),
+                CameraKeyframe.from_matrix(orbit_camera(0.25, radius=1.2))],
+               duration_seconds=1.0).save(path)
+    tb.load_camera_path(path)
+    _timed_frame(tb, "motion-blurred camera-path frame (t 0.4-0.6, spp 4)",
+                 spp=4, start_time=0.4, end_time=0.6, shutter_fraction=1.0)
+    return k3
+
+
+def blender_flow(dev, config_path: Path, u8: np.ndarray, xfs: np.ndarray,
+                 steps: int = 8):
+    """The Blender plugin's flow: an empty dataset filled by set_image and
+    set_camera_extrinsics, ``frame()`` a few steps, then set_image after
+    training: the trainer's pixel pool must equal the dataset's images."""
+    from ngp_tpu_torch.api.testbed import Testbed
+    from ngp_tpu_torch.data.image_io import u8_to_linear_rgba
+    from ngp_tpu_torch.data.nerf_loader import ngp_matrix_to_nerf
+    n, res = len(u8), u8.shape[1]
+    tb = Testbed(device=dev)
+    tb.reload_network_from_file(config_path)
+    tb.create_empty_nerf_dataset(n, aabb_scale=4, width=res, height=res)
+    fl = SPHERE_FOCAL * res
+    for i in range(n):
+        tb.set_image(i, u8_to_linear_rgba(u8[i]))
+        tb.set_camera_extrinsics(i, ngp_matrix_to_nerf(
+            xfs[i], 1.0, np.zeros(3, np.float32)))
+    tb.set_camera_intrinsics(fl, fl)
+    for _ in range(steps):
+        tb.frame()
+    if tb.training_step != steps or not math.isfinite(tb.loss):
+        raise RuntimeError(f"Blender flow: step {tb.training_step}, loss "
+                           f"{tb.loss}")
+    tb.set_image(0, u8_to_linear_rgba(u8[-1]))
+    ds = tb.nerf.training.dataset
+    want = np.concatenate([ds.images[i][:res, :res].reshape(-1, 4)
+                           for i in range(n)]).astype(np.float16)
+    got = tb.trainer._pixels.cpu().numpy()
+    same = got.dtype == want.dtype and np.array_equal(got, want)
+    print(f"testbed: Blender flow: {n} views by set_image/"
+          f"set_camera_extrinsics, {steps} frame() steps, loss "
+          f"{tb.loss:.4e}; pixel pool equals the dataset after a later "
+          f"set_image: {same}")
+    if not same:
+        raise RuntimeError("the trainer's pixel pool differs from the "
+                           "dataset after set_image")
+
+
+def phase_testbed(dev, steps: int = TESTBED_STEPS, config=None):
+    """The user surface in NeRF mode on the card: the runner and the CLI
+    (``ngp_tpu_torch.run.main``, ``ngp_tpu_torch.__main__.main``, in this
+    process) on the sphere scene written to disk, every render mode and
+    the other static options through a Testbed loaded from the runner's
+    snapshot, and the Blender plugin's flow; all under NGP_TPU_GRID_INT8=1,
+    as bench.py runs. Returns (the launch counts of the phase, K3's
+    launches in its NORMALS frame)."""
+    import os
+    import shutil
+
+    import ngp_tpu_torch.__main__ as cli
+    from ngp_tpu_torch import run
+    from ngp_tpu_torch.api.testbed import Testbed
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    root = ROOT / "build" / "testbed_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    train_json, test_json = write_sphere_scene(dev, root)
+    print(f"testbed: scene of {TRAIN_VIEWS} + {TESTBED_HELD_OUT} held-out "
+          f"{TRAIN_RES}x{TRAIN_RES} views written in "
+          f"{time.perf_counter() - t0:.2f} s")
+    config = str(config or ROOT / "configs/nerf/base.json")
+    snap, shots = root / "snapshot.msgpack", root / "shots"
+    scene = ["--scene", str(train_json), "--network", config, "--device",
+             str(dev)]
+    frame = ["--width", str(FRAME_W), "--height", str(FRAME_H),
+             "--screenshot_spp", "1"]
+    prev = os.environ.get("NGP_TPU_GRID_INT8")
+    os.environ["NGP_TPU_GRID_INT8"] = "1"
+    _reset_launches()
+    try:
+        out = _run_entry(run.main, scene + ["--n_steps", "0",
+                                            "--test_transforms",
+                                            str(test_json)])
+        psnr0, _ = _held_out_psnr(out)
+        t0 = time.perf_counter()
+        out = _run_entry(run.main, scene + [
+            "--n_steps", str(steps), "--save_snapshot", str(snap),
+            "--test_transforms", str(test_json), "--screenshot_transforms",
+            str(test_json), "--screenshot_dir", str(shots)] + frame)
+        run_s = time.perf_counter() - t0
+        its = _check_iterations(out, steps)
+        psnr1, ssim1 = _held_out_psnr(out)
+        rate = float(re.findall(r"\(([\d.]+) steps/s\)", out)[-1])
+        print(f"testbed: runner trained {its[-1][0]} steps at "
+              f"{1e3 / rate:.2f} ms/step (warm-up included; the call "
+              f"{run_s:.2f} s with eval and {TESTBED_HELD_OUT} screenshots); "
+              f"held-out PSNR {psnr0:.2f} -> {psnr1:.2f} dB "
+              f"(+{psnr1 - psnr0:.2f}; required +{PSNR_RISE_DB}), SSIM "
+              f"{ssim1:.4f}")
+        if not psnr1 - psnr0 >= PSNR_RISE_DB:
+            raise RuntimeError("the runner's training did not raise the "
+                               "held-out PSNR enough")
+        for i in range(TESTBED_HELD_OUT):
+            if _read_png(shots / f"r_{i:03d}.png").shape != (FRAME_H,
+                                                            FRAME_W, 4):
+                raise RuntimeError(f"screenshot r_{i:03d}.png has the wrong "
+                                   "shape")
+        # training view 0 from the snapshot: the runner's screenshot and
+        # the CLI's must be the same bits
+        _run_entry(run.main, scene + [
+            "--load_snapshot", str(snap), "--screenshot_transforms",
+            str(train_json), "--screenshot_frames", "0", "--screenshot_dir",
+            str(root / "view0")] + frame)
+        _run_entry(cli.main, scene + [
+            "--load_snapshot", str(snap), "--no_train", "--screenshot",
+            str(root / "cli.png"), "--width", str(FRAME_W), "--height",
+            str(FRAME_H)])
+        a = _read_png(root / "view0" / "r_000.png")
+        b = _read_png(root / "cli.png")
+        same = a.shape == b.shape and np.array_equal(a, b)
+        print(f"testbed: CLI screenshot of training view 0 {b.shape} equals "
+              f"the runner's frame bit for bit: {same}")
+        if not same:
+            raise RuntimeError("the CLI screenshot differs from the runner's "
+                               "frame of the same camera")
+        tb = Testbed(device=dev)
+        tb.reload_network_from_file(config)
+        tb.load_training_data(train_json)
+        tb.load_snapshot(snap)
+        k3 = testbed_frames(tb, dev, root)
+        del tb
+        ds_u8 = sphere_views(dev, _orbit_xforms(4), 64)
+        blender_flow(dev, Path(config), ds_u8, _orbit_xforms(4))
+    finally:
+        if prev is None:
+            os.environ.pop("NGP_TPU_GRID_INT8", None)
+        else:
+            os.environ["NGP_TPU_GRID_INT8"] = prev
+    launches = dict(bgc.launches)
+    print(f"testbed: launches in the phase {launches}")
+    missing = [k for k in ("blocked_grid_encode_fwd",
+                           "blocked_grid_encode_bwd",
+                           "blocked_grid_encode_bwd_pos",
+                           "blocked_grid_encode_fwd_i8") if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"the testbed phase never launched {missing}")
+    return launches, k3
+
+
 def _attribute_kernels(prof, span_names, main_span: str):
     """Device work of a trace by the span that launched it. Each kernel,
     copy or fill is matched through its correlation id to the runtime call
@@ -1420,6 +1786,7 @@ def _named(kernels: list, name: str) -> dict:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     args = sys.argv[1:]
     device = phase_device()
     sys.path.insert(0, str(ROOT))
@@ -1446,14 +1813,21 @@ def main() -> int:
     if "--profile" in args:
         phase_profile(tr)
     pose_launches, pose_step = phase_pose(dev, tr.dataset)
+    del tr
+    testbed_launches, normals_k3 = phase_testbed(dev)
     # each kernel's launches in the run of the path it was ported for: the
     # training phase (K1, K2, K4), the pose phase (K3, K5), whose kernels
-    # were also timed on one step's inputs
+    # were also timed on one step's inputs; and in the testbed phase (K3:
+    # its NORMALS frame's under "testbed_normals_launches")
     for k in kernels:
         k["launches"] = (pose_launches if k["name"] in pose_step
                          else launches)[k["name"]]
+        k["testbed_launches"] = testbed_launches[k["name"]]
         if k["name"] in pose_step:
             _sub_entry(k, pose_step[k["name"]], "pose_step")
+    _named(kernels, "blocked_grid_encode_bwd_pos")[
+        "testbed_normals_launches"] = normals_k3
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device["kind"], "count": device["count"]}}))

@@ -5,7 +5,10 @@ module layout so each counterpart is easy to find. It imports torch and
 numpy only — never jax, and never a ``ngp_tpu`` module (that package
 imports jax at the top).
 
-Ported so far: the NeRF render path (``render.nerf_render.NerfRenderer``
-in SHADE mode) with the blocked hash-grid encode forward as a
-hand-written CUDA kernel (``csrc/blocked_grid_encode.cu``).
+Ported so far, in NeRF mode: the user surface (``api.testbed.Testbed``,
+``python -m ngp_tpu_torch`` and ``python -m ngp_tpu_torch.run``), the
+static renderer with its render modes (``render.nerf_render``) and the
+trainer with camera optimisation (``train.nerf``), with the blocked
+hash-grid encode and its gradients as hand-written CUDA kernels
+(``csrc/blocked_grid_encode.cu``).
 """

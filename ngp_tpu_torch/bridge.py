@@ -73,6 +73,45 @@ def nerf_params_to_numpy(params: Mapping[str, torch.Tensor],
             "rgb_net": mats("rgb_net")}
 
 
+def jax_leaf_names(model: NerfNetwork) -> list[str]:
+    """The port's parameter names in the order of ``jax.tree.leaves`` of
+    the JAX parameter dict: sorted keys (density_net, dir_encoding — no
+    leaves —, pos_encoding, rgb_net), each MLP's matrices in layer order."""
+    def mats(net):
+        return [f"{net}.weights.{i}"
+                for i in range(len(getattr(model, net).weights))]
+    return mats("density_net") + ["pos_encoding.table"] + mats("rgb_net")
+
+
+def nerf_params_to_flat(params: Mapping[str, torch.Tensor],
+                        model: NerfNetwork) -> np.ndarray:
+    """All parameters as one f32 vector in the JAX package's leaf order,
+    the pyngp ``params`` vector: one taken from either package's testbed
+    loads into the other's."""
+    return np.concatenate([params[k].detach().cpu().numpy().astype(
+        np.float32).ravel() for k in jax_leaf_names(model)])
+
+
+def nerf_params_from_flat(flat, model: NerfNetwork
+                          ) -> dict[str, torch.Tensor]:
+    """Inverse of ``nerf_params_to_flat``: {parameter name: tensor} on the
+    model's device; the vector's length must match the model's."""
+    flat = np.asarray(flat, np.float32).ravel()
+    own = dict(model.named_parameters())
+    names = jax_leaf_names(model)
+    need = sum(own[k].numel() for k in names)
+    if flat.size != need:
+        raise ValueError(f"param vector has {flat.size} floats, model needs "
+                         f"{need}")
+    out, off = {}, 0
+    for k in names:
+        n = own[k].numel()
+        out[k] = torch.from_numpy(flat[off:off + n].reshape(
+            tuple(own[k].shape)).copy()).to(own[k].device)
+        off += n
+    return out
+
+
 def adam_state_to_numpy(state: AdamState, model: NerfNetwork) -> dict:
     """The port's optimizer state → the fields of the JAX ``AdamState``:
     ``step`` (int32 0-d), and ``mu``, ``nu``, ``ema_params`` as JAX

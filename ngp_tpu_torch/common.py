@@ -25,6 +25,13 @@ LOSS_SCALE = 128.0
 GRID_VOLUME = NERF_GRIDSIZE ** 3
 
 
+class TestbedMode(enum.Enum):
+    NERF = "nerf"
+    SDF = "sdf"
+    IMAGE = "image"
+    VOLUME = "volume"
+
+
 class RenderMode(enum.IntEnum):
     """ref: include/neural-graphics-primitives/common.h:80-92."""
     AO = 0
@@ -59,6 +66,11 @@ def loss_type_from_str(s: str) -> LossType:
         return _LOSS_NAMES[s.lower()]
     except KeyError:
         raise ValueError(f"unknown loss type {s!r}") from None
+
+
+class ColorSpace(enum.Enum):
+    LINEAR = "linear"
+    SRGB = "srgb"
 
 
 class TonemapCurve(enum.Enum):
@@ -115,3 +127,90 @@ def network_activation(x: torch.Tensor, activation: NerfActivation):
         # same generous clamp as the JAX package keeps for safety
         return torch.exp(torch.clamp(x, -15.0, 15.0))
     raise ValueError(activation)
+
+
+class EmaMeter:
+    """EMA-smoothed wall-clock / scalar meter (ref: common.h:253-298)."""
+
+    def __init__(self, half_life: float = 1.0):
+        self.alpha = 0.5 ** (1.0 / max(half_life, 1e-6))
+        self.value = 0.0
+        self.initialized = False
+
+    def update(self, v: float) -> float:
+        if not self.initialized:
+            self.value = float(v)
+            self.initialized = True
+        else:
+            self.value = (self.alpha * self.value
+                          + (1.0 - self.alpha) * float(v))
+        return self.value
+
+
+class BoundingBox:
+    """Axis-aligned box mirroring the reference's pybind BoundingBox
+    surface (ref: src/python_api.cu:409-427); numpy f32 corners."""
+
+    def __init__(self, min=(0, 0, 0), max=(1, 1, 1)):
+        self.min = np.asarray(min, np.float32).copy()
+        self.max = np.asarray(max, np.float32).copy()
+
+    def __repr__(self):
+        return f"BoundingBox(min={self.min.tolist()}, max={self.max.tolist()})"
+
+    def center(self):
+        return (self.min + self.max) / 2
+
+    def diag(self):
+        return self.max - self.min
+
+    def contains(self, p):
+        p = np.asarray(p)
+        return bool(np.all(p >= self.min) and np.all(p <= self.max))
+
+    def enlarge(self, other):
+        if isinstance(other, BoundingBox):
+            self.min = np.minimum(self.min, other.min)
+            self.max = np.maximum(self.max, other.max)
+        else:
+            self.min = np.minimum(self.min, other)
+            self.max = np.maximum(self.max, other)
+
+    def inflate(self, amount):
+        self.min -= amount
+        self.max += amount
+
+    def intersection(self, other):
+        return BoundingBox(np.maximum(self.min, other.min),
+                           np.minimum(self.max, other.max))
+
+    def intersects(self, other):
+        return bool(np.all(self.max >= other.min) and
+                    np.all(self.min <= other.max))
+
+    def relative_pos(self, p):
+        return (np.asarray(p) - self.min) / np.maximum(self.diag(), 1e-12)
+
+    def distance(self, p):
+        return float(math.sqrt(self.distance_sq(p)))
+
+    def distance_sq(self, p):
+        d = np.maximum(np.maximum(self.min - p, 0), p - self.max)
+        return float(np.dot(d, d))
+
+    def signed_distance(self, p):
+        d = self.distance(p)
+        return d if d > 0 else -float(
+            np.min(np.minimum(p - self.min, self.max - p)))
+
+    def ray_intersect(self, o, d):
+        from ngp_tpu_torch.rays.camera import ray_aabb_intersect
+        tmin, tmax = ray_aabb_intersect(
+            torch.as_tensor(np.asarray(o, np.float32))[None],
+            torch.as_tensor(np.asarray(d, np.float32))[None],
+            torch.from_numpy(self.min), torch.from_numpy(self.max))
+        return float(tmin[0]), float(tmax[0])
+
+    def get_vertices(self):
+        return np.asarray([[self.max[k] if (c >> k) & 1 else self.min[k]
+                            for k in range(3)] for c in range(8)], np.float32)

@@ -11,6 +11,7 @@ import json
 import math
 import re
 from pathlib import Path
+from typing import Any
 
 
 def _strip_json_comments(text: str) -> str:
@@ -102,3 +103,19 @@ def autofill_hashgrid_config(encoding: dict, n_pos_dims: int,
             / (n_levels - 1))
     enc["per_level_scale"] = per_level_scale
     return enc
+
+
+def default_config_path(mode: str) -> Path:
+    """``configs/<mode>/base.json`` of the repository."""
+    root = Path(__file__).resolve().parent.parent / "configs"
+    return root / mode / "base.json"
+
+
+def get(cfg: dict, path: str, default: Any = None) -> Any:
+    """Dotted-path lookup: get(cfg, "optimizer.nested.learning_rate")."""
+    cur = cfg
+    for part in path.split("."):
+        if not isinstance(cur, dict) or part not in cur:
+            return default
+        cur = cur[part]
+    return cur

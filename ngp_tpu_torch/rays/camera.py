@@ -53,3 +53,78 @@ def ray_aabb_intersect(o: torch.Tensor, d: torch.Tensor, aabb_min, aabb_max):
     tmin = torch.amax(torch.minimum(t0, t1), dim=-1)
     tmax = torch.amin(torch.maximum(t0, t1), dim=-1)
     return tmin, tmax
+
+
+# ---------------------------------------------------------------------------
+# per-ray camera interpolation (rolling shutter / motion blur)
+# ---------------------------------------------------------------------------
+
+def quat_from_mat(m: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) rotation → quaternion (..., 4) as (w, x, y, z), for every
+    rotation: Shepperd's method, each matrix picking the pivot of the
+    largest 4·{w,x,y,z}² (a w-only construction turns a 180° rotation into
+    the identity)."""
+    m00, m11, m22 = m[..., 0, 0], m[..., 1, 1], m[..., 2, 2]
+    s = torch.stack([1.0 + m00 + m11 + m22, 1.0 + m00 - m11 - m22,
+                     1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], -1)
+    pivot = torch.argmax(s, -1, keepdim=True)
+    r = torch.sqrt(torch.clamp(torch.gather(s, -1, pivot)[..., 0],
+                               min=1e-12))
+    inv = 0.5 / r               # = 1/(2r)
+    d21, d02, d10 = (m[..., 2, 1] - m[..., 1, 2], m[..., 0, 2] - m[..., 2, 0],
+                     m[..., 1, 0] - m[..., 0, 1])
+    s01, s02, s12 = (m[..., 0, 1] + m[..., 1, 0], m[..., 0, 2] + m[..., 2, 0],
+                     m[..., 1, 2] + m[..., 2, 1])
+    h = 0.5 * r
+    cands = torch.stack([
+        torch.stack([h, d21 * inv, d02 * inv, d10 * inv], -1),
+        torch.stack([d21 * inv, h, s01 * inv, s02 * inv], -1),
+        torch.stack([d02 * inv, s01 * inv, h, s12 * inv], -1),
+        torch.stack([d10 * inv, s02 * inv, s12 * inv, h], -1)], -2)
+    q = torch.gather(cands, -2, pivot[..., None].expand(
+        *pivot.shape[:-1], 1, 4))[..., 0, :]
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_slerp(qa, qb, t):
+    """Short-path slerp; qa/qb (..., 4), t (N,) → (N, 4)."""
+    dot = torch.sum(qa * qb, -1)
+    qb = torch.where(dot[..., None] < 0, -qb, qb)
+    dot = torch.abs(dot)
+    theta = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    s = torch.clamp(torch.sin(theta), min=1e-6)
+    w1 = torch.sin((1 - t) * theta) / s
+    w2 = torch.sin(t * theta) / s
+    lin = (1 - t)[..., None] * qa + t[..., None] * qb
+    sph = w1[..., None] * qa + w2[..., None] * qb
+    q = torch.where((dot > 0.9995)[..., None], lin, sph)
+    return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """(N, 4) quaternion (w, x, y, z) → (N, 3, 3)."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z),
+                     2 * (x * z + w * y)], -1),
+        torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - w * x)], -1),
+        torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
+                     1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def xform_slerp(xf_a: torch.Tensor, xf_b: torch.Tensor, t: torch.Tensor):
+    """Interpolate (3, 4) camera matrices: translation lerp + rotation
+    slerp (ref: get_xform_given_rolling_shutter,
+    common_device.cuh:224-234). Broadcasts (3,4)+(N,) or (N,3,4)+(N,)."""
+    if xf_a.dim() == 2:
+        pos = xf_a[:, 3][None] + (xf_b[:, 3] - xf_a[:, 3])[None] * t[:, None]
+        qa = quat_from_mat(xf_a[:, :3])[None]
+        qb = quat_from_mat(xf_b[:, :3])[None]
+    else:
+        pos = xf_a[:, :, 3] + (xf_b[:, :, 3] - xf_a[:, :, 3]) * t[:, None]
+        qa = quat_from_mat(xf_a[:, :, :3])
+        qb = quat_from_mat(xf_b[:, :, :3])
+    R = quat_to_mat(quat_slerp(qa, qb, t))
+    return torch.cat([R, pos[:, :, None]], -1)

@@ -124,18 +124,28 @@ def exclusive_depth(sdt, s_ray, s_k, n_rays: int, n_k: int):
     return excl[s_ray, s_k]
 
 
+def ray_sums(values, s_ray, s_k, n_rays: int, n_k: int):
+    """Per-ray sums of a sample stream's ``values`` (S, ...) in a fixed
+    order: each sample is written to its own (ray, lattice slot) cell, and
+    each ray's row of the lattice is reduced. A scatter-add
+    (``index_add_``) sums in no fixed order on the card, so two renders of
+    one frame could differ in their last bits."""
+    lat = values.new_zeros((n_rays, n_k) + tuple(values.shape[1:]))
+    lat[s_ray, s_k] = values
+    return lat.sum(1)
+
+
 def composite_samples(sigma, rgb, s_dt, s_ray, s_k, n_rays: int, n_k: int):
     """Segmented volumetric compositing on a compacted sample stream, with
-    per-ray transmittance from the lattice cumsum (``exclusive_depth``).
-    Returns (rgb_ray (R,3), opacity (R,), weights (S,))."""
+    per-ray transmittance from the lattice cumsum (``exclusive_depth``) and
+    per-ray sums in a fixed order (``ray_sums``): the same inputs give the
+    same bits. Returns (rgb_ray (R,3), opacity (R,), weights (S,))."""
     sdt = sigma * s_dt
     excl_ray = exclusive_depth(sdt, s_ray, s_k, n_rays, n_k)
     T = torch.exp(-torch.clamp(excl_ray, 0.0, 88.0))
     w = T * (1.0 - torch.exp(-sdt))
-    rgb_ray = torch.zeros((n_rays, 3), dtype=rgb.dtype, device=rgb.device)
-    rgb_ray.index_add_(0, s_ray, w[:, None] * rgb)
-    opt_depth = torch.zeros((n_rays,), dtype=sdt.dtype, device=sdt.device)
-    opt_depth.index_add_(0, s_ray, torch.clamp(sdt, max=88.0))
+    rgb_ray = ray_sums(w[:, None] * rgb, s_ray, s_k, n_rays, n_k)
+    opt_depth = ray_sums(torch.clamp(sdt, max=88.0), s_ray, s_k, n_rays, n_k)
     return rgb_ray, 1.0 - torch.exp(-opt_depth), w
 
 

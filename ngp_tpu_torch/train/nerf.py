@@ -226,29 +226,16 @@ class NerfTrainer:
 
         def t(a, dtype=torch.float32):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
-        self._xforms = t(dataset.xforms)
-        self._focal = t(dataset.focal)
-        self._principal = t(dataset.principal)
         self._resolution = t(dataset.resolution)            # (I, 2) W, H
-        self._lens_params = t(dataset.lens_params)
+        self.refresh_cameras()
         self.grid = occ.init_grid(self.max_cascade, dev)._replace(
             density=occ.mark_untrained(self.max_cascade, self._xforms,
                                        self._focal, self._resolution))
 
-        # the pixels as one flat pool with per-image offsets (no padding
-        # to the largest image): sRGB uint8 where the dataset has it,
-        # converted per sampled texel, else linear f16
         res = np.asarray(dataset.resolution, np.int64)
         offs = np.concatenate([[0], np.cumsum(res[:, 0] * res[:, 1])])
-        u8 = getattr(dataset, "images_u8", None)
-        src, dtype = ((u8, np.uint8) if u8 is not None
-                      else (dataset.images, np.float16))
-        pool = np.empty((int(offs[-1]), 4), dtype)
-        for i, (w, h) in enumerate(res):
-            pool[offs[i]:offs[i + 1]] = np.asarray(src[i])[:h, :w].reshape(
-                -1, 4)
-        self._pixels = torch.from_numpy(pool).to(dev)
         self._img_offset = t(offs[:-1], torch.int64)
+        self.refresh_images()
 
         I, em = dataset.n_images, tc.error_map_res
         self.error_map = torch.zeros((I, em, em), device=dev)
@@ -301,6 +288,40 @@ class NerfTrainer:
         # (ref: testbed_nerf.cu:3022)
         self._error_map_interval = float(tc.n_steps_between_error_map_updates)
         self._steps_since_error_map_update = 0
+
+    def refresh_images(self):
+        """Rebuild the device pixel pool from ``dataset.images`` (the JAX
+        trainer's ``refresh_images``; pyngp ``set_image`` re-uploads the
+        GPU copy): one flat pool with per-image offsets, no padding to the
+        largest image. sRGB uint8 where the dataset has ``images_u8``,
+        converted per sampled texel, else linear f16 (a float edit of the
+        images drops the uint8 copy)."""
+        ds = self.dataset
+        res = np.asarray(ds.resolution, np.int64)
+        offs = np.concatenate([[0], np.cumsum(res[:, 0] * res[:, 1])])
+        u8 = getattr(ds, "images_u8", None)
+        src, dtype = ((u8, np.uint8) if u8 is not None
+                      else (ds.images, np.float16))
+        pool = np.empty((int(offs[-1]), 4), dtype)
+        for i, (w, h) in enumerate(res):
+            pool[offs[i]:offs[i + 1]] = np.asarray(src[i])[:h, :w].reshape(
+                -1, 4)
+        self._pixels = torch.from_numpy(pool).to(self.device)
+
+    def refresh_cameras(self):
+        """Copy the dataset's poses and intrinsics (``xforms``, ``focal``,
+        ``principal``, ``lens_params``) to the device again, after pyngp's
+        ``set_camera_extrinsics``/``set_camera_intrinsics`` edited them in
+        place (the JAX testbed replaces the trainer's ``data`` entries)."""
+        ds = self.dataset
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32,
+                                   device=self.device)
+        self._xforms = t(ds.xforms)
+        self._focal = t(ds.focal)
+        self._principal = t(ds.principal)
+        self._lens_params = t(ds.lens_params)
 
     # ------------------------------------------------------------------
     # sampling

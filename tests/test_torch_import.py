@@ -14,7 +14,9 @@ ROOT = Path(__file__).resolve().parent.parent
 def test_port_imports_without_jax():
     names = sorted(m.name for m in pkgutil.walk_packages(
         ngp_tpu_torch.__path__, "ngp_tpu_torch."))
-    assert "ngp_tpu_torch.render.nerf_render" in names
+    for name in ("render.nerf_render", "render.buffer", "io.camera_path",
+                 "api.testbed", "__main__", "run"):
+        assert f"ngp_tpu_torch.{name}" in names
     code = "\n".join([
         "import importlib, sys",
         "sys.modules['jax'] = None",     # any `import jax` now raises

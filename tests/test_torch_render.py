@@ -140,11 +140,15 @@ def test_render_from_jax_snapshot_matches_jax(scene, tmp_path):
 
 
 def test_unported_render_options_raise(scene):
-    from ngp_tpu_torch.common import RenderMode
     model = TNerfNetwork(scene["cfg"], aabb_scale=1)
-    for bad in (dict(render_mode=RenderMode.DEPTH), dict(lens_mode="ftheta")):
+    for bad in (dict(lens_mode="ftheta"), dict(lens_mode="latlong"),
+                dict(quilting_dims=(2, 1)),
+                dict(parallax_shift=(0.05, 0.0, 0.0)), dict(wave=True)):
         with pytest.raises(NotImplementedError):
             TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS, **bad))
+    for kw in (dict(masks=[object()]), dict(envmap_sampler=lambda d: d)):
+        with pytest.raises(NotImplementedError):
+            TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS), **kw)
 
 
 @pytest.mark.parametrize("lens", [(0.0, 0.0, 0.0, 0.0),
@@ -161,8 +165,8 @@ def test_ray_generation_matches_jax(lens):
         jnp.float32(fy), jnp.asarray(cam), jnp.asarray(cam),
         jnp.asarray((0.0, 0.0, 0.0, 1.0)), False, False)
     tr = TRenderer(None, 0.0, 1.0, 0.0, 0, TOptions(**opts))
-    t_o, t_d = tr._gen_rays(None, 0, W * H, W, H, fx, fy,
-                            torch.from_numpy(cam), False)
+    t_o, t_d, _, _ = tr._gen_rays(0, W * H, W, H, fx, fy,
+                                  torch.from_numpy(cam))
     np.testing.assert_array_equal(t_o.numpy(), np.asarray(j_o))
     # the 3-term camera rotation and the norm may round differently
     np.testing.assert_allclose(t_d.numpy(), np.asarray(j_d), rtol=1e-6,
