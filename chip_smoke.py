@@ -77,6 +77,27 @@ Phases, each reported on its own line:
                camera-path frame (each gated and timed; K3 must launch in
                the NORMALS frame); the Blender plugin's flow. K1, K2, K3
                and K4 must launch in the phase.
+  8. multinerf — the Blender render engine (render/multi_nerf.py) and the
+               pyngp shim on the testbed phase's snapshot, a copy of it
+               under a second path and a reference-layout (params_binary)
+               snapshot of a seeded tcnn-layout network that the port's
+               exporter writes: 640×360 requests at held-out view 0 (its
+               PSNR by the runner's protocol within MULTINERF_PSNR_DB of
+               the runner's), camera and scene moved by one rigid motion
+               (mean |Δ| ≤ RIGID_TOL), two fields in "nearest" and "sum"
+               with opacity and masks (a subtract box over the AABB leaves
+               no alpha; an opacity-0 field leaves the sum frame bit for
+               bit), the spherical-quadrilateral and
+               quadrilateral-hexahedron cameras, spp 4 with an aperture,
+               ACES with exposure in the linear colour space, a 1280×720
+               request at mip 1; the shim's sync and async renders (the
+               same bits), a rolling-shutter frame and a Testbed frame
+               with a subtract box in render_masks (alpha cut through the
+               box, unchanged elsewhere); three fields with the reference
+               one (its tcnn-layout gather timed by CUDA events) and a
+               64×36 frame of them against the CPU (mean |Δ| ≤
+               MULTINERF_CPU_TOL). Each request's ms is printed; K1 must
+               launch in the phase and K2–K5 must not.
 With ``--profile``, torch.profiler traces of one slice frame (K1's device
 ms and launches in it) and of 16 steady training steps are broken down by
 layer as well (the steps' table also to a file, see ``phase_profile``).
@@ -84,11 +105,11 @@ layer as well (the steps' table also to a file, see ``phase_profile``).
 sweep positions from an untrained trainer), and ends with the kernels'
 JSON line.
 Then the script's total seconds, one JSON line with each kernel's
-figures and its launches in the testbed phase (K1's, K2's and K3's
-ray-ordered ones under "ray_ordered", K3's and K5's on one pose step under
-"pose_step", K4's at 2^18 uniform positions under "uniform_2e18" and on
-the sweep's positions under "sweep_ordered"), and as
-the last line ``{"ok": true, "device":
+figures and its launches in the testbed and multinerf phases (K1's, K2's
+and K3's ray-ordered ones under "ray_ordered", K3's and K5's on one pose
+step under "pose_step", K4's at 2^18 uniform positions under
+"uniform_2e18" and on the sweep's positions under "sweep_ordered"), and
+as the last line ``{"ok": true, "device":
 {...}}``. Any failure raises: there is no fallback to the CPU or to the
 plain version.
 """
@@ -1512,7 +1533,8 @@ def phase_testbed(dev, steps: int = TESTBED_STEPS, config=None):
     the other static options through a Testbed loaded from the runner's
     snapshot, and the Blender plugin's flow; all under NGP_TPU_GRID_INT8=1,
     as bench.py runs. Returns (the launch counts of the phase, K3's
-    launches in its NORMALS frame)."""
+    launches in its NORMALS frame, the runner's held-out PSNR of its view
+    0 after training)."""
     import os
     import shutil
 
@@ -1549,6 +1571,8 @@ def phase_testbed(dev, steps: int = TESTBED_STEPS, config=None):
         run_s = time.perf_counter() - t0
         its = _check_iterations(out, steps)
         psnr1, ssim1 = _held_out_psnr(out)
+        view0_psnr = float(re.findall(r"^frame 0: psnr=(\S+)", out,
+                                      re.M)[0])
         rate = float(re.findall(r"\(([\d.]+) steps/s\)", out)[-1])
         print(f"testbed: runner trained {its[-1][0]} steps at "
               f"{1e3 / rate:.2f} ms/step (warm-up included; the call "
@@ -1603,7 +1627,402 @@ def phase_testbed(dev, steps: int = TESTBED_STEPS, config=None):
                            "blocked_grid_encode_fwd_i8") if launches[k] <= 0]
     if missing:
         raise RuntimeError(f"the testbed phase never launched {missing}")
-    return launches, k3
+    return launches, k3, view0_psnr
+
+
+# the multinerf phase: a rigid motion of camera and scene must leave the
+# frame within RIGID_TOL (mean |Δ|); the card's frame of a request with a
+# reference-snapshot descriptor within MULTINERF_CPU_TOL of the CPU's; the
+# trained field's held-out PSNR within MULTINERF_PSNR_DB of the runner's;
+# a subtract box in render_masks must cut the mean alpha of the pixels
+# whose rays cross it by MASK_CUT (it holds most of the largest sphere)
+RIGID_TOL, MULTINERF_CPU_TOL, MULTINERF_PSNR_DB = 1e-3, 1e-4, 3.0
+MASK_CUT = 0.1
+
+
+def _rigid(angle_deg: float, axis: int, t) -> np.ndarray:
+    """4×4 rotation by ``angle_deg`` about world axis ``axis``, then a
+    translation by ``t``."""
+    c, s = math.cos(math.radians(angle_deg)), math.sin(math.radians(angle_deg))
+    i, j = [a for a in range(3) if a != axis]
+    m = np.eye(4, dtype=np.float32)
+    m[i, i], m[i, j], m[j, i], m[j, j] = c, -s, s, c
+    m[:3, 3] = t
+    return m
+
+
+def _about_centre(scale: float, t) -> np.ndarray:
+    """4×4: scale by ``scale`` about 0.5³, then translate by ``t``."""
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] *= scale
+    m[:3, 3] = 0.5 * (1.0 - scale) + np.asarray(t, np.float32)
+    return m
+
+
+def write_reference_snapshot(snap: Path, out: Path, seed: int = SEED):
+    """A reference-layout (params_binary) snapshot at ``snap``'s config and
+    aabb_scale, with its density grid: a seeded tcnn-layout NerfNetwork,
+    its table at std 0.5, written by the port's exporter."""
+    from ngp_tpu_torch import bridge
+    from ngp_tpu_torch.io.snapshot import (export_reference_snapshot,
+                                           load_snapshot)
+    from ngp_tpu_torch.nn.models import NerfNetwork
+    doc = load_snapshot(snap)
+    s = doc.pop("snapshot")
+    aabb_scale = int(s["nerf"]["aabb_scale"])
+    gen = torch.Generator().manual_seed(seed)
+    net = NerfNetwork(doc, aabb_scale, generator=gen, grid_impl="tcnn")
+    with torch.no_grad():
+        net.pos_encoding.table.copy_(torch.randn(
+            net.pos_encoding.table.shape, generator=gen) * 0.5)
+    tree = bridge.nerf_params_to_numpy(dict(net.named_parameters()), net)
+    export_reference_snapshot(out, doc, tree, aabb_scale=aabb_scale,
+                              density_grid=s["density_grid"])
+
+
+def _psnr_srgb(pred_srgb: np.ndarray, gt_path: Path) -> float:
+    """The runner's held-out protocol: the frame over black in sRGB
+    against the view, both clipped, as ``run.evaluate_test_transforms``."""
+    from ngp_tpu_torch.common import linear_to_srgb_np, mse2psnr
+    from ngp_tpu_torch.data.image_io import load_stbi
+    gt = linear_to_srgb_np(np.clip(load_stbi(gt_path)[..., :3], 0, 1))
+    return mse2psnr(float(np.mean((np.clip(pred_srgb, 0, 1) - gt) ** 2)))
+
+
+def _ray_box_hits(cam: np.ndarray, focal: float, W: int, H: int, lo, hi):
+    """Which pixel-centre rays of a pinhole ``cam`` (3×4 NGP, principal at
+    the centre) pass through the box [lo, hi]: (H, W) bool."""
+    ys, xs = np.meshgrid(np.arange(H) + 0.5, np.arange(W) + 0.5,
+                         indexing="ij")
+    d = np.stack([(xs - W / 2) / focal, (ys - H / 2) / focal,
+                  np.ones_like(xs)], -1) @ cam[:, :3].T
+    d = np.where(np.abs(d) < 1e-12, 1e-12, d)
+    t0, t1 = (np.asarray(lo) - cam[:, 3]) / d, (np.asarray(hi) - cam[:, 3]) / d
+    tn = np.minimum(t0, t1).max(-1)
+    tf = np.maximum(t0, t1).min(-1)
+    return (tf >= np.maximum(tn, 0.0))
+
+
+class _DeviceTime:
+    """Wraps ``module.name`` (a function whose second argument is the
+    (N, 3) positions) so that each call is bracketed by CUDA events:
+    ``ms()`` sums the device time of the calls, ``calls`` and ``samples``
+    count them."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.events, self.samples = [], 0
+
+    def __enter__(self):
+        fn = getattr(self.module, self.name)
+
+        def timed(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            self.events.append((a, b))
+            self.samples += args[1].shape[0]
+            return out
+        self._patch = mock.patch.object(self.module, self.name, timed)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+    @property
+    def calls(self) -> int:
+        return len(self.events)
+
+    def ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def _timed_request(render, req, what: str, W: int, H: int) -> np.ndarray:
+    """One request through ``render``, gated (finite, (H, W, 4), alpha in
+    [0, 1]) and timed on the host clock with synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render(req)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _check_frame(torch.from_numpy(img), W, H)
+    print(f"multinerf: {what} {W}x{H} in {ms:.1f} ms; mean opacity "
+          f"{float(img[..., 3].mean()):.4f}, mean rgb "
+          f"{float(img[..., :3].mean()):.4f}")
+    return img
+
+
+def phase_multinerf(dev, view0_psnr: float, root: Path = None,
+                    config=None, cpu_size=(64, 36)):
+    """The Blender render engine on the card, on the testbed phase's
+    snapshot (``root``/snapshot.msgpack), a copy of it under another path
+    and a reference-layout snapshot: the trained field at held-out view 0
+    (its PSNR by the runner's protocol against the runner's), a rigid
+    motion of camera and scene, two fields in both composite modes with
+    opacity and masks, the fork's other camera models, spp/DoF, tonemap,
+    exposure, the linear colour space and a mip-1 request, the pyngp
+    shim's sync, async and rolling-shutter renders and a Testbed frame
+    with render_masks, and the reference descriptor against the CPU
+    render of its request. K1 must launch and K2-K5 must not. Returns the
+    launch counts of the phase."""
+    import shutil
+    import threading
+
+    import ngp_tpu_torch.api.pyngp_shim as ngp
+    from ngp_tpu_torch.common import TonemapCurve
+    from ngp_tpu_torch.data.nerf_loader import nerf_matrix_to_ngp
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels import hashgrid as thg
+    from ngp_tpu_torch.render import multi_nerf as mn
+
+    t_phase = time.perf_counter()
+    root = root or ROOT / "build" / "testbed_smoke"
+    config = str(config or ROOT / "configs/nerf/base.json")
+    snap, copy = root / "snapshot.msgpack", root / "snapshot_copy.msgpack"
+    ref_snap = root / "reference.msgpack"
+    shutil.copyfile(snap, copy)
+    write_reference_snapshot(snap, ref_snap)
+    test = json.loads((root / "transforms_test.json").read_text())
+    frame0 = test["frames"][0]
+    cam3 = nerf_matrix_to_ngp(np.asarray(frame0["transform_matrix"],
+                                         np.float32), 1.0,
+                              np.zeros(3, np.float32))
+    cam = np.eye(4, dtype=np.float32)
+    cam[:3] = cam3
+    focal = float(test["fl_x"])
+    W, H = FRAME_W, FRAME_H
+    _reset_launches()
+
+    # 512 lattice steps from the near plane must reach past the farthest
+    # sphere (its centre distance + 0.3); else march 1024
+    t_end = float(mn.step_lattice(torch.full((1,), 0.05), 1.0 / 256.0,
+                                  512)[0, -1])
+    need = float(np.linalg.norm(cam3[:, 3] - 0.5)) + 0.3
+    steps = 512 if t_end >= need else 1024
+    print(f"multinerf: 512 lattice steps reach t = {t_end:.3f}, the spheres "
+          f"need {need:.3f}: march_steps {steps}")
+    r = mn.MultiNerfRenderer(march_steps=steps, device=dev)
+    r_sum = mn.MultiNerfRenderer(march_steps=steps, composite_mode="sum",
+                                 device=dev)
+    r_sum.fields = r.fields
+    for what, path in (("trained", snap), ("its copy", copy),
+                       ("reference", ref_snap)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        field = r._field(str(path))
+        torch.cuda.synchronize()
+        print(f"multinerf: {what} snapshot loaded as a field "
+              f"({field.grid_impl} grid) in "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    def req(nerfs, camera=None, modifiers=(), **out):
+        out.setdefault("width", W)
+        out.setdefault("height", H)
+        out.setdefault("color_space", "srgb")
+        return mn.RenderRequest(
+            mn.RenderOutputProperties(**out),
+            camera or mn.RenderCameraProperties(transform=cam,
+                                                focal_length=focal),
+            list(nerfs), list(modifiers))
+
+    def desc(path=snap, transform=None, **kw):
+        return mn.NerfDescriptor(
+            snapshot_path=str(path),
+            transform=(np.eye(4, dtype=np.float32) if transform is None
+                       else transform), **kw)
+
+    # 1. the trained scene at held-out view 0 (rows flipped back; the
+    #    view's 256² pixels are the frame's centre at the same focal)
+    with _DeviceTime(bgc, "launch_fwd") as k1:
+        img = _timed_request(r.render, req([desc()]), "trained scene, "
+                             "held-out view 0", W, H)
+    print(f"multinerf: K1 in that request: {k1.ms():.2f} ms of device time "
+          f"over {k1.calls} launches, {k1.samples} samples")
+    vw, vh = int(test["w"]), int(test["h"])
+    y0, x0 = (H - vh) // 2, (W - vw) // 2
+    crop = img[::-1][y0:y0 + vh, x0:x0 + vw, :3]
+    psnr = _psnr_srgb(crop, root / frame0["file_path"])
+    print(f"multinerf: held-out view 0 PSNR {psnr:.2f} dB (the runner's "
+          f"{view0_psnr:.2f} dB; Δ {psnr - view0_psnr:+.2f}, allowed "
+          f"±{MULTINERF_PSNR_DB})")
+    if not abs(psnr - view0_psnr) <= MULTINERF_PSNR_DB:
+        raise RuntimeError("the multi-NeRF frame's PSNR is not the runner's")
+
+    # 2. camera and descriptor moved by one rigid transform
+    g = _rigid(30.0, 1, (0.3, -0.2, 0.1))
+    moved = _timed_request(r.render, req(
+        [desc(transform=g)], mn.RenderCameraProperties(
+            transform=g @ cam, focal_length=focal)),
+        "rigidly moved camera and scene", W, H)
+    d = np.abs(moved - img)
+    print(f"multinerf: rigid motion: mean |Δ| {d.mean():.3e}, max "
+          f"{d.max():.3e} (allowed mean {RIGID_TOL})")
+    if not d.mean() <= RIGID_TOL:
+        raise RuntimeError("a rigid motion of camera and scene changed the "
+                           "frame")
+
+    # 3. two fields: the copy scaled 0.5 and moved along the camera's right
+    place = _about_centre(0.5, cam3[:, 0] * 0.35)
+    two = [desc(), desc(copy, place)]
+    _timed_request(r.render, req(two), "two fields, nearest", W, H)
+    _timed_request(r_sum.render, req(two), "two fields, sum", W, H)
+    sphere_xf = _about_centre(1.0, cam3[:, 0] * 0.35)
+    box_xf = np.eye(4, dtype=np.float32)
+    box_xf[:3, 3] = (0.5, 0.5, 0.45)
+    masked = [desc(opacity=0.5), desc(copy, place, masks=[mn.Mask3D(
+        shape="sphere", mode="add", transform=sphere_xf, radius=0.08,
+        feather=0.02)])]
+    box = mn.Mask3D(shape="box", mode="subtract", transform=box_xf,
+                    dims=np.full(3, 0.2, np.float32), feather=0.01)
+    _timed_request(r.render, req(masked, modifiers=[box]), "two fields, "
+                   "opacity 0.5, a subtract box and an add sphere", W, H)
+    everything = mn.Mask3D(shape="box", mode="subtract",
+                           transform=np.eye(4, dtype=np.float32),
+                           dims=np.full(3, 8.0, np.float32))
+    gone = _timed_request(r.render, req(two, modifiers=[everything]),
+                          "two fields under a subtract box over the AABB",
+                          W, H)
+    if gone[..., 3].max() != 0.0:
+        raise RuntimeError("a subtract box over the whole AABB left alpha")
+    alone = r_sum.render(req([desc()]))
+    with_zero = _timed_request(r_sum.render, req(
+        [desc(), desc(copy, place, opacity=0.0)]),
+        "sum mode with an opacity-0 second field", W, H)
+    same = np.array_equal(alone, with_zero)
+    print(f"multinerf: an opacity-0 field leaves the sum-mode frame bit for "
+          f"bit: {same}")
+    if not same:
+        raise RuntimeError("an opacity-0 descriptor changed the frame")
+
+    # 4. the fork's other camera models, in the held-out camera's frame
+    corners = np.array([[-0.4, -0.225, 0.0], [0.4, -0.225, 0.0],
+                        [-0.4, 0.225, 0.0], [0.4, 0.225, 0.0],
+                        [-0.6, -0.34, 2.0], [0.6, -0.34, 2.0],
+                        [-0.6, 0.34, 2.0], [0.6, 0.34, 2.0]], np.float32)
+    for what, camp in (
+            ("spherical quadrilateral", mn.RenderCameraProperties(
+                transform=cam, model="spherical_quadrilateral", sq_width=0.8,
+                sq_height=0.45, sq_curvature=0.3)),
+            ("quadrilateral hexahedron", mn.RenderCameraProperties(
+                transform=cam, model="quadrilateral_hexahedron",
+                qh_corners=corners))):
+        f = _timed_request(r.render, req([desc()], camp), what, W, H)
+        if not f[..., 3].max() > 0.05:
+            raise RuntimeError(f"the {what} camera saw nothing")
+
+    # 5. output options
+    dof = mn.RenderCameraProperties(transform=cam, focal_length=focal,
+                                    aperture_size=0.02,
+                                    focus_z=float(np.linalg.norm(
+                                        cam3[:, 3] - 0.5)))
+    _timed_request(r.render, req([desc()], dof, spp=4),
+                   "spp 4, aperture 0.02", W, H)
+    _timed_request(r.render, req([desc()], tonemap_curve=TonemapCurve.ACES,
+                                 exposure=0.5, color_space="linear"),
+                   "ACES, exposure 0.5, linear", W, H)
+    _timed_request(r.render, req([desc()], width=2 * W, height=2 * H,
+                                 downsample=mn.DownsampleInfo.MakeFromMip(1)),
+                   f"{2 * W}x{2 * H} at mip 1 ->", W, H)
+
+    # 6. the pyngp shim, as a Blender plugin script drives it
+    tb = ngp.Testbed(ngp.TestbedMode.Nerf, device=dev)
+    shim_req = req(two, modifiers=[box])
+    _timed_request(tb.request_nerf_render_sync, shim_req,
+                   "shim request_nerf_render_sync (its fields load)", W, H)
+    sync = _timed_request(tb.request_nerf_render_sync, shim_req,
+                          "shim request_nerf_render_sync", W, H)
+    done, got = threading.Event(), []
+    tb.request_nerf_render_async(shim_req, lambda im: (got.append(im),
+                                                       done.set()))
+    if not done.wait(300):
+        raise RuntimeError("request_nerf_render_async never called back")
+    tb._render_thread.join(60)
+    same = np.array_equal(got[0], sync)
+    print(f"multinerf: shim async frame equals the sync frame bit for bit: "
+          f"{same}")
+    if not same:
+        raise RuntimeError("the async render differs from the sync render")
+    ngp.free_temporary_memory()
+    if tb._multi_nerf.fields:
+        raise RuntimeError("free_temporary_memory kept the loaded fields")
+    tb.reload_network_from_file(config)
+    tb.load_training_data(root / "transforms.json")
+    tb.load_snapshot(snap)
+    tb.set_nerf_camera_matrix(np.asarray(frame0["transform_matrix"],
+                                         np.float32)[:3])
+    tb._view_focal = np.array([focal, focal], np.float32)
+    tb.background_color = np.array([0, 0, 0, 1], np.float32)
+    end = np.asarray(frame0["transform_matrix"], np.float32).copy()
+    end[:3, 3] += 0.05
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = tb.render_with_rolling_shutter(frame0["transform_matrix"], end,
+                                        [0.0, 0.0, 1.0, 0.0], W, H)
+    torch.cuda.synchronize()
+    _check_frame(torch.from_numpy(rs), W, H)
+    print(f"multinerf: shim render_with_rolling_shutter {W}x{H} in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms; mean opacity "
+          f"{float(rs[..., 3].mean()):.4f}")
+    plain = _timed_frame(tb, "Testbed.render without render_masks")
+    tb.render_masks = [mn.Mask3D(shape="box", mode="subtract",
+                                 transform=box_xf,
+                                 dims=np.full(3, 0.3, np.float32))]
+    cut = _timed_frame(tb, "Testbed.render with a subtract box in "
+                       "render_masks")
+    lo, hi = box_xf[:3, 3] - 0.15, box_xf[:3, 3] + 0.15
+    hit = _ray_box_hits(tb.camera_matrix, focal, W, H, lo - 0.005, hi + 0.005)
+    clear = ~_ray_box_hits(tb.camera_matrix, focal, W, H, lo - 0.02,
+                           hi + 0.02)
+    da = plain[..., 3] - cut[..., 3]
+    print(f"multinerf: render_masks box: mean alpha through it "
+          f"{plain[..., 3][hit].mean():.4f} -> {cut[..., 3][hit].mean():.4f} "
+          f"({int(hit.sum())} px); outside max |Δ| "
+          f"{np.abs(da[clear]).max():.3e} ({int(clear.sum())} px)")
+    if not (da[hit].mean() >= MASK_CUT
+            and np.abs(da[clear]).max() <= 1e-4):
+        raise RuntimeError("render_masks did not cut alpha in the box alone")
+
+    # 7. a reference snapshot as a third descriptor: the card against the
+    #    CPU, and the tcnn-layout gather's device time in a full frame
+    ref_place = _about_centre(0.5, -cam3[:, 0] * 0.35)
+    three = two + [desc(ref_snap, ref_place)]
+    with _DeviceTime(thg, "hashgrid_encode") as gather, \
+            _DeviceTime(bgc, "launch_fwd") as k1:
+        _timed_request(r.render, req(three), "three fields, the third a "
+                       "reference snapshot", W, H)
+    print(f"multinerf: in that request, the tcnn-layout gather (plain "
+          f"PyTorch) {gather.ms():.2f} ms of device time over "
+          f"{gather.calls} calls, {gather.samples} samples; K1 "
+          f"{k1.ms():.2f} ms over {k1.calls} launches, {k1.samples} "
+          f"samples")
+    cw, ch = cpu_size
+    small = req(three, camera=mn.RenderCameraProperties(
+        transform=cam, focal_length=focal * cw / W), width=cw, height=ch)
+    card = r.render(small)
+    cpu = mn.MultiNerfRenderer(march_steps=steps, device="cpu").render(small)
+    d = np.abs(card - cpu)
+    print(f"multinerf: {cw}x{ch} three-field frame, card vs CPU: mean |Δ| "
+          f"{d.mean():.3e}, max {d.max():.3e} (allowed mean "
+          f"{MULTINERF_CPU_TOL})")
+    if not d.mean() <= MULTINERF_CPU_TOL:
+        raise RuntimeError("the card's multi-NeRF frame disagrees with the "
+                           "CPU's")
+
+    # 8. launches
+    launches = dict(bgc.launches)
+    print(f"multinerf: launches in the phase {launches}; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if launches["blocked_grid_encode_fwd"] <= 0:
+        raise RuntimeError("the multinerf phase never launched K1")
+    extra = [k for k, v in launches.items()
+             if k != "blocked_grid_encode_fwd" and v]
+    if extra:
+        raise RuntimeError(f"the multinerf phase launched {extra}")
+    return launches
 
 
 def _attribute_kernels(prof, span_names, main_span: str):
@@ -1814,15 +2233,18 @@ def main() -> int:
         phase_profile(tr)
     pose_launches, pose_step = phase_pose(dev, tr.dataset)
     del tr
-    testbed_launches, normals_k3 = phase_testbed(dev)
+    testbed_launches, normals_k3, view0_psnr = phase_testbed(dev)
+    multinerf_launches = phase_multinerf(dev, view0_psnr)
     # each kernel's launches in the run of the path it was ported for: the
     # training phase (K1, K2, K4), the pose phase (K3, K5), whose kernels
     # were also timed on one step's inputs; and in the testbed phase (K3:
-    # its NORMALS frame's under "testbed_normals_launches")
+    # its NORMALS frame's under "testbed_normals_launches") and the
+    # multinerf phase (K1 alone)
     for k in kernels:
         k["launches"] = (pose_launches if k["name"] in pose_step
                          else launches)[k["name"]]
         k["testbed_launches"] = testbed_launches[k["name"]]
+        k["multinerf_launches"] = multinerf_launches[k["name"]]
         if k["name"] in pose_step:
             _sub_entry(k, pose_step[k["name"]], "pose_step")
     _named(kernels, "blocked_grid_encode_bwd_pos")[

@@ -30,7 +30,7 @@ import torch
 
 from ngp_tpu_torch.common import (BoundingBox, ColorSpace, EmaMeter,
                                   RenderMode, TestbedMode, TonemapCurve,
-                                  linear_to_srgb_np)
+                                  linear_to_srgb_np, resolve_device)
 from ngp_tpu_torch.config import default_config_path, load_network_config
 
 # the engines each other mode needs, named when it is asked for
@@ -43,16 +43,6 @@ _UNPORTED_ENGINES = {
 
 def _unported(what: str):
     raise NotImplementedError(f"{what}: not ported yet")
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: the card unless the caller named
-    another; a CUDA device without CUDA raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available; pass device='cpu' "
-                           "(--device cpu) to run on the CPU")
-    return dev
 
 
 def _resample(img: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -179,7 +169,7 @@ class Testbed:
         self.slice_plane_z = 0.0
         self.visualized_layer = 0
         self.render_aabb = None        # BoundingBox-like or None = training
-        self.render_masks = []         # Mask3D list: not ported yet
+        self.render_masks = []         # list of multi_nerf.Mask3D
         self.scale = 1.0
         self.dynamic_res = True
         self.dynamic_res_target_fps = 15.0
@@ -661,6 +651,7 @@ class Testbed:
         overwrite in place, and gets the parameters and the bitfield at
         every call, so a cached renderer stays valid until the trainer is
         rebuilt (which empties the cache)."""
+        from ngp_tpu_torch.render.multi_nerf import masks_key
         from ngp_tpu_torch.render.nerf_render import (NerfRenderer,
                                                       RenderOptions)
         ds = self.nerf.training.dataset
@@ -713,7 +704,11 @@ class Testbed:
                opts.min_transmittance, ra_min, ra_max, opts.aperture_size,
                opts.focus_z, opts.slice_plane_z, opts.visualized_level,
                opts.glow_mode, opts.glow_y_cutoff, opts.lens_mode,
-               opts.principal, opts.march_steps)
+               opts.principal, opts.march_steps,
+               # intended divergence: the JAX testbed's key leaves the
+               # masks out, so a render after a change to render_masks
+               # reuses the renderer built with the old ones
+               masks_key(list(self.render_masks or [])))
         if ds is not None and ds.envmap is not None:
             _unported("the envmap background")
         if key not in self._renderer_cache:

@@ -6,7 +6,11 @@ The JAX ``NerfNetwork`` keeps its parameters as a pytree
 "density_net": ((in, out), ...), "rgb_net": ((in, out), ...)}``; the
 same tree, as numpy arrays, is what a snapshot stores. The port's
 ``NerfNetwork`` holds the same arrays as parameters named
-``pos_encoding.table`` and ``<net>.weights.<i>``.
+``pos_encoding.table`` and ``<net>.weights.<i>``. A tcnn-layout network
+(``grid_impl="tcnn"``; ``NGP_TPU_GRID_IMPL=tcnn`` in the JAX package)
+has the same tree with a flat (n_params · F,) ``pos_encoding`` table,
+which ``io/snapshot.import_reference_snapshot`` gives and
+``export_reference_snapshot`` takes.
 """
 from __future__ import annotations
 

@@ -111,6 +111,16 @@ def linear_to_srgb_np(c):
                     1.055 * np.maximum(c, 1e-12) ** (1.0 / 2.4) - 0.055)
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller named
+    another; a CUDA device without CUDA raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' "
+                           "(--device cpu) to run on the CPU")
+    return dev
+
+
 def mse2psnr(mse: float) -> float:
     return -10.0 * math.log10(max(float(mse), 1e-12))
 

@@ -1,8 +1,8 @@
 """Input encodings used by the NeRF network (port of
 ``ngp_tpu/nn/encodings.py``): Identity, SphericalHarmonics (degree ≤ 4),
-Composite, and the blocked hash grid. Each is an ``nn.Module`` mapping
-(N, n_dims) → (N, n_output_dims); the grid holds its table as a
-parameter."""
+Composite, the blocked hash grid and the tcnn-layout hash and dense grids.
+Each is an ``nn.Module`` mapping (N, n_dims) → (N, n_output_dims); a grid
+holds its table as the parameter ``table``."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -12,6 +12,11 @@ from torch import nn
 
 from ngp_tpu_torch.kernels import blocked_grid_cuda
 from ngp_tpu_torch.kernels.blocked_grid import BlockedGridMeta
+from ngp_tpu_torch.kernels.hashgrid import (HashGridMeta,
+                                            hashgrid_encode_with_max_level,
+                                            mask_levels)
+
+GRID_IMPLS = ("blocked", "tcnn")
 
 
 class Identity(nn.Module):
@@ -122,33 +127,55 @@ class BlockedGridEncoding(nn.Module):
         else:
             out = blocked_grid_cuda.encode_mode(self.table, x, self.meta,
                                                 int8, tile)
-        if max_level is None:
-            return out
-        # zero the levels at or above max_level·L (scalar or per sample)
-        L, F = self.meta.n_levels, self.meta.n_features_per_level
-        level_ids = torch.arange(L * F, device=out.device) // F
-        thresh = torch.as_tensor(max_level, device=out.device) * L
-        mask = ((level_ids < thresh) if thresh.dim() == 0
-                else (level_ids[None, :] < thresh[:, None]))
-        return out * mask.to(out.dtype)
+        return mask_levels(out, max_level, self.meta.n_levels,
+                           self.meta.n_features_per_level)
+
+
+class GridEncoding(nn.Module):
+    """The tcnn-layout hash or dense grid (see kernels/hashgrid.py): a flat
+    table and a plain PyTorch encode. It serves reference (CUDA) snapshots,
+    whose ``params_binary`` holds this layout; the int8 modes of the
+    blocked grid do not apply to it."""
+
+    def __init__(self, meta: HashGridMeta,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.meta = meta
+        self.n_output_dims = meta.n_output_dims
+        self.table = nn.Parameter(meta.init_params(generator, device))
+
+    def forward(self, x, max_level=None, int8: str = "",
+                tile: Optional[int] = None, quantized=None):
+        if int8 or quantized is not None:
+            raise NotImplementedError("the int8 encode modes exist for the "
+                                      "blocked grid only")
+        return hashgrid_encode_with_max_level(self.table, x, self.meta,
+                                              max_level)
 
 
 def create_encoding(n_dims: int, cfg: dict,
                     generator: Optional[torch.Generator] = None,
-                    device=None) -> nn.Module:
-    """Factory mirroring tcnn::create_encoding (by ``otype``). Grid otypes
-    other than the dense grid map to the blocked grid, as in the JAX
-    package's default."""
+                    device=None, grid_impl: str = "blocked") -> nn.Module:
+    """Factory mirroring tcnn::create_encoding (by ``otype``). A HashGrid
+    maps to the blocked grid unless ``grid_impl`` is ``"tcnn"`` (the JAX
+    package's ``NGP_TPU_GRID_IMPL``, as an argument): then, like a
+    DenseGrid or a grid over other than 2 or 3 dims, it is the tcnn-layout
+    grid."""
+    if grid_impl not in GRID_IMPLS:
+        raise ValueError(f"grid_impl {grid_impl!r} is not one of "
+                         f"{GRID_IMPLS}")
     otype = cfg.get("otype", "Identity").lower()
     if "grid" in otype:
         c = dict(cfg)
         c.setdefault("n_pos_dims", n_dims)
-        if otype.startswith("dense") or c["n_pos_dims"] not in (2, 3):
-            raise NotImplementedError(
-                f"encoding {cfg.get('otype')!r} (tcnn-layout grid) is not "
-                "ported yet")
-        return BlockedGridEncoding(BlockedGridMeta.from_hashgrid_config(c),
-                                   generator, device)
+        if otype.startswith("blocked") or (
+                grid_impl == "blocked" and not otype.startswith("dense")
+                and c["n_pos_dims"] in (2, 3)):
+            return BlockedGridEncoding(
+                BlockedGridMeta.from_hashgrid_config(c), generator, device)
+        if otype.startswith("dense"):
+            c["log2_hashmap_size"] = 40    # effectively infinite: all dense
+        return GridEncoding(HashGridMeta.from_config(c), generator, device)
     if otype == "identity":
         return Identity(n_dims, cfg.get("scale", 1.0), cfg.get("offset", 0.0))
     if otype == "sphericalharmonics":
@@ -157,7 +184,8 @@ def create_encoding(n_dims: int, cfg: dict,
         parts, remaining = [], n_dims
         for sub in cfg.get("nested", []):
             nd = sub.get("n_dims_to_encode", remaining)
-            parts.append((nd, create_encoding(nd, sub, generator, device)))
+            parts.append((nd, create_encoding(nd, sub, generator, device,
+                                              grid_impl)))
             remaining -= nd
         return Composite(parts)
     if otype in ("frequency", "oneblob"):

@@ -35,20 +35,27 @@ class NerfNetwork(nn.Module):
     ``n_extra_dims`` per-image latent dims (trained by the trainer) join
     the direction: the dir encoding runs over 3 + E dims, and
     ``forward``/``apply`` then need ``extra`` (N, E).
+
+    ``grid_impl="tcnn"`` builds the position encoding as the tcnn-layout
+    grid (``nn/encodings.GridEncoding``), whose flat table a reference
+    snapshot's ``params_binary`` holds; ``"blocked"``, the default, the
+    blocked grid of the CUDA kernels.
     """
 
     def __init__(self, config: dict, aabb_scale: int = 1,
                  generator: Optional[torch.Generator] = None, device=None,
-                 n_extra_dims: int = 0):
+                 n_extra_dims: int = 0, grid_impl: str = "blocked"):
         super().__init__()
         self.n_extra_dims = n_extra_dims
         enc_cfg = autofill_hashgrid_config(config["encoding"], 3, 2048.0,
                                            aabb_scale=aabb_scale)
-        self.pos_encoding = create_encoding(3, enc_cfg, generator, device)
+        self.pos_encoding = create_encoding(3, enc_cfg, generator, device,
+                                            grid_impl)
         self.dir_encoding = create_encoding(
             3 + n_extra_dims,
             config.get("dir_encoding", {"otype": "SphericalHarmonics",
-                                        "degree": 4}), generator, device)
+                                        "degree": 4}), generator, device,
+            grid_impl)
         self.density_net = MLP.from_config(
             self.pos_encoding.n_output_dims, DENSITY_MLP_OUT,
             config["network"], generator, device)

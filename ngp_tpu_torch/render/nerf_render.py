@@ -17,9 +17,12 @@ blur / rolling shutter between two camera matrices. NORMALS is the
 gradient of the density with respect to the warped position, taken by
 autograd through the encode (K3 on the card).
 
-Not ported yet, and raising NotImplementedError: Mask3D masks, the envmap
-background, the F-theta and LatLong lenses, quilting and parallax, and the
-wave renderers (``wave``; False by default in the JAX package too).
+Mask3D masks (``render/multi_nerf.py``) scale each sample's alpha, folded
+into its optical depth together with glow mode 4's mask.
+
+Not ported yet, and raising NotImplementedError: the envmap background,
+the F-theta and LatLong lenses, quilting and parallax, and the wave
+renderers (``wave``; False by default in the JAX package too).
 
 Intended divergence: an end camera equal to the start camera renders the
 static frame (no per-ray interpolation and no time draws); the JAX
@@ -45,6 +48,7 @@ from ngp_tpu_torch.rays.marching import (compact_samples, composite_samples,
                                          march_rays, merge_excess_samples,
                                          ray_sums)
 from ngp_tpu_torch.render.buffer import tonemap
+from ngp_tpu_torch.render.multi_nerf import apply_masks
 
 
 @dataclasses.dataclass
@@ -107,7 +111,8 @@ class NerfRenderer:
     ``aabb_min``/``aabb_size`` are the training AABB's scalar corner and
     side (the trainer's ``0.5 - aabb_scale/2`` and ``aabb_scale``).
     ``distortion_sampler`` maps (N, 2) screen uv to the learned (N, 2) ray
-    offset the DISTORTION mode shows."""
+    offset the DISTORTION mode shows. ``masks`` is a list of
+    ``multi_nerf.Mask3D``."""
 
     def __init__(self, model, aabb_min, aabb_size, cone_angle: float,
                  max_cascade: int, opts: Optional[RenderOptions] = None,
@@ -122,8 +127,8 @@ class NerfRenderer:
         self.max_cascade = max_cascade
         self.opts = opts = opts or RenderOptions()
         self.distortion_sampler = distortion_sampler
+        self.masks = list(masks or [])
         unported = {
-            "Mask3D masks (render/multi_nerf.py)": bool(masks),
             "the envmap background": envmap_sampler is not None,
             f"lens mode {opts.lens_mode!r}":
                 opts.lens_mode not in ("auto", "perspective", "opencv"),
@@ -363,17 +368,21 @@ class NerfRenderer:
                 # every sample opaque, so the first cell wins
                 sigma = torch.full_like(sigma, 1e6)
             s_dt_eff = s_dt
+            alpha_mult = apply_masks(self.masks, pos) if self.masks else None
             if opts.glow_mode:
                 rgb, glow_mask = apply_glow(rgb, pos, xf[:, 3],
                                             opts.glow_mode,
                                             opts.glow_y_cutoff)
                 if opts.glow_mode & 4:
-                    # α' = m·α folded into the optical depth:
-                    # σΔt' = -log(1 - m·(1 - e^{-σΔt}))
-                    alpha = 1.0 - torch.exp(-sigma * s_dt)
-                    s_dt_eff = -torch.log1p(-torch.clamp(
-                        glow_mask * alpha, 0.0, 1.0 - 1e-7)) \
-                        / torch.clamp(sigma, min=1e-10)
+                    alpha_mult = (glow_mask if alpha_mult is None
+                                  else alpha_mult * glow_mask)
+            if alpha_mult is not None:
+                # α' = m·α folded into the optical depth:
+                # σΔt' = -log(1 - m·(1 - e^{-σΔt}))
+                alpha = 1.0 - torch.exp(-sigma * s_dt)
+                s_dt_eff = -torch.log1p(-torch.clamp(
+                    alpha_mult * alpha, 0.0, 1.0 - 1e-7)) \
+                    / torch.clamp(sigma, min=1e-10)
             rgb_seg, opac_seg, w = composite_samples(
                 sigma, rgb, s_dt_eff, s_ray, s_k, n_rays, seg_len)
             T_in = torch.exp(-logT)

@@ -15,7 +15,8 @@ def test_port_imports_without_jax():
     names = sorted(m.name for m in pkgutil.walk_packages(
         ngp_tpu_torch.__path__, "ngp_tpu_torch."))
     for name in ("render.nerf_render", "render.buffer", "io.camera_path",
-                 "api.testbed", "__main__", "run"):
+                 "api.testbed", "__main__", "run", "render.multi_nerf",
+                 "api.pyngp_shim", "kernels.hashgrid"):
         assert f"ngp_tpu_torch.{name}" in names
     code = "\n".join([
         "import importlib, sys",

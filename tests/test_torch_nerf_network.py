@@ -60,8 +60,9 @@ def test_composite_dir_encoding_matches_jax():
 def test_unported_encodings_raise():
     with pytest.raises(NotImplementedError):
         tenc.create_encoding(3, {"otype": "Frequency"})
+    # the DenseGrid is ported (the tcnn-layout grid, test_torch_hashgrid)
     with pytest.raises(NotImplementedError):
-        tenc.create_encoding(3, {"otype": "DenseGrid"})
+        tenc.create_encoding(3, {"otype": "OneBlob"})
 
 
 def test_mlp_matches_jax():

@@ -146,9 +146,10 @@ def test_unported_render_options_raise(scene):
                 dict(parallax_shift=(0.05, 0.0, 0.0)), dict(wave=True)):
         with pytest.raises(NotImplementedError):
             TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS, **bad))
-    for kw in (dict(masks=[object()]), dict(envmap_sampler=lambda d: d)):
-        with pytest.raises(NotImplementedError):
-            TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS), **kw)
+    # Mask3D masks are ported (render/multi_nerf.py)
+    with pytest.raises(NotImplementedError):
+        TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS),
+                  envmap_sampler=lambda d: d)
 
 
 @pytest.mark.parametrize("lens", [(0.0, 0.0, 0.0, 0.0),

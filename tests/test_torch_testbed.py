@@ -347,9 +347,10 @@ def test_unported_modes_and_methods_raise(scene, tmp_path):
             call()
     with pytest.raises(RuntimeError):
         tb.init_window(8, 8)
+    # render_masks are ported (test_torch_pyngp_shim); the envmap is not
     tb = _port(scene)
-    tb.render_masks = [object()]
-    with pytest.raises(NotImplementedError):
+    tb.nerf.training.dataset.envmap = np.zeros((4, 8, 4), np.float32)
+    with pytest.raises(NotImplementedError, match="envmap"):
         tb.render(8, 8)
 
 
