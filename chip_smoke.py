@@ -98,17 +98,45 @@ Phases, each reported on its own line:
                64×36 frame of them against the CPU (mean |Δ| ≤
                MULTINERF_CPU_TOL). Each request's ms is printed; K1 must
                launch in the phase and K2–K5 must not.
+  9. image   — the neural image (cell smoke-image-synth): a seeded
+               2048×2048 PNG (colour gradients, a fine grating, hard-edged
+               discs), ``python -m ngp_tpu_torch.run --mode image``'s main
+               for IMAGE_STEPS with configs/image/base.json at full width
+               (16 levels × 32768 rows, 256 MiB; batch 2^18) and a
+               snapshot; compute_image_mse's PSNR of a Testbed before and
+               from the snapshot after (must rise by PSNR_RISE_DB), ms/step
+               and peak memory; Testbed frames at 640×360 and 2048×2048,
+               timed. The 2D K1 and K2 must launch in the phase; then each
+               is held against its plain version (the 3D tolerances) on
+               the trainer's own batch, its trained table and one real
+               step's cotangent, and at 2^20 uniform positions with the
+               edge positions, and timed beside its bound on both (``K1:``
+               and ``K2:`` lines naming ``_2d``); a 64×64 frame on the card
+               against the CPU path.
+ 10. sdf     — the SDF engine (cell smoke-sdf-synth): a torus OBJ (radii
+               0.3 and 0.1, 256 × 64 segments, 32,768 triangles), the
+               runner's ``--mode sdf`` for SDF_STEPS with configs/sdf/
+               base.json at full width (16 levels × 8192 rows, batch
+               2^18, raystab signs; the host BVH's ms per batch printed),
+               calculate_iou of a Testbed from the snapshot at 2^22
+               samples (≥ IOU_MIN), 640×360 frames with central-difference
+               normals and shadows and with analytic normals (K3 must
+               launch in it), each frame's hit mask against the BVH's ray
+               casts of its rays (≥ HIT_AGREE_MIN), K1 and K2 launching in
+               the phase, and a 64×36 frame against the CPU path.
 With ``--profile``, torch.profiler traces of one slice frame (K1's device
 ms and launches in it) and of 16 steady training steps are broken down by
 layer as well (the steps' table also to a file, see ``phase_profile``).
 ``--kernels`` runs phases 1, 2 and 4 alone, on a scene of its own (K4's
-sweep positions from an untrained trainer), and ends with the kernels'
-JSON line.
+sweep positions from an untrained trainer), with the 2D K1 and K2 on
+seeded image-width inputs, and ends with the kernels' JSON line.
 Then the script's total seconds, one JSON line with each kernel's
-figures and its launches in the testbed and multinerf phases (K1's, K2's
-and K3's ray-ordered ones under "ray_ordered", K3's and K5's on one pose
-step under "pose_step", K4's at 2^18 uniform positions under
-"uniform_2e18" and on the sweep's positions under "sweep_ordered"), and
+figures and its launches in the testbed, multinerf, image and sdf phases
+(K1's, K2's and K3's ray-ordered ones under "ray_ordered", K3's and K5's
+on one pose step under "pose_step", K4's at 2^18 uniform positions under
+"uniform_2e18" and on the sweep's positions under "sweep_ordered"; the 2D
+K1's and K2's, entries of their own whose main figures are on the image
+path's inputs, at 2^20 uniform positions under "uniform_2e20"), and
 as the last line ``{"ok": true, "device":
 {...}}``. Any failure raises: there is no fallback to the CPU or to the
 plain version.
@@ -222,11 +250,13 @@ def kernel_registers(build_log: str) -> str:
     output (entry function, then spills, then registers)."""
     info = []
     for ln in build_log.splitlines():
-        name = re.search(r"blocked_grid_encode_(?:fwd|bwd)\w*?kernel", ln)
+        name = re.search(r"blocked_grid_encode_(?:fwd|bwd)\w*?kernel"
+                         r"(?:ILi(\d)E)?", ln)
         regs = re.search(r"Used (\d+) registers", ln)
         spill = re.search(r"(\d+) bytes spill stores", ln)
         if "entry function" in ln and name:
-            info.append(name.group(0))
+            dims = f"<{name.group(1)}>" if name.group(1) else ""
+            info.append(name.group(0).split("kernel")[0] + "kernel" + dims)
         elif info and (regs or spill):
             info[-1] += (f" {regs.group(1)} registers" if regs
                          else f" {spill.group(1)} B spilled,")
@@ -245,12 +275,14 @@ def phase_build():
 def _edge_positions(meta, rng) -> np.ndarray:
     """Corners 0 and 1, dyadic points, positions up to 0.1 outside the
     unit cube (where the block clip engages), and positions on every
-    level's lattice vertices (pos·scale + 0.5 integral)."""
-    pts = [np.zeros((1, 3), np.float32), np.ones((1, 3), np.float32),
-           rng.random((4096, 3), dtype=np.float32) * 1.2 - 0.1,
-           (rng.integers(0, 1025, (4096, 3)) / 1024.0).astype(np.float32)]
+    level's lattice vertices (pos·scale + 0.5 integral); (N, D) for the
+    grid's D."""
+    d = meta.n_dims
+    pts = [np.zeros((1, d), np.float32), np.ones((1, d), np.float32),
+           rng.random((4096, d), dtype=np.float32) * 1.2 - 0.1,
+           (rng.integers(0, 1025, (4096, d)) / 1024.0).astype(np.float32)]
     for s in meta.level_scales:
-        m = rng.integers(1, int(s) + 1, (4096, 3)).astype(np.float32)
+        m = rng.integers(1, int(s) + 1, (4096, d)).astype(np.float32)
         pts.append(np.clip((m - np.float32(0.5)) / np.float32(s), 0, 1))
     return np.concatenate(pts).astype(np.float32)
 
@@ -289,15 +321,26 @@ def _time_in_turns(kern, plain, kern_iters: int = 20, plain_iters: int = 5):
     return (k1, k2), (p1, p2)
 
 
-# floating-point operations per (sample, level), counted from the kernels'
-# source and rounded up: the geometry (9), the 8 corner weights (19), and
-# per kernel the corner arithmetic. Every kernel is far below its byte
-# bound on this count, so its bound is the bytes.
-FLOPS_PER_LOOKUP = {"blocked_grid_encode_fwd": 60,
-                    "blocked_grid_encode_bwd": 44,
-                    "blocked_grid_encode_bwd_pos": 130,
-                    "blocked_grid_encode_fwd_i8": 76,
-                    "blocked_grid_encode_bwd_i8": 110}
+# floating-point operations per corner of a lookup, counted from the
+# kernels' source (per 3D lookup of 8 corners, rounded up: K1 32, K2 16, K3
+# 102, K4 48, K5 82)
+FLOPS_PER_CORNER = {"blocked_grid_encode_fwd": 4,
+                    "blocked_grid_encode_bwd": 2,
+                    "blocked_grid_encode_bwd_pos": 12.75,
+                    "blocked_grid_encode_fwd_i8": 6,
+                    "blocked_grid_encode_bwd_i8": 10.25}
+
+
+def flops_per_lookup(name: str, n_dims: int) -> float:
+    """Floating-point operations per (sample, level) of kernel ``name`` (a
+    launch name; ``_2d`` names count as their kernel) on a grid of
+    ``n_dims``: the geometry (3 per dimension), the 2^D corner weights
+    (D - 1 products each, and D complements), and the corner arithmetic
+    (in 3D: 60 for K1, 44 K2, 130 K3, 76 K4, 110 K5). Every kernel is far
+    below its byte bound on this count, so its bound is the bytes."""
+    corners = 1 << n_dims
+    per_corner = FLOPS_PER_CORNER[name.removesuffix("_2d")]
+    return 3 * n_dims + corners * (n_dims - 1) + n_dims + corners * per_corner
 
 
 def _touched_entries(meta, pos) -> int:
@@ -316,18 +359,20 @@ def _touched_entries(meta, pos) -> int:
 
 
 def kernel_bytes(name: str, meta, p) -> int:
-    """The bytes kernel ``name`` must move on positions ``p``, each input
-    read once and each output written once: the positions, the cotangent
-    in or the features out, and the table entries the corners read (K1,
-    K3, K4; one byte each for K4's int8 table, with its level scales) or
-    the whole table gradient (K2, K5); K3 also writes dpos."""
-    n, n_levels = p.shape[0], meta.n_levels
-    moved = 12 * n + 4 * 2 * n_levels * n
+    """The bytes kernel ``name`` (a launch name) must move on positions
+    ``p`` (N, D), each input read once and each output written once: the
+    positions (4·D bytes each), the cotangent in or the features out, and
+    the table entries the corners read (K1, K3, K4; one byte each for K4's
+    int8 table, with its level scales) or the whole table gradient (K2,
+    K5); K3 also writes dpos (4·D bytes per sample)."""
+    name = name.removesuffix("_2d")
+    n, n_levels, d = p.shape[0], meta.n_levels, meta.n_dims
+    moved = 4 * d * n + 4 * 2 * n_levels * n
     if name in ("blocked_grid_encode_bwd", "blocked_grid_encode_bwd_i8"):
         return moved + 4 * meta.n_params
     if name == "blocked_grid_encode_fwd_i8":
         return moved + 4 * n_levels + _touched_entries(meta, p)
-    dpos = 12 * n if name == "blocked_grid_encode_bwd_pos" else 0
+    dpos = 4 * d * n if name == "blocked_grid_encode_bwd_pos" else 0
     return moved + 4 * _touched_entries(meta, p) + dpos
 
 
@@ -336,7 +381,8 @@ def kernel_bound(name: str, n: int, meta, n_bytes: float):
     ``n_bytes``: (max(bytes / HBM rate, flops / f32 rate) in ms, "bytes"
     or "operations", whichever sets it)."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = FLOPS_PER_LOOKUP[name] * n * meta.n_levels / F32_FLOPS * 1e3
+    t_ops = flops_per_lookup(name, meta.n_dims) * n * meta.n_levels \
+        / F32_FLOPS * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -371,9 +417,9 @@ def check_k1(table, pos, meta, what: str) -> float:
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"K1 output is not finite ({what})")
     err = float((got - ref).abs().max())
-    print(f"K1: blocked_grid_encode_fwd {tuple(table.shape)} x "
-          f"{pos.shape[0]} {what} positions: max |kernel - plain| "
-          f"{err:.3e} (tolerance {KERNEL_TOL})")
+    print(f"K1: {bgc.launch_name('blocked_grid_encode_fwd', meta)} "
+          f"{tuple(table.shape)} x {pos.shape[0]} {what} positions: max "
+          f"|kernel - plain| {err:.3e} (tolerance {KERNEL_TOL})")
     if not err <= KERNEL_TOL:
         raise RuntimeError(f"K1 disagrees with its plain version ({what}): "
                            f"{err}")
@@ -390,9 +436,9 @@ def time_k1(table, p, meta, err: float, what: str) -> dict:
         ks, ps = _time_in_turns(lambda: bgc.launch_fwd(table, p, meta),
                                 lambda: encode_reference(table, p, meta))
     n = p.shape[0]
-    entry = _kernel_entry("blocked_grid_encode_fwd", 85, err, ks, ps, n,
-                          meta, kernel_bytes("blocked_grid_encode_fwd", meta,
-                                             p))
+    name = bgc.launch_name("blocked_grid_encode_fwd", meta)
+    entry = _kernel_entry(name, 85, err, ks, ps, n, meta,
+                          kernel_bytes(name, meta, p))
     _print_times("K1", f"{n} {what} positions x {meta.n_levels} levels",
                  entry, ks, ps)
     return entry
@@ -415,7 +461,8 @@ def check_k2(pos, cot, meta, what: str) -> float:
     err = float((got - ref).abs().max())
     rel = float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
     zeros_equal = bool(torch.equal(got == 0, ref == 0))
-    print(f"K2: blocked_grid_encode_bwd {pos.shape[0]} {what} positions -> "
+    print(f"K2: {bgc.launch_name('blocked_grid_encode_bwd', meta)} "
+          f"{pos.shape[0]} {what} positions -> "
           f"{tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
           f"relative to sum|w*g| {rel:.3e} (tolerance {KERNEL_BWD_TOL}); "
           f"zero patterns equal: {zeros_equal} "
@@ -435,9 +482,9 @@ def time_k2(p, c, meta, err: float, what: str) -> dict:
         ks, ps = _time_in_turns(lambda: bgc.launch_bwd(p, c, meta),
                                 lambda: encode_backward_reference(p, c, meta))
     n = p.shape[0]
-    entry = _kernel_entry("blocked_grid_encode_bwd", 110, err, ks, ps, n,
-                          meta, kernel_bytes("blocked_grid_encode_bwd", meta,
-                                             p))
+    name = bgc.launch_name("blocked_grid_encode_bwd", meta)
+    entry = _kernel_entry(name, 110, err, ks, ps, n, meta,
+                          kernel_bytes(name, meta, p))
     _print_times("K2", f"{n} {what} positions x {meta.n_levels} levels",
                  entry, ks, ps)
     return entry
@@ -2193,6 +2240,368 @@ def phase_profile_frame(renderer, bitfield):
     print("\n".join(lines))
 
 
+# the image phase: a seeded IMAGE_RES² image fitted by the runner for
+# IMAGE_STEPS (configs/image/base.json at full width: 16 levels × 32768
+# rows at desired resolution IMAGE_RES / 2, batch 2^18); compute_image_mse's
+# PSNR must rise by PSNR_RISE_DB
+IMAGE_RES, IMAGE_STEPS, IMAGE_DISCS = 2048, 256, 48
+IMAGE_FRAMES = ((FRAME_W, FRAME_H), (IMAGE_RES, IMAGE_RES))
+# the sdf phase: a torus (major radius, minor radius, segments around and
+# across: 32,768 triangles) fitted by the runner for SDF_STEPS
+# (configs/sdf/base.json at full width, batch 2^18, raystab signs); the IoU
+# of IOU_SAMPLES uniform samples must reach IOU_MIN, and the frames' hit
+# masks agree with the BVH's ray casts on HIT_AGREE_MIN of pixels
+TORUS = (0.3, 0.1, 256, 64)
+SDF_STEPS, IOU_SAMPLES, IOU_MIN, HIT_AGREE_MIN = 256, 1 << 22, 0.9, 0.95
+# a small frame of each engine on the card against the CPU path: the
+# slice phase's tolerances (mean |Δ|, and 2e-3 on 99.5 % of pixels) for
+# the image; for the SDF frame the hit masks (99 % equal: a ray whose
+# march ends next to the threshold may stop one step apart) and mean |Δ|
+ENGINE_CPU_TOL, SDF_CPU_TOL = 2e-4, 1e-3
+
+
+def synth_image(res: int = IMAGE_RES, seed: int = SEED) -> np.ndarray:
+    """A (res, res, 3) uint8 sRGB test image from ``seed``: smooth colour
+    gradients, a fine sinusoidal grating (12-pixel period) in one
+    quadrant, and IMAGE_DISCS hard-edged discs of random colours."""
+    rng = np.random.default_rng(seed)
+    y, x = (np.mgrid[0:res, 0:res].astype(np.float32) + 0.5) / res
+    img = np.stack([0.2 + 0.6 * x, 0.2 + 0.6 * y, 0.8 - 0.6 * x * y], -1)
+    theta = rng.uniform(0.0, np.pi)
+    grating = 0.5 + 0.45 * np.sin(2 * np.pi * res / 12.0 * (
+        x * np.cos(theta) + y * np.sin(theta)))
+    quad = (x > 0.5) & (y < 0.5)
+    img[quad] = grating[quad][:, None]
+    for _ in range(IMAGE_DISCS):
+        cx, cy = rng.random(2)
+        r = rng.uniform(0.01, 0.08)
+        col = rng.random(3).astype(np.float32)
+        lo = (np.clip([cy - r, cx - r], 0, 1) * res).astype(int)
+        hi = (np.clip([cy + r, cx + r], 0, 1) * res).astype(int) + 1
+        win = (slice(lo[0], hi[0]), slice(lo[1], hi[1]))
+        inside = (x[win] - cx) ** 2 + (y[win] - cy) ** 2 < r * r
+        img[win][inside] = col
+    return np.round(np.clip(img, 0.0, 1.0) * 255).astype(np.uint8)
+
+
+def write_torus_obj(path: Path, major: float, minor: float, nu: int,
+                    nv: int) -> Path:
+    """A closed torus about z as an OBJ: nu × nv quads, two triangles
+    each."""
+    u = np.arange(nu) * 2 * np.pi / nu
+    v = np.arange(nv) * 2 * np.pi / nv
+    U, V = np.meshgrid(u, v, indexing="ij")
+    ring = major + minor * np.cos(V)
+    verts = np.stack([ring * np.cos(U), ring * np.sin(U), minor * np.sin(V)],
+                     -1).reshape(-1, 3)
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    a, b = i * nv + j, (i + 1) % nu * nv + j
+    c, d = (i + 1) % nu * nv + (j + 1) % nv, i * nv + (j + 1) % nv
+    faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                            np.stack([a, c, d], -1).reshape(-1, 3)]) + 1
+    lines = [f"v {x:.7f} {y:.7f} {z:.7f}" for x, y, z in verts]
+    lines += [f"f {p} {q} {r}" for p, q, r in faces]
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+class _Instances:
+    """The instances of ``cls`` made inside the ``with`` block (the
+    trainers an entry point builds), in order."""
+
+    def __init__(self, cls):
+        self.cls, self.made = cls, []
+
+    def __enter__(self):
+        init = self.cls.__init__
+
+        def recording(obj, *args, **kwargs):
+            init(obj, *args, **kwargs)
+            self.made.append(obj)
+        self._patch = mock.patch.object(self.cls, "__init__", recording)
+        self._patch.start()
+        return self.made
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def _engine_testbed(dev, mode: str, config: Path, scene: Path,
+                    snapshot: Path = None):
+    from ngp_tpu_torch.api.testbed import Testbed
+    tb = Testbed(mode, device=dev)
+    tb.reload_network_from_file(config)
+    tb.load_training_data(scene)
+    if snapshot is not None:
+        tb.load_snapshot(snapshot)
+    return tb
+
+
+def _timed_render(tag: str, render, what: str, W: int, H: int):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _check_frame(torch.from_numpy(img), W, H)
+    print(f"{tag}: {what} {W}x{H} in {ms:.1f} ms; mean rgb "
+          f"{float(img[..., :3].mean()):.4f}, mean alpha "
+          f"{float(img[..., 3].mean()):.4f}")
+    return img
+
+
+def _train_by_runner(tag: str, dev, mode: str, scene: Path, config: Path,
+                     steps: int, snap: Path, trainer_cls):
+    """``python -m ngp_tpu_torch.run --mode <mode>`` for ``steps`` steps
+    with a snapshot, in this process; returns (its output, the trainer it
+    built, ms/step with warm-up, peak device GiB)."""
+    from ngp_tpu_torch import run
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _Instances(trainer_cls) as made:
+        out = _run_entry(run.main, [
+            "--mode", mode, "--scene", str(scene), "--network", str(config),
+            "--n_steps", str(steps), "--save_snapshot", str(snap),
+            "--device", str(dev)])
+    torch.cuda.synchronize()
+    _check_iterations(out, steps)
+    rate = float(re.findall(r"\(([\d.]+) steps/s\)", out)[-1])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"{tag}: runner trained {steps} steps at {1e3 / rate:.2f} ms/step "
+          f"(warm-up included; the call {time.perf_counter() - t0:.2f} s); "
+          f"peak device memory {peak:.2f} GiB")
+    return out, made[0], 1e3 / rate, peak
+
+
+def capture_image_step(tr):
+    """One more training step of the image trainer ``tr`` on its next
+    stratified batch, with the positions its encoding got and the
+    cotangent that came back to the encoding's output: K1's and K2's
+    inputs in that step."""
+    seen = {}
+
+    def hook(module, args, out):
+        seen["pos"] = args[0].detach()
+        out.register_hook(lambda g: seen.setdefault("cot",
+                                                    g.detach().contiguous()))
+    handle = tr.model.encoding.register_forward_hook(hook)
+    try:
+        tr.step()
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    return seen["pos"], seen["cot"]
+
+
+def phase_k12_2d(dev, tr=None) -> list:
+    """The 2D K1 and K2 against their plain versions, with the 3D
+    tolerances, each timed beside its bound on the image path's own inputs
+    and at 2^20 uniform positions (with the edge positions in the checks).
+    With the image trainer ``tr``: its trained table, the positions and
+    cotangent of one more real step (a 2^18 stratified batch). Without
+    one: configs/image/base.json's grid at IMAGE_RES, a seeded table at std
+    0.5, a seeded stratified batch and cotangent."""
+    from ngp_tpu_torch.config import (autofill_hashgrid_config,
+                                      load_network_config)
+    from ngp_tpu_torch.kernels.blocked_grid import BlockedGridMeta
+    from ngp_tpu_torch.rays.sampling import sample_positions
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    if tr is None:
+        enc = autofill_hashgrid_config(
+            load_network_config(ROOT / "configs/image/base.json")["encoding"],
+            2, IMAGE_RES / 2.0)
+        meta = BlockedGridMeta.from_hashgrid_config(enc)
+        table = torch.randn((meta.n_levels, meta.rows, 128), generator=g,
+                            device=dev) * 0.5
+        pos = sample_positions("stratified", g, 1 << 18, 0, device=dev)
+        cot = _cotangent(dev, meta, pos.shape[0], SEED + 4)
+        what = "seeded image-batch"
+    else:
+        meta = tr.model.encoding.meta
+        pos, cot = capture_image_step(tr)
+        table = tr.params["encoding.table"].detach()
+        what = "image-step"
+    print(f"K12 2D: table {tuple(table.shape)} "
+          f"({table.numel() * 4 / 2 ** 20:.0f} MiB), "
+          f"{sum(meta.level_is_dense)} of {meta.n_levels} levels dense")
+    rng = np.random.default_rng(SEED + 5)
+    uni = torch.from_numpy(np.concatenate([
+        rng.random((1 << 20, 2), dtype=np.float32),
+        _edge_positions(meta, rng)])).to(dev)
+    n_u = 1 << 20
+    err = check_k1(table, pos, meta, what)
+    k1 = time_k1(table, pos, meta, err, what)
+    err = check_k1(table, uni, meta, "uniform+edge")
+    _sub_entry(k1, time_k1(table, uni[:n_u], meta, err, "uniform"),
+               "uniform_2e20")
+    err = check_k2(pos, cot, meta, what)
+    k2 = time_k2(pos, cot, meta, err, what)
+    cot_u = _cotangent(dev, meta, uni.shape[0], SEED + 6)
+    err = check_k2(uni, cot_u, meta, "uniform+edge")
+    _sub_entry(k2, time_k2(uni[:n_u], cot_u[:n_u], meta, err, "uniform"),
+               "uniform_2e20")
+    return [k1, k2]
+
+
+def _cpu_copy(model, params: dict):
+    """A CPU copy of ``model`` and of its parameters ``params``."""
+    import copy
+    return (copy.deepcopy(model).cpu(),
+            {k: v.detach().cpu() for k, v in params.items()})
+
+
+def phase_image(dev, steps: int = IMAGE_STEPS, res: int = IMAGE_RES,
+                config=None, frames=IMAGE_FRAMES, cpu_size: int = 64):
+    """The neural image on the card: the runner's ``--mode image`` on a
+    seeded res² PNG, compute_image_mse's PSNR before and after (must rise
+    by PSNR_RISE_DB), Testbed frames from the snapshot, the 2D K1 and K2
+    launching in the phase, then held against their plain versions and
+    timed (``phase_k12_2d``), and a cpu_size² frame against the CPU path.
+    Returns (the phase's launch counts, the 2D kernels' entries)."""
+    import shutil
+
+    from PIL import Image
+
+    from ngp_tpu_torch.common import mse2psnr
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.train.image import ImageTrainer, pixel_centres
+    root = ROOT / "build" / "image_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    png, snap = root / "image.png", root / "image.msgpack"
+    Image.fromarray(synth_image(res)).save(png)
+    config = Path(config or ROOT / "configs/image/base.json")
+    print(f"image: {res}x{res} seeded image written in "
+          f"{time.perf_counter() - t_phase:.2f} s")
+    _reset_launches()
+    tb = _engine_testbed(dev, "image", config, png)
+    meta = tb.trainer.model.encoding.meta
+    psnr0 = mse2psnr(tb.compute_image_mse())
+    del tb
+    _, tr, ms_step, _ = _train_by_runner("image", dev, "image", png, config,
+                                         steps, snap, ImageTrainer)
+    tb = _engine_testbed(dev, "image", config, png, snap)
+    psnr1 = mse2psnr(tb.compute_image_mse())
+    print(f"image: table {(meta.n_levels, meta.rows, 128)}, batch "
+          f"{tr.batch_size}; compute_image_mse PSNR {psnr0:.2f} -> "
+          f"{psnr1:.2f} dB (+{psnr1 - psnr0:.2f}; required "
+          f"+{PSNR_RISE_DB})")
+    if not psnr1 - psnr0 >= PSNR_RISE_DB:
+        raise RuntimeError("the image fit did not raise the PSNR enough")
+    for w, h in frames:
+        _timed_render("image", lambda: tb.render(w, h), "Testbed frame", w, h)
+    launches = dict(bgc.launches)
+    print(f"image: launches in the phase {launches}")
+    missing = [k for k in ("blocked_grid_encode_fwd_2d",
+                           "blocked_grid_encode_bwd_2d") if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"the image phase never launched {missing}")
+    del tb
+    entries = phase_k12_2d(dev, tr)
+    # a small frame against the CPU path, with the same parameters
+    pos = pixel_centres(cpu_size, cpu_size, dev)
+    gpu = tr._predict(pos).cpu()
+    model, params = _cpu_copy(tr.model, tr.inference_params())
+    with torch.no_grad():
+        cpu = torch.func.functional_call(model, params, (pos.cpu(),))
+    err = (gpu - cpu).abs()
+    within = float((err <= 2e-3).all(-1).float().mean())
+    print(f"image: {cpu_size}x{cpu_size} frame GPU vs CPU path: mean |Δ| "
+          f"{float(err.mean()):.3e}, {within:.4f} of pixels within 2e-3")
+    if not (float(err.mean()) <= ENGINE_CPU_TOL and within >= 0.995):
+        raise RuntimeError("the image frame on the card disagrees with the "
+                           "CPU path")
+    print(f"image: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, entries
+
+
+def phase_sdf(dev, steps: int = SDF_STEPS, config=None, torus=TORUS,
+              frame=(FRAME_W, FRAME_H), iou_samples: int = IOU_SAMPLES,
+              cpu_size=(64, 36)):
+    """The SDF engine on the card: the runner's ``--mode sdf`` on a torus
+    OBJ (the host BVH's seconds per batch printed), calculate_iou of a
+    Testbed from the snapshot at ``iou_samples`` (≥ IOU_MIN), a frame with
+    central-difference normals and shadows and one with analytic normals
+    (K3 must launch in it), each frame's hit mask against the BVH's ray
+    casts of the same rays (≥ HIT_AGREE_MIN), K1 and K2 launching in the
+    phase, and a cpu_size frame against the CPU path. Returns (the
+    phase's launch counts, K3's launches in the analytic frame)."""
+    import shutil
+
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.render.sdf_render import (SdfRenderer,
+                                                 SdfRenderOptions)
+    from ngp_tpu_torch.train.sdf import SdfTrainer
+    root = ROOT / "build" / "sdf_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    obj, snap = root / "torus.obj", root / "sdf.msgpack"
+    write_torus_obj(obj, *torus)
+    config = Path(config or ROOT / "configs/sdf/base.json")
+    _reset_launches()
+    _, tr, _, _ = _train_by_runner("sdf", dev, "sdf", obj, config, steps,
+                                   snap, SdfTrainer)
+    host = np.asarray(tr.batch_seconds) * 1e3
+    meta = tr.model.encoding.meta
+    print(f"sdf: {len(tr.faces)} triangles; table "
+          f"{(meta.n_levels, meta.rows, 128)}, batch {tr.batch_size}; host "
+          f"BVH batch {host.mean():.1f} ms mean ({host.min():.1f}-"
+          f"{host.max():.1f}) over {host.size} batches; last loss "
+          f"{tr.last_loss:.5f}")
+    tb = _engine_testbed(dev, "sdf", config, obj, snap)
+    t0 = time.perf_counter()
+    iou = tb.calculate_iou(iou_samples)
+    print(f"sdf: calculate_iou over {iou_samples} samples {iou:.4f} in "
+          f"{time.perf_counter() - t0:.2f} s (required {IOU_MIN})")
+    if not iou >= IOU_MIN:
+        raise RuntimeError("the SDF fit's IoU is too low")
+    W, H = frame
+    cam = orbit_camera(0.6, radius=1.3, height=0.9)
+    tb.set_camera_matrix(cam)
+    shaded = _timed_render("sdf", lambda: tb.render(W, H),
+                           "central-difference normals, shadows", W, H)
+    k3 = bgc.launches["blocked_grid_encode_bwd_pos"]
+    tb.sdf.analytic_normals = True
+    analytic = _timed_render("sdf", lambda: tb.render(W, H),
+                             "analytic normals, shadows", W, H)
+    k3 = bgc.launches["blocked_grid_encode_bwd_pos"] - k3
+    launches = dict(bgc.launches)
+    print(f"sdf: launches in the phase {launches}; K3 in the analytic "
+          f"frame {k3}")
+    missing = [k for k in ("blocked_grid_encode_fwd",
+                           "blocked_grid_encode_bwd") if launches[k] <= 0]
+    if missing or k3 <= 0:
+        raise RuntimeError(f"the sdf phase never launched {missing or 'K3'}")
+    o, d = SdfRenderer(tb.trainer.model, SdfRenderOptions(
+        focal=float(H))).camera_rays(cam, W, H)
+    bvh_hit = (tb.trainer.bvh.raytrace(o, d)[1] >= 0).reshape(H, W)
+    for what, img in (("central-difference", shaded),
+                      ("analytic", analytic)):
+        agree = float(((img[..., 3] > 0) == bvh_hit).mean())
+        print(f"sdf: {what} frame's hit mask vs the BVH's ray casts: "
+              f"{agree:.4f} of pixels agree ({float(bvh_hit.mean()):.4f} "
+              f"hit; required {HIT_AGREE_MIN})")
+        if not agree >= HIT_AGREE_MIN:
+            raise RuntimeError("the SDF frame's hits disagree with the mesh")
+    opts = SdfRenderOptions(width=cpu_size[0], height=cpu_size[1],
+                            focal=float(cpu_size[1]))
+    gpu = SdfRenderer(tb.trainer.model, opts).render(
+        tb.trainer.inference_params(), cam)
+    model, params = _cpu_copy(tb.trainer.model, tb.trainer.inference_params())
+    cpu = SdfRenderer(model, opts).render(params, cam)
+    same = float(((gpu[..., 3] > 0) == (cpu[..., 3] > 0)).mean())
+    err = float(np.abs(gpu - cpu).mean())
+    print(f"sdf: {cpu_size[0]}x{cpu_size[1]} frame GPU vs CPU path: mean "
+          f"|Δ| {err:.3e}, hit masks {same:.4f} equal")
+    if not (err <= SDF_CPU_TOL and same >= 0.99):
+        raise RuntimeError("the SDF frame on the card disagrees with the CPU "
+                           "path")
+    print(f"sdf: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, k3
+
+
 def kernel_phases(dev, ray) -> list:
     """K1–K5 against their plain versions, timed; K1, K2 and K3 on the
     render path's ray-ordered inputs too."""
@@ -2219,6 +2628,7 @@ def main() -> int:
         tr = make_trainer(build_sphere_dataset(dev, 2, 32), dev)
         phase_k4_sweep(dev, _named(kernels, "blocked_grid_encode_fwd_i8"),
                        sweep_ordered_inputs(tr))
+        kernels += phase_k12_2d(dev)
         print(json.dumps({"kernels": kernels}))
         return 0
     _, renderer, bitfield = phase_slice(dev)
@@ -2235,20 +2645,31 @@ def main() -> int:
     del tr
     testbed_launches, normals_k3, view0_psnr = phase_testbed(dev)
     multinerf_launches = phase_multinerf(dev, view0_psnr)
+    image_launches, kernels_2d = phase_image(dev)
+    sdf_launches, analytic_k3 = phase_sdf(dev)
     # each kernel's launches in the run of the path it was ported for: the
     # training phase (K1, K2, K4), the pose phase (K3, K5), whose kernels
-    # were also timed on one step's inputs; and in the testbed phase (K3:
-    # its NORMALS frame's under "testbed_normals_launches") and the
-    # multinerf phase (K1 alone)
+    # were also timed on one step's inputs, the image phase (2D K1, K2);
+    # and in the testbed phase (K3: its NORMALS frame's under
+    # "testbed_normals_launches"), the multinerf phase (K1 alone), the
+    # image phase and the sdf phase (K1, K2; K3: its analytic-normals
+    # frame's under "sdf_analytic_launches")
     for k in kernels:
         k["launches"] = (pose_launches if k["name"] in pose_step
                          else launches)[k["name"]]
-        k["testbed_launches"] = testbed_launches[k["name"]]
-        k["multinerf_launches"] = multinerf_launches[k["name"]]
         if k["name"] in pose_step:
             _sub_entry(k, pose_step[k["name"]], "pose_step")
-    _named(kernels, "blocked_grid_encode_bwd_pos")[
-        "testbed_normals_launches"] = normals_k3
+    for k in kernels_2d:
+        k["launches"] = image_launches[k["name"]]
+    kernels += kernels_2d
+    for k in kernels:
+        k["testbed_launches"] = testbed_launches[k["name"]]
+        k["multinerf_launches"] = multinerf_launches[k["name"]]
+        k["image_launches"] = image_launches[k["name"]]
+        k["sdf_launches"] = sdf_launches[k["name"]]
+    k3 = _named(kernels, "blocked_grid_encode_bwd_pos")
+    k3["testbed_normals_launches"] = normals_k3
+    k3["sdf_analytic_launches"] = analytic_k3
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

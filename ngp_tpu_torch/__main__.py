@@ -5,11 +5,12 @@ ref: src/main.cu:29-238).
         --network configs/nerf/base.json --snapshot out.msgpack
 
 The mode is inferred from the scene path like the reference (dir/json →
-nerf, obj/stl → sdf, nvdb → volume, image otherwise); only NeRF is
-ported, the other modes raise. The loop prints ``iteration=<n>
-loss=<l>`` lines like the headless reference. It runs on the card unless
-``--device cpu`` asks for the CPU. ``--n_steps`` is exact: the JAX
-package's trainer runs on to a 16-step boundary, this one does not.
+nerf, obj/stl → sdf, nvdb → volume, image otherwise) or given by
+``--mode``; NeRF, SDF and image are ported, volume raises. The loop
+prints ``iteration=<n> loss=<l>`` lines like the headless reference. It
+runs on the card unless ``--device cpu`` asks for the CPU. ``--n_steps``
+is exact: the JAX package's NeRF trainer runs on to a 16-step boundary,
+this one does not.
 """
 from __future__ import annotations
 

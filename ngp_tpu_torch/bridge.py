@@ -11,6 +11,13 @@ same tree, as numpy arrays, is what a snapshot stores. The port's
 has the same tree with a flat (n_params · F,) ``pos_encoding`` table,
 which ``io/snapshot.import_reference_snapshot`` gives and
 ``export_reference_snapshot`` takes.
+
+The JAX ``EncodedNetwork`` (the image and SDF engines) keeps
+``{"encoding": <the encoding's tree>, "net": (W, ...)}``: a grid's table,
+``()`` for an analytic encoding, a tuple of the parts' trees for a
+Composite. The port's ``EncodedNetwork`` holds the tables as
+``encoding.table`` (``encoding.parts.<i>.table`` inside a Composite) and
+the matrices as ``net.weights.<i>``.
 """
 from __future__ import annotations
 
@@ -21,7 +28,7 @@ import torch
 
 from ngp_tpu_torch.grid.occupancy import OccupancyGrid
 from ngp_tpu_torch.nn.encodings import Composite
-from ngp_tpu_torch.nn.models import NerfNetwork
+from ngp_tpu_torch.nn.models import EncodedNetwork, NerfNetwork
 from ngp_tpu_torch.opt.optimizers import AdamState
 
 
@@ -88,21 +95,20 @@ def jax_leaf_names(model: NerfNetwork) -> list[str]:
 
 
 def nerf_params_to_flat(params: Mapping[str, torch.Tensor],
-                        model: NerfNetwork) -> np.ndarray:
-    """All parameters as one f32 vector in the JAX package's leaf order,
-    the pyngp ``params`` vector: one taken from either package's testbed
-    loads into the other's."""
+                        model) -> np.ndarray:
+    """All parameters of a NerfNetwork or an EncodedNetwork as one f32
+    vector in the JAX package's leaf order, the pyngp ``params`` vector:
+    one taken from either package's testbed loads into the other's."""
     return np.concatenate([params[k].detach().cpu().numpy().astype(
-        np.float32).ravel() for k in jax_leaf_names(model)])
+        np.float32).ravel() for k in leaf_names(model)])
 
 
-def nerf_params_from_flat(flat, model: NerfNetwork
-                          ) -> dict[str, torch.Tensor]:
+def nerf_params_from_flat(flat, model) -> dict[str, torch.Tensor]:
     """Inverse of ``nerf_params_to_flat``: {parameter name: tensor} on the
     model's device; the vector's length must match the model's."""
     flat = np.asarray(flat, np.float32).ravel()
     own = dict(model.named_parameters())
-    names = jax_leaf_names(model)
+    names = leaf_names(model)
     need = sum(own[k].numel() for k in names)
     if flat.size != need:
         raise ValueError(f"param vector has {flat.size} floats, model needs "
@@ -114,6 +120,80 @@ def nerf_params_from_flat(flat, model: NerfNetwork
             tuple(own[k].shape)).copy()).to(own[k].device)
         off += n
     return out
+
+
+def _encoding_tree(enc, params: Mapping[str, torch.Tensor], prefix: str):
+    """The JAX parameter tree of encoding ``enc`` (named ``prefix``), its
+    tables taken from ``params``, as numpy."""
+    if isinstance(enc, Composite):
+        return tuple(_encoding_tree(part, params, f"{prefix}.parts.{i}")
+                     for i, part in enumerate(enc.parts))
+    if hasattr(enc, "table"):
+        return params[f"{prefix}.table"].detach().cpu().numpy()
+    return ()
+
+
+def _encoding_names(enc, tree, prefix: str, out: dict):
+    """Inverse of ``_encoding_tree``: each table of ``tree`` into ``out``
+    under its parameter name; a parameterless part must hold no array."""
+    if isinstance(enc, Composite):
+        if not isinstance(tree, (tuple, list)) or len(tree) != len(enc.parts):
+            raise ValueError(f"{prefix}: expected a tuple of "
+                             f"{len(enc.parts)} parts")
+        for i, (part, sub) in enumerate(zip(enc.parts, tree)):
+            _encoding_names(part, sub, f"{prefix}.parts.{i}", out)
+    elif hasattr(enc, "table"):
+        out[f"{prefix}.table"] = tree
+    else:
+        _check_empty(tree, prefix)
+
+
+def encoded_params_from_numpy(tree: Mapping, model: EncodedNetwork
+                              ) -> dict[str, torch.Tensor]:
+    """JAX EncodedNetwork pytree (numpy leaves) → {parameter name: tensor}
+    on the model's device, names and shapes checked against the model."""
+    flat = {}
+    _encoding_names(model.encoding, tree["encoding"], "encoding", flat)
+    for i, w in enumerate(tree["net"]):
+        flat[f"net.weights.{i}"] = w
+    own = dict(model.named_parameters())
+    if set(flat) != set(own):
+        raise ValueError(f"parameter names differ: {sorted(flat)} vs "
+                         f"{sorted(own)}")
+    out = {}
+    for name, value in flat.items():
+        a = np.asarray(value, np.float32)
+        if a.shape != tuple(own[name].shape):
+            raise ValueError(f"{name}: shape {a.shape} != "
+                             f"{tuple(own[name].shape)}")
+        out[name] = torch.from_numpy(a.copy()).to(own[name].device)
+    return out
+
+
+def encoded_params_to_numpy(params: Mapping[str, torch.Tensor],
+                            model: EncodedNetwork) -> dict:
+    """Inverse of ``encoded_params_from_numpy``: the JAX pytree, numpy
+    leaves."""
+    return {"encoding": _encoding_tree(model.encoding, params, "encoding"),
+            "net": tuple(params[f"net.weights.{i}"].detach().cpu().numpy()
+                         for i in range(len(model.net.weights)))}
+
+
+def encoded_leaf_names(model: EncodedNetwork) -> list[str]:
+    """The port's parameter names in the order of ``jax.tree.leaves`` of
+    the JAX EncodedNetwork's parameters: the encoding's tables (parts in
+    order), then the MLP's matrices in layer order."""
+    return sorted((n for n, _ in model.named_parameters()
+                   if n.startswith("encoding.")),
+                  key=lambda n: [int(k) if k.isdigit() else k
+                                 for k in n.split(".")]) + [
+        f"net.weights.{i}" for i in range(len(model.net.weights))]
+
+
+def leaf_names(model) -> list[str]:
+    """``jax_leaf_names`` or ``encoded_leaf_names``, by the model's kind."""
+    return (encoded_leaf_names(model) if isinstance(model, EncodedNetwork)
+            else jax_leaf_names(model))
 
 
 def adam_state_to_numpy(state: AdamState, model: NerfNetwork) -> dict:

@@ -2,12 +2,14 @@
 // lookup-geometry function; one thread per (sample, level), neighbouring
 // lanes on neighbouring levels of one sample:
 //
-//   K1 blocked_grid_encode_fwd_kernel    (L, R, 128) f32 table + (N, 3) f32
-//      positions -> (N, L*2) f32 features, sample-major.
+//   K1 blocked_grid_encode_fwd_kernel<D> (L, R, 128) f32 table + (N, D) f32
+//      positions -> (N, L*2) f32 features, sample-major; D = 3 (NeRF, SDF)
+//      or 2 (the neural image).
 //      Replaces ngp_tpu/kernels/hashgrid_pallas.py:_fwd_kernel.
-//   K2 blocked_grid_encode_bwd_kernel    (N, 3) positions + (N, L*2) f32
-//      cotangent -> dTable (L, R, 128) f32 (zeroed by the caller).
-//      Replaces hashgrid_pallas.py:_bwd_table_kernel.
+//   K2 blocked_grid_encode_bwd_kernel<D> (N, D) positions + (N, L*2) f32
+//      cotangent -> dTable (L, R, 128) f32 (zeroed by the caller), D = 3
+//      or 2. Replaces hashgrid_pallas.py:_bwd_table_kernel.
+// K3, K4 and K5 below are instantiated for 3D grids only.
 //   K3 blocked_grid_encode_bwd_pos_kernel f32 table + positions + cotangent
 //      -> dpos (N, 3) f32, summed across levels by shuffles and, between
 //      level groups, by a second pass, in a fixed order (no atomics).
@@ -26,9 +28,10 @@
 // geometry (row, base lane, fractions) computed by XLA as residuals
 // between forward and backward. Hopper has a fast gather, so here each
 // thread computes the lookup_geometry of ngp_tpu/kernels/blocked_grid.py
-// itself and touches the 8 corners directly: a corner's two features sit
-// in adjacent lanes (lane = (x + 4y + 16z) * 2 + f), so each corner is one
-// 8-byte (f32) or 2-byte (int8) access, and all 8 lie in one row. The
+// itself and touches the 2^D corners directly: a corner's two features sit
+// in adjacent lanes (lane = (x + 4y + 16z) * 2 + f in 3D, (x + 8y) * 2 + f
+// in 2D), so each corner is one 8-byte (f32) or 2-byte (int8) access, and
+// all of them lie in one row. The
 // backward recomputes the geometry from the positions instead of storing
 // it (the JAX package keeps ~80 MB of residuals per training batch).
 //
@@ -44,7 +47,9 @@
 //  - K2: f32 vector reductions into L2. Coarse dense levels have few rows,
 //    so many samples add into the same addresses and serialise there; K2
 //    sums equal addresses inside the warp first (its note below). The sum
-//    order, and so the last bits, vary between runs.
+//    order, and so the last bits, vary between runs. In 2D it is worse:
+//    the neural image's coarsest level is 3 x 3 blocks (9 rows), which a
+//    whole 2^18-sample batch adds into.
 //  - K3: the same scattered corner reads as K1 (the f32 table, even in the
 //    int8 modes, as the JAX package's int8 backward reuses the f32 K3),
 //    plus the cotangent; it writes only 12 bytes per sample (and 12 per
@@ -77,9 +82,17 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kMaxLevels = 32;
+
+// The block of a D-dimensional grid: kSide vertices per side, overlapping
+// its neighbours with a stride of kStride cells; kSide^D vertices x 2
+// features fill the 128 lanes of a row.
+template <int D> struct Block;
+template <> struct Block<3> { static constexpr int kSide = 4, kStride = 3; };
+template <> struct Block<2> { static constexpr int kSide = 8, kStride = 7; };
+
+// The dimension, block side and corners of the 3D-only kernels (K3-K5)
 constexpr int kDims = 3;
-constexpr int kSide = 4;     // vertices per block side (4^3 * 2 = 128 lanes)
-constexpr int kStride = 3;   // blocks overlap with a stride of 3 cells
+constexpr int kSide = Block<3>::kSide;
 constexpr int kCorners = 1 << kDims;
 
 // Levels per thread group of each kernel: a group's threads cover one
@@ -132,8 +145,11 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-// 3D Morton bit spread (10 bits per axis), the legacy row hash
-__device__ __forceinline__ uint32_t part_bits(uint32_t x) {
+// Morton bit spread, the legacy row hash: 10 bits per axis in 3D, 16 in
+// 2D
+template <int D> __device__ __forceinline__ uint32_t part_bits(uint32_t x);
+
+template <> __device__ __forceinline__ uint32_t part_bits<3>(uint32_t x) {
   x &= 0x3FFu;
   x = (x | (x << 16)) & 0x030000FFu;
   x = (x | (x << 8)) & 0x0300F00Fu;
@@ -141,81 +157,100 @@ __device__ __forceinline__ uint32_t part_bits(uint32_t x) {
   return (x | (x << 2)) & 0x09249249u;
 }
 
+template <> __device__ __forceinline__ uint32_t part_bits<2>(uint32_t x) {
+  x &= 0xFFFFu;
+  x = (x | (x << 8)) & 0x00FF00FFu;
+  x = (x | (x << 4)) & 0x0F0F0F0Fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  return (x | (x << 1)) & 0x55555555u;
+}
+
 // The lookup geometry of sample i at level l: the row within the level's
 // table, the lane of the base corner's feature 0, and the fractions.
+template <int D = kDims>
 struct Lookup {
   uint32_t row;
   int base_lane;
-  float frac[kDims];
+  float frac[D];
 };
 
 // Sample i's coordinate along d on a level's vertex lattice
+template <int D>
 __device__ __forceinline__ float lattice_coord(const float* __restrict__ pos,
                                                int i, int d, float scale) {
-  return __fadd_rn(__fmul_rn(pos[(size_t)i * kDims + d], scale), 0.5f);
+  return __fadd_rn(__fmul_rn(pos[(size_t)i * D + d], scale), 0.5f);
 }
 
 // The fractions alone (what the corner weights need), bit-equal to
 // lookup_geometry's
-__device__ __forceinline__ Lookup lookup_fractions(
+__device__ __forceinline__ Lookup<> lookup_fractions(
     const float* __restrict__ pos, int i, float scale) {
-  Lookup g = {};
+  Lookup<> g = {};
 #pragma unroll
   for (int d = 0; d < kDims; ++d) {
-    const float x = lattice_coord(pos, i, d, scale);
+    const float x = lattice_coord<kDims>(pos, i, d, scale);
     g.frac[d] = __fsub_rn(x, floorf(x));
   }
   return g;
 }
 
-__device__ __forceinline__ Lookup lookup_geometry(
+template <int D = kDims>
+__device__ __forceinline__ Lookup<D> lookup_geometry(
     const float* __restrict__ pos, int i, const Level& lv, int log2_rows,
     int morton_hash) {
-  const uint32_t primes[kDims] = {1u, 2654435761u, 805459861u};
+  // the instant-ngp primes (identity along x); a 2D grid takes two
+  const uint32_t primes[3] = {1u, 2654435761u, 805459861u};
+  constexpr int kStrideD = Block<D>::kStride;
   const float scale = lv.scale;
   const int nblk = lv.blocks_per_dim;
-  Lookup g;
-  int block[kDims], local[kDims];
+  Lookup<D> g;
+  int block[D], local[D];
 #pragma unroll
-  for (int d = 0; d < kDims; ++d) {
-    const float x = lattice_coord(pos, i, d, scale);
+  for (int d = 0; d < D; ++d) {
+    const float x = lattice_coord<D>(pos, i, d, scale);
     const float x0 = floorf(x);
     g.frac[d] = __fsub_rn(x, x0);
     const int base = (int)x0;
-    const int b = floor_div(base, kStride);
-    local[d] = base - b * kStride;          // taken before the clip below
+    const int b = floor_div(base, kStrideD);
+    local[d] = base - b * kStrideD;         // taken before the clip below
     block[d] = min(max(b, 0), nblk - 1);
   }
   if (lv.is_dense) {
     int r = 0, acc = 1;
 #pragma unroll
-    for (int d = 0; d < kDims; ++d) { r += block[d] * acc; acc *= nblk; }
+    for (int d = 0; d < D; ++d) { r += block[d] * acc; acc *= nblk; }
     g.row = (uint32_t)r;
   } else {
     uint32_t h = 0;
 #pragma unroll
-    for (int d = 0; d < kDims; ++d) {
-      h ^= morton_hash ? (part_bits((uint32_t)block[d]) << d)
+    for (int d = 0; d < D; ++d) {
+      h ^= morton_hash ? (part_bits<D>((uint32_t)block[d]) << d)
                        : (uint32_t)block[d] * primes[d];
     }
     g.row = h & ((1u << log2_rows) - 1u);
   }
   int lane = 0, lane_stride = 1;
 #pragma unroll
-  for (int d = 0; d < kDims; ++d) { lane += local[d] * lane_stride; lane_stride *= kSide; }
+  for (int d = 0; d < D; ++d) { lane += local[d] * lane_stride; lane_stride *= Block<D>::kSide; }
   g.base_lane = lane * 2;
   return g;
 }
 
-// Corner c's lane offset from the base lane, and its trilinear weight.
+// Corner c's lane offset from the base lane (3D: 2 * (x + 4y + 16z); 2D:
+// 2 * (x + 8y) for the corner's bits x, y, z), and its multilinear weight.
+template <int D = kDims>
 __device__ __forceinline__ int corner_offset(int c) {
-  return 2 * ((c & 1) + ((c >> 1) & 1) * kSide + ((c >> 2) & 1) * kSide * kSide);
+  int off = 0, stride = 1;
+#pragma unroll
+  for (int d = 0; d < D; ++d) { off += ((c >> d) & 1) * stride; stride *= Block<D>::kSide; }
+  return 2 * off;
 }
 
-__device__ __forceinline__ float corner_weight(const Lookup& g, int c) {
+template <int D>
+__device__ __forceinline__ float corner_weight(const Lookup<D>& g, int c) {
   float w = 1.f;
 #pragma unroll
-  for (int d = 0; d < kDims; ++d) w *= ((c >> d) & 1) ? g.frac[d] : 1.f - g.frac[d];
+  for (int d = 0; d < D; ++d) w *= ((c >> d) & 1) ? g.frac[d] : 1.f - g.frac[d];
   return w;
 }
 
@@ -236,10 +271,12 @@ __device__ __forceinline__ Pair pair_of_thread(int log2_group) {
 
 // The features of corners c and c + 1 (x and x + 1 at one y, z) of a
 // lookup at rowp: 4 adjacent floats, 16-byte aligned where x is even
-// (`paired`, base_lane & 2 == 0), so one load there instead of two.
+// (`paired`, base_lane & 2 == 0: the other terms of the lane are
+// multiples of 4 in 2D and 3D alike), so one load there instead of two.
+template <int D = kDims>
 __device__ __forceinline__ float4 corner_pair(const float* __restrict__ rowp, int c,
                                               bool paired) {
-  const float* p = rowp + corner_offset(c);
+  const float* p = rowp + corner_offset<D>(c);
   if (paired) return __ldg(reinterpret_cast<const float4*>(p));
   const float2 a = __ldg(reinterpret_cast<const float2*>(p));
   const float2 b = __ldg(reinterpret_cast<const float2*>(p + 2));
@@ -257,7 +294,11 @@ __device__ __forceinline__ float4 corner_pair(const float* __restrict__ rowp, in
 // kGroupFwd is 4 and not 16: 16 levels are 64 MiB, more than L2. What
 // bounds K1 is the random corner gathers: 4 sectors per lookup from L2,
 // and the L1 wavefronts of the gathers, which the 16-byte paired loads
-// below cut by about a third.
+// below cut by about a third. In 2D a lookup has 4 corners on 2 lines
+// (y, y + 1) of one row, so 2 paired loads where x is even; the neural
+// image's table is 16 MiB per level, so a group of 4 levels keeps 64 MiB
+// in flight (the 2D group is the 3D one, unswept).
+template <int D>
 __global__ void blocked_grid_encode_fwd_kernel(
     const float* __restrict__ pos, const float* __restrict__ table,
     float* __restrict__ out, const LevelParams lp, int n, int n_levels,
@@ -266,13 +307,13 @@ __global__ void blocked_grid_encode_fwd_kernel(
   stage_group_levels(levels, lp, 1 << log2_group);
   const Pair q = pair_of_thread(log2_group);
   if (q.i >= n) return;
-  const Lookup g = lookup_geometry(pos, q.i, levels[q.j], log2_rows, morton_hash);
+  const Lookup<D> g = lookup_geometry<D>(pos, q.i, levels[q.j], log2_rows, morton_hash);
   const float* rowp = table + (((size_t)q.l << log2_rows) + g.row) * kLanes + g.base_lane;
   const bool paired = (g.base_lane & 2) == 0;
   float f0 = 0.f, f1 = 0.f;
 #pragma unroll
-  for (int c = 0; c < kCorners; c += 2) {
-    const float4 v = corner_pair(rowp, c, paired);
+  for (int c = 0; c < (1 << D); c += 2) {
+    const float4 v = corner_pair<D>(rowp, c, paired);
     const float w0 = corner_weight(g, c), w1 = corner_weight(g, c + 1);
     f0 += v.x * w0;
     f1 += v.y * w0;
@@ -313,7 +354,7 @@ __global__ void blocked_grid_encode_fwd_i8_kernel(
   stage_group_levels(levels, lp, 1 << log2_group);
   const Pair q = pair_of_thread(log2_group);
   if (q.i >= n) return;
-  const Lookup g = lookup_geometry(pos, q.i, levels[q.j], log2_rows, morton_hash);
+  const Lookup<> g = lookup_geometry(pos, q.i, levels[q.j], log2_rows, morton_hash);
   // byte 8 * (y + 4z) of the base corner's line; its x corner at byte 2x
   const int8_t* linep = table + (((size_t)q.l << log2_rows) + g.row) * kLanes
                         + (g.base_lane & ~7);
@@ -364,7 +405,11 @@ __device__ __forceinline__ float flush(float x) { return fabsf(x) < FLT_MIN ? 0.
 // the render path's ray-ordered samples, whose neighbours share cells.
 // Lanes of a warp that share a cell are summed in the warp first, so one
 // reduction goes out per cell; a group of 4 levels puts 8 samples of a
-// ray in each warp.
+// ray in each warp. The neural image's stratified batch is coherent the
+// same way: consecutive samples lie in neighbouring strata along x, so
+// the 8 samples of a warp share a coarse cell, and the warp sum is what
+// keeps the 9-row level 0 from taking 2^18 reductions per entry set.
+template <int D>
 __global__ void blocked_grid_encode_bwd_kernel(
     const float* __restrict__ pos, const float* __restrict__ grad,
     float* __restrict__ dtable, const LevelParams lp, int n, int n_levels,
@@ -377,13 +422,14 @@ __global__ void blocked_grid_encode_bwd_kernel(
   if (q.i < n) gv = __ldg(reinterpret_cast<const float2*>(grad) + (size_t)q.i * n_levels + q.l);
   // a zero cotangent adds only zeros: skipping it leaves dTable unchanged
   const bool live = gv.x != 0.f || gv.y != 0.f;
-  Lookup g = {};
+  constexpr int kCornersD = 1 << D;
+  Lookup<D> g = {};
   float* rowp = nullptr;
   if (live) {
-    g = lookup_geometry(pos, q.i, levels[q.j], log2_rows, morton_hash);
+    g = lookup_geometry<D>(pos, q.i, levels[q.j], log2_rows, morton_hash);
     rowp = dtable + (((size_t)q.l << log2_rows) + g.row) * kLanes + g.base_lane;
   }
-  // Lanes with the same row and base corner add into the same 8 entries
+  // Lanes with the same row and base corner add into the same 2^D corners
   // (neighbouring samples of a ray in one coarse cell): the lowest of them
   // sums its peers' products, fetched by shuffles, and adds alone. A lane
   // that adds nothing keys on its own lane id, no address, and has no peer.
@@ -391,9 +437,9 @@ __global__ void blocked_grid_encode_bwd_kernel(
   const int lane = threadIdx.x & 31;
   const unsigned peers = __match_any_sync(
       full, live ? reinterpret_cast<unsigned long long>(rowp) : (unsigned long long)lane);
-  float2 sum[kCorners];
+  float2 sum[kCornersD];
 #pragma unroll
-  for (int c = 0; c < kCorners; ++c) {
+  for (int c = 0; c < kCornersD; ++c) {
     const float w = corner_weight(g, c);
     sum[c] = make_float2(flush(__fmul_rn(w, gv.x)), flush(__fmul_rn(w, gv.y)));
   }
@@ -402,13 +448,13 @@ __global__ void blocked_grid_encode_bwd_kernel(
   for (int r = 0; r < rounds; ++r) {
     const int src = rest ? __ffs(rest) - 1 : lane;
     rest &= rest - 1;
-    Lookup h;
+    Lookup<D> h;
 #pragma unroll
-    for (int d = 0; d < kDims; ++d) h.frac[d] = __shfl_sync(full, g.frac[d], src);
+    for (int d = 0; d < D; ++d) h.frac[d] = __shfl_sync(full, g.frac[d], src);
     const float2 hv = make_float2(__shfl_sync(full, gv.x, src), __shfl_sync(full, gv.y, src));
     if (src != lane) {
 #pragma unroll
-      for (int c = 0; c < kCorners; ++c) {
+      for (int c = 0; c < kCornersD; ++c) {
         const float w = corner_weight(h, c);
         sum[c].x = flush(sum[c].x + flush(__fmul_rn(w, hv.x)));
         sum[c].y = flush(sum[c].y + flush(__fmul_rn(w, hv.y)));
@@ -417,14 +463,14 @@ __global__ void blocked_grid_encode_bwd_kernel(
   }
   if (!live || lane != __ffs(peers) - 1) return;
 #pragma unroll
-  for (int c = 0; c < kCorners; ++c)
-    atomicAdd(reinterpret_cast<float2*>(rowp + corner_offset(c)), sum[c]);
+  for (int c = 0; c < kCornersD; ++c)
+    atomicAdd(reinterpret_cast<float2*>(rowp + corner_offset<D>(c)), sum[c]);
 }
 
 // K3's corner term: adds corner c's share of d/dfrac to dfrac, given gg,
 // the output's derivative by the corner's weight (summed over the two
 // features): +-gg * the product of the other dimensions' weights.
-__device__ __forceinline__ void add_corner_dfrac(float* dfrac, const Lookup& g, int c,
+__device__ __forceinline__ void add_corner_dfrac(float* dfrac, const Lookup<>& g, int c,
                                                  float gg) {
 #pragma unroll
   for (int d = 0; d < kDims; ++d) {
@@ -470,7 +516,7 @@ __global__ void blocked_grid_encode_bwd_pos_kernel(
   float acc[kDims] = {0.f, 0.f, 0.f};
   if (gv.x != 0.f || gv.y != 0.f) {
     const Level lv = levels[q.j];
-    const Lookup g = lookup_geometry(pos, q.i, lv, log2_rows, morton_hash);
+    const Lookup<> g = lookup_geometry(pos, q.i, lv, log2_rows, morton_hash);
     const float* rowp = table + (((size_t)q.l << log2_rows) + g.row) * kLanes + g.base_lane;
     const bool paired = (g.base_lane & 2) == 0;
     float dfrac[kDims] = {0.f, 0.f, 0.f};
@@ -527,7 +573,7 @@ __global__ void blocked_grid_encode_bwd_i8_max_kernel(
   if (q.i < n) {
     const float2 gv = __ldg(reinterpret_cast<const float2*>(grad) + (size_t)q.i * n_levels + q.l);
     if (gv.x != 0.f || gv.y != 0.f) {
-      const Lookup g = lookup_fractions(pos, q.i, levels[q.j].scale);
+      const Lookup<> g = lookup_fractions(pos, q.i, levels[q.j].scale);
 #pragma unroll
       for (int c = 0; c < kCorners; ++c) {
         const float w = corner_weight(g, c);
@@ -580,7 +626,7 @@ __global__ void blocked_grid_encode_bwd_i8_kernel(
   if (live) {
     const float tmax = __uint_as_float(__ldg(tile_max + (size_t)q.l * n_tiles + (q.i >> log2_tile)));
     scale = __fdiv_rn(fmaxf(tmax, 1e-20f), 127.f);
-    const Lookup g = lookup_geometry(pos, q.i, levels[q.j], log2_rows, morton_hash);
+    const Lookup<> g = lookup_geometry(pos, q.i, levels[q.j], log2_rows, morton_hash);
     rowp = dtable + (((size_t)q.l << log2_rows) + g.row) * kLanes + g.base_lane;
 #pragma unroll
     for (int c = 0; c < kCorners; ++c) {
@@ -672,6 +718,37 @@ int prepare(LevelParams* lp, const float* scales, const int* blocks_per_dim,
   return rc != 0 ? rc : check_plan(n, n_levels, group, blocks, threads, log2_group);
 }
 
+// K1 and K2 for a D-dimensional grid, planned and checked
+template <int D>
+int encode_fwd(const float* pos, const float* table, float* out,
+               const float* scales, const int* blocks_per_dim,
+               const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+               int morton_hash, int blocks, int threads, int log2_group, void* stream) {
+  LevelParams lp = {};
+  const int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                         log2_rows, kGroupFwd, blocks, threads, log2_group);
+  if (rc != 0) return rc;
+  blocked_grid_encode_fwd_kernel<D><<<dim3(blocks, n_levels >> log2_group), threads,
+                                      0, static_cast<cudaStream_t>(stream)>>>(
+      pos, table, out, lp, n, n_levels, log2_rows, morton_hash, log2_group);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int encode_bwd(const float* pos, const float* grad, float* dtable,
+               const float* scales, const int* blocks_per_dim,
+               const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+               int morton_hash, int blocks, int threads, int log2_group, void* stream) {
+  LevelParams lp = {};
+  const int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                         log2_rows, kGroupBwd, blocks, threads, log2_group);
+  if (rc != 0) return rc;
+  blocked_grid_encode_bwd_kernel<D><<<dim3(blocks, n_levels >> log2_group), threads,
+                                      0, static_cast<cudaStream_t>(stream)>>>(
+      pos, grad, dtable, lp, n, n_levels, log2_rows, morton_hash, log2_group);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The level group of kernel 0 = K1, 1 = K2, 2 = K4, 3 = K5, 4 = K3, so
@@ -693,19 +770,26 @@ extern "C" int ngp_blocked_grid_group(int kernel) {
 // the kernel's parameters. Tensors are device memory, contiguous. Every
 // kernel takes the wrapper's launch plan (blocks and threads per level
 // group, log2 of the group's width).
+// K1 on a 3D grid, positions (N, 3); the _2d entry point takes a 2D grid
+// and positions (N, 2), with the same arguments.
 extern "C" int ngp_blocked_grid_encode_fwd(
     const float* pos, const float* table, float* out,
     const float* scales, const int* blocks_per_dim,
     const unsigned char* is_dense, int n, int n_levels, int log2_rows,
     int morton_hash, int blocks, int threads, int log2_group, void* stream) {
-  LevelParams lp = {};
-  const int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
-                         log2_rows, kGroupFwd, blocks, threads, log2_group);
-  if (rc != 0) return rc;
-  blocked_grid_encode_fwd_kernel<<<dim3(blocks, n_levels >> log2_group), threads,
-                                   0, static_cast<cudaStream_t>(stream)>>>(
-      pos, table, out, lp, n, n_levels, log2_rows, morton_hash, log2_group);
-  return (int)cudaGetLastError();
+  return encode_fwd<3>(pos, table, out, scales, blocks_per_dim, is_dense, n,
+                       n_levels, log2_rows, morton_hash, blocks, threads,
+                       log2_group, stream);
+}
+
+extern "C" int ngp_blocked_grid_encode_fwd_2d(
+    const float* pos, const float* table, float* out,
+    const float* scales, const int* blocks_per_dim,
+    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+    int morton_hash, int blocks, int threads, int log2_group, void* stream) {
+  return encode_fwd<2>(pos, table, out, scales, blocks_per_dim, is_dense, n,
+                       n_levels, log2_rows, morton_hash, blocks, threads,
+                       log2_group, stream);
 }
 
 extern "C" int ngp_blocked_grid_encode_fwd_i8(
@@ -725,20 +809,26 @@ extern "C" int ngp_blocked_grid_encode_fwd_i8(
   return (int)cudaGetLastError();
 }
 
-// dtable must be zeroed by the caller; the kernel only adds into it.
+// K2, 3D and 2D: dtable must be zeroed by the caller; the kernel only
+// adds into it.
 extern "C" int ngp_blocked_grid_encode_bwd(
     const float* pos, const float* grad, float* dtable,
     const float* scales, const int* blocks_per_dim,
     const unsigned char* is_dense, int n, int n_levels, int log2_rows,
     int morton_hash, int blocks, int threads, int log2_group, void* stream) {
-  LevelParams lp = {};
-  const int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
-                         log2_rows, kGroupBwd, blocks, threads, log2_group);
-  if (rc != 0) return rc;
-  blocked_grid_encode_bwd_kernel<<<dim3(blocks, n_levels >> log2_group), threads,
-                                   0, static_cast<cudaStream_t>(stream)>>>(
-      pos, grad, dtable, lp, n, n_levels, log2_rows, morton_hash, log2_group);
-  return (int)cudaGetLastError();
+  return encode_bwd<3>(pos, grad, dtable, scales, blocks_per_dim, is_dense, n,
+                       n_levels, log2_rows, morton_hash, blocks, threads,
+                       log2_group, stream);
+}
+
+extern "C" int ngp_blocked_grid_encode_bwd_2d(
+    const float* pos, const float* grad, float* dtable,
+    const float* scales, const int* blocks_per_dim,
+    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+    int morton_hash, int blocks, int threads, int log2_group, void* stream) {
+  return encode_bwd<2>(pos, grad, dtable, scales, blocks_per_dim, is_dense, n,
+                       n_levels, log2_rows, morton_hash, blocks, threads,
+                       log2_group, stream);
 }
 
 // K3: dpos (N, 3) is written in full; no zeroing needed. Where the plan

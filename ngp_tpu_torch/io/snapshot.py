@@ -8,10 +8,19 @@ A snapshot is one msgpack document holding the network config plus a
 order, and scene metadata. Arrays come back as numpy; ``bridge.py`` turns
 the parameter tree into the port's parameters.
 
+The image and SDF trainers write the same schema with their
+``EncodedNetwork``'s tree, parameters and EMA only, as the JAX testbed
+writes them for its generic trainers (``save_encoded_snapshot``,
+``load_encoded_snapshot_state``): a snapshot of either package loads in
+the other.
+
 A reference (tiny-cuda-nn) snapshot holds its parameters instead as one
 flat ``params_binary`` buffer in the tcnn layout:
 ``import_reference_snapshot`` and ``export_reference_snapshot`` move it
-to and from the parameter tree of a ``NerfNetwork(grid_impl="tcnn")``.
+to and from the parameter tree of a ``NerfNetwork(grid_impl="tcnn")``,
+``import_reference_snapshot_encoded`` and
+``export_reference_snapshot_encoded`` to and from that of an
+``EncodedNetwork(grid_impl="tcnn")``.
 """
 from __future__ import annotations
 
@@ -123,6 +132,39 @@ def load_snapshot(path) -> dict:
             snap["density_grid_binary"], np.float16).astype(np.float32))
     if "nerf" in snap and "dataset" in snap["nerf"]:
         snap["nerf"]["dataset"] = _unpack_tree(snap["nerf"]["dataset"])
+    return doc
+
+
+def save_encoded_snapshot(path, network_config: dict, trainer) -> None:
+    """A snapshot of an image or SDF trainer (``model`` an EncodedNetwork,
+    ``params``, ``opt_state``, ``training_step``): its parameters, their
+    EMA and the step, as the JAX testbed saves a generic trainer
+    (ngp_tpu/api/testbed.py:870-888)."""
+    from ngp_tpu_torch import bridge
+    save_snapshot(
+        path, network_config,
+        params=bridge.encoded_params_to_numpy(trainer.params, trainer.model),
+        ema_params=bridge.encoded_params_to_numpy(
+            trainer.opt_state.ema_params, trainer.model),
+        training_step=trainer.training_step)
+
+
+def load_encoded_snapshot_state(path, trainer) -> dict:
+    """Restore an image or SDF trainer's parameters, EMA and step, in
+    place, from a snapshot of either package; returns the document."""
+    import torch
+
+    from ngp_tpu_torch import bridge
+    doc = load_snapshot(path)
+    snap = doc["snapshot"]
+    with torch.no_grad():
+        for dst, tree in ((trainer.params, snap["ngp_tpu_params"]),
+                          (trainer.opt_state.ema_params,
+                           snap["ngp_tpu_ema_params"])):
+            for k, v in bridge.encoded_params_from_numpy(
+                    tree, trainer.model).items():
+                dst[k].copy_(v)
+    trainer.training_step = int(snap.get("training_step", 0))
     return doc
 
 
@@ -328,3 +370,110 @@ def import_reference_snapshot(path):
                   "dir_encoding", {"otype": "SphericalHarmonics"})),
               "density_net": density_net, "rgb_net": rgb_net}
     return cfg, params, snap
+
+
+def _tcnn_encoded_widths(network_cfg: dict, enc_out: int,
+                         n_output_dims: int):
+    """The (n_in, n_out) sequence tcnn allocates for a
+    NetworkWithInputEncoding's MLP (ABI rules 4–5): the encoding's output
+    padded to 16 feeds the first layer; the last layer's output pads to
+    16."""
+    n = int(network_cfg.get("n_neurons", 64))
+    hidden = int(network_cfg.get("n_hidden_layers", 1))
+    in_pad = (enc_out + 15) // 16 * 16
+    out_pad = max((n_output_dims + 15) // 16 * 16, 16)
+    return [(in_pad, n)] + [(n, n)] * (hidden - 1) + [(n, out_pad)]
+
+
+def _encoded_meta(doc: dict, n_input_dims: int, desired_resolution: float):
+    from ngp_tpu_torch.config import autofill_hashgrid_config
+    from ngp_tpu_torch.kernels.hashgrid import HashGridMeta
+    enc_cfg = autofill_hashgrid_config(dict(doc["encoding"]), n_input_dims,
+                                       desired_resolution)
+    return HashGridMeta.from_config(enc_cfg)
+
+
+def export_reference_snapshot_encoded(
+        path, network_config: dict, params, n_input_dims: int,
+        n_output_dims: int, desired_resolution: float = 2048.0,
+        training_step: int = 0, loss: float = 0.0,
+        extra: Optional[dict] = None) -> None:
+    """Write a tcnn ``params_binary`` snapshot (fp16, ``"__half"``) of a
+    NetworkWithInputEncoding (the reference's image, SDF and volume
+    modes): the MLP first, then the hash table (ABI rule 3). ``params`` is
+    the tree of an ``EncodedNetwork(grid_impl="tcnn")`` as numpy
+    (``bridge.encoded_params_to_numpy``): {"encoding": the flat table,
+    "net": (W, ...)}; each matrix is written (n_out, n_in) row-major,
+    zero-padded to tcnn's widths."""
+    import msgpack  # only snapshot I/O needs it
+
+    meta = _encoded_meta(network_config, n_input_dims, desired_resolution)
+    widths = _tcnn_encoded_widths(network_config["network"],
+                                  meta.n_output_dims, n_output_dims)
+    chunks = []
+    for w, (n_in, n_out) in zip(params["net"], widths):
+        w = np.asarray(w, np.float32)
+        full = np.zeros((n_in, n_out), np.float32)
+        full[: w.shape[0], : w.shape[1]] = w
+        chunks.append(full.T.reshape(-1))       # (n_out, n_in) row-major
+    table = np.asarray(params["encoding"], np.float32).reshape(-1)
+    want = meta.n_params * meta.n_features_per_level
+    if table.size != want:
+        raise ValueError(f"table size {table.size} != tcnn layout {want}")
+    chunks.append(table)
+    flat = np.concatenate(chunks).astype(np.float16)
+    snap = {
+        "version": SNAPSHOT_FORMAT_VERSION,
+        "n_params": int(flat.size),
+        "params_type": "__half",
+        "params_binary": flat.tobytes(),
+        "training_step": int(training_step),
+        "loss": float(loss),
+    }
+    if extra:
+        snap.update(_pack_tree(extra))
+    doc = dict(network_config)
+    doc["snapshot"] = snap
+    Path(path).write_bytes(msgpack.packb(doc, use_bin_type=True))
+
+
+def import_reference_snapshot_encoded(path, n_input_dims: int,
+                                      n_output_dims: int,
+                                      desired_resolution: float = 2048.0):
+    """Read a tcnn NetworkWithInputEncoding snapshot (the reference's
+    image, SDF and volume modes): ``params_binary`` decoded by
+    ``params_type`` (intended divergence, as in
+    ``import_reference_snapshot``: the JAX package decodes it as fp16
+    always), cut into the MLP and the flat hash table, the padded widths
+    trimmed. Returns (network_config, params, snapshot): the tree of an
+    ``EncodedNetwork(grid_impl="tcnn")`` as numpy
+    (``bridge.encoded_params_from_numpy``) and the raw snapshot
+    section."""
+    import msgpack  # only snapshot I/O needs it
+
+    doc = msgpack.unpackb(Path(path).read_bytes(), raw=False,
+                          strict_map_key=False)
+    snap = doc["snapshot"]
+    raw = snap.get("params_binary")
+    if raw is None:
+        raise ValueError("no params_binary: not a reference snapshot")
+    flat = np.frombuffer(raw, _params_dtype(snap)).astype(np.float32)
+    meta = _encoded_meta(doc, n_input_dims, desired_resolution)
+    widths = _tcnn_encoded_widths(doc["network"], meta.n_output_dims,
+                                  n_output_dims)
+    n_table = meta.n_params * meta.n_features_per_level
+    need = sum(a * b for a, b in widths) + n_table
+    if flat.size < need:
+        raise ValueError(f"params_binary holds {flat.size} values; the "
+                         f"network needs {need}")
+    off, mats = 0, []
+    for n_in, n_out in widths:
+        n = n_in * n_out
+        mats.append(flat[off: off + n].reshape(n_out, n_in).T.copy())
+        off += n
+    table = flat[off: off + n_table].copy()
+    # trim the tcnn padding back to the network's shapes
+    mats[0] = mats[0][: meta.n_output_dims]
+    mats[-1] = mats[-1][:, :n_output_dims]
+    cfg = {k: v for k, v in doc.items() if k != "snapshot"}
+    return cfg, {"encoding": table, "net": tuple(mats)}, snap

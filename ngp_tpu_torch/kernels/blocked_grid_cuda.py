@@ -1,6 +1,9 @@
 """Wrappers of the hand-written CUDA blocked-grid kernels: K1 (encode
 forward), K2 (table backward), K3 (position backward), K4 (int8-table
-forward) and K5 (int8 table backward).
+forward) and K5 (int8 table backward). K1 and K2 take 3D and 2D grids (the
+2D ones launch as ``blocked_grid_encode_fwd_2d`` and
+``blocked_grid_encode_bwd_2d``); K3, K4 and K5 take 3D grids only and
+raise NotImplementedError for a 2D grid on the card.
 
 ``blocked_grid_encode``, ``blocked_grid_encode_i8fwd``,
 ``blocked_grid_encode_int8`` and ``encode_quantized`` are the entry
@@ -48,7 +51,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # went through the kernels.
 launches = {"blocked_grid_encode_fwd": 0, "blocked_grid_encode_bwd": 0,
             "blocked_grid_encode_bwd_pos": 0, "blocked_grid_encode_fwd_i8": 0,
-            "blocked_grid_encode_bwd_i8": 0}
+            "blocked_grid_encode_bwd_i8": 0, "blocked_grid_encode_fwd_2d": 0,
+            "blocked_grid_encode_bwd_2d": 0}
 
 _lib = None
 build_log = ""
@@ -98,12 +102,18 @@ def load_library(path: Path) -> ctypes.CDLL:
     lib.ngp_blocked_grid_encode_bwd_i8.argtypes = ([vp, vp, vp, vp]
                                                    + planned[:-1] + [ci, vp])
     lib.ngp_blocked_grid_group.argtypes = [ci]
-    for fn in (lib.ngp_blocked_grid_encode_fwd,
-               lib.ngp_blocked_grid_encode_bwd,
-               lib.ngp_blocked_grid_encode_bwd_pos,
-               lib.ngp_blocked_grid_encode_fwd_i8,
-               lib.ngp_blocked_grid_encode_bwd_i8,
-               lib.ngp_blocked_grid_group):
+    fns = [lib.ngp_blocked_grid_encode_fwd, lib.ngp_blocked_grid_encode_bwd,
+           lib.ngp_blocked_grid_encode_bwd_pos,
+           lib.ngp_blocked_grid_encode_fwd_i8,
+           lib.ngp_blocked_grid_encode_bwd_i8, lib.ngp_blocked_grid_group]
+    # K1 and K2 on 2D grids; a library built from sources without them
+    # (a baseline of scripts/encode_group_sweep.py) serves 3D only
+    for name in ("ngp_blocked_grid_encode_fwd_2d",
+                 "ngp_blocked_grid_encode_bwd_2d"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [vp, vp, vp] + planned
+            fns.append(getattr(lib, name))
+    for fn in fns:
         fn.restype = ci
     lib.ngp_cuda_error_string.argtypes = [ci]
     lib.ngp_cuda_error_string.restype = ctypes.c_char_p
@@ -182,9 +192,16 @@ def launch_plan(n: int, n_levels: int, group: int,
                       -(-n * width // threads), n_levels // width)
 
 
-def _check(meta: BlockedGridMeta, pos: torch.Tensor, *tensors):
+def _check(meta: BlockedGridMeta, pos: torch.Tensor, *tensors,
+           kernel: str = "", dims=(3,)):
     """Raise on what the kernels do not take: every tensor on one CUDA
-    device and contiguous, 3D float32 positions, F=2, a known row hash."""
+    device and contiguous, float32 positions (N, D) of the grid's D, F=2, a
+    known row hash. ``kernel`` takes grids of ``dims`` dimensions; another
+    grid raises NotImplementedError, as that kernel is not ported for
+    it."""
+    if meta.n_dims not in dims:
+        raise NotImplementedError(f"{kernel} on a {meta.n_dims}D grid: not "
+                                  "ported to CUDA")
     if not all(t.is_cuda and t.device == pos.device for t in (pos, *tensors)):
         raise ValueError("blocked-grid kernel: all tensors must be on one "
                          "CUDA device")
@@ -192,9 +209,10 @@ def _check(meta: BlockedGridMeta, pos: torch.Tensor, *tensors):
         raise ValueError("blocked-grid kernel takes contiguous tensors")
     if pos.dtype != torch.float32:
         raise TypeError("blocked-grid kernel takes float32 positions")
-    if meta.n_dims != 3 or pos.dim() != 2 or pos.shape[1] != 3:
-        raise ValueError(f"blocked-grid kernel takes 3D positions (N, 3), "
-                         f"got {tuple(pos.shape)} for a {meta.n_dims}D grid")
+    if pos.dim() != 2 or pos.shape[1] != meta.n_dims:
+        raise ValueError(f"blocked-grid kernel takes positions (N, "
+                         f"{meta.n_dims}), got {tuple(pos.shape)} for a "
+                         f"{meta.n_dims}D grid")
     if meta.n_features_per_level != 2 or meta.row_hash not in ("prime",
                                                                "morton"):
         raise ValueError("blocked-grid kernel takes F=2 and the prime or "
@@ -270,20 +288,28 @@ def _run(name: str, fn, *args):
     launches[name] += 1
 
 
+def launch_name(kernel: str, meta: BlockedGridMeta) -> str:
+    """The launch name (a key of ``launches``) of K1 or K2 on ``meta``'s
+    grid: ``kernel`` itself in 3D, ``kernel + "_2d"`` in 2D."""
+    return kernel if meta.n_dims == 3 else f"{kernel}_2d"
+
+
 def launch_fwd(table: torch.Tensor, pos: torch.Tensor,
                meta: BlockedGridMeta) -> torch.Tensor:
-    """K1: (L, R, 128) f32 table + (N, 3) positions → (N, L·2)."""
-    _check(meta, pos, table)
+    """K1: (L, R, 128) f32 table + (N, D) positions → (N, L·2), D = 3 or
+    2."""
+    _check(meta, pos, table, kernel="K1", dims=(2, 3))
     _check_table(table, meta, torch.float32)
     out = torch.empty((pos.shape[0], meta.n_levels * 2), dtype=torch.float32,
                       device=pos.device)
     if pos.shape[0] == 0:
         return out
     lib = build()
+    name = launch_name("blocked_grid_encode_fwd", meta)
     args, _keep = _planned_args(meta, pos, kernel_plan(
         "blocked_grid_encode_fwd", pos.shape[0], meta))
-    _run("blocked_grid_encode_fwd", lib.ngp_blocked_grid_encode_fwd,
-         pos.data_ptr(), table.data_ptr(), out.data_ptr(), *args)
+    _run(name, getattr(lib, f"ngp_{name}"), pos.data_ptr(), table.data_ptr(),
+         out.data_ptr(), *args)
     return out
 
 
@@ -291,7 +317,7 @@ def launch_fwd_i8(table_q: torch.Tensor, qscales: torch.Tensor,
                   pos: torch.Tensor, meta: BlockedGridMeta) -> torch.Tensor:
     """K4: (L, R, 128) int8 table + (L,) f32 scales + (N, 3) positions →
     (N, L·2)."""
-    _check(meta, pos, table_q, qscales)
+    _check(meta, pos, table_q, qscales, kernel="K4")
     _check_table(table_q, meta, torch.int8)
     if qscales.dtype != torch.float32 or tuple(qscales.shape) != (
             meta.n_levels,):
@@ -311,19 +337,20 @@ def launch_fwd_i8(table_q: torch.Tensor, qscales: torch.Tensor,
 
 def launch_bwd(pos: torch.Tensor, grad: torch.Tensor,
                meta: BlockedGridMeta) -> torch.Tensor:
-    """K2: (N, 3) positions + (N, L·2) f32 cotangent → dTable
-    (L, R, 128) f32."""
-    _check(meta, pos, grad)
+    """K2: (N, D) positions + (N, L·2) f32 cotangent → dTable
+    (L, R, 128) f32, D = 3 or 2."""
+    _check(meta, pos, grad, kernel="K2", dims=(2, 3))
     _check_cotangent(pos, grad, meta)
     dtable = torch.zeros((meta.n_levels, meta.rows, LANES),
                          dtype=torch.float32, device=pos.device)
     if pos.shape[0] == 0:
         return dtable
     lib = build()
+    name = launch_name("blocked_grid_encode_bwd", meta)
     args, _keep = _planned_args(meta, pos, kernel_plan(
         "blocked_grid_encode_bwd", pos.shape[0], meta))
-    _run("blocked_grid_encode_bwd", lib.ngp_blocked_grid_encode_bwd,
-         pos.data_ptr(), grad.data_ptr(), dtable.data_ptr(), *args)
+    _run(name, getattr(lib, f"ngp_{name}"), pos.data_ptr(), grad.data_ptr(),
+         dtable.data_ptr(), *args)
     return dtable
 
 
@@ -331,7 +358,7 @@ def launch_bwd_pos(table: torch.Tensor, pos: torch.Tensor,
                    grad: torch.Tensor, meta: BlockedGridMeta) -> torch.Tensor:
     """K3: (L, R, 128) f32 table + (N, 3) positions + (N, L·2) f32
     cotangent → dpos (N, 3) f32."""
-    _check(meta, pos, table, grad)
+    _check(meta, pos, table, grad, kernel="K3")
     _check_table(table, meta, torch.float32)
     _check_cotangent(pos, grad, meta)
     n = pos.shape[0]
@@ -355,7 +382,7 @@ def launch_bwd_i8(pos: torch.Tensor, grad: torch.Tensor,
     """K5: (N, 3) positions + (N, L·2) f32 cotangent → dTable (L, R, 128)
     f32, the products w·g quantised to int8 per (level, tile of ``tile``
     samples)."""
-    _check(meta, pos, grad)
+    _check(meta, pos, grad, kernel="K5")
     _check_cotangent(pos, grad, meta)
     if tile < 32 or tile & (tile - 1):
         raise ValueError(f"int8 backward tile must be a power of two ≥ 32, "
@@ -432,7 +459,7 @@ def _encode(table, pos, meta, mode: str, tile: int):
 def blocked_grid_encode(table: torch.Tensor, pos: torch.Tensor,
                         meta: BlockedGridMeta) -> torch.Tensor:
     """(L, R, 128) table + (N, D) positions → (N, L·2) features; K1 forward,
-    K2 table backward, K3 position backward."""
+    K2 table backward, K3 position backward (3D only on the card)."""
     return _encode(table, pos, meta, "", 0)
 
 

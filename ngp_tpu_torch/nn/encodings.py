@@ -1,9 +1,11 @@
-"""Input encodings used by the NeRF network (port of
-``ngp_tpu/nn/encodings.py``): Identity, SphericalHarmonics (degree ≤ 4),
-Composite, the blocked hash grid and the tcnn-layout hash and dense grids.
-Each is an ``nn.Module`` mapping (N, n_dims) → (N, n_output_dims); a grid
-holds its table as the parameter ``table``."""
+"""Input encodings (port of ``ngp_tpu/nn/encodings.py``): Identity,
+Frequency, OneBlob, SphericalHarmonics (degree ≤ 4), Composite, the blocked
+hash grid (2D and 3D) and the tcnn-layout hash and dense grids. Each is an
+``nn.Module`` mapping (N, n_dims) → (N, n_output_dims); a grid holds its
+table as the parameter ``table``."""
 from __future__ import annotations
+
+import math
 
 from typing import Optional, Sequence
 
@@ -29,6 +31,49 @@ class Identity(nn.Module):
 
     def forward(self, x):
         return x * self.scale + self.offset
+
+
+class Frequency(nn.Module):
+    """NeRF-style frequency encoding: per dim, sin and cos at π·2^k."""
+
+    def __init__(self, n_dims: int, n_frequencies: int = 12):
+        super().__init__()
+        self.n_dims = n_dims
+        self.n_frequencies = n_frequencies
+        self.n_output_dims = n_dims * n_frequencies * 2
+
+    def forward(self, x):
+        freqs = torch.exp2(torch.arange(self.n_frequencies,
+                                        dtype=torch.float32, device=x.device))
+        ang = x[..., :, None] * freqs * math.pi                 # (N, D, K)
+        out = torch.stack([torch.sin(ang), torch.cos(ang)], -1)  # (N, D, K, 2)
+        return out.reshape(x.shape[0], self.n_output_dims)
+
+
+class OneBlob(nn.Module):
+    """One-blob encoding (Neural Importance Sampling): each input is
+    soft-binned into ``n_bins`` by a quartic kernel of radius 2/n_bins,
+    integrated over each bin."""
+
+    def __init__(self, n_dims: int, n_bins: int = 16):
+        super().__init__()
+        self.n_dims = n_dims
+        self.n_bins = n_bins
+        self.n_output_dims = n_dims * n_bins
+
+    @staticmethod
+    def _quartic_cdf(x, inv_radius: float):
+        """CDF of the normalised quartic kernel 15/16 (1-u²)² on [-1, 1]."""
+        u = torch.clamp(x * inv_radius, -1.0, 1.0)
+        return 0.5 + (15.0 / 16.0) * (u - 2.0 * u ** 3 / 3.0 + u ** 5 / 5.0)
+
+    def forward(self, x):
+        n = self.n_bins
+        edges = torch.arange(n + 1, dtype=torch.float32,
+                             device=x.device) / n                # (n+1,)
+        cdf = self._quartic_cdf(edges - x[..., :, None], n * 0.5)
+        out = cdf[..., 1:] - cdf[..., :-1]                      # (N, D, n)
+        return out.reshape(x.shape[0], self.n_output_dims)
 
 
 class SphericalHarmonics(nn.Module):
@@ -178,6 +223,10 @@ def create_encoding(n_dims: int, cfg: dict,
         return GridEncoding(HashGridMeta.from_config(c), generator, device)
     if otype == "identity":
         return Identity(n_dims, cfg.get("scale", 1.0), cfg.get("offset", 0.0))
+    if otype == "frequency":
+        return Frequency(n_dims, cfg.get("n_frequencies", 12))
+    if otype == "oneblob":
+        return OneBlob(n_dims, cfg.get("n_bins", 16))
     if otype == "sphericalharmonics":
         return SphericalHarmonics(n_dims, cfg.get("degree", 4))
     if otype == "composite":
@@ -188,7 +237,7 @@ def create_encoding(n_dims: int, cfg: dict,
                                               grid_impl)))
             remaining -= nd
         return Composite(parts)
-    if otype in ("frequency", "oneblob"):
-        raise NotImplementedError(f"encoding {cfg.get('otype')!r} is not "
-                                  "ported yet")
+    if otype == "takikawa":
+        raise NotImplementedError("the Takikawa octree encoding "
+                                  "(ngp_tpu/nn/takikawa.py): not ported yet")
     raise ValueError(f"unknown encoding otype {cfg.get('otype')!r}")

@@ -14,16 +14,33 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-# the activations the NeRF configs use (configs/nerf/*.json)
-_ACTIVATIONS = {"none": lambda x: x, "relu": torch.relu}
+
+def _softplus(x):
+    # log(1 + e^x) for every x, as jax.nn.softplus (logaddexp(x, 0));
+    # torch's softplus returns x itself above a threshold
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+# tcnn's activations by name (the JAX package's ``_activation``)
+_ACTIVATIONS = {
+    "none": lambda x: x,
+    "relu": torch.relu,
+    "leakyrelu": lambda x: torch.where(x > 0, x, 0.01 * x),
+    "exponential": torch.exp,
+    "sigmoid": torch.sigmoid,
+    "logistic": torch.sigmoid,
+    "sine": torch.sin,
+    "squareplus": lambda x: 0.5 * (x + torch.sqrt(x * x + 4.0)),
+    "softplus": _softplus,
+    "tanh": torch.tanh,
+}
 
 
 def _activation(name: str):
     try:
         return _ACTIVATIONS[name.lower()]
     except KeyError:
-        raise NotImplementedError(
-            f"MLP activation {name!r} is not ported yet") from None
+        raise ValueError(f"unknown activation {name!r}") from None
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

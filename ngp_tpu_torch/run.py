@@ -1,17 +1,21 @@
-"""Train / evaluate / render runner in NeRF mode (port of the NeRF part of
+"""Train / evaluate / render runner in NeRF, SDF and image mode (port of
 ``scripts/run.py``, the reference's scripts/run.py workflow):
 
     python -m ngp_tpu_torch.run --scene data/nerf/fox --n_steps 2000 \\
         --save_snapshot out.msgpack --test_transforms transforms_test.json \\
         --screenshot_transforms transforms_test.json --width 640 --height 360
+    python -m ngp_tpu_torch.run --mode sdf --scene mesh.obj --n_steps 512 \\
+        --save_snapshot sdf.msgpack
 
-Mode inference, config resolution, training with ``iteration=`` prints,
-snapshot save/load, held-out PSNR/SSIM (black background, snap to pixel
-centres, linear render → sRGB compared to the target; ref run.py:216-303)
-and screenshots. It runs on the card unless ``--device cpu`` asks for the
-CPU. ``--n_steps`` is exact: the JAX package's trainer runs on to a
-16-step boundary, this one does not. Mesh export (``--save_mesh``) and
-camera-path video (``--video_camera_path``) are not ported yet and raise.
+Mode inference (or ``--mode``), config resolution, training with
+``iteration=`` prints, snapshot save/load, held-out PSNR/SSIM (black
+background, snap to pixel centres, linear render → sRGB compared to the
+target; ref run.py:216-303) and screenshots at the cameras of
+``--screenshot_transforms``. It runs on the card unless ``--device cpu``
+asks for the CPU. ``--n_steps`` is exact: the JAX package's NeRF trainer
+runs on to a 16-step boundary, this one does not. Mesh export
+(``--save_mesh``) and camera-path video (``--video_camera_path``) are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ def parse_args(argv=None):
     p.add_argument("--scene", "--training_data", default="",
                    help="scene dir / transforms.json")
     p.add_argument("--mode", default="",
-                   help="nerf (inferred from the scene if empty)")
+                   help="nerf|sdf|image (inferred from the scene if empty)")
     p.add_argument("--network", default="", help="network config json")
     p.add_argument("--load_snapshot", default="")
     p.add_argument("--save_snapshot", default="")

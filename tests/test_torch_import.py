@@ -16,7 +16,9 @@ def test_port_imports_without_jax():
         ngp_tpu_torch.__path__, "ngp_tpu_torch."))
     for name in ("render.nerf_render", "render.buffer", "io.camera_path",
                  "api.testbed", "__main__", "run", "render.multi_nerf",
-                 "api.pyngp_shim", "kernels.hashgrid"):
+                 "api.pyngp_shim", "kernels.hashgrid", "rays.sampling",
+                 "train.image", "train.sdf", "data.mesh",
+                 "render.sdf_render"):
         assert f"ngp_tpu_torch.{name}" in names
     code = "\n".join([
         "import importlib, sys",

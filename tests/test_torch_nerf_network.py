@@ -58,11 +58,13 @@ def test_composite_dir_encoding_matches_jax():
 
 
 def test_unported_encodings_raise():
-    with pytest.raises(NotImplementedError):
-        tenc.create_encoding(3, {"otype": "Frequency"})
-    # the DenseGrid is ported (the tcnn-layout grid, test_torch_hashgrid)
-    with pytest.raises(NotImplementedError):
-        tenc.create_encoding(3, {"otype": "OneBlob"})
+    # Frequency and OneBlob are ported (test_torch_encoded_network), the
+    # DenseGrid too (the tcnn-layout grid, test_torch_hashgrid); the
+    # Takikawa octree encoding is not
+    assert tenc.create_encoding(3, {"otype": "Frequency"}).n_output_dims == 72
+    assert tenc.create_encoding(3, {"otype": "OneBlob"}).n_output_dims == 48
+    with pytest.raises(NotImplementedError, match="Takikawa"):
+        tenc.create_encoding(3, {"otype": "Takikawa"})
 
 
 def test_mlp_matches_jax():

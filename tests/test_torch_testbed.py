@@ -328,22 +328,25 @@ def test_blender_plugin_flow(scene):
 
 
 def test_unported_modes_and_methods_raise(scene, tmp_path):
-    for mode in ("sdf", "image", "volume"):
-        with pytest.raises(NotImplementedError, match="engine"):
-            Testbed(mode, device="cpu")
+    # the image and SDF engines are ported (test_torch_testbed_modes.py);
+    # the volume engine is not
+    with pytest.raises(NotImplementedError, match="engine"):
+        Testbed("volume", device="cpu")
     tb = Testbed(device="cpu")
-    for path in ("mesh.obj", "volume.nvdb", "photo.png"):
-        with pytest.raises(NotImplementedError, match="engine"):
-            tb.load_training_data(tmp_path / path)
+    with pytest.raises(NotImplementedError, match="engine"):
+        tb.load_training_data(tmp_path / "volume.nvdb")
     for call in (lambda: tb.bake_playback(), lambda: tb.load_playback("x"),
                  lambda: tb.render_playback(8, 8),
                  lambda: tb.compute_marching_cubes_mesh(),
                  lambda: tb.compute_and_save_marching_cubes_mesh("m.obj"),
                  lambda: tb.compute_and_save_png_slices("s"),
-                 lambda: tb.get_rgba_on_grid(), lambda: tb.calculate_iou(),
-                 lambda: tb.compute_image_mse(),
-                 lambda: tb.override_sdf_training_data(None, None)):
+                 lambda: tb.get_rgba_on_grid()):
         with pytest.raises(NotImplementedError):
+            call()
+    # the other engines' metrics and data need their mode
+    for call in (lambda: tb.calculate_iou(), lambda: tb.compute_image_mse(),
+                 lambda: tb.override_sdf_training_data(None, None)):
+        with pytest.raises(ValueError, match="needs a trained"):
             call()
     with pytest.raises(RuntimeError):
         tb.init_window(8, 8)
