@@ -113,7 +113,33 @@ Phases, each reported on its own line:
                edge positions, and timed beside its bound on both (``K1:``
                and ``K2:`` lines naming ``_2d``); a 64×64 frame on the card
                against the CPU path.
- 10. sdf     — the SDF engine (cell smoke-sdf-synth): a torus OBJ (radii
+ 10. image-int8 — the image engine under NGP_TPU_ENCODE_INT8 (cell
+               smoke-image-int8): on phase 9's PNG, the runner's ``--mode
+               image`` for IMAGE_STEPS under "fwd" and then "full", each
+               with compute_image_mse's PSNR rise (≥ PSNR_RISE_DB) and
+               ms/step printed beside the f32 run's, and the Testbed
+               frames; "fwd" must launch the 2D K4 and K2 and not K5,
+               "full" the 2D K4 and K5 and not K2, the frames K4. The
+               "full" field's gradient by uv at UV_RES² pixel centres must
+               launch the 2D K3, give the same bits twice and its K3 agree
+               with the plain version. Then the 2D K3, K4 and K5 are held
+               against their plain versions at the 3D tolerances and timed
+               beside their bounds on one "full" step's positions and
+               cotangent and on uniform positions (2^20 for K4, 2^18 for K3
+               and K5; ``K3:``/``K4:``/``K5:`` lines naming ``_2d``), and a
+               64×64 frame on the card is held against the CPU path.
+ 11. volume  — the neural volume (cell smoke-volume-plume): the 128³
+               procedural plume written by the port's write_nvdb, the
+               runner's ``--mode volume`` for VOLUME_STEPS with configs/
+               volume/base.json at full width (16 levels × 8192 rows, batch
+               2^18 from the Testbed) and a snapshot; the density MSE at
+               2^20 uniform points of the AABB must fall to
+               VOLUME_MSE_RATIO of the untrained network's; a 512×512
+               VolumeRenderer frame (timed) and the same march over the
+               ground-truth density: the IoU of their opacity > 0.5 masks
+               ≥ VOLUME_IOU_MIN; K1 and K2 launch in the phase; a 32×32
+               frame on the card against the CPU path.
+ 12. sdf     — the SDF engine (cell smoke-sdf-synth): a torus OBJ (radii
                0.3 and 0.1, 256 × 64 segments, 32,768 triangles), the
                runner's ``--mode sdf`` for SDF_STEPS with configs/sdf/
                base.json at full width (16 levels × 8192 rows, batch
@@ -128,15 +154,18 @@ With ``--profile``, torch.profiler traces of one slice frame (K1's device
 ms and launches in it) and of 16 steady training steps are broken down by
 layer as well (the steps' table also to a file, see ``phase_profile``).
 ``--kernels`` runs phases 1, 2 and 4 alone, on a scene of its own (K4's
-sweep positions from an untrained trainer), with the 2D K1 and K2 on
-seeded image-width inputs, and ends with the kernels' JSON line.
+sweep positions from an untrained trainer), with the 2D K1–K5 on seeded
+image-width inputs, and ends with the kernels' JSON line.
 Then the script's total seconds, one JSON line with each kernel's
-figures and its launches in the testbed, multinerf, image and sdf phases
+figures and its launches in the testbed, multinerf, image, image-int8
+(per run: "fwd", "full", "uv"), volume and sdf phases
 (K1's, K2's and K3's ray-ordered ones under "ray_ordered", K3's and K5's
 on one pose step under "pose_step", K4's at 2^18 uniform positions under
 "uniform_2e18" and on the sweep's positions under "sweep_ordered"; the 2D
 K1's and K2's, entries of their own whose main figures are on the image
-path's inputs, at 2^20 uniform positions under "uniform_2e20"), and
+path's inputs, at 2^20 uniform positions under "uniform_2e20"; the 2D
+K3's, K4's and K5's likewise on the "full" image path's inputs, at
+uniform positions under "uniform_2e18" or "uniform_2e20"), and
 as the last line ``{"ok": true, "device":
 {...}}``. Any failure raises: there is no fallback to the CPU or to the
 plain version.
@@ -545,7 +574,8 @@ def check_k4(tq, qs, pos, meta, what: str) -> float:
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"K4 output is not finite ({what})")
     err = float((got - ref).abs().max())
-    print(f"K4: blocked_grid_encode_fwd_i8 {tuple(tq.shape)} int8 x "
+    print(f"K4: {bgc.launch_name('blocked_grid_encode_fwd_i8', meta)} "
+          f"{tuple(tq.shape)} int8 x "
           f"{pos.shape[0]} {what} positions: max |kernel - plain| {err:.3e} "
           f"(tolerance {KERNEL_TOL})")
     if not err <= KERNEL_TOL:
@@ -565,11 +595,12 @@ def time_k4(tq, qs, p, meta, err: float, what: str) -> dict:
             lambda: bgc.launch_fwd_i8(tq, qs, p, meta),
             lambda: encode_reference_i8(tq, qs, p, meta))
     n = p.shape[0]
-    entry = _kernel_entry("blocked_grid_encode_fwd_i8", 354, err, ks, ps, n,
-                          meta, kernel_bytes("blocked_grid_encode_fwd_i8",
-                                             meta, p))
-    _print_times("K4", f"{n} {what} positions x {meta.n_levels} levels",
-                 entry, ks, ps)
+    name = bgc.launch_name("blocked_grid_encode_fwd_i8", meta)
+    entry = _kernel_entry(name, 354, err, ks, ps, n, meta,
+                          kernel_bytes(name, meta, p))
+    entry["G"] = bgc.kernel_plan("blocked_grid_encode_fwd_i8", n, meta).width
+    _print_times("K4", f"{n} {what} positions x {meta.n_levels} levels, G "
+                 f"{entry['G']}", entry, ks, ps)
     return entry
 
 
@@ -689,7 +720,8 @@ def check_k3(table, pos, cot, meta, what: str) -> float:
         raise RuntimeError(f"K3 is nonzero where every term is zero ({what})")
     rel, err = float((diff / mag.clamp(min=1e-30)).max()), float(diff.max())
     same = bool(torch.equal(got.view(torch.int32), again.view(torch.int32)))
-    print(f"K3: blocked_grid_encode_bwd_pos {pos.shape[0]} {what} positions "
+    print(f"K3: {bgc.launch_name('blocked_grid_encode_bwd_pos', meta)} "
+          f"{pos.shape[0]} {what} positions "
           f"-> {tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
           f"relative to sum|term| {rel:.3e} (tolerance {KERNEL_POS_TOL}); "
           f"exact zeros where every term is 0; a second launch bit-equal: "
@@ -712,9 +744,9 @@ def time_k3(table, p, c, meta, err: float, what: str) -> dict:
             lambda: bgc.launch_bwd_pos(table, p, c, meta),
             lambda: encode_position_backward_reference(table, p, c, meta))
     n = p.shape[0]
-    entry = _kernel_entry("blocked_grid_encode_bwd_pos", 157, err, ks, ps, n,
-                          meta, kernel_bytes("blocked_grid_encode_bwd_pos",
-                                             meta, p))
+    name = bgc.launch_name("blocked_grid_encode_bwd_pos", meta)
+    entry = _kernel_entry(name, 157, err, ks, ps, n, meta,
+                          kernel_bytes(name, meta, p))
     entry["G"] = bgc.kernel_plan("blocked_grid_encode_bwd_pos", n, meta).width
     _print_times("K3", f"{n} {what} positions x {meta.n_levels} levels, G "
                  f"{entry['G']}", entry, ks, ps)
@@ -738,26 +770,34 @@ def phase_k3(dev, ray=None) -> dict:
                                      meta, err, "ray-ordered"), "ray_ordered")
 
 
-def phase_k5(dev) -> dict:
-    """K5 on K3's positions, with cotangents seeded apart, in tiles of 2048
-    samples (the tile of a 2^18-sample stream; the last tile partial)."""
+def check_k5(pos, cot, meta, tile: int, what: str) -> float:
+    """K5 against the plain int8 backward (``check_i8_grad``); returns max
+    |Δ|."""
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
-    from ngp_tpu_torch.kernels.blocked_grid import DEFAULT_TILE
-    meta, _, pos, _ = _full_width_inputs(dev, 1 << 18)
-    cot = _cotangent(dev, meta, pos.shape[0], SEED + 4)
-    tile = DEFAULT_TILE
     with torch.no_grad():
         got = bgc.launch_bwd_i8(pos, cot, meta, tile)
         torch.cuda.synchronize()
         rel, err, cancelled, zeros = check_i8_grad(pos, cot, meta, tile, got)
-        print(f"K5: blocked_grid_encode_bwd_i8 {pos.shape[0]} positions, tile "
-              f"{tile} -> {tuple(got.shape)}: max |kernel - plain| "
-              f"{err:.3e}, max relative to sum_t scale_t*sum|q| {rel:.3e} "
-              f"(tolerance {KERNEL_I8_TOL}); exact zeros where every q is 0; "
-              f"{zeros / got.numel():.4f} of entries zero in the plain "
-              f"version, {cancelled} of them by cancelling quanta")
-        if not rel <= KERNEL_I8_TOL:
-            raise RuntimeError("K5 disagrees with its plain version")
+    print(f"K5: {bgc.launch_name('blocked_grid_encode_bwd_i8', meta)} "
+          f"{pos.shape[0]} {what} positions, tile {tile} -> "
+          f"{tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
+          f"relative to sum_t scale_t*sum|q| {rel:.3e} (tolerance "
+          f"{KERNEL_I8_TOL}); exact zeros where every q is 0; "
+          f"{zeros / got.numel():.4f} of entries zero in the plain version, "
+          f"{cancelled} of them by cancelling quanta")
+    if not rel <= KERNEL_I8_TOL:
+        raise RuntimeError(f"K5 disagrees with its plain version ({what})")
+    return err
+
+
+def phase_k5(dev) -> dict:
+    """K5 on K3's positions, with cotangents seeded apart, in tiles of 2048
+    samples (the tile of a 2^18-sample stream; the last tile partial)."""
+    from ngp_tpu_torch.kernels.blocked_grid import DEFAULT_TILE
+    meta, _, pos, _ = _full_width_inputs(dev, 1 << 18)
+    cot = _cotangent(dev, meta, pos.shape[0], SEED + 4)
+    tile = DEFAULT_TILE
+    err = check_k5(pos, cot, meta, tile, "uniform+edge")
     return time_k5(pos[: 1 << 18], cot[: 1 << 18], meta, tile, err,
                    "uniform")
 
@@ -773,11 +813,13 @@ def time_k5(p, c, meta, tile: int, err: float, what: str) -> dict:
             lambda: bgc.launch_bwd_i8(p, c, meta, tile),
             lambda: encode_backward_reference_i8(p, c, meta, tile),
             plain_iters=2)
-    entry = _kernel_entry("blocked_grid_encode_bwd_i8", 383, err, ks, ps,
-                          p.shape[0], meta,
-                          kernel_bytes("blocked_grid_encode_bwd_i8", meta, p))
+    name = bgc.launch_name("blocked_grid_encode_bwd_i8", meta)
+    entry = _kernel_entry(name, 383, err, ks, ps, p.shape[0], meta,
+                          kernel_bytes(name, meta, p))
+    entry["G"] = bgc.kernel_plan("blocked_grid_encode_bwd_i8", p.shape[0],
+                                 meta).width
     _print_times("K5", f"{p.shape[0]} {what} positions x {meta.n_levels} "
-                 f"levels, tile {tile}", entry, ks, ps)
+                 f"levels, tile {tile}, G {entry['G']}", entry, ks, ps)
     return entry
 
 
@@ -2258,6 +2300,16 @@ SDF_STEPS, IOU_SAMPLES, IOU_MIN, HIT_AGREE_MIN = 256, 1 << 22, 0.9, 0.95
 # the image; for the SDF frame the hit masks (99 % equal: a ray whose
 # march ends next to the threshold may stop one step apart) and mean |Δ|
 ENGINE_CPU_TOL, SDF_CPU_TOL = 2e-4, 1e-3
+# the image-int8 phase: the uv gradient at UV_RES² pixel centres
+UV_RES = 512
+# the volume phase: a VOLUME_RES³ procedural plume fitted by the runner for
+# VOLUME_STEPS (configs/volume/base.json at full width: 16 levels × 8192
+# rows; batch 2^18); the density MSE at VOLUME_MSE_SAMPLES uniform points
+# must fall to VOLUME_MSE_RATIO of the untrained network's, and a
+# VOLUME_FRAME² frame's opacity > 0.5 mask reach an IoU of VOLUME_IOU_MIN
+# with the same march over the ground truth
+VOLUME_RES, VOLUME_STEPS, VOLUME_MSE_SAMPLES = 128, 1024, 1 << 20
+VOLUME_MSE_RATIO, VOLUME_IOU_MIN, VOLUME_FRAME = 0.5, 0.7, 512
 
 
 def synth_image(res: int = IMAGE_RES, seed: int = SEED) -> np.ndarray:
@@ -2393,19 +2445,19 @@ def capture_image_step(tr):
     return seen["pos"], seen["cot"]
 
 
-def phase_k12_2d(dev, tr=None) -> list:
-    """The 2D K1 and K2 against their plain versions, with the 3D
-    tolerances, each timed beside its bound on the image path's own inputs
-    and at 2^20 uniform positions (with the edge positions in the checks).
-    With the image trainer ``tr``: its trained table, the positions and
-    cotangent of one more real step (a 2^18 stratified batch). Without
-    one: configs/image/base.json's grid at IMAGE_RES, a seeded table at std
-    0.5, a seeded stratified batch and cotangent."""
+def _image_kernel_inputs(dev, tr=None, seed: int = SEED + 3):
+    """The 2D kernels' inputs on the image path. With the image trainer
+    ``tr``: its trained table, the positions and cotangent of one more real
+    step (a 2^18 stratified batch) in its int8 mode. Without one:
+    configs/image/base.json's grid at IMAGE_RES, a seeded table at std
+    0.5, a seeded stratified batch and cotangent. Returns (meta, table,
+    positions, cotangent, what), and 2^20 uniform positions followed by
+    the edge positions."""
     from ngp_tpu_torch.config import (autofill_hashgrid_config,
                                       load_network_config)
     from ngp_tpu_torch.kernels.blocked_grid import BlockedGridMeta
     from ngp_tpu_torch.rays.sampling import sample_positions
-    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    g = torch.Generator(device=dev).manual_seed(seed)
     if tr is None:
         enc = autofill_hashgrid_config(
             load_network_config(ROOT / "configs/image/base.json")["encoding"],
@@ -2414,20 +2466,30 @@ def phase_k12_2d(dev, tr=None) -> list:
         table = torch.randn((meta.n_levels, meta.rows, 128), generator=g,
                             device=dev) * 0.5
         pos = sample_positions("stratified", g, 1 << 18, 0, device=dev)
-        cot = _cotangent(dev, meta, pos.shape[0], SEED + 4)
+        cot = _cotangent(dev, meta, pos.shape[0], seed + 1)
         what = "seeded image-batch"
     else:
         meta = tr.model.encoding.meta
         pos, cot = capture_image_step(tr)
         table = tr.params["encoding.table"].detach()
         what = "image-step"
-    print(f"K12 2D: table {tuple(table.shape)} "
+    print(f"2D kernels: table {tuple(table.shape)} "
           f"({table.numel() * 4 / 2 ** 20:.0f} MiB), "
-          f"{sum(meta.level_is_dense)} of {meta.n_levels} levels dense")
-    rng = np.random.default_rng(SEED + 5)
+          f"{sum(meta.level_is_dense)} of {meta.n_levels} levels dense; "
+          f"{what} inputs")
+    rng = np.random.default_rng(seed + 2)
     uni = torch.from_numpy(np.concatenate([
         rng.random((1 << 20, 2), dtype=np.float32),
         _edge_positions(meta, rng)])).to(dev)
+    return meta, table, pos, cot, what, uni
+
+
+def phase_k12_2d(dev, tr=None) -> list:
+    """The 2D K1 and K2 against their plain versions, with the 3D
+    tolerances, each timed beside its bound on the image path's own inputs
+    (``_image_kernel_inputs``) and at 2^20 uniform positions (with the
+    edge positions in the checks)."""
+    meta, table, pos, cot, what, uni = _image_kernel_inputs(dev, tr)
     n_u = 1 << 20
     err = check_k1(table, pos, meta, what)
     k1 = time_k1(table, pos, meta, err, what)
@@ -2441,6 +2503,50 @@ def phase_k12_2d(dev, tr=None) -> list:
     _sub_entry(k2, time_k2(uni[:n_u], cot_u[:n_u], meta, err, "uniform"),
                "uniform_2e20")
     return [k1, k2]
+
+
+def phase_k345_2d(dev, tr=None) -> list:
+    """The 2D K3, K4 and K5 against their plain versions at their 3D
+    counterparts' tolerances (K3 within KERNEL_POS_TOL of Σ|term| and
+    bit-equal over two launches, K4 within KERNEL_TOL, K5 within
+    KERNEL_I8_TOL of Σ_t scale_t·Σ|q| with equal zero patterns), each
+    timed beside its bound on the image path's own inputs
+    (``_image_kernel_inputs``; with ``tr`` an image trainer in the
+    ``full`` int8 mode, one real step's) and on uniform positions: 2^20
+    for K4, 2^18 for K3 and K5, the edge positions in the checks. K4 reads
+    the table quantised as the int8 modes quantise it, K5 takes the
+    step's tile (``eff_tile``)."""
+    from ngp_tpu_torch.kernels.blocked_grid import eff_tile, quantize_table_i8
+    meta, table, pos, cot, what, uni = _image_kernel_inputs(dev, tr,
+                                                            SEED + 7)
+    n3 = 1 << 18
+    uni3 = torch.cat([uni[:n3], uni[1 << 20:]])
+    cot_u = _cotangent(dev, meta, uni3.shape[0], SEED + 10)
+    err = check_k3(table, pos, cot, meta, what)
+    k3 = time_k3(table, pos, cot, meta, err, what)
+    err = check_k3(table, uni3, cot_u, meta, "uniform+edge")
+    _sub_entry(k3, time_k3(table, uni3[:n3], cot_u[:n3], meta, err,
+                           "uniform"), "uniform_2e18")
+    with torch.no_grad():
+        tq, qs = quantize_table_i8(table)
+        # what the int8 modes add to every image step and network call
+        quant = [_cuda_time_ms(lambda: quantize_table_i8(table), 10)
+                 for _ in range(2)]
+    print(f"K4: quantize_table_i8 of the {table.numel() * 4 / 2**20:.0f} MiB "
+          f"f32 2D table alone: {quant[0]:.4f}/{quant[1]:.4f} ms")
+    err = check_k4(tq, qs, pos, meta, what)
+    k4 = time_k4(tq, qs, pos, meta, err, what)
+    k4["quantize_ms"] = sum(quant) / 2
+    err = check_k4(tq, qs, uni, meta, "uniform+edge")
+    _sub_entry(k4, time_k4(tq, qs, uni[: 1 << 20], meta, err, "uniform"),
+               "uniform_2e20")
+    tile = eff_tile(pos.shape[0])
+    err = check_k5(pos, cot, meta, tile, what)
+    k5 = time_k5(pos, cot, meta, tile, err, what)
+    err = check_k5(uni3, cot_u, meta, tile, "uniform+edge")
+    _sub_entry(k5, time_k5(uni3[:n3], cot_u[:n3], meta, tile, err,
+                           "uniform"), "uniform_2e18")
+    return [k3, k4, k5]
 
 
 def _cpu_copy(model, params: dict):
@@ -2457,7 +2563,8 @@ def phase_image(dev, steps: int = IMAGE_STEPS, res: int = IMAGE_RES,
     by PSNR_RISE_DB), Testbed frames from the snapshot, the 2D K1 and K2
     launching in the phase, then held against their plain versions and
     timed (``phase_k12_2d``), and a cpu_size² frame against the CPU path.
-    Returns (the phase's launch counts, the 2D kernels' entries)."""
+    Returns (the phase's launch counts, the 2D kernels' entries, the run's
+    ms/step and PSNR before and after, for the int8 phase to compare)."""
     import shutil
 
     from PIL import Image
@@ -2501,19 +2608,274 @@ def phase_image(dev, steps: int = IMAGE_STEPS, res: int = IMAGE_RES,
     entries = phase_k12_2d(dev, tr)
     # a small frame against the CPU path, with the same parameters
     pos = pixel_centres(cpu_size, cpu_size, dev)
-    gpu = tr._predict(pos).cpu()
     model, params = _cpu_copy(tr.model, tr.inference_params())
     with torch.no_grad():
         cpu = torch.func.functional_call(model, params, (pos.cpu(),))
-    err = (gpu - cpu).abs()
-    within = float((err <= 2e-3).all(-1).float().mean())
-    print(f"image: {cpu_size}x{cpu_size} frame GPU vs CPU path: mean |Δ| "
-          f"{float(err.mean()):.3e}, {within:.4f} of pixels within 2e-3")
-    if not (float(err.mean()) <= ENGINE_CPU_TOL and within >= 0.995):
-        raise RuntimeError("the image frame on the card disagrees with the "
-                           "CPU path")
+    _cpu_frame_check("image", tr._predict(pos), cpu,
+                     f"{cpu_size}x{cpu_size} frame")
     print(f"image: phase {time.perf_counter() - t_phase:.1f} s")
-    return launches, entries
+    return launches, entries, {"ms_step": ms_step, "psnr": (psnr0, psnr1)}
+
+
+def _check_int8_launches(mode: str, launches: dict, frames_k4: int):
+    """The 2D kernels an image run in int8 mode ``mode`` must and must not
+    launch: K4 in both (and in the Testbed frames); K2 under "fwd" and not
+    K5; K5 under "full" and not K2."""
+    k2, k4, k5 = (launches[f"blocked_grid_encode_{k}_2d"]
+                  for k in ("bwd", "fwd_i8", "bwd_i8"))
+    want = {"fwd": k4 > 0 and k2 > 0 and k5 == 0,
+            "full": k4 > 0 and k5 > 0 and k2 == 0}[mode]
+    if not (want and frames_k4 > 0 and launches[
+            "blocked_grid_encode_fwd_2d"] == 0):
+        raise RuntimeError(f"the image run under NGP_TPU_ENCODE_INT8={mode} "
+                           f"launched {launches} (K4 in its frames: "
+                           f"{frames_k4})")
+
+
+def uv_gradient_check(dev, tr, res: int = UV_RES) -> dict:
+    """The gradient of the trained image field ``tr`` by uv at the res²
+    pixel centres (``torch.autograd.grad`` through the network in the
+    trainer's int8 mode): it must launch the 2D K3, give the same bits
+    when taken again, and its K3 (the positions and cotangent the encoding
+    got) agree with the plain version (``check_k3``). Returns the launch
+    counts of the two gradients."""
+    from torch.func import functional_call
+
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.train.image import pixel_centres
+    params = {k: v.detach() for k, v in tr.inference_params().items()}
+    seen = {}
+
+    def hook(module, args, out):
+        seen["pos"] = args[0].detach()
+        out.register_hook(lambda g: seen.setdefault("cot",
+                                                    g.detach().contiguous()))
+    grads = []
+    _reset_launches()
+    for _ in range(2):
+        uv = pixel_centres(res, res, dev).requires_grad_(True)
+        handle = tr.model.encoding.register_forward_hook(hook)
+        try:
+            out = functional_call(tr.model, params, (uv,),
+                                  {"int8": tr.encode_int8})
+            (g,) = torch.autograd.grad(out.to(torch.float32).sum(), uv)
+        finally:
+            handle.remove()
+        grads.append(g)
+    torch.cuda.synchronize()
+    launches = dict(bgc.launches)
+    same = bool(torch.equal(grads[0].view(torch.int32),
+                            grads[1].view(torch.int32)))
+    print(f"image-int8: uv gradient of the trained field at {res}x{res} "
+          f"pixel centres (mode {tr.encode_int8!r}): finite "
+          f"{bool(torch.isfinite(grads[0]).all())}, mean |d/duv| "
+          f"{float(grads[0].abs().mean()):.4e}; the same bits taken again: "
+          f"{same}; launches {launches}")
+    if not (same and bool(torch.isfinite(grads[0]).all())
+            and launches["blocked_grid_encode_bwd_pos_2d"] >= 2):
+        raise RuntimeError("the uv gradient did not run K3 in 2D, or "
+                           "differs between two launches")
+    check_k3(params["encoding.table"], seen["pos"], seen["cot"],
+             tr.model.encoding.meta, "uv-gradient")
+    return launches
+
+
+def _cpu_frame_check(tag: str, gpu: torch.Tensor, cpu: torch.Tensor,
+                     what: str):
+    """A small frame on the card against the CPU path, with the slice
+    phase's tolerances (ENGINE_CPU_TOL on the mean |Δ|, 2e-3 on 99.5 % of
+    pixels)."""
+    err = (gpu.cpu() - cpu).abs()
+    within = float((err <= 2e-3).all(-1).float().mean())
+    print(f"{tag}: {what} GPU vs CPU path: mean |Δ| {float(err.mean()):.3e}, "
+          f"{within:.4f} of pixels within 2e-3")
+    if not (float(err.mean()) <= ENGINE_CPU_TOL and within >= 0.995):
+        raise RuntimeError(f"the {tag} frame on the card disagrees with the "
+                           "CPU path")
+
+
+def phase_image_int8(dev, f32: dict, steps: int = IMAGE_STEPS,
+                     res: int = IMAGE_RES, config=None, frames=IMAGE_FRAMES,
+                     cpu_size: int = 64, uv_res: int = UV_RES):
+    """The image engine under NGP_TPU_ENCODE_INT8 (cell smoke-image-int8):
+    on the image phase's PNG, for each of "fwd" and "full", the runner's
+    ``--mode image`` for ``steps`` with a snapshot, compute_image_mse's
+    PSNR of a Testbed before and from the snapshot after (must rise by
+    PSNR_RISE_DB), ms/step and PSNR beside the f32 run's (``f32``, from
+    ``phase_image``), Testbed frames, and the mode's launch gates
+    (``_check_int8_launches``); then, on the "full" trainer, the uv
+    gradient (``uv_gradient_check``), the 2D K3, K4 and K5 checked and
+    timed (``phase_k345_2d``) and a cpu_size² frame against the CPU path.
+    Returns (launch counts by run: "fwd", "full", "uv"; the 2D K3, K4, K5
+    entries)."""
+    import os
+
+    from ngp_tpu_torch.common import mse2psnr
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.train.image import ImageTrainer, pixel_centres
+    root = ROOT / "build" / "image_smoke"
+    t_phase = time.perf_counter()
+    png = root / "image.png"
+    config = Path(config or ROOT / "configs/image/base.json")
+    runs = {}
+    for mode in ("fwd", "full"):
+        snap = root / f"image_{mode}.msgpack"
+        with mock.patch.dict(os.environ, {"NGP_TPU_ENCODE_INT8": mode}):
+            _reset_launches()
+            tb = _engine_testbed(dev, "image", config, png)
+            psnr0 = mse2psnr(tb.compute_image_mse())
+            del tb
+            _, tr, ms_step, _ = _train_by_runner(
+                f"image-int8 {mode}", dev, "image", png, config, steps, snap,
+                ImageTrainer)
+            tb = _engine_testbed(dev, "image", config, png, snap)
+            psnr1 = mse2psnr(tb.compute_image_mse())
+            if tb.trainer.encode_int8 != mode or tr.encode_int8 != mode:
+                raise RuntimeError(f"the Testbed did not take "
+                                   f"NGP_TPU_ENCODE_INT8={mode}")
+            k4 = bgc.launches["blocked_grid_encode_fwd_i8_2d"]
+            for w, h in frames:
+                _timed_render(f"image-int8 {mode}", lambda: tb.render(w, h),
+                              "Testbed frame", w, h)
+            k4 = bgc.launches["blocked_grid_encode_fwd_i8_2d"] - k4
+            del tb
+        runs[mode] = dict(bgc.launches)
+        print(f"image-int8 {mode}: compute_image_mse PSNR {psnr0:.2f} -> "
+              f"{psnr1:.2f} dB (+{psnr1 - psnr0:.2f}; required "
+              f"+{PSNR_RISE_DB}); f32 run {f32['psnr'][0]:.2f} -> "
+              f"{f32['psnr'][1]:.2f} dB; {ms_step:.2f} ms/step (f32 run "
+              f"{f32['ms_step']:.2f}); launches {runs[mode]}")
+        if not psnr1 - psnr0 >= PSNR_RISE_DB:
+            raise RuntimeError(f"the image fit under {mode} did not raise "
+                               "the PSNR enough")
+        _check_int8_launches(mode, runs[mode], k4)
+    runs["uv"] = uv_gradient_check(dev, tr, uv_res)
+    entries = phase_k345_2d(dev, tr)
+    pos = pixel_centres(cpu_size, cpu_size, dev)
+    model, params = _cpu_copy(tr.model, tr.inference_params())
+    with torch.no_grad():
+        cpu = torch.func.functional_call(model, params, (pos.cpu(),),
+                                         {"int8": tr.encode_int8})
+    _cpu_frame_check("image-int8", tr._predict(pos), cpu,
+                     f"{cpu_size}x{cpu_size} frame ({tr.encode_int8!r})")
+    print(f"image-int8: phase {time.perf_counter() - t_phase:.1f} s")
+    return runs, entries
+
+
+class _GroundTruthField(torch.nn.Module):
+    """The ground-truth density of a volume trainer's grid as a field
+    (r, g, b, density) with no emission: what VolumeRenderer marches for
+    the reference frame."""
+
+    def __init__(self, trainer):
+        super().__init__()
+        self.trainer = trainer
+
+    def forward(self, x, int8: str = "", tile=None):
+        d = self.trainer.gt_density(x)
+        return torch.cat([torch.zeros_like(x), d[:, None]], -1)
+
+
+def _density_mse(tr, pts: torch.Tensor, gt: torch.Tensor) -> float:
+    return float(((tr.predict(pts)[:, 3] - gt) ** 2).mean())
+
+
+def phase_volume(dev, steps: int = VOLUME_STEPS, res: int = VOLUME_RES,
+                 config=None, frame: int = VOLUME_FRAME,
+                 mse_samples: int = VOLUME_MSE_SAMPLES, cpu_size: int = 32):
+    """The neural volume (cell smoke-volume-plume): the procedural plume
+    (res³) written by the port's write_nvdb, the runner's ``--mode
+    volume`` for ``steps`` with configs/volume/base.json at full width and
+    the Testbed's batch (2^18) and a snapshot; the density MSE against the
+    ground truth at ``mse_samples`` uniform points of the AABB, of the
+    untrained network and of a Testbed from the snapshot (must fall to
+    VOLUME_MSE_RATIO or less); a frame² VolumeRenderer frame, timed
+    (finite, opacity in [0, 1]), and the same march over the ground-truth
+    density: the IoU of their opacity > 0.5 masks must reach
+    VOLUME_IOU_MIN; K1 and K2 launching in the phase; a cpu_size² frame
+    against the CPU path. Returns the phase's launch counts."""
+    import copy
+    import shutil
+
+    from ngp_tpu_torch.data.nanovdb import make_procedural_plume
+    from ngp_tpu_torch.data.nanovdb_write import write_nvdb
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.render.volume_render import (VolumeRenderer,
+                                                    VolumeRenderOptions)
+    from ngp_tpu_torch.train.volume import VolumeTrainer
+    root = ROOT / "build" / "volume_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t_phase = time.perf_counter()
+    nvdb, snap = root / "plume.nvdb", root / "volume.msgpack"
+    write_nvdb(make_procedural_plume(res, seed=SEED), nvdb)
+    config = Path(config or ROOT / "configs/volume/base.json")
+    print(f"volume: {res}^3 plume written as {nvdb.stat().st_size} bytes of "
+          f".nvdb in {time.perf_counter() - t_phase:.2f} s")
+    _reset_launches()
+    tb = _engine_testbed(dev, "volume", config, nvdb)
+    tr0 = tb.trainer
+    g = torch.Generator(device=dev).manual_seed(SEED + 11)
+    pts = tr0.aabb_min + torch.rand((mse_samples, 3), generator=g,
+                                    device=dev) * (tr0.aabb_max - tr0.aabb_min)
+    gt = tr0.gt_density(pts)
+    mse0 = _density_mse(tr0, pts, gt)
+    meta = tr0.model.encoding.meta
+    del tb, tr0
+    _, tr, ms_step, _ = _train_by_runner("volume", dev, "volume", nvdb,
+                                         config, steps, snap, VolumeTrainer)
+    tb = _engine_testbed(dev, "volume", config, nvdb, snap)
+    mse1 = _density_mse(tb.trainer, pts, gt)
+    print(f"volume: grid {tr.grid.dense.shape}, majorant "
+          f"{tr.grid.global_majorant:.4f}; table "
+          f"{(meta.n_levels, meta.rows, 128)}, batch {tr.batch_size} "
+          f"({tr.batch_size // tr.N_EVENTS} walks x {tr.N_EVENTS} events); "
+          f"last loss {tr.last_loss:.5f}; density MSE at {mse_samples} "
+          f"uniform points {mse0:.5f} -> {mse1:.5f} (ratio "
+          f"{mse1 / mse0:.4f}; required <= {VOLUME_MSE_RATIO}; mean gt^2 "
+          f"{float((gt ** 2).mean()):.5f})")
+    if not mse1 <= VOLUME_MSE_RATIO * mse0:
+        raise RuntimeError("the volume fit did not lower the density MSE "
+                           "enough")
+    opts = VolumeRenderOptions(width=frame, height=frame, focal=float(frame))
+    cam = orbit_camera(0.8, radius=1.8, height=0.3)
+    img = _timed_render("volume", lambda: VolumeRenderer(
+        tb.trainer, opts).render(cam), "VolumeRenderer frame", frame, frame)
+    gt_tr = copy.copy(tb.trainer)
+    gt_tr.model = _GroundTruthField(tb.trainer)
+    gt_tr.inference_params = dict
+    ref = _timed_render("volume", lambda: VolumeRenderer(gt_tr, opts).render(
+        cam), "ground-truth march", frame, frame)
+    a, b = img[..., 3] > 0.5, ref[..., 3] > 0.5
+    iou = float((a & b).sum()) / max(float((a | b).sum()), 1.0)
+    print(f"volume: opacity > 0.5 on {a.mean():.4f} of the network's "
+          f"pixels and {b.mean():.4f} of the ground truth's; IoU {iou:.4f} "
+          f"(required {VOLUME_IOU_MIN})")
+    if not (iou >= VOLUME_IOU_MIN and b.mean() > 0.01):
+        raise RuntimeError("the volume frame's opacity disagrees with the "
+                           "ground truth's")
+    launches = dict(bgc.launches)
+    print(f"volume: launches in the phase {launches}")
+    missing = [k for k in ("blocked_grid_encode_fwd",
+                           "blocked_grid_encode_bwd") if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"the volume phase never launched {missing}")
+    cpu_tr = VolumeTrainer(tb.trainer.grid, tb.network_config, device="cpu")
+    with torch.no_grad():
+        for src, dst in ((tb.trainer.params, cpu_tr.params),
+                         (tb.trainer.opt_state.ema_params,
+                          cpu_tr.opt_state.ema_params)):
+            for k, v in src.items():
+                dst[k].copy_(v.cpu())
+    small = VolumeRenderOptions(width=cpu_size, height=cpu_size,
+                                focal=float(cpu_size))
+    _cpu_frame_check(
+        "volume", torch.from_numpy(VolumeRenderer(tb.trainer, small).render(
+            cam)), torch.from_numpy(VolumeRenderer(cpu_tr, small).render(cam)),
+        f"{cpu_size}x{cpu_size} frame")
+    print(f"volume: {ms_step:.2f} ms/step; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def phase_sdf(dev, steps: int = SDF_STEPS, config=None, torus=TORUS,
@@ -2628,7 +2990,7 @@ def main() -> int:
         tr = make_trainer(build_sphere_dataset(dev, 2, 32), dev)
         phase_k4_sweep(dev, _named(kernels, "blocked_grid_encode_fwd_i8"),
                        sweep_ordered_inputs(tr))
-        kernels += phase_k12_2d(dev)
+        kernels += phase_k12_2d(dev) + phase_k345_2d(dev)
         print(json.dumps({"kernels": kernels}))
         return 0
     _, renderer, bitfield = phase_slice(dev)
@@ -2645,11 +3007,14 @@ def main() -> int:
     del tr
     testbed_launches, normals_k3, view0_psnr = phase_testbed(dev)
     multinerf_launches = phase_multinerf(dev, view0_psnr)
-    image_launches, kernels_2d = phase_image(dev)
+    image_launches, kernels_2d, image_f32 = phase_image(dev)
+    int8_runs, kernels_int8 = phase_image_int8(dev, image_f32)
+    volume_launches = phase_volume(dev)
     sdf_launches, analytic_k3 = phase_sdf(dev)
     # each kernel's launches in the run of the path it was ported for: the
     # training phase (K1, K2, K4), the pose phase (K3, K5), whose kernels
-    # were also timed on one step's inputs, the image phase (2D K1, K2);
+    # were also timed on one step's inputs, the image phase (2D K1, K2),
+    # the image-int8 phase (2D K3, K4, K5; per run too), the volume phase;
     # and in the testbed phase (K3: its NORMALS frame's under
     # "testbed_normals_launches"), the multinerf phase (K1 alone), the
     # image phase and the sdf phase (K1, K2; K3: its analytic-normals
@@ -2661,11 +3026,18 @@ def main() -> int:
             _sub_entry(k, pose_step[k["name"]], "pose_step")
     for k in kernels_2d:
         k["launches"] = image_launches[k["name"]]
-    kernels += kernels_2d
+    # the 2D K3, K4 and K5 run on the image path under the int8 modes and
+    # in its uv gradient: their launches there, in all
+    for k in kernels_int8:
+        k["launches"] = sum(r[k["name"]] for r in int8_runs.values())
+    kernels += kernels_2d + kernels_int8
     for k in kernels:
         k["testbed_launches"] = testbed_launches[k["name"]]
         k["multinerf_launches"] = multinerf_launches[k["name"]]
         k["image_launches"] = image_launches[k["name"]]
+        for run, counts in int8_runs.items():
+            k[f"image_int8_{run}_launches"] = counts[k["name"]]
+        k["volume_launches"] = volume_launches[k["name"]]
         k["sdf_launches"] = sdf_launches[k["name"]]
     k3 = _named(kernels, "blocked_grid_encode_bwd_pos")
     k3["testbed_normals_launches"] = normals_k3

@@ -6,11 +6,13 @@ ref: src/main.cu:29-238).
 
 The mode is inferred from the scene path like the reference (dir/json →
 nerf, obj/stl → sdf, nvdb → volume, image otherwise) or given by
-``--mode``; NeRF, SDF and image are ported, volume raises. The loop
-prints ``iteration=<n> loss=<l>`` lines like the headless reference. It
-runs on the card unless ``--device cpu`` asks for the CPU. ``--n_steps``
-is exact: the JAX package's NeRF trainer runs on to a 16-step boundary,
-this one does not.
+``--mode``; every mode is ported (a screenshot in volume mode raises the
+testbed's ValueError, as in the JAX package). The loop prints
+``iteration=<n> loss=<l>`` lines like the headless reference. It runs on
+the card unless ``--device cpu`` asks for the CPU. ``--n_steps`` is
+exact: the JAX package's NeRF trainer runs on to a 16-step boundary, this
+one does not. ``NGP_TPU_ENCODE_INT8=fwd|full`` trains and infers through
+the int8-quantised grid table in every mode.
 """
 from __future__ import annotations
 

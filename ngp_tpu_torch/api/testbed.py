@@ -1,4 +1,4 @@
-"""Testbed façade in NeRF, SDF and image mode (port of
+"""Testbed façade in NeRF, SDF, image and volume mode (port of
 ``ngp_tpu/api/testbed.py``; the pyngp surface, ref:
 src/python_api.cu:306-888 and src/testbed.cu).
 
@@ -12,8 +12,11 @@ are stored and inert.
 
 It runs on the card unless the caller asks for another device
 (``Testbed(mode, device="cpu")``); without CUDA it raises rather than
-carry on on the CPU. The volume engine, mesh export and playback are not
-ported yet and raise NotImplementedError.
+carry on on the CPU. Mesh export and playback are not ported yet and
+raise NotImplementedError. ``NGP_TPU_ENCODE_INT8`` selects every
+trainer's int8 encode mode (``"full"``, or ``"fwd"`` for any other
+non-empty value), as the JAX package's encodings read it; ``render`` in
+volume mode raises ValueError, as the JAX testbed's does.
 
 Intended divergences: ``train(n)`` runs exactly n steps; the JAX NeRF
 trainer runs on to the next 16-step boundary (its image and SDF trainers
@@ -36,12 +39,6 @@ from ngp_tpu_torch.common import (BoundingBox, ColorSpace, EmaMeter,
                                   RenderMode, TestbedMode, TonemapCurve,
                                   linear_to_srgb_np, resolve_device)
 from ngp_tpu_torch.config import default_config_path, load_network_config
-
-# the engines each other mode needs, named when it is asked for
-_UNPORTED_ENGINES = {
-    TestbedMode.VOLUME: "the volume engine (ngp_tpu/train/volume.py)",
-}
-
 
 def _unported(what: str):
     raise NotImplementedError(f"{what}: not ported yet")
@@ -80,10 +77,12 @@ def _require(tb, mode: TestbedMode, what: str):
                          + ("" if tb.trainer else " without a trainer"))
 
 
-def _check_mode(mode: TestbedMode):
-    if mode in _UNPORTED_ENGINES:
-        _unported(f"{mode.value} mode needs {_UNPORTED_ENGINES[mode]}, which "
-                  "is")
+def encode_int8_from_env() -> str:
+    """The int8 encode mode ``NGP_TPU_ENCODE_INT8`` asks for, as the JAX
+    package's blocked grid reads it (``ngp_tpu/nn/encodings.py:197-205``):
+    ``"full"``, ``"fwd"`` for any other non-empty value, else ``""``."""
+    mode = os.environ.get("NGP_TPU_ENCODE_INT8", "")
+    return "full" if mode == "full" else "fwd" if mode else ""
 
 
 class _AliasNS(SimpleNamespace):
@@ -155,7 +154,6 @@ class Testbed:
                  device="cuda"):
         if isinstance(mode, str):
             mode = TestbedMode(mode.lower())
-        _check_mode(mode)
         self.device = resolve_device(device)
         self.mode = mode
         self.network_config: dict = {}
@@ -286,7 +284,6 @@ class Testbed:
         src/testbed.cu:97 + handle_file :163-194)."""
         inferred = mode_from_scene(path)
         if inferred is not None:
-            _check_mode(inferred)
             self.mode = inferred
         self.data_path = Path(path)
         if not self.network_config:
@@ -304,23 +301,30 @@ class Testbed:
             self._build_trainer()
 
     def _build_trainer(self):
-        _check_mode(self.mode)
         self._renderer_cache = {}
+        int8 = encode_int8_from_env()
         if self.mode == TestbedMode.IMAGE:
             from ngp_tpu_torch.data.image_io import read_image
             from ngp_tpu_torch.train.image import ImageTrainer
             self.trainer = ImageTrainer(read_image(self.data_path),
                                         self.network_config,
                                         batch_size=self.training_batch_size,
-                                        device=self.device)
+                                        device=self.device, encode_int8=int8)
             return
         if self.mode == TestbedMode.SDF:
             from ngp_tpu_torch.train.sdf import SdfTrainer
             self.trainer = SdfTrainer(self.data_path, self.network_config,
                                       batch_size=self.training_batch_size,
                                       sign_mode=int(self.sdf.mesh_sdf_mode),
-                                      device=self.device)
+                                      device=self.device, encode_int8=int8)
             self.sdf.mesh_scale = self.trainer.mesh_scale
+            return
+        if self.mode == TestbedMode.VOLUME:
+            from ngp_tpu_torch.train.volume import VolumeTrainer
+            self.trainer = VolumeTrainer(self.data_path, self.network_config,
+                                         batch_size=self.training_batch_size,
+                                         device=self.device,
+                                         encode_int8=int8)
             return
         from ngp_tpu_torch.data.nerf_loader import load_nerf
         from ngp_tpu_torch.train.nerf import NerfTrainer, NerfTrainerConfig
@@ -351,8 +355,10 @@ class Testbed:
             sample_focal_plane_proportional_to_error=(
                 t.sample_focal_plane_proportional_to_error),
             # the grid sweep through the int8-table encode (K4), as the JAX
-            # trainer reads NGP_TPU_GRID_INT8
-            grid_int8=bool(os.environ.get("NGP_TPU_GRID_INT8")))
+            # trainer reads NGP_TPU_GRID_INT8, and the training encode's
+            # int8 mode, as its encoding reads NGP_TPU_ENCODE_INT8
+            grid_int8=bool(os.environ.get("NGP_TPU_GRID_INT8")),
+            encode_int8=int8)
         # the JAX testbed's CPU-scale escape hatches
         if os.environ.get("NGP_TPU_BATCH"):
             tcfg.target_batch_size = int(os.environ["NGP_TPU_BATCH"])
@@ -591,6 +597,10 @@ class Testbed:
             return np.concatenate([img, np.ones_like(img[..., :1])], -1)
         if self.mode == TestbedMode.SDF:
             return self._sdf_frame(width, height)
+        if self.mode == TestbedMode.VOLUME:
+            # the JAX testbed renders no volume frame either; the engine's
+            # frames come from render/volume_render.VolumeRenderer
+            raise ValueError(f"render unsupported for mode {self.mode}")
         if self.render_groundtruth:
             return self._groundtruth_frame(width, height, spp, linear)
         p = self.trainer.inference_params()
@@ -640,7 +650,8 @@ class Testbed:
         opts = SdfRenderOptions(
             width=width, height=height, focal=height * 1.0,
             analytic_normals=bool(self.sdf.analytic_normals),
-            distance_scale=float(self.sdf.distance_scale))
+            distance_scale=float(self.sdf.distance_scale),
+            encode_int8=self.trainer.encode_int8)
         return SdfRenderer(self.trainer.model, opts).render(
             self.trainer.inference_params(), self.camera_matrix, width,
             height)

@@ -9,16 +9,18 @@
 //   K2 blocked_grid_encode_bwd_kernel<D> (N, D) positions + (N, L*2) f32
 //      cotangent -> dTable (L, R, 128) f32 (zeroed by the caller), D = 3
 //      or 2. Replaces hashgrid_pallas.py:_bwd_table_kernel.
-// K3, K4 and K5 below are instantiated for 3D grids only.
-//   K3 blocked_grid_encode_bwd_pos_kernel f32 table + positions + cotangent
-//      -> dpos (N, 3) f32, summed across levels by shuffles and, between
-//      level groups, by a second pass, in a fixed order (no atomics).
+// K3, K4 and K5 are templated on D too (2D since the neural image runs
+// them: its int8 modes and its uv gradient).
+//   K3 blocked_grid_encode_bwd_pos_kernel<D> f32 table + positions +
+//      cotangent -> dpos (N, D) f32, summed across levels by shuffles
+//      and, between level groups, by a second pass, in a fixed order (no
+//      atomics).
 //      Replaces hashgrid_pallas.py:_bwd_frac_kernel and the einsum that
 //      chains its dfrac to dpos.
-//   K4 blocked_grid_encode_fwd_i8_kernel (L, R, 128) int8 table + (L,) f32
-//      per-level scales + positions -> (N, L*2) f32 features.
+//   K4 blocked_grid_encode_fwd_i8_kernel<D> (L, R, 128) int8 table + (L,)
+//      f32 per-level scales + positions -> (N, L*2) f32 features.
 //      Replaces hashgrid_pallas.py:_fwd_kernel_i8.
-//   K5 blocked_grid_encode_bwd_i8{_max,}_kernel positions + cotangent ->
+//   K5 blocked_grid_encode_bwd_i8{_max,}_kernel<D> positions + cotangent ->
 //      dTable with the products w*g quantised to int8 per (level, sample
 //      tile): pass 1 takes each tile's max |w*g|, pass 2 is K2's scatter
 //      of scale*q. Replaces hashgrid_pallas.py:_bwd_table_kernel_i8.
@@ -89,11 +91,6 @@ constexpr int kMaxLevels = 32;
 template <int D> struct Block;
 template <> struct Block<3> { static constexpr int kSide = 4, kStride = 3; };
 template <> struct Block<2> { static constexpr int kSide = 8, kStride = 7; };
-
-// The dimension, block side and corners of the 3D-only kernels (K3-K5)
-constexpr int kDims = 3;
-constexpr int kSide = Block<3>::kSide;
-constexpr int kCorners = 1 << kDims;
 
 // Levels per thread group of each kernel: a group's threads cover one
 // sample's levels side by side (see the plan in
@@ -167,7 +164,7 @@ template <> __device__ __forceinline__ uint32_t part_bits<2>(uint32_t x) {
 
 // The lookup geometry of sample i at level l: the row within the level's
 // table, the lane of the base corner's feature 0, and the fractions.
-template <int D = kDims>
+template <int D>
 struct Lookup {
   uint32_t row;
   int base_lane;
@@ -183,18 +180,19 @@ __device__ __forceinline__ float lattice_coord(const float* __restrict__ pos,
 
 // The fractions alone (what the corner weights need), bit-equal to
 // lookup_geometry's
-__device__ __forceinline__ Lookup<> lookup_fractions(
+template <int D>
+__device__ __forceinline__ Lookup<D> lookup_fractions(
     const float* __restrict__ pos, int i, float scale) {
-  Lookup<> g = {};
+  Lookup<D> g = {};
 #pragma unroll
-  for (int d = 0; d < kDims; ++d) {
-    const float x = lattice_coord<kDims>(pos, i, d, scale);
+  for (int d = 0; d < D; ++d) {
+    const float x = lattice_coord<D>(pos, i, d, scale);
     g.frac[d] = __fsub_rn(x, floorf(x));
   }
   return g;
 }
 
-template <int D = kDims>
+template <int D>
 __device__ __forceinline__ Lookup<D> lookup_geometry(
     const float* __restrict__ pos, int i, const Level& lv, int log2_rows,
     int morton_hash) {
@@ -238,7 +236,7 @@ __device__ __forceinline__ Lookup<D> lookup_geometry(
 
 // Corner c's lane offset from the base lane (3D: 2 * (x + 4y + 16z); 2D:
 // 2 * (x + 8y) for the corner's bits x, y, z), and its multilinear weight.
-template <int D = kDims>
+template <int D>
 __device__ __forceinline__ int corner_offset(int c) {
   int off = 0, stride = 1;
 #pragma unroll
@@ -273,7 +271,7 @@ __device__ __forceinline__ Pair pair_of_thread(int log2_group) {
 // lookup at rowp: 4 adjacent floats, 16-byte aligned where x is even
 // (`paired`, base_lane & 2 == 0: the other terms of the lane are
 // multiples of 4 in 2D and 3D alike), so one load there instead of two.
-template <int D = kDims>
+template <int D>
 __device__ __forceinline__ float4 corner_pair(const float* __restrict__ rowp, int c,
                                               bool paired) {
   const float* p = rowp + corner_offset<D>(c);
@@ -328,23 +326,83 @@ __device__ __forceinline__ int sbyte(uint32_t x, int k) {
   return (int)(x << (24 - 8 * k)) >> 24;
 }
 
-// K4. K1's mapping and whole-sector stores. An int8 row is 128 bytes, one
-// cache line: vertex (x, y, z) holds its two features at byte
-// 2 * (x + 4y + 16z), so a z-plane of the block (16 vertices) is one
-// 32-byte sector, and a (y, z) line of 4 vertices is 8 contiguous bytes,
-// 8-aligned, at byte 8 * (y + 4z). A lookup's 8 corners lie on the 4
-// lines (y or y + 1, z or z + 1), in 2 sectors: each line is one aligned
-// 8-byte load, from which the x and x + 1 corners (bytes 2x .. 2x + 3,
-// x <= 2) come by one byte permute. That is 4 loads per lookup where the
-// first design made 8 two-byte ones; where y is even, lines y and y + 1
-// are 16-byte aligned and come in one 16-byte load (2 loads for 2/3 of
-// lookups: 5-9 % faster on every input set of the sweep). The table is 1
-// MiB per level at the NeRF width, all 16 levels 16 MiB, inside the 50 MB
-// L2 at once: unlike K1's, K4's group is not held down by the table slice
-// in flight, and the widest group (16: all levels of a sample in one
-// group, each position read once) was the fastest. As the 16-byte loads'
-// gain suggests, what bounds K4 now is the gathers' line lookups in L1 (a
-// warp's load touches up to 32 lines), not bytes.
+// K4's int8 corners: for each line of the lookup (the 2^(D-1) corner
+// pairs x, x + 1 at one (y, z)), the four bytes q0(x) q1(x) q0(x+1)
+// q1(x+1) of the row at rowp, packed into one word.
+//
+// 3D: an int8 row is 128 bytes, one cache line: vertex (x, y, z) holds
+// its two features at byte 2 * (x + 4y + 16z), so a z-plane of the block
+// (16 vertices) is one 32-byte sector, and a (y, z) line of 4 vertices is
+// 8 contiguous bytes, 8-aligned, at byte 8 * (y + 4z). A lookup's 8
+// corners lie on the 4 lines (y or y + 1, z or z + 1), in 2 sectors: each
+// line is one aligned 8-byte load, from which the x and x + 1 corners
+// (bytes 2x .. 2x + 3, x <= 2) come by one byte permute. That is 4 loads
+// per lookup where the first design made 8 two-byte ones; where y is
+// even, lines y and y + 1 are 16-byte aligned and come in one 16-byte load
+// (2 loads for 2/3 of lookups: 5-9 % faster on every input set of the
+// sweep).
+//
+// 2D: vertex (x, y) holds its features at byte 2 * (x + 8y), so a y-line
+// of 8 vertices is 16 contiguous bytes, 16-aligned, at byte 16 * y: each
+// of the lookup's 2 lines is one 16-byte load. Corners x and x + 1 (x <=
+// 6) are bytes 2x .. 2x + 3, in words x / 2 and, for odd x, x / 2 + 1 of
+// the line; the words are picked by selects, not by an index into the
+// loaded vector (which would go through local memory).
+template <int D> struct I8Lines;
+
+template <> struct I8Lines<3> {
+  static __device__ __forceinline__ void load(const int8_t* __restrict__ rowp,
+                                              int base_lane, uint32_t* v) {
+    constexpr int kSide = Block<3>::kSide;
+    // byte 8 * (y + 4z) of the base corner's line; its x corner at byte 2x
+    const int8_t* linep = rowp + (base_lane & ~7);
+    const uint32_t sel = 0x3210u + 0x2222u * (uint32_t)((base_lane & 7) >> 1);
+    uint2 line[4];   // (dy, dz) = (k & 1, k >> 1)
+    if ((base_lane & 8) == 0) {   // y even
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(linep));
+      const uint4 b = __ldg(reinterpret_cast<const uint4*>(linep + 8 * kSide));
+      line[0] = make_uint2(a.x, a.y);
+      line[1] = make_uint2(a.z, a.w);
+      line[2] = make_uint2(b.x, b.y);
+      line[3] = make_uint2(b.z, b.w);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        line[k] = __ldg(reinterpret_cast<const uint2*>(linep + 8 * ((k & 1) + kSide * (k >> 1))));
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __byte_perm(line[k].x, line[k].y, sel);
+  }
+};
+
+template <> struct I8Lines<2> {
+  static __device__ __forceinline__ void load(const int8_t* __restrict__ rowp,
+                                              int base_lane, uint32_t* v) {
+    // byte 16 * y of the base corner's line; its x corner at byte 2x
+    const int8_t* linep = rowp + (base_lane & ~15);
+    const int x = (base_lane & 15) >> 1;
+    const int w = x >> 1;
+    const uint32_t sel = (x & 1) ? 0x5432u : 0x3210u;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const uint4 a = __ldg(reinterpret_cast<const uint4*>(linep + 16 * k));
+      const uint32_t lo = w == 0 ? a.x : w == 1 ? a.y : w == 2 ? a.z : a.w;
+      const uint32_t hi = w == 0 ? a.y : w == 1 ? a.z : a.w;
+      v[k] = __byte_perm(lo, hi, sel);
+    }
+  }
+};
+
+// K4. K1's mapping and whole-sector stores; the corners come as lines
+// (I8Lines above). The table is 1 MiB per level at the NeRF width, all 16
+// levels 16 MiB, inside the 50 MB L2 at once: unlike K1's, K4's group is
+// not held down by the table slice in flight, and the widest group (16:
+// all levels of a sample in one group, each position read once) was the
+// fastest. As the 16-byte loads' gain suggests, what bounds K4 now is the
+// gathers' line lookups in L1 (a warp's load touches up to 32 lines), not
+// bytes. The neural image's int8 table is 4 MiB per level (64 MiB for 16
+// levels, more than L2); its group is the 3D one, unswept.
+template <int D>
 __global__ void blocked_grid_encode_fwd_i8_kernel(
     const float* __restrict__ pos, const int8_t* __restrict__ table,
     const float* __restrict__ qscale, float* __restrict__ out,
@@ -354,35 +412,20 @@ __global__ void blocked_grid_encode_fwd_i8_kernel(
   stage_group_levels(levels, lp, 1 << log2_group);
   const Pair q = pair_of_thread(log2_group);
   if (q.i >= n) return;
-  const Lookup<> g = lookup_geometry(pos, q.i, levels[q.j], log2_rows, morton_hash);
-  // byte 8 * (y + 4z) of the base corner's line; its x corner at byte 2x
-  const int8_t* linep = table + (((size_t)q.l << log2_rows) + g.row) * kLanes
-                        + (g.base_lane & ~7);
-  const uint32_t sel = 0x3210u + 0x2222u * (uint32_t)((g.base_lane & 7) >> 1);
-  uint2 line[4];   // (dy, dz) = (k & 1, k >> 1)
-  if ((g.base_lane & 8) == 0) {   // y even
-    const uint4 a = __ldg(reinterpret_cast<const uint4*>(linep));
-    const uint4 b = __ldg(reinterpret_cast<const uint4*>(linep + 8 * kSide));
-    line[0] = make_uint2(a.x, a.y);
-    line[1] = make_uint2(a.z, a.w);
-    line[2] = make_uint2(b.x, b.y);
-    line[3] = make_uint2(b.z, b.w);
-  } else {
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      line[k] = __ldg(reinterpret_cast<const uint2*>(linep + 8 * ((k & 1) + kSide * (k >> 1))));
-  }
+  const Lookup<D> g = lookup_geometry<D>(pos, q.i, levels[q.j], log2_rows, morton_hash);
+  uint32_t v[1 << (D - 1)];   // corners c (x) and c + 1 (x + 1) in v[c / 2]
+  I8Lines<D>::load(table + (((size_t)q.l << log2_rows) + g.row) * kLanes, g.base_lane, v);
   const float s = __ldg(qscale + q.l);
   float f0 = 0.f, f1 = 0.f;
 #pragma unroll
-  for (int c = 0; c < kCorners; c += 2) {
-    // corners c (x) and c + 1 (x + 1): bytes q0(x) q1(x) q0(x+1) q1(x+1)
-    const uint32_t v = __byte_perm(line[c >> 1].x, line[c >> 1].y, sel);
+  for (int c = 0; c < (1 << D); c += 2) {
+    // bytes q0(x) q1(x) q0(x+1) q1(x+1)
+    const uint32_t b = v[c >> 1];
     const float w0 = corner_weight(g, c), w1 = corner_weight(g, c + 1);
-    f0 += __fmul_rn((float)sbyte(v, 0), s) * w0;
-    f1 += __fmul_rn((float)sbyte(v, 1), s) * w0;
-    f0 += __fmul_rn((float)sbyte(v, 2), s) * w1;
-    f1 += __fmul_rn((float)sbyte(v, 3), s) * w1;
+    f0 += __fmul_rn((float)sbyte(b, 0), s) * w0;
+    f1 += __fmul_rn((float)sbyte(b, 1), s) * w0;
+    f0 += __fmul_rn((float)sbyte(b, 2), s) * w1;
+    f1 += __fmul_rn((float)sbyte(b, 3), s) * w1;
   }
   reinterpret_cast<float2*>(out)[(size_t)q.i * n_levels + q.l] = make_float2(f0, f1);
 }
@@ -470,13 +513,14 @@ __global__ void blocked_grid_encode_bwd_kernel(
 // K3's corner term: adds corner c's share of d/dfrac to dfrac, given gg,
 // the output's derivative by the corner's weight (summed over the two
 // features): +-gg * the product of the other dimensions' weights.
-__device__ __forceinline__ void add_corner_dfrac(float* dfrac, const Lookup<>& g, int c,
+template <int D>
+__device__ __forceinline__ void add_corner_dfrac(float* dfrac, const Lookup<D>& g, int c,
                                                  float gg) {
 #pragma unroll
-  for (int d = 0; d < kDims; ++d) {
+  for (int d = 0; d < D; ++d) {
     float prod = 1.f;
 #pragma unroll
-    for (int dd = 0; dd < kDims; ++dd) {
+    for (int dd = 0; dd < D; ++dd) {
       if (dd != d) prod *= ((c >> dd) & 1) ? g.frac[dd] : 1.f - g.frac[dd];
     }
     dfrac[d] += ((c >> d) & 1) ? gg * prod : -(gg * prod);
@@ -491,16 +535,19 @@ __device__ __forceinline__ void add_corner_dfrac(float* dfrac, const Lookup<>& g
 // values, and IEEE addition commutes, so every lane of the group ends
 // with the same bits and the order is fixed by the plan alone. The group's
 // sum goes to `out`: dpos itself where one group covers all levels, else
-// the group's partial (groups, N, 3), which pass 2 adds up in group order.
+// the group's partial (groups, N, D), which pass 2 adds up in group order.
 // Lane j of a group stores the components d = j, j + width, ..., so a
-// warp stores its samples' 12 bytes each contiguously. A zero cotangent
+// warp stores its samples' 4 * D bytes each contiguously. A zero cotangent
 // adds only zeros: such a lane skips its loads, not the shuffles, and
 // where every term is 0 the sum is exactly 0. Unlike K1's, K3's group is
 // 16, a sample's levels in one half-warp: at the NeRF width no partials
 // and no second pass; the whole 64 MiB table is then in flight, which
 // cost 8 % on uniform positions against G = 8, but the path's own inputs
 // (a pose step's ~10^4 samples, ray-ordered samples whose neighbours share
-// rows) gained 5-14 % over G = 8.
+// rows) gained 5-14 % over G = 8. The 2D kernel (the neural image's uv
+// gradient) takes the 3D group, unswept; its 16 levels are 256 MiB of
+// table in flight.
+template <int D>
 __global__ void blocked_grid_encode_bwd_pos_kernel(
     const float* __restrict__ pos, const float* __restrict__ table,
     const float* __restrict__ grad, float* __restrict__ out,
@@ -513,41 +560,48 @@ __global__ void blocked_grid_encode_bwd_pos_kernel(
   // every lane runs to the end: the group's lanes sum together below
   float2 gv = make_float2(0.f, 0.f);
   if (q.i < n) gv = __ldg(reinterpret_cast<const float2*>(grad) + (size_t)q.i * n_levels + q.l);
-  float acc[kDims] = {0.f, 0.f, 0.f};
+  float acc[D] = {};
   if (gv.x != 0.f || gv.y != 0.f) {
     const Level lv = levels[q.j];
-    const Lookup<> g = lookup_geometry(pos, q.i, lv, log2_rows, morton_hash);
+    const Lookup<D> g = lookup_geometry<D>(pos, q.i, lv, log2_rows, morton_hash);
     const float* rowp = table + (((size_t)q.l << log2_rows) + g.row) * kLanes + g.base_lane;
     const bool paired = (g.base_lane & 2) == 0;
-    float dfrac[kDims] = {0.f, 0.f, 0.f};
+    float dfrac[D] = {};
 #pragma unroll
-    for (int c = 0; c < kCorners; c += 2) {
-      const float4 v = corner_pair(rowp, c, paired);
+    for (int c = 0; c < (1 << D); c += 2) {
+      const float4 v = corner_pair<D>(rowp, c, paired);
       add_corner_dfrac(dfrac, g, c, v.x * gv.x + v.y * gv.y);
       add_corner_dfrac(dfrac, g, c + 1, v.z * gv.x + v.w * gv.y);
     }
 #pragma unroll
-    for (int d = 0; d < kDims; ++d) acc[d] = dfrac[d] * lv.scale;
+    for (int d = 0; d < D; ++d) acc[d] = dfrac[d] * lv.scale;
   }
   for (int m = 1; m < width; m <<= 1) {
 #pragma unroll
-    for (int d = 0; d < kDims; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], m);
+    for (int d = 0; d < D; ++d) acc[d] += __shfl_xor_sync(0xffffffffu, acc[d], m);
   }
   if (q.i >= n) return;
-  float* o = out + ((size_t)blockIdx.y * n + q.i) * kDims;
-  for (int d = q.j; d < kDims; d += width) o[d] = d == 0 ? acc[0] : d == 1 ? acc[1] : acc[2];
+  float* o = out + ((size_t)blockIdx.y * n + q.i) * D;
+  // component d from registers by selects (an index into acc would go
+  // through local memory)
+  for (int d = q.j; d < D; d += width) {
+    float v = acc[0];
+#pragma unroll
+    for (int k = 1; k < D; ++k) v = d == k ? acc[k] : v;
+    o[d] = v;
+  }
 }
 
 // K3, pass 2: dpos = the partials of groups 0, 1, ... added in that order,
 // one thread per (sample, component), as the reference's sum over levels
-// runs in level order.
+// runs in level order; nd = N * D entries.
 __global__ void blocked_grid_encode_bwd_pos_sum_kernel(
-    const float* __restrict__ partial, float* __restrict__ dpos, int n3,
+    const float* __restrict__ partial, float* __restrict__ dpos, int nd,
     int groups) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n3) return;
+  if (t >= nd) return;
   float s = __ldg(partial + t);
-  for (int k = 1; k < groups; ++k) s += __ldg(partial + (size_t)k * n3 + t);
+  for (int k = 1; k < groups; ++k) s += __ldg(partial + (size_t)k * nd + t);
   dpos[t] = s;
 }
 
@@ -560,6 +614,7 @@ __global__ void blocked_grid_encode_bwd_pos_sum_kernel(
 // of at least 32 samples, so the warp lies inside one tile: the lanes of
 // level j (j, j + width, ...) reduce by shuffles at xor distances width,
 // 2 * width, ..., and lane j adds one atomic for its level.
+template <int D>
 __global__ void blocked_grid_encode_bwd_i8_max_kernel(
     const float* __restrict__ pos, const float* __restrict__ grad,
     unsigned int* __restrict__ tile_max, const LevelParams lp, int n,
@@ -573,9 +628,9 @@ __global__ void blocked_grid_encode_bwd_i8_max_kernel(
   if (q.i < n) {
     const float2 gv = __ldg(reinterpret_cast<const float2*>(grad) + (size_t)q.i * n_levels + q.l);
     if (gv.x != 0.f || gv.y != 0.f) {
-      const Lookup<> g = lookup_fractions(pos, q.i, levels[q.j].scale);
+      const Lookup<D> g = lookup_fractions<D>(pos, q.i, levels[q.j].scale);
 #pragma unroll
-      for (int c = 0; c < kCorners; ++c) {
+      for (int c = 0; c < (1 << D); ++c) {
         const float w = corner_weight(g, c);
         m = fmaxf(m, fmaxf(fabsf(__fmul_rn(w, gv.x)), fabsf(__fmul_rn(w, gv.y))));
       }
@@ -603,10 +658,13 @@ __device__ __forceinline__ int quantum(float w, float g, float scale) {
 // Lanes of a warp on the same row and base corner (found by
 // __match_any_sync) are on one level and, as the warp lies inside one
 // tile, share one scale: the lowest sums its peers' quanta as integers,
-// exactly, and adds scale * sum once. The 16 quanta of a lookup travel
-// packed as bytes, 4 shuffles per peer. Unlike K2's sums, none needs a
-// flush: every scale is at least 1e-20 / 127, so every scale * q with
-// q != 0 is a normal float.
+// exactly, and adds scale * sum once. The 2 * 2^D quanta of a lookup
+// travel packed as bytes, 2^(D-1) shuffles per peer. Unlike K2's sums,
+// none needs a flush: every scale is at least 1e-20 / 127, so every
+// scale * q with q != 0 is a normal float. The 2D kernel takes the 3D
+// group (4), unswept: the neural image's f32 gradient is 16 MiB per
+// level, so a group's reductions spread over 64 MiB.
+template <int D>
 __global__ void blocked_grid_encode_bwd_i8_kernel(
     const float* __restrict__ pos, const float* __restrict__ grad,
     const unsigned int* __restrict__ tile_max, float* __restrict__ dtable,
@@ -621,12 +679,13 @@ __global__ void blocked_grid_encode_bwd_i8_kernel(
   const bool live = gv.x != 0.f || gv.y != 0.f;
   float scale = 0.f;
   float* rowp = nullptr;
+  constexpr int kCorners = 1 << D;
   // the quanta (q0, q1) of corners 2k and 2k + 1 as the 4 bytes of packed[k]
-  uint32_t packed[kCorners / 2] = {0u, 0u, 0u, 0u};
+  uint32_t packed[kCorners / 2] = {};
   if (live) {
     const float tmax = __uint_as_float(__ldg(tile_max + (size_t)q.l * n_tiles + (q.i >> log2_tile)));
     scale = __fdiv_rn(fmaxf(tmax, 1e-20f), 127.f);
-    const Lookup<> g = lookup_geometry(pos, q.i, levels[q.j], log2_rows, morton_hash);
+    const Lookup<D> g = lookup_geometry<D>(pos, q.i, levels[q.j], log2_rows, morton_hash);
     rowp = dtable + (((size_t)q.l << log2_rows) + g.row) * kLanes + g.base_lane;
 #pragma unroll
     for (int c = 0; c < kCorners; ++c) {
@@ -662,7 +721,7 @@ __global__ void blocked_grid_encode_bwd_i8_kernel(
 #pragma unroll
   for (int c = 0; c < kCorners; c += 2) {
     const int* a = sum + 2 * c;     // q0, q1 of corner c, then of c + 1
-    float* p = rowp + corner_offset(c);
+    float* p = rowp + corner_offset<D>(c);
     if (paired) {
       if ((a[0] | a[1] | a[2] | a[3]) != 0)
         atomicAdd(reinterpret_cast<float4*>(p),
@@ -749,10 +808,82 @@ int encode_bwd(const float* pos, const float* grad, float* dtable,
   return (int)cudaGetLastError();
 }
 
+// K4 for a D-dimensional grid, planned and checked
+template <int D>
+int encode_fwd_i8(const float* pos, const int8_t* table, const float* qscale,
+                  float* out, const float* scales, const int* blocks_per_dim,
+                  const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+                  int morton_hash, int blocks, int threads, int log2_group,
+                  void* stream) {
+  LevelParams lp = {};
+  const int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                         log2_rows, kGroupI8, blocks, threads, log2_group);
+  if (rc != 0) return rc;
+  blocked_grid_encode_fwd_i8_kernel<D><<<dim3(blocks, n_levels >> log2_group),
+                                         threads, 0,
+                                         static_cast<cudaStream_t>(stream)>>>(
+      pos, table, qscale, out, lp, n, n_levels, log2_rows, morton_hash,
+      log2_group);
+  return (int)cudaGetLastError();
+}
+
+// K3 for a D-dimensional grid: both passes on one stream
+template <int D>
+int encode_bwd_pos(const float* pos, const float* table, const float* grad,
+                   float* dpos, float* partial, const float* scales,
+                   const int* blocks_per_dim, const unsigned char* is_dense, int n,
+                   int n_levels, int log2_rows, int morton_hash, int blocks,
+                   int threads, int log2_group, void* stream) {
+  LevelParams lp = {};
+  int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                   log2_rows, kGroupPos, blocks, threads, log2_group);
+  if (rc != 0) return rc;
+  const int groups = n_levels >> log2_group;
+  if ((groups > 1 && partial == nullptr) || n > INT_MAX / D)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  blocked_grid_encode_bwd_pos_kernel<D><<<dim3(blocks, groups), threads, 0, s>>>(
+      pos, table, grad, groups > 1 ? partial : dpos, lp, n, n_levels,
+      log2_rows, morton_hash, log2_group);
+  rc = (int)cudaGetLastError();
+  if (rc != 0 || groups == 1) return rc;
+  const int nd = n * D;
+  blocked_grid_encode_bwd_pos_sum_kernel<<<(nd + kThreads - 1) / kThreads,
+                                           kThreads, 0, s>>>(partial, dpos, nd,
+                                                             groups);
+  return (int)cudaGetLastError();
+}
+
+// K5 for a D-dimensional grid: both passes on one stream, on one plan
+template <int D>
+int encode_bwd_i8(const float* pos, const float* grad, unsigned int* tile_max,
+                  float* dtable, const float* scales, const int* blocks_per_dim,
+                  const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+                  int morton_hash, int blocks, int threads, int log2_group,
+                  int log2_tile, void* stream) {
+  LevelParams lp = {};
+  int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                   log2_rows, kGroupI8Bwd, blocks, threads, log2_group);
+  if (rc != 0) return rc;
+  if (log2_tile < 5 || log2_tile > 30) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (int)(((long long)n + (1LL << log2_tile) - 1) >> log2_tile);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(blocks, n_levels >> log2_group);
+  blocked_grid_encode_bwd_i8_max_kernel<D><<<grid, threads, 0, s>>>(
+      pos, grad, tile_max, lp, n, n_levels, log2_group, log2_tile, n_tiles);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  blocked_grid_encode_bwd_i8_kernel<D><<<grid, threads, 0, s>>>(
+      pos, grad, tile_max, dtable, lp, n, n_levels, log2_rows, morton_hash,
+      log2_group, log2_tile, n_tiles);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The level group of kernel 0 = K1, 1 = K2, 2 = K4, 3 = K5, 4 = K3, so
-// the wrapper can plan their launches; -1 for any other.
+// the wrapper can plan their launches; -1 for any other. 2D and 3D grids
+// take the same groups.
 extern "C" int ngp_blocked_grid_group(int kernel) {
   switch (kernel) {
     case 0: return kGroupFwd;
@@ -769,122 +900,104 @@ extern "C" int ngp_blocked_grid_group(int kernel) {
 // Per-level arrays are host memory, n_levels entries each; they travel in
 // the kernel's parameters. Tensors are device memory, contiguous. Every
 // kernel takes the wrapper's launch plan (blocks and threads per level
-// group, log2 of the group's width).
-// K1 on a 3D grid, positions (N, 3); the _2d entry point takes a 2D grid
-// and positions (N, 2), with the same arguments.
-extern "C" int ngp_blocked_grid_encode_fwd(
-    const float* pos, const float* table, float* out,
-    const float* scales, const int* blocks_per_dim,
-    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
-    int morton_hash, int blocks, int threads, int log2_group, void* stream) {
-  return encode_fwd<3>(pos, table, out, scales, blocks_per_dim, is_dense, n,
-                       n_levels, log2_rows, morton_hash, blocks, threads,
-                       log2_group, stream);
+// group, log2 of the group's width). Each takes a 3D grid and positions
+// (N, 3); its _2d twin takes a 2D grid and positions (N, 2), with the same
+// arguments.
+#define NGP_ENCODE_FWD_ARGS                                                   \
+    const float* pos, const float* table, float* out, const float* scales,    \
+    const int* blocks_per_dim, const unsigned char* is_dense, int n,           \
+    int n_levels, int log2_rows, int morton_hash, int blocks, int threads,     \
+    int log2_group, void* stream
+#define NGP_ENCODE_FWD_PASS                                                   \
+    pos, table, out, scales, blocks_per_dim, is_dense, n, n_levels, log2_rows, \
+    morton_hash, blocks, threads, log2_group, stream
+
+// K1
+extern "C" int ngp_blocked_grid_encode_fwd(NGP_ENCODE_FWD_ARGS) {
+  return encode_fwd<3>(NGP_ENCODE_FWD_PASS);
 }
 
-extern "C" int ngp_blocked_grid_encode_fwd_2d(
-    const float* pos, const float* table, float* out,
-    const float* scales, const int* blocks_per_dim,
-    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
-    int morton_hash, int blocks, int threads, int log2_group, void* stream) {
-  return encode_fwd<2>(pos, table, out, scales, blocks_per_dim, is_dense, n,
-                       n_levels, log2_rows, morton_hash, blocks, threads,
-                       log2_group, stream);
+extern "C" int ngp_blocked_grid_encode_fwd_2d(NGP_ENCODE_FWD_ARGS) {
+  return encode_fwd<2>(NGP_ENCODE_FWD_PASS);
 }
 
-extern "C" int ngp_blocked_grid_encode_fwd_i8(
-    const float* pos, const int8_t* table, const float* qscale, float* out,
-    const float* scales, const int* blocks_per_dim,
-    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
-    int morton_hash, int blocks, int threads, int log2_group, void* stream) {
-  LevelParams lp = {};
-  const int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
-                         log2_rows, kGroupI8, blocks, threads, log2_group);
-  if (rc != 0) return rc;
-  blocked_grid_encode_fwd_i8_kernel<<<dim3(blocks, n_levels >> log2_group),
-                                      threads, 0,
-                                      static_cast<cudaStream_t>(stream)>>>(
-      pos, table, qscale, out, lp, n, n_levels, log2_rows, morton_hash,
-      log2_group);
-  return (int)cudaGetLastError();
+// K4
+#define NGP_ENCODE_FWD_I8_ARGS                                                \
+    const float* pos, const int8_t* table, const float* qscale, float* out,   \
+    const float* scales, const int* blocks_per_dim,                            \
+    const unsigned char* is_dense, int n, int n_levels, int log2_rows,         \
+    int morton_hash, int blocks, int threads, int log2_group, void* stream
+#define NGP_ENCODE_FWD_I8_PASS                                                \
+    pos, table, qscale, out, scales, blocks_per_dim, is_dense, n, n_levels,    \
+    log2_rows, morton_hash, blocks, threads, log2_group, stream
+
+extern "C" int ngp_blocked_grid_encode_fwd_i8(NGP_ENCODE_FWD_I8_ARGS) {
+  return encode_fwd_i8<3>(NGP_ENCODE_FWD_I8_PASS);
 }
 
-// K2, 3D and 2D: dtable must be zeroed by the caller; the kernel only
-// adds into it.
-extern "C" int ngp_blocked_grid_encode_bwd(
-    const float* pos, const float* grad, float* dtable,
-    const float* scales, const int* blocks_per_dim,
-    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
-    int morton_hash, int blocks, int threads, int log2_group, void* stream) {
-  return encode_bwd<3>(pos, grad, dtable, scales, blocks_per_dim, is_dense, n,
-                       n_levels, log2_rows, morton_hash, blocks, threads,
-                       log2_group, stream);
+extern "C" int ngp_blocked_grid_encode_fwd_i8_2d(NGP_ENCODE_FWD_I8_ARGS) {
+  return encode_fwd_i8<2>(NGP_ENCODE_FWD_I8_PASS);
 }
 
-extern "C" int ngp_blocked_grid_encode_bwd_2d(
-    const float* pos, const float* grad, float* dtable,
-    const float* scales, const int* blocks_per_dim,
-    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
-    int morton_hash, int blocks, int threads, int log2_group, void* stream) {
-  return encode_bwd<2>(pos, grad, dtable, scales, blocks_per_dim, is_dense, n,
-                       n_levels, log2_rows, morton_hash, blocks, threads,
-                       log2_group, stream);
+// K2: dtable must be zeroed by the caller; the kernel only adds into it.
+#define NGP_ENCODE_BWD_ARGS                                                   \
+    const float* pos, const float* grad, float* dtable, const float* scales,  \
+    const int* blocks_per_dim, const unsigned char* is_dense, int n,           \
+    int n_levels, int log2_rows, int morton_hash, int blocks, int threads,     \
+    int log2_group, void* stream
+#define NGP_ENCODE_BWD_PASS                                                   \
+    pos, grad, dtable, scales, blocks_per_dim, is_dense, n, n_levels,          \
+    log2_rows, morton_hash, blocks, threads, log2_group, stream
+
+extern "C" int ngp_blocked_grid_encode_bwd(NGP_ENCODE_BWD_ARGS) {
+  return encode_bwd<3>(NGP_ENCODE_BWD_PASS);
 }
 
-// K3: dpos (N, 3) is written in full; no zeroing needed. Where the plan
-// has more than one level group, `partial` holds (groups, N, 3) floats of
+extern "C" int ngp_blocked_grid_encode_bwd_2d(NGP_ENCODE_BWD_ARGS) {
+  return encode_bwd<2>(NGP_ENCODE_BWD_PASS);
+}
+
+// K3: dpos (N, D) is written in full; no zeroing needed. Where the plan
+// has more than one level group, `partial` holds (groups, N, D) floats of
 // scratch (written in full by pass 1, read by pass 2 on the same stream);
 // it may be null for a single group.
-extern "C" int ngp_blocked_grid_encode_bwd_pos(
-    const float* pos, const float* table, const float* grad, float* dpos,
-    float* partial, const float* scales, const int* blocks_per_dim,
-    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
-    int morton_hash, int blocks, int threads, int log2_group, void* stream) {
-  LevelParams lp = {};
-  int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
-                   log2_rows, kGroupPos, blocks, threads, log2_group);
-  if (rc != 0) return rc;
-  const int groups = n_levels >> log2_group;
-  if ((groups > 1 && partial == nullptr) || n > INT_MAX / kDims)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  blocked_grid_encode_bwd_pos_kernel<<<dim3(blocks, groups), threads, 0, s>>>(
-      pos, table, grad, groups > 1 ? partial : dpos, lp, n, n_levels,
-      log2_rows, morton_hash, log2_group);
-  rc = (int)cudaGetLastError();
-  if (rc != 0 || groups == 1) return rc;
-  const int n3 = n * kDims;
-  blocked_grid_encode_bwd_pos_sum_kernel<<<(n3 + kThreads - 1) / kThreads,
-                                           kThreads, 0, s>>>(partial, dpos, n3,
-                                                             groups);
-  return (int)cudaGetLastError();
+#define NGP_ENCODE_BWD_POS_ARGS                                               \
+    const float* pos, const float* table, const float* grad, float* dpos,     \
+    float* partial, const float* scales, const int* blocks_per_dim,            \
+    const unsigned char* is_dense, int n, int n_levels, int log2_rows,         \
+    int morton_hash, int blocks, int threads, int log2_group, void* stream
+#define NGP_ENCODE_BWD_POS_PASS                                               \
+    pos, table, grad, dpos, partial, scales, blocks_per_dim, is_dense, n,      \
+    n_levels, log2_rows, morton_hash, blocks, threads, log2_group, stream
+
+extern "C" int ngp_blocked_grid_encode_bwd_pos(NGP_ENCODE_BWD_POS_ARGS) {
+  return encode_bwd_pos<3>(NGP_ENCODE_BWD_POS_PASS);
 }
 
-// K5, both passes on one stream, on one plan. tile_max (L * ceil(n /
-// 2^log2_tile) uint32) and dtable must be zeroed by the caller. A tile of
-// at least 32 samples holds every warp's samples whole.
-extern "C" int ngp_blocked_grid_encode_bwd_i8(
-    const float* pos, const float* grad, unsigned int* tile_max,
-    float* dtable, const float* scales, const int* blocks_per_dim,
-    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
-    int morton_hash, int blocks, int threads, int log2_group, int log2_tile,
-    void* stream) {
-  LevelParams lp = {};
-  int rc = prepare(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
-                   log2_rows, kGroupI8Bwd, blocks, threads, log2_group);
-  if (rc != 0) return rc;
-  if (log2_tile < 5 || log2_tile > 30) return (int)cudaErrorInvalidValue;
-  const int n_tiles = (int)(((long long)n + (1LL << log2_tile) - 1) >> log2_tile);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(blocks, n_levels >> log2_group);
-  blocked_grid_encode_bwd_i8_max_kernel<<<grid, threads, 0, s>>>(
-      pos, grad, tile_max, lp, n, n_levels, log2_group, log2_tile, n_tiles);
-  rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  blocked_grid_encode_bwd_i8_kernel<<<grid, threads, 0, s>>>(
-      pos, grad, tile_max, dtable, lp, n, n_levels, log2_rows, morton_hash,
-      log2_group, log2_tile, n_tiles);
-  return (int)cudaGetLastError();
+extern "C" int ngp_blocked_grid_encode_bwd_pos_2d(NGP_ENCODE_BWD_POS_ARGS) {
+  return encode_bwd_pos<2>(NGP_ENCODE_BWD_POS_PASS);
+}
+
+// K5: tile_max (L * ceil(n / 2^log2_tile) uint32) and dtable must be
+// zeroed by the caller. A tile of at least 32 samples holds every warp's
+// samples whole.
+#define NGP_ENCODE_BWD_I8_ARGS                                                \
+    const float* pos, const float* grad, unsigned int* tile_max,              \
+    float* dtable, const float* scales, const int* blocks_per_dim,             \
+    const unsigned char* is_dense, int n, int n_levels, int log2_rows,         \
+    int morton_hash, int blocks, int threads, int log2_group, int log2_tile,   \
+    void* stream
+#define NGP_ENCODE_BWD_I8_PASS                                                \
+    pos, grad, tile_max, dtable, scales, blocks_per_dim, is_dense, n,          \
+    n_levels, log2_rows, morton_hash, blocks, threads, log2_group, log2_tile,  \
+    stream
+
+extern "C" int ngp_blocked_grid_encode_bwd_i8(NGP_ENCODE_BWD_I8_ARGS) {
+  return encode_bwd_i8<3>(NGP_ENCODE_BWD_I8_PASS);
+}
+
+extern "C" int ngp_blocked_grid_encode_bwd_i8_2d(NGP_ENCODE_BWD_I8_ARGS) {
+  return encode_bwd_i8<2>(NGP_ENCODE_BWD_I8_PASS);
 }
 
 extern "C" const char* ngp_cuda_error_string(int code) {

@@ -28,18 +28,22 @@ GH = NERF_GRIDSIZE // 2    # 64 (byte-block grid side)
 
 # --- Morton order at the snapshot boundary ------------------------------------
 
-def _morton_perm() -> np.ndarray:
-    """linear index → Morton index, one 128³ cascade."""
-    idx = np.arange(GRID_VOLUME, dtype=np.uint32)
-
+def morton3d(x, y, z) -> np.ndarray:
+    """The Morton code of 10-bit coordinates (numpy integer arrays), int64
+    (the JAX package's ``grid.occupancy.morton3d``)."""
     def part(v):
-        v = v & 0x3FF
+        v = np.asarray(v).astype(np.uint32) & 0x3FF
         v = (v | (v << 16)) & 0x030000FF
         v = (v | (v << 8)) & 0x0300F00F
         v = (v | (v << 4)) & 0x030C30C3
         return (v | (v << 2)) & 0x09249249
-    x, y, z = idx % G, (idx // G) % G, idx // (G * G)
     return (part(x) | (part(y) << 1) | (part(z) << 2)).astype(np.int64)
+
+
+def _morton_perm() -> np.ndarray:
+    """linear index → Morton index, one 128³ cascade."""
+    idx = np.arange(GRID_VOLUME, dtype=np.uint32)
+    return morton3d(idx % G, (idx // G) % G, idx // (G * G))
 
 
 def density_to_morton(density: np.ndarray) -> np.ndarray:

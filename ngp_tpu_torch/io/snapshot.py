@@ -136,9 +136,10 @@ def load_snapshot(path) -> dict:
 
 
 def save_encoded_snapshot(path, network_config: dict, trainer) -> None:
-    """A snapshot of an image or SDF trainer (``model`` an EncodedNetwork,
-    ``params``, ``opt_state``, ``training_step``): its parameters, their
-    EMA and the step, as the JAX testbed saves a generic trainer
+    """A snapshot of an image, SDF or volume trainer (``model`` an
+    EncodedNetwork, ``params``, ``opt_state``, ``training_step``): its
+    parameters, their EMA and the step, as the JAX testbed saves a generic
+    trainer
     (ngp_tpu/api/testbed.py:870-888)."""
     from ngp_tpu_torch import bridge
     save_snapshot(
@@ -150,8 +151,8 @@ def save_encoded_snapshot(path, network_config: dict, trainer) -> None:
 
 
 def load_encoded_snapshot_state(path, trainer) -> dict:
-    """Restore an image or SDF trainer's parameters, EMA and step, in
-    place, from a snapshot of either package; returns the document."""
+    """Restore an image, SDF or volume trainer's parameters, EMA and step,
+    in place, from a snapshot of either package; returns the document."""
     import torch
 
     from ngp_tpu_torch import bridge

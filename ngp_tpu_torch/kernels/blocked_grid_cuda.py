@@ -1,9 +1,8 @@
 """Wrappers of the hand-written CUDA blocked-grid kernels: K1 (encode
 forward), K2 (table backward), K3 (position backward), K4 (int8-table
-forward) and K5 (int8 table backward). K1 and K2 take 3D and 2D grids (the
-2D ones launch as ``blocked_grid_encode_fwd_2d`` and
-``blocked_grid_encode_bwd_2d``); K3, K4 and K5 take 3D grids only and
-raise NotImplementedError for a 2D grid on the card.
+forward) and K5 (int8 table backward). Each takes 3D and 2D grids; a 2D
+grid launches the kernel's ``_2d`` entry point and counts under its own
+name (``launch_name``: ``blocked_grid_encode_fwd_2d`` and so on).
 
 ``blocked_grid_encode``, ``blocked_grid_encode_i8fwd``,
 ``blocked_grid_encode_int8`` and ``encode_quantized`` are the entry
@@ -46,13 +45,17 @@ BUILD_DIR = _PKG.parent / "build" / "ngp_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel launches since the last reset, by kernel; each count is raised
-# only where its kernel is launched, so a run can show that its main path
-# went through the kernels.
-launches = {"blocked_grid_encode_fwd": 0, "blocked_grid_encode_bwd": 0,
-            "blocked_grid_encode_bwd_pos": 0, "blocked_grid_encode_fwd_i8": 0,
-            "blocked_grid_encode_bwd_i8": 0, "blocked_grid_encode_fwd_2d": 0,
-            "blocked_grid_encode_bwd_2d": 0}
+# the kernels by launch name, in the order of ``ngp_blocked_grid_group``'s
+# argument (K1, K2, K4, K5, K3)
+GROUP_KERNELS = ("blocked_grid_encode_fwd", "blocked_grid_encode_bwd",
+                 "blocked_grid_encode_fwd_i8", "blocked_grid_encode_bwd_i8",
+                 "blocked_grid_encode_bwd_pos")
+
+# Kernel launches since the last reset, by launch name (``launch_name``:
+# each kernel on 3D and on 2D grids); each count is raised only where its
+# kernel is launched, so a run can show that its main path went through
+# the kernels.
+launches = {f"{k}{d}": 0 for d in ("", "_2d") for k in GROUP_KERNELS}
 
 _lib = None
 build_log = ""
@@ -95,26 +98,22 @@ def load_library(path: Path) -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     levels = [vp, vp, vp, ci, ci, ci, ci, vp]   # per-level arrays … stream
     planned = levels[:-1] + [ci, ci, ci, vp]    # … blocks, threads, log2 group
-    lib.ngp_blocked_grid_encode_fwd.argtypes = [vp, vp, vp] + planned
-    lib.ngp_blocked_grid_encode_bwd.argtypes = [vp, vp, vp] + planned
-    lib.ngp_blocked_grid_encode_fwd_i8.argtypes = [vp, vp, vp, vp] + planned
-    lib.ngp_blocked_grid_encode_bwd_pos.argtypes = [vp] * 5 + planned
-    lib.ngp_blocked_grid_encode_bwd_i8.argtypes = ([vp, vp, vp, vp]
-                                                   + planned[:-1] + [ci, vp])
+    argtypes = {"blocked_grid_encode_fwd": [vp, vp, vp] + planned,
+                "blocked_grid_encode_bwd": [vp, vp, vp] + planned,
+                "blocked_grid_encode_fwd_i8": [vp, vp, vp, vp] + planned,
+                "blocked_grid_encode_bwd_pos": [vp] * 5 + planned,
+                "blocked_grid_encode_bwd_i8": ([vp, vp, vp, vp]
+                                               + planned[:-1] + [ci, vp])}
     lib.ngp_blocked_grid_group.argtypes = [ci]
-    fns = [lib.ngp_blocked_grid_encode_fwd, lib.ngp_blocked_grid_encode_bwd,
-           lib.ngp_blocked_grid_encode_bwd_pos,
-           lib.ngp_blocked_grid_encode_fwd_i8,
-           lib.ngp_blocked_grid_encode_bwd_i8, lib.ngp_blocked_grid_group]
-    # K1 and K2 on 2D grids; a library built from sources without them
-    # (a baseline of scripts/encode_group_sweep.py) serves 3D only
-    for name in ("ngp_blocked_grid_encode_fwd_2d",
-                 "ngp_blocked_grid_encode_bwd_2d"):
-        if hasattr(lib, name):
-            getattr(lib, name).argtypes = [vp, vp, vp] + planned
-            fns.append(getattr(lib, name))
-    for fn in fns:
-        fn.restype = ci
+    lib.ngp_blocked_grid_group.restype = ci
+    for name, types in argtypes.items():
+        # the 2D twins; a library built from older sources without some of
+        # them (a baseline of scripts/encode_group_sweep.py) serves 3D
+        # there
+        for entry in (f"ngp_{name}", f"ngp_{name}_2d"):
+            if hasattr(lib, entry):
+                fn = getattr(lib, entry)
+                fn.argtypes, fn.restype = types, ci
     lib.ngp_cuda_error_string.argtypes = [ci]
     lib.ngp_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -135,11 +134,6 @@ def build() -> ctypes.CDLL:
 # threads per block of the planned launches
 THREADS = 256
 
-# the kernels ``ngp_blocked_grid_group`` knows, by launch name, in the
-# order of its argument
-GROUP_KERNELS = ("blocked_grid_encode_fwd", "blocked_grid_encode_bwd",
-                 "blocked_grid_encode_fwd_i8", "blocked_grid_encode_bwd_i8",
-                 "blocked_grid_encode_bwd_pos")
 # the level groups scripts/encode_group_sweep.py times each kernel at; the
 # source's groups are the fastest of these
 SWEPT_GROUPS = (4, 8, 16)
@@ -192,16 +186,10 @@ def launch_plan(n: int, n_levels: int, group: int,
                       -(-n * width // threads), n_levels // width)
 
 
-def _check(meta: BlockedGridMeta, pos: torch.Tensor, *tensors,
-           kernel: str = "", dims=(3,)):
+def _check(meta: BlockedGridMeta, pos: torch.Tensor, *tensors):
     """Raise on what the kernels do not take: every tensor on one CUDA
-    device and contiguous, float32 positions (N, D) of the grid's D, F=2, a
-    known row hash. ``kernel`` takes grids of ``dims`` dimensions; another
-    grid raises NotImplementedError, as that kernel is not ported for
-    it."""
-    if meta.n_dims not in dims:
-        raise NotImplementedError(f"{kernel} on a {meta.n_dims}D grid: not "
-                                  "ported to CUDA")
+    device and contiguous, float32 positions (N, D) of the grid's D (2 or
+    3), F=2, a known row hash."""
     if not all(t.is_cuda and t.device == pos.device for t in (pos, *tensors)):
         raise ValueError("blocked-grid kernel: all tensors must be on one "
                          "CUDA device")
@@ -289,8 +277,9 @@ def _run(name: str, fn, *args):
 
 
 def launch_name(kernel: str, meta: BlockedGridMeta) -> str:
-    """The launch name (a key of ``launches``) of K1 or K2 on ``meta``'s
-    grid: ``kernel`` itself in 3D, ``kernel + "_2d"`` in 2D."""
+    """The launch name (a key of ``launches``) of ``kernel`` (one of
+    ``GROUP_KERNELS``) on ``meta``'s grid: ``kernel`` itself in 3D,
+    ``kernel + "_2d"`` in 2D."""
     return kernel if meta.n_dims == 3 else f"{kernel}_2d"
 
 
@@ -298,7 +287,7 @@ def launch_fwd(table: torch.Tensor, pos: torch.Tensor,
                meta: BlockedGridMeta) -> torch.Tensor:
     """K1: (L, R, 128) f32 table + (N, D) positions → (N, L·2), D = 3 or
     2."""
-    _check(meta, pos, table, kernel="K1", dims=(2, 3))
+    _check(meta, pos, table)
     _check_table(table, meta, torch.float32)
     out = torch.empty((pos.shape[0], meta.n_levels * 2), dtype=torch.float32,
                       device=pos.device)
@@ -315,9 +304,9 @@ def launch_fwd(table: torch.Tensor, pos: torch.Tensor,
 
 def launch_fwd_i8(table_q: torch.Tensor, qscales: torch.Tensor,
                   pos: torch.Tensor, meta: BlockedGridMeta) -> torch.Tensor:
-    """K4: (L, R, 128) int8 table + (L,) f32 scales + (N, 3) positions →
-    (N, L·2)."""
-    _check(meta, pos, table_q, qscales, kernel="K4")
+    """K4: (L, R, 128) int8 table + (L,) f32 scales + (N, D) positions →
+    (N, L·2), D = 3 or 2."""
+    _check(meta, pos, table_q, qscales)
     _check_table(table_q, meta, torch.int8)
     if qscales.dtype != torch.float32 or tuple(qscales.shape) != (
             meta.n_levels,):
@@ -327,11 +316,11 @@ def launch_fwd_i8(table_q: torch.Tensor, qscales: torch.Tensor,
     if pos.shape[0] == 0:
         return out
     lib = build()
+    name = launch_name("blocked_grid_encode_fwd_i8", meta)
     args, _keep = _planned_args(meta, pos, kernel_plan(
         "blocked_grid_encode_fwd_i8", pos.shape[0], meta))
-    _run("blocked_grid_encode_fwd_i8", lib.ngp_blocked_grid_encode_fwd_i8,
-         pos.data_ptr(), table_q.data_ptr(), qscales.data_ptr(),
-         out.data_ptr(), *args)
+    _run(name, getattr(lib, f"ngp_{name}"), pos.data_ptr(),
+         table_q.data_ptr(), qscales.data_ptr(), out.data_ptr(), *args)
     return out
 
 
@@ -339,7 +328,7 @@ def launch_bwd(pos: torch.Tensor, grad: torch.Tensor,
                meta: BlockedGridMeta) -> torch.Tensor:
     """K2: (N, D) positions + (N, L·2) f32 cotangent → dTable
     (L, R, 128) f32, D = 3 or 2."""
-    _check(meta, pos, grad, kernel="K2", dims=(2, 3))
+    _check(meta, pos, grad)
     _check_cotangent(pos, grad, meta)
     dtable = torch.zeros((meta.n_levels, meta.rows, LANES),
                          dtype=torch.float32, device=pos.device)
@@ -356,33 +345,34 @@ def launch_bwd(pos: torch.Tensor, grad: torch.Tensor,
 
 def launch_bwd_pos(table: torch.Tensor, pos: torch.Tensor,
                    grad: torch.Tensor, meta: BlockedGridMeta) -> torch.Tensor:
-    """K3: (L, R, 128) f32 table + (N, 3) positions + (N, L·2) f32
-    cotangent → dpos (N, 3) f32."""
-    _check(meta, pos, table, grad, kernel="K3")
+    """K3: (L, R, 128) f32 table + (N, D) positions + (N, L·2) f32
+    cotangent → dpos (N, D) f32, D = 3 or 2."""
+    _check(meta, pos, table, grad)
     _check_table(table, meta, torch.float32)
     _check_cotangent(pos, grad, meta)
-    n = pos.shape[0]
-    dpos = torch.empty((n, 3), dtype=torch.float32, device=pos.device)
+    n, d = pos.shape
+    dpos = torch.empty((n, d), dtype=torch.float32, device=pos.device)
     if n == 0:
         return dpos
     lib = build()
+    name = launch_name("blocked_grid_encode_bwd_pos", meta)
     plan = kernel_plan("blocked_grid_encode_bwd_pos", n, meta)
     # each level group's sum, added up in group order by the second pass
-    partial = (torch.empty((plan.groups, n, 3), dtype=torch.float32,
+    partial = (torch.empty((plan.groups, n, d), dtype=torch.float32,
                            device=pos.device) if plan.groups > 1 else None)
     args, _keep = _planned_args(meta, pos, plan)
-    _run("blocked_grid_encode_bwd_pos", lib.ngp_blocked_grid_encode_bwd_pos,
-         pos.data_ptr(), table.data_ptr(), grad.data_ptr(), dpos.data_ptr(),
+    _run(name, getattr(lib, f"ngp_{name}"), pos.data_ptr(), table.data_ptr(),
+         grad.data_ptr(), dpos.data_ptr(),
          None if partial is None else partial.data_ptr(), *args)
     return dpos
 
 
 def launch_bwd_i8(pos: torch.Tensor, grad: torch.Tensor,
                   meta: BlockedGridMeta, tile: int) -> torch.Tensor:
-    """K5: (N, 3) positions + (N, L·2) f32 cotangent → dTable (L, R, 128)
+    """K5: (N, D) positions + (N, L·2) f32 cotangent → dTable (L, R, 128)
     f32, the products w·g quantised to int8 per (level, tile of ``tile``
-    samples)."""
-    _check(meta, pos, grad, kernel="K5")
+    samples), D = 3 or 2."""
+    _check(meta, pos, grad)
     _check_cotangent(pos, grad, meta)
     if tile < 32 or tile & (tile - 1):
         raise ValueError(f"int8 backward tile must be a power of two ≥ 32, "
@@ -398,9 +388,10 @@ def launch_bwd_i8(pos: torch.Tensor, grad: torch.Tensor,
     plan = kernel_plan("blocked_grid_encode_bwd_i8", pos.shape[0], meta)
     check_warps_in_tiles(plan, tile)
     args, _keep = _planned_args(meta, pos, plan)
-    _run("blocked_grid_encode_bwd_i8", lib.ngp_blocked_grid_encode_bwd_i8,
-         pos.data_ptr(), grad.data_ptr(), tile_max.data_ptr(),
-         dtable.data_ptr(), *args[:-1], tile.bit_length() - 1, args[-1])
+    name = launch_name("blocked_grid_encode_bwd_i8", meta)
+    _run(name, getattr(lib, f"ngp_{name}"), pos.data_ptr(), grad.data_ptr(),
+         tile_max.data_ptr(), dtable.data_ptr(), *args[:-1],
+         tile.bit_length() - 1, args[-1])
     return dtable
 
 
@@ -409,6 +400,15 @@ def launch_bwd_i8(pos: torch.Tensor, grad: torch.Tensor,
 # "full" the int8 forward and the int8-quantised table backward (K5). The
 # position gradient (K3) reads the f32 table in every mode.
 INT8_MODES = ("", "fwd", "full")
+
+
+def check_int8_mode(mode: str) -> str:
+    """``mode`` if it is one of ``INT8_MODES``; raises ValueError
+    otherwise."""
+    if mode not in INT8_MODES:
+        raise ValueError(f"int8 mode must be one of {INT8_MODES}, got "
+                         f"{mode!r}")
+    return mode
 
 
 class _BlockedGridEncode(torch.autograd.Function):
@@ -459,7 +459,7 @@ def _encode(table, pos, meta, mode: str, tile: int):
 def blocked_grid_encode(table: torch.Tensor, pos: torch.Tensor,
                         meta: BlockedGridMeta) -> torch.Tensor:
     """(L, R, 128) table + (N, D) positions → (N, L·2) features; K1 forward,
-    K2 table backward, K3 position backward (3D only on the card)."""
+    K2 table backward, K3 position backward."""
     return _encode(table, pos, meta, "", 0)
 
 
@@ -504,6 +504,5 @@ def encode_mode(table: torch.Tensor, pos: torch.Tensor,
         return blocked_grid_encode_int8(table, pos, meta, tile)
     if mode == "fwd":
         return blocked_grid_encode_i8fwd(table, pos, meta)
-    if mode == "":
-        return blocked_grid_encode(table, pos, meta)
-    raise ValueError(f"int8 mode must be one of {INT8_MODES}, got {mode!r}")
+    check_int8_mode(mode)
+    return blocked_grid_encode(table, pos, meta)

@@ -2,7 +2,8 @@
 Frequency, OneBlob, SphericalHarmonics (degree ≤ 4), Composite, the blocked
 hash grid (2D and 3D) and the tcnn-layout hash and dense grids. Each is an
 ``nn.Module`` mapping (N, n_dims) → (N, n_output_dims); a grid holds its
-table as the parameter ``table``."""
+table as the parameter ``table``. ``encode`` runs any of them in one of
+the blocked grid's int8 modes."""
 from __future__ import annotations
 
 import math
@@ -125,7 +126,8 @@ class SphericalHarmonics(nn.Module):
 
 class Composite(nn.Module):
     """Applies nested encodings to consecutive slices of the input
-    (ref: dir_encoding in configs/nerf/base.json)."""
+    (ref: dir_encoding in configs/nerf/base.json). ``int8`` and ``tile``
+    reach every nested grid (``encode``)."""
 
     def __init__(self, parts: Sequence[tuple[int, nn.Module]]):
         super().__init__()
@@ -133,10 +135,10 @@ class Composite(nn.Module):
         self.parts = nn.ModuleList([e for _, e in parts])
         self.n_output_dims = sum(e.n_output_dims for e in self.parts)
 
-    def forward(self, x):
+    def forward(self, x, int8: str = "", tile: Optional[int] = None):
         outs, off = [], 0
         for nd, enc in zip(self.dims, self.parts):
-            outs.append(enc(x[..., off:off + nd]))
+            outs.append(encode(enc, x[..., off:off + nd], int8, tile))
             off += nd
         return torch.cat(outs, dim=-1)
 
@@ -196,6 +198,17 @@ class GridEncoding(nn.Module):
                                       "blocked grid only")
         return hashgrid_encode_with_max_level(self.table, x, self.meta,
                                               max_level)
+
+
+def encode(enc: nn.Module, x, int8: str = "", tile: Optional[int] = None):
+    """``enc(x)`` in the int8 mode ``int8`` (the JAX package's
+    ``NGP_TPU_ENCODE_INT8``, which every blocked grid reads, nested ones
+    included): the grids and ``Composite`` take the mode, the tcnn-layout
+    grid refuses any but ``""``, and the analytic encodings ignore it, as
+    in the JAX package."""
+    if isinstance(enc, (BlockedGridEncoding, GridEncoding, Composite)):
+        return enc(x, int8=int8, tile=tile)
+    return enc(x)
 
 
 def create_encoding(n_dims: int, cfg: dict,

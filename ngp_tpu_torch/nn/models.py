@@ -15,7 +15,7 @@ from torch import nn
 
 from ngp_tpu_torch.common import NerfActivation, network_activation
 from ngp_tpu_torch.config import autofill_hashgrid_config
-from ngp_tpu_torch.nn.encodings import create_encoding
+from ngp_tpu_torch.nn.encodings import create_encoding, encode
 from ngp_tpu_torch.nn.mlp import MLP
 
 # 1 density + 15 latent features fed to the RGB head
@@ -28,7 +28,9 @@ class EncodedNetwork(nn.Module):
     Parameters: ``encoding.*`` (a grid's table; none for the analytic
     encodings) and ``net.weights.<i>``. ``grid_impl`` as in
     ``create_encoding``: ``"tcnn"`` builds the tcnn-layout grid whose flat
-    table a reference snapshot holds."""
+    table a reference snapshot holds. ``forward(x, int8, tile)`` encodes in
+    the blocked grid's int8 mode ``int8`` (``""``, ``"fwd"`` or
+    ``"full"``; ``nn/encodings.encode``)."""
 
     def __init__(self, n_input_dims: int, n_output_dims: int,
                  encoding_cfg: dict, network_cfg: dict,
@@ -43,8 +45,8 @@ class EncodedNetwork(nn.Module):
                                    n_output_dims, network_cfg, generator,
                                    device)
 
-    def forward(self, x):
-        return self.net(self.encoding(x))
+    def forward(self, x, int8: str = "", tile: Optional[int] = None):
+        return self.net(encode(self.encoding, x, int8, tile))
 
     def matrix_param_names(self) -> set[str]:
         """The MLP matrices: L2-regularised and never frozen by the

@@ -6,7 +6,9 @@ iteration evaluates the network at the rays still alive (a ray dies on a
 hit, |d| < hit_epsilon, or when it leaves the cube), up to ``max_iters``
 or until none is alive. Normals come from central differences or, with
 ``analytic_normals``, from autograd through the network: the encode's
-position backward (K3 on the card). Hit points are shaded with a sun
+position backward (K3 on the card, in every int8 mode: it reads the f32
+table, as the JAX package's int8 backward does). The network runs in the
+options' ``encode_int8`` mode. Hit points are shaded with a sun
 (Lambert and a Phong-like specular lobe with the BRDF knobs), soft shadows
 marched towards the sun, an ambient term and the background colour.
 
@@ -37,6 +39,7 @@ class SdfRenderOptions:
     distance_scale: float = 1.0      # zero_offset/scale knobs (ref GUI)
     hit_epsilon: float = 5e-4
     chunk: int = 1 << 15
+    encode_int8: str = ""            # the encode's int8 mode (the trainer's)
     analytic_normals: bool = False
     fd_normals_epsilon: float = 1e-3
     sun_dir: tuple = (0.577, 0.577, 0.577)
@@ -64,7 +67,8 @@ class SdfRenderer:
         self.opts = opts or SdfRenderOptions()
 
     def _dist(self, params, p: torch.Tensor) -> torch.Tensor:
-        return functional_call(self.model, params, (p,))[:, 0].to(
+        return functional_call(self.model, params, (p,), {
+            "int8": self.opts.encode_int8})[:, 0].to(
             torch.float32) * self.opts.distance_scale
 
     def _trace(self, params, o, d):
@@ -96,7 +100,8 @@ class SdfRenderer:
             q = p.clone().requires_grad_(True)
             detached = {k: v.detach() for k, v in params.items()}
             with torch.enable_grad():
-                out = functional_call(self.model, detached, (q,))[:, 0]
+                out = functional_call(self.model, detached, (q,), {
+                    "int8": opts.encode_int8})[:, 0]
                 (g,) = torch.autograd.grad(out.to(torch.float32).sum(), q)
             return g
         eps = opts.fd_normals_epsilon

@@ -1,11 +1,13 @@
-"""Train / evaluate / render runner in NeRF, SDF and image mode (port of
-``scripts/run.py``, the reference's scripts/run.py workflow):
+"""Train / evaluate / render runner in NeRF, SDF, image and volume mode
+(port of ``scripts/run.py``, the reference's scripts/run.py workflow):
 
     python -m ngp_tpu_torch.run --scene data/nerf/fox --n_steps 2000 \\
         --save_snapshot out.msgpack --test_transforms transforms_test.json \\
         --screenshot_transforms transforms_test.json --width 640 --height 360
     python -m ngp_tpu_torch.run --mode sdf --scene mesh.obj --n_steps 512 \\
         --save_snapshot sdf.msgpack
+    NGP_TPU_ENCODE_INT8=full python -m ngp_tpu_torch.run --scene cloud.nvdb \\
+        --n_steps 1024 --save_snapshot volume.msgpack
 
 Mode inference (or ``--mode``), config resolution, training with
 ``iteration=`` prints, snapshot save/load, held-out PSNR/SSIM (black
@@ -35,7 +37,8 @@ def parse_args(argv=None):
     p.add_argument("--scene", "--training_data", default="",
                    help="scene dir / transforms.json")
     p.add_argument("--mode", default="",
-                   help="nerf|sdf|image (inferred from the scene if empty)")
+                   help="nerf|sdf|image|volume (inferred from the scene if "
+                        "empty)")
     p.add_argument("--network", default="", help="network config json")
     p.add_argument("--load_snapshot", default="")
     p.add_argument("--save_snapshot", default="")

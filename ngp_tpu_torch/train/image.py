@@ -6,8 +6,14 @@ up at them (bilinear or snapped to pixel centres, in linear or sRGB
 colours), runs the ``EncodedNetwork`` on a 2D blocked grid (K1 on the
 card), takes the loss times ``LOSS_SCALE``, backpropagates (the table's
 gradient through K2 on the card) and updates the parameters in place with
-Adam and the EMA. The positions do not require a gradient, so the 2D
-position backward (K3) never runs.
+Adam and the EMA. ``encode_int8`` (the JAX package's
+``NGP_TPU_ENCODE_INT8``) runs the encode on the int8-quantised table in
+training and inference alike: ``"fwd"`` the 2D K4 forward with the K2
+backward, ``"full"`` K4 with the int8 table backward (K5); the table is
+quantised at every call, as in the JAX package. The positions of a step
+do not require a gradient; a caller's gradient by uv
+(``torch.autograd.grad`` of the network at positions that require one)
+runs the 2D position backward (K3) in every mode.
 
 Intended divergences from the JAX package: the stratified and uniform
 position draws come from a ``torch.Generator`` on the trainer's device
@@ -28,6 +34,7 @@ from ngp_tpu_torch.common import (LOSS_SCALE, linear_to_srgb, mse2psnr,
 from ngp_tpu_torch.config import autofill_hashgrid_config
 from ngp_tpu_torch.io.snapshot import (load_encoded_snapshot_state,
                                       save_encoded_snapshot)
+from ngp_tpu_torch.kernels.blocked_grid_cuda import check_int8_mode
 from ngp_tpu_torch.nn.models import EncodedNetwork
 from ngp_tpu_torch.opt.losses import create_loss
 from ngp_tpu_torch.opt.optimizers import (AdamConfig, apply_update,
@@ -84,10 +91,13 @@ def pixel_centres(width: int, height: int, device=None) -> torch.Tensor:
 class ImageTrainer:
     """Model and optimizer state of a neural-image fit, on one device (the
     card unless the caller asks for another). ``image`` is (H, W, C)
-    linear float; its first 3 channels are fitted."""
+    linear float; its first 3 channels are fitted. ``encode_int8`` is the
+    encode's int8 mode (``""``, ``"fwd"`` or ``"full"``)."""
 
     def __init__(self, image: np.ndarray, config: dict, seed: int = 1337,
-                 batch_size: int = 1 << 18, device="cuda"):
+                 batch_size: int = 1 << 18, device="cuda",
+                 encode_int8: str = ""):
+        self.encode_int8 = check_int8_mode(encode_int8)
         self.device = dev = resolve_device(device)
         self.image = torch.as_tensor(np.ascontiguousarray(image[..., :3]),
                                      dtype=torch.float32, device=dev)
@@ -130,7 +140,7 @@ class ImageTrainer:
         targets, pos = _eval_image(self.image, pos,
                                    self.snap_to_pixel_centers,
                                    self.linear_colors)
-        pred = self.model(pos)
+        pred = self.model(pos, int8=self.encode_int8)
         scaled = torch.mean(self.loss(targets, pred.to(torch.float32))) \
             * LOSS_SCALE
         names = list(self.params)
@@ -158,9 +168,10 @@ class ImageTrainer:
     @torch.inference_mode()
     def _predict(self, pos: torch.Tensor) -> torch.Tensor:
         """The network (inference parameters) at ``pos`` on the device,
-        in chunks of EVAL_CHUNK; (N, 3) f32."""
+        in chunks of EVAL_CHUNK, in the trainer's int8 mode; (N, 3) f32."""
         p = self.inference_params()
-        return torch.cat([functional_call(self.model, p, (c,)).to(
+        mode = {"int8": self.encode_int8}
+        return torch.cat([functional_call(self.model, p, (c,), mode).to(
             torch.float32) for c in pos.split(EVAL_CHUNK)])
 
     def eval_positions(self, pos: np.ndarray) -> np.ndarray:

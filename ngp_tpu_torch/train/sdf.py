@@ -10,7 +10,9 @@ perturbation, 1/8 uniform in the unit cube, shuffled. The draws come from
 the same C++, so for one seed the batches are the JAX package's bit for
 bit. The step runs the ``EncodedNetwork`` on a 3D blocked grid (K1 forward,
 K2 table backward on the card) and updates the parameters in place with
-Adam and the EMA.
+Adam and the EMA. ``encode_int8`` (the JAX package's
+``NGP_TPU_ENCODE_INT8``) runs the encode on the int8-quantised table in
+training and inference: ``"fwd"`` K4 with K2, ``"full"`` K4 with K5.
 
 Not ported: the Takikawa octree encoding and its octree-uniform sampling
 (``create_encoding`` raises NotImplementedError for "Takikawa"). Intended
@@ -31,6 +33,7 @@ from ngp_tpu_torch.config import autofill_hashgrid_config
 from ngp_tpu_torch.data.mesh import TriangleBvh, load_mesh
 from ngp_tpu_torch.io.snapshot import (load_encoded_snapshot_state,
                                       save_encoded_snapshot)
+from ngp_tpu_torch.kernels.blocked_grid_cuda import check_int8_mode
 from ngp_tpu_torch.nn.models import EncodedNetwork
 from ngp_tpu_torch.opt.losses import create_loss
 from ngp_tpu_torch.opt.optimizers import (AdamConfig, apply_update,
@@ -42,11 +45,14 @@ EVAL_CHUNK = 1 << 18
 
 class SdfTrainer:
     """Mesh, BVH, model and optimizer state of an SDF fit, on one device
-    (the card unless the caller asks for another)."""
+    (the card unless the caller asks for another); ``encode_int8`` is the
+    encode's int8 mode (``""``, ``"fwd"`` or ``"full"``)."""
 
     def __init__(self, mesh_path, config: dict, seed: int = 1337,
                  batch_size: int = 1 << 18,
-                 sign_mode: int = TriangleBvh.MODE_RAYSTAB, device="cuda"):
+                 sign_mode: int = TriangleBvh.MODE_RAYSTAB, device="cuda",
+                 encode_int8: str = ""):
+        self.encode_int8 = check_int8_mode(encode_int8)
         self.device = dev = resolve_device(device)
         self.vertices, self.faces, self.mesh_scale, self.mesh_offset = \
             load_mesh(mesh_path)
@@ -109,7 +115,7 @@ class SdfTrainer:
         pos = torch.as_tensor(pos, dtype=torch.float32, device=self.device)
         target = torch.as_tensor(dist, dtype=torch.float32,
                                  device=self.device)
-        pred = self.model(pos)[:, 0].to(torch.float32)
+        pred = self.model(pos, int8=self.encode_int8)[:, 0].to(torch.float32)
         scaled = torch.mean(self.loss(target, pred)) * LOSS_SCALE
         names = list(self.params)
         grads = dict(zip(names, torch.autograd.grad(
@@ -144,11 +150,12 @@ class SdfTrainer:
     @torch.inference_mode()
     def distance_at(self, pos: np.ndarray,
                     chunk: int = EVAL_CHUNK) -> np.ndarray:
-        """The network's distance (inference parameters) at (N, 3)
-        positions, as numpy."""
+        """The network's distance (inference parameters, the trainer's
+        int8 mode) at (N, 3) positions, as numpy."""
         p = self.inference_params()
+        mode = {"int8": self.encode_int8}
         pos = torch.as_tensor(np.asarray(pos, np.float32), device=self.device)
-        return torch.cat([functional_call(self.model, p, (c,))[:, 0].to(
+        return torch.cat([functional_call(self.model, p, (c,), mode)[:, 0].to(
             torch.float32) for c in pos.split(chunk)]).cpu().numpy()
 
     def calculate_iou(self, n_samples: int = 1 << 21, seed: int = 0,

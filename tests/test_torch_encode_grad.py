@@ -20,6 +20,9 @@ from test_torch_blocked_grid import (SMALL, SMALL_IDS, _positions,
 # tests/test_pallas_interpret.py)
 MULTIGROUP = dict(n_dims=3, n_levels=6, base_resolution=16,
                   per_level_scale=1.6, log2_rows=11)
+# its 2D counterpart: dense levels of three row counts, the finest hashed
+MULTIGROUP_2D = dict(n_dims=2, n_levels=6, base_resolution=16,
+                     per_level_scale=1.6, log2_rows=8)
 
 
 @pytest.fixture(autouse=True)
@@ -141,10 +144,20 @@ def test_i8_forward_matches_pallas_interpret():
     (K4, hashgrid_pallas _fwd_kernel_i8) in interpret mode: its int8
     selection is exact and the scale applies after, so the two agree to
     f32 rounding."""
+    _check_i8_forward_against_pallas(MULTIGROUP, 8)
+
+
+def test_i8_forward_matches_pallas_interpret_2d():
+    """The plain 2D K4 (the neural image's int8 forward) against the
+    Pallas K4 on a 2D grid of three level groups, to f32 rounding."""
+    _check_i8_forward_against_pallas(MULTIGROUP_2D, 18)
+
+
+def _check_i8_forward_against_pallas(meta_kw, seed):
     from jax.experimental.pallas import tpu as pltpu
     from ngp_tpu.kernels.hashgrid_pallas import blocked_grid_encode_i8fwd
-    table, pos, _ = _inputs(MULTIGROUP, seed=8, n=512)
-    meta = tbg.BlockedGridMeta(**MULTIGROUP)
+    table, pos, _ = _inputs(meta_kw, seed=seed, n=512)
+    meta = tbg.BlockedGridMeta(**meta_kw)
     got = blocked_grid_cuda.blocked_grid_encode_i8fwd(
         torch.from_numpy(table), torch.from_numpy(pos), meta).numpy()
     tq, sc = tbg.quantize_table_i8(torch.from_numpy(table))
@@ -153,7 +166,7 @@ def test_i8_forward_matches_pallas_interpret():
                                      meta).numpy())
     with pltpu.force_tpu_interpret_mode(), pallas_calls_in_turn():
         ref = np.asarray(blocked_grid_encode_i8fwd(
-            table, pos, jbg.BlockedGridMeta(**MULTIGROUP), 256))
+            table, pos, jbg.BlockedGridMeta(**meta_kw), 256))
     np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
     # and it is the f32 encode up to the quantisation step
     f32 = tbg.encode_reference(torch.from_numpy(table), torch.from_numpy(pos),

@@ -1,9 +1,10 @@
 """Parity of the plain versions of K3 (the encode's position gradient) and
-K5 (the ``full`` int8 mode's table gradient) with the JAX package: K3's
-against JAX autodiff and the Pallas ``_bwd_frac_kernel`` in interpret mode,
-K5's against the Pallas ``_bwd_table_kernel_i8`` in interpret mode, and the
-sample tile. The CUDA kernels run only on the card; chip_smoke.py holds
-them against these plain versions there."""
+K5 (the ``full`` int8 mode's table gradient) with the JAX package, on 3D
+and 2D grids: K3's against JAX autodiff and the Pallas
+``_bwd_frac_kernel`` in interpret mode, K5's against the Pallas
+``_bwd_table_kernel_i8`` in interpret mode, and the sample tile. The CUDA
+kernels run only on the card; chip_smoke.py holds them against these plain
+versions there."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,10 +16,10 @@ import ngp_tpu_torch.kernels.blocked_grid as tbg
 from ngp_tpu_torch.kernels import blocked_grid_cuda
 from test_torch_blocked_grid import (SMALL, SMALL_IDS, _positions,
                                      pallas_calls_in_turn)
-from test_torch_encode_grad import MULTIGROUP, _inputs
+from test_torch_encode_grad import MULTIGROUP, MULTIGROUP_2D, _inputs
 
-METAS = SMALL + [MULTIGROUP]
-META_IDS = SMALL_IDS + ["3d-multigroup"]
+METAS = SMALL + [MULTIGROUP, MULTIGROUP_2D]
+META_IDS = SMALL_IDS + ["3d-multigroup", "2d-multigroup"]
 
 
 @pytest.fixture(autouse=True)
@@ -58,21 +59,38 @@ def test_position_backward_reference_matches_jax_autodiff(meta_kw):
     assert np.all(got[::7] == 0)
 
 
-def test_position_backward_reference_matches_pallas_interpret():
-    """Against K3 itself (hashgrid_pallas ``_bwd_frac_kernel`` and its
-    einsum over levels), which rounds the table to bf16: that moves each
-    term by at most 2^-9 of itself, so each component is held to 2^-8 of
-    the sum of its terms' magnitudes."""
+def _check_pos_grad_against_pallas(meta_kw, seed):
     from jax.experimental.pallas import tpu as pltpu
     from ngp_tpu.kernels.hashgrid_pallas import blocked_grid_encode
-    table, pos, cot = _inputs(MULTIGROUP, seed=12, n=512)
-    got, mag = _plain_pos_grad(table, pos, cot, MULTIGROUP)
-    jm = jbg.BlockedGridMeta(**MULTIGROUP)
+    table, pos, cot = _inputs(meta_kw, seed=seed, n=512)
+    got, mag = _plain_pos_grad(table, pos, cot, meta_kw)
+    jm = jbg.BlockedGridMeta(**meta_kw)
     with pltpu.force_tpu_interpret_mode(), pallas_calls_in_turn():
         ref = np.asarray(jax.grad(lambda p: jnp.sum(
             blocked_grid_encode(table, p, jm, 256) * cot))(pos))
     assert np.all(np.abs(got - ref) <= 2.0 ** -8 * mag)
     assert np.abs(got - ref).max() > 0      # the bf16 rounding shows
+
+
+def test_position_backward_reference_matches_pallas_interpret():
+    """Against K3 itself (hashgrid_pallas ``_bwd_frac_kernel`` and its
+    einsum over levels), which rounds the table to bf16: that moves each
+    term by at most 2^-9 of itself, so each component is held to 2^-8 of
+    the sum of its terms' magnitudes."""
+    _check_pos_grad_against_pallas(MULTIGROUP, 12)
+
+
+def test_position_backward_reference_matches_pallas_interpret_2d():
+    """The 2D K3's plain version (the neural image's uv gradient) against
+    the Pallas K3 on a 2D grid, with the 3D test's tolerance (2^-8 of
+    Σ|term|)."""
+    assert len({r for r, _ in _pallas_level_groups(MULTIGROUP_2D)}) > 1
+    _check_pos_grad_against_pallas(MULTIGROUP_2D, 22)
+
+
+def _pallas_level_groups(meta_kw):
+    from ngp_tpu.kernels.hashgrid_pallas import _level_groups
+    return _level_groups(jbg.BlockedGridMeta(**meta_kw))[0]
 
 
 @pytest.mark.parametrize("n", [1, 511, 512, 513, 1024, 1025, 2047, 2048,
@@ -106,29 +124,20 @@ def _tile_quanta(pos, cot, meta, tile):
     return out.view(L, meta.rows, tbg.LANES).numpy()
 
 
-def test_int8_backward_reference_matches_pallas_interpret():
-    """The plain K5 against jax.grad wrt the table of
-    ``blocked_grid_encode_int8`` (hashgrid_pallas ``_bwd_table_kernel_i8``)
-    in interpret mode, over three tiles of 512 samples, the last one
-    partial. Under jit XLA multiplies by the f32 reciprocal of 127 where
-    the port divides, so a tile's scale can differ by an ulp, which moves
-    its entries by f32 rounding and can move a product across a rounding
-    tie: each entry within one quantum per contributing sample, at most
-    0.1 % of entries differing by more than f32 rounding (1e-6 of
-    Σ_t scale_t·Σ|q|), and exact zeros where no quantum is nonzero."""
+def _check_int8_backward_against_pallas(meta_kw, seed):
     from jax.experimental.pallas import tpu as pltpu
     from ngp_tpu.kernels.hashgrid_pallas import (_eff_tile,
                                                  blocked_grid_encode_int8)
     n, tile = 1000, 512
-    table, pos, cot = _inputs(MULTIGROUP, seed=13, n=n)
+    table, pos, cot = _inputs(meta_kw, seed=seed, n=n)
     assert _eff_tile(pos.shape[0], tile) == tile
     assert 2 * tile < pos.shape[0] < 3 * tile
-    meta = tbg.BlockedGridMeta(**MULTIGROUP)
+    meta = tbg.BlockedGridMeta(**meta_kw)
     tp, tc = _t(pos, cot)
     got = tbg.encode_backward_reference_i8(tp, tc, meta, tile).numpy()
     mag = tbg.encode_backward_reference_i8(tp, tc, meta, tile,
                                            magnitude=True).numpy()
-    jm = jbg.BlockedGridMeta(**MULTIGROUP)
+    jm = jbg.BlockedGridMeta(**meta_kw)
     with pltpu.force_tpu_interpret_mode():
         ref = np.asarray(jax.grad(lambda t: jnp.sum(
             blocked_grid_encode_int8(t, pos, jm, tile) * cot))(table))
@@ -141,12 +150,39 @@ def test_int8_backward_reference_matches_pallas_interpret():
     assert (mag > 0).mean() > 0.05
 
 
+def test_int8_backward_reference_matches_pallas_interpret():
+    """The plain K5 against jax.grad wrt the table of
+    ``blocked_grid_encode_int8`` (hashgrid_pallas ``_bwd_table_kernel_i8``)
+    in interpret mode, over three tiles of 512 samples, the last one
+    partial. Under jit XLA multiplies by the f32 reciprocal of 127 where
+    the port divides, so a tile's scale can differ by an ulp, which moves
+    its entries by f32 rounding and can move a product across a rounding
+    tie: each entry within one quantum per contributing sample, at most
+    0.1 % of entries differing by more than f32 rounding (1e-6 of
+    Σ_t scale_t·Σ|q|), and exact zeros where no quantum is nonzero."""
+    _check_int8_backward_against_pallas(MULTIGROUP, 13)
+
+
+def test_int8_backward_reference_matches_pallas_interpret_2d():
+    """The 2D K5's plain version against the Pallas K5 on a 2D grid, with
+    the 3D test's tolerances (one quantum per contributing sample)."""
+    _check_int8_backward_against_pallas(MULTIGROUP_2D, 23)
+
+
 def test_int8_wrapper_on_cpu_runs_plain_versions_without_launch():
     """``blocked_grid_encode_int8`` on CPU tensors: the int8 forward, the
     plain K5 table gradient in tiles of ``eff_tile(N)`` (or the tile it is
     given), the plain K3 position gradient from the f32 table, and no
     kernel launched."""
-    meta_kw = SMALL[0]
+    _check_int8_wrapper_on_cpu(SMALL[0])
+
+
+def test_int8_wrapper_on_cpu_runs_plain_versions_without_launch_2d():
+    """The same on a 2D grid: the plain 2D K4, K5 and K3, no launch."""
+    _check_int8_wrapper_on_cpu(MULTIGROUP_2D)
+
+
+def _check_int8_wrapper_on_cpu(meta_kw):
     meta = tbg.BlockedGridMeta(**meta_kw)
     table, pos, cot = _t(*_inputs(meta_kw, 14, 1500))
     before = dict(blocked_grid_cuda.launches)

@@ -2,7 +2,7 @@
 its encodings, activations and tcnn losses with the JAX package, on
 JAX-initialised parameters moved through bridge.py; the plain 2D encode
 and table backward against the Pallas kernels in interpret mode; and the
-CUDA wrapper's 2D contract (K1 and K2 only) on the CPU."""
+CUDA wrapper's 2D contract on the CPU."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -233,8 +233,8 @@ def test_plain_2d_encode_and_backward_match_pallas_interpret():
 
 def test_wrapper_2d_contract_on_cpu():
     """A 2D grid on CPU tensors runs the plain versions without a launch;
-    the kernel wrappers take 2D grids for K1 and K2 only: K3, K4 and K5
-    refuse them as not ported, whatever the device."""
+    every kernel wrapper (K1–K5) takes the 2D grid and stops only at the
+    CPU tensors, and launches under its ``_2d`` name."""
     table, pos, cot = _inputs_2d(7, n=256)
     meta = tbg.BlockedGridMeta(**META_2D)
     t = torch.from_numpy(table).requires_grad_(True)
@@ -248,16 +248,14 @@ def test_wrapper_2d_contract_on_cpu():
     torch.testing.assert_close(g, tbg.encode_backward_reference(
         torch.from_numpy(pos), torch.from_numpy(cot), meta), rtol=0, atol=0)
     p, c, tb = (torch.from_numpy(a) for a in (pos, cot, table))
-    for call in (lambda: blocked_grid_cuda.launch_bwd_pos(tb, p, c, meta),
+    for call in (lambda: blocked_grid_cuda.launch_fwd(tb, p, meta),
+                 lambda: blocked_grid_cuda.launch_bwd(p, c, meta),
+                 lambda: blocked_grid_cuda.launch_bwd_pos(tb, p, c, meta),
                  lambda: blocked_grid_cuda.launch_fwd_i8(
                      tb.to(torch.int8), torch.ones(4), p, meta),
                  lambda: blocked_grid_cuda.launch_bwd_i8(p, c, meta, 64)):
-        with pytest.raises(NotImplementedError, match="2D grid"):
-            call()
-    # K1 and K2 take the 2D grid and stop only at the CPU tensors
-    for call in (lambda: blocked_grid_cuda.launch_fwd(tb, p, meta),
-                 lambda: blocked_grid_cuda.launch_bwd(p, c, meta)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
-    assert blocked_grid_cuda.launch_name("blocked_grid_encode_fwd", meta) \
-        == "blocked_grid_encode_fwd_2d"
+    for k in blocked_grid_cuda.GROUP_KERNELS:
+        assert blocked_grid_cuda.launch_name(k, meta) == f"{k}_2d"
+        assert blocked_grid_cuda.launches[f"{k}_2d"] == before[f"{k}_2d"]

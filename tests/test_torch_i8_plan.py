@@ -99,6 +99,36 @@ def test_k4_line_loads_pick_each_corner_byte():
                 assert got == corner_lanes[c] + f, (x, y, z, c, f)
 
 
+def test_k4_line_loads_pick_each_corner_byte_2d():
+    """The 2D K4 reads line y + dy of the row as 16 aligned bytes at
+    16·(y + dy), picks word x / 2 (and x / 2 + 1 for odd x) by selects and
+    takes corners x and x + 1 by one byte permute (0x3210 for even x,
+    0x5432 for odd): for every local (x, y) ∈ {0, …, 6}², corner and
+    feature, the byte the plain version's lane indexing names."""
+    meta = tbg.BlockedGridMeta(n_dims=2, n_levels=1, base_resolution=16,
+                               per_level_scale=2.0)
+    row = np.arange(tbg.LANES, dtype=np.uint8).tobytes()   # byte k holds k
+    local = torch.tensor([[(x, y) for y in range(7) for x in range(7)]])
+    lanes, _ = tbg.corner_lanes_and_weights(meta, local,
+                                            torch.zeros(local.shape))
+    for (x, y), corner_lanes in zip(local[0].tolist(), lanes[0].tolist()):
+        base_lane = 2 * (x + 8 * y)
+        line0 = base_lane & ~15
+        assert line0 == 16 * y
+        xx, w = (base_lane & 15) >> 1, ((base_lane & 15) >> 1) >> 1
+        assert xx == x
+        sel = 0x5432 if x & 1 else 0x3210
+        for c in range(4):
+            line = row[line0 + 16 * (c >> 1): line0 + 16 * (c >> 1) + 16]
+            words = [int.from_bytes(line[4 * k: 4 * k + 4], "little")
+                     for k in range(4)]
+            lo, hi = words[w], words[min(w + 1, 3)]
+            word = _byte_perm(lo, hi, sel)
+            for f in range(2):
+                got = (word >> 8 * (2 * (c & 1) + f)) & 0xFF
+                assert got == corner_lanes[c] + f, (x, y, c, f)
+
+
 def _sbyte(x: np.ndarray, k: int) -> np.ndarray:
     """The kernels' sbyte: byte k of a uint32 as a signed value, by
     ``(int)(x << (24 - 8k)) >> 24``."""

@@ -18,7 +18,8 @@ def test_port_imports_without_jax():
                  "api.testbed", "__main__", "run", "render.multi_nerf",
                  "api.pyngp_shim", "kernels.hashgrid", "rays.sampling",
                  "train.image", "train.sdf", "data.mesh",
-                 "render.sdf_render"):
+                 "render.sdf_render", "data.nanovdb", "data.nanovdb_write",
+                 "train.volume", "render.volume_render"):
         assert f"ngp_tpu_torch.{name}" in names
     code = "\n".join([
         "import importlib, sys",

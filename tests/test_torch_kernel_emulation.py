@@ -1,0 +1,265 @@
+"""The CUDA kernels' arithmetic on the CPU. ngp_tpu_torch/csrc/
+blocked_grid_encode.cu is compiled by the host C++ compiler against a
+stand-in for the CUDA runtime (``RUNTIME`` below) that runs the threads of
+each launch one after another, and the library is loaded through the
+wrapper's own ctypes declarations; the launches then go through
+``blocked_grid_cuda``'s ``launch_*`` wrappers (their plans, argument order
+and launch names) on CPU tensors and are held against the plain versions
+with chip_smoke.py's tolerances. This covers each kernel's geometry, its
+corner loads (K4's byte picks from 2D and 3D lines), weights and stores on
+2D and 3D grids.
+
+Sequential lanes cannot show what lanes do together: a warp's intrinsics
+see one lane (``__match_any_sync`` finds no peers, shuffles return the
+lane's own value). So K3 runs on one-level grids, where its level group
+is one lane; K5's max pass lets every lane add its own maximum (the
+source's one-lane-per-level store, edited in the emulated copy only). The
+warp sums, K3's butterflies across a group and its second pass stay with
+chip_smoke.py on the card."""
+import re
+import shutil
+import subprocess
+import types
+
+import numpy as np
+import pytest
+import torch
+
+import ngp_tpu_torch.kernels.blocked_grid as tbg
+from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+
+# chip_smoke.py's tolerances: K1, K4 absolute; K2 relative to Σ|w·g|; K3
+# relative to Σ|term|; K5 relative to Σ_t scale_t·Σ|q|
+KERNEL_TOL, KERNEL_BWD_TOL, KERNEL_POS_TOL, KERNEL_I8_TOL = \
+    1e-5, 1e-4, 1e-5, 1e-5
+
+RUNTIME = r"""
+#pragma once
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __shared__ static
+#define __restrict__
+struct dim3 { unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
+struct U3 { unsigned x, y, z; };
+inline U3 threadIdx, blockIdx, blockDim;
+struct float2 { float x, y; };
+struct float4 { float x, y, z, w; };
+struct uint2 { unsigned x, y; };
+struct uint4 { unsigned x, y, z, w; };
+inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+template <class T> T __ldg(const T* p) { return *p; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  unsigned r = 0;
+  for (int i = 0; i < 4; ++i)
+    r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
+  return r;
+}
+template <class T> T __shfl_sync(unsigned, T v, int) { return v; }
+template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
+inline unsigned __match_any_sync(unsigned, unsigned long long) {
+  return 1u << (threadIdx.x & 31);
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) { return v; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
+inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
+inline void __syncthreads() {}
+inline float2 atomicAdd(float2* p, float2 v) {
+  const float2 o = *p; p->x += v.x; p->y += v.y; return o; }
+inline float4 atomicAdd(float4* p, float4 v) {
+  const float4 o = *p; p->x += v.x; p->y += v.y; p->z += v.z; p->w += v.w;
+  return o; }
+inline unsigned atomicMax(unsigned* p, unsigned v) {
+  const unsigned o = *p; *p = std::max(o, v); return o; }
+typedef struct CUstream_st* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+// the launch: every block, and in each block every thread in turn
+template <class F> void emulate(dim3 g, unsigned t, F f) {
+  blockDim = {t, 1, 1};
+  for (unsigned y = 0; y < g.y; ++y)
+    for (unsigned x = 0; x < g.x; ++x) {
+      blockIdx = {x, y, 0};
+      for (unsigned tx = 0; tx < t; ++tx) { threadIdx = {tx, 0, 0}; f(); }
+    }
+}
+using std::max;
+using std::min;
+"""
+
+
+def _split_top(s: str) -> list:
+    """``s`` split at the commas outside parentheses and brackets."""
+    out, depth, cur = [], 0, ""
+    for ch in s:
+        depth += ch in "(["
+        depth -= ch in ")]"
+        if ch == "," and depth == 0:
+            out.append(cur.strip())
+            cur = ""
+        else:
+            cur += ch
+    return out + [cur.strip()]
+
+
+def emulated_source(src: str) -> str:
+    """The kernel source with each ``kernel<<<grid, threads, ...>>>(args)``
+    launch run by ``emulate`` and the runtime stand-in included."""
+    def launch(m):
+        cfg = _split_top(m.group(2))
+        return (f"emulate(dim3({cfg[0]}), {cfg[1]}, [&] {{ "
+                f"{m.group(1)}({m.group(3)}); }});")
+    out = re.sub(r"(\w+(?:<D>)?)<<<(.*?)>>>\((.*?)\);", launch, src,
+                 flags=re.S)
+    assert out.count("emulate(") == src.count("<<<") > 0
+    # one lane per warp here: every lane adds its own tile maximum
+    edit = "(int)(threadIdx.x & 31) < width"
+    assert out.count(edit) == 1
+    out = out.replace(edit, "true")
+    return out.replace("#include <cuda_runtime.h>",
+                       '#include "emulated_runtime.h"')
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The kernel library built for the host, with ``blocked_grid_cuda``
+    launching into it from CPU tensors."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler (g++) to build the emulation")
+    d = tmp_path_factory.mktemp("kernel_emulation")
+    (d / "emulated_runtime.h").write_text(RUNTIME)
+    (d / "kernels.cpp").write_text(emulated_source(
+        (bgc.CSRC / "blocked_grid_encode.cu").read_text()))
+    lib = d / "libkernels.so"
+    proc = subprocess.run(
+        [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+         "-Wno-unknown-pragmas", f"-I{d}", "-o", str(lib),
+         str(d / "kernels.cpp")], capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    mp = pytest.MonkeyPatch()
+    mp.setattr(bgc, "build", lambda: loaded)
+    mp.setattr(bgc, "_check", lambda *a: None)
+    mp.setattr(torch.cuda, "current_stream",
+               lambda *a: types.SimpleNamespace(cuda_stream=0))
+    loaded = bgc.load_library(lib)
+    yield loaded
+    mp.undo()
+
+
+# 2D and 3D, both row hashes, dense and hashed levels
+METAS = [dict(n_dims=2, n_levels=4, base_resolution=16, per_level_scale=2.0,
+              log2_rows=8),
+         dict(n_dims=2, n_levels=16, base_resolution=16, per_level_scale=1.5,
+              log2_rows=10),
+         dict(n_dims=2, n_levels=4, base_resolution=16, per_level_scale=2.0,
+              log2_rows=8, row_hash="morton"),
+         dict(n_dims=3, n_levels=4, base_resolution=8, per_level_scale=2.0,
+              log2_rows=9)]
+META_IDS = ["2d", "2d-16-levels", "2d-morton", "3d"]
+
+
+def _inputs(meta, seed: int, n: int = 2000):
+    """A seeded table at std 0.5, uniform positions with some outside the
+    unit square or cube and the two corners, and a cotangent with every
+    fifth sample zero."""
+    rng = np.random.default_rng(seed)
+    d = meta.n_dims
+    table = (rng.standard_normal((meta.n_levels, meta.rows, 128))
+             * 0.5).astype(np.float32)
+    pos = np.concatenate([rng.random((n, d), dtype=np.float32),
+                          rng.random((64, d), dtype=np.float32) * 1.2 - 0.1,
+                          np.zeros((1, d), np.float32),
+                          np.ones((1, d), np.float32)])
+    cot = rng.standard_normal((pos.shape[0], meta.n_levels * 2)).astype(
+        np.float32)
+    cot[::5] = 0.0
+    return (torch.from_numpy(table), torch.from_numpy(pos),
+            torch.from_numpy(cot))
+
+
+def _count(kernel, meta) -> int:
+    return bgc.launches[bgc.launch_name(kernel, meta)]
+
+
+@pytest.mark.parametrize("meta_kw", METAS, ids=META_IDS)
+def test_emulated_forward_kernels_match_plain(emulated, meta_kw):
+    """K1 on the f32 table and K4 on the int8-quantised one (its line
+    loads and byte picks) against their plain versions."""
+    meta = tbg.BlockedGridMeta(**meta_kw)
+    table, pos, _ = _inputs(meta, 1)
+    k1, k4 = (_count(k, meta) for k in ("blocked_grid_encode_fwd",
+                                        "blocked_grid_encode_fwd_i8"))
+    got = bgc.launch_fwd(table, pos, meta)
+    assert float((got - tbg.encode_reference(table, pos, meta)).abs().max()
+                 ) <= KERNEL_TOL
+    tq, qs = tbg.quantize_table_i8(table)
+    got = bgc.launch_fwd_i8(tq, qs, pos, meta)
+    ref = tbg.encode_reference_i8(tq, qs, pos, meta)
+    assert float((got - ref).abs().max()) <= KERNEL_TOL
+    assert float(ref.abs().max()) > 0.1
+    assert _count("blocked_grid_encode_fwd", meta) == k1 + 1
+    assert _count("blocked_grid_encode_fwd_i8", meta) == k4 + 1
+
+
+@pytest.mark.parametrize("meta_kw", METAS, ids=META_IDS)
+def test_emulated_table_backward_kernels_match_plain(emulated, meta_kw):
+    """K2 (relative to Σ|w·g|, equal zero patterns) and K5 in tiles of 64
+    (on the 4-level grids: the plain version loops over levels × tiles)
+    and 2048 samples (relative to Σ_t scale_t·Σ|q|, exact zeros where
+    every quantum is 0) against their plain versions."""
+    meta = tbg.BlockedGridMeta(**meta_kw)
+    _, pos, cot = _inputs(meta, 2)
+    got = bgc.launch_bwd(pos, cot, meta)
+    ref = tbg.encode_backward_reference(pos, cot, meta)
+    scale = tbg.encode_backward_reference(pos, cot.abs(), meta)
+    assert float(((got - ref).abs() / scale.clamp(min=1e-30)).max()) \
+        <= KERNEL_BWD_TOL
+    assert torch.equal(got == 0, ref == 0)
+    for tile in ((64, 2048) if meta.n_levels <= 4 else (2048,)):
+        got = bgc.launch_bwd_i8(pos, cot, meta, tile)
+        ref = tbg.encode_backward_reference_i8(pos, cot, meta, tile)
+        mag = tbg.encode_backward_reference_i8(pos, cot, meta, tile,
+                                               magnitude=True)
+        assert float(((got - ref).abs() / mag.clamp(min=1e-30)).max()) \
+            <= KERNEL_I8_TOL
+        assert bool((got[mag == 0] == 0).all()) and bool((mag > 0).any())
+
+
+@pytest.mark.parametrize("meta_kw", METAS, ids=META_IDS)
+def test_emulated_position_backward_matches_plain(emulated, meta_kw):
+    """K3 level by level (a one-level grid at about each level's scale,
+    the level's table and cotangent): (N, D) within KERNEL_POS_TOL of
+    Σ|term|, exactly 0 where every term is."""
+    meta = tbg.BlockedGridMeta(**meta_kw)
+    table, pos, cot = _inputs(meta, 3, n=1000)
+    for level in (0, meta.n_levels // 2, meta.n_levels - 1):
+        one = tbg.BlockedGridMeta(
+            meta.n_dims, 1, int(round(meta.level_scales[level] + 1)), 2.0,
+            log2_rows=meta.log2_rows, row_hash=meta.row_hash)
+        t = table[level:level + 1].contiguous()
+        c = cot[:, 2 * level:2 * level + 2].contiguous()
+        got = bgc.launch_bwd_pos(t, pos, c, one)
+        ref = tbg.encode_position_backward_reference(t, pos, c, one)
+        mag = tbg.encode_position_backward_reference(t, pos, c, one,
+                                                     magnitude=True)
+        assert got.shape == pos.shape
+        assert float(((got - ref).abs() / mag.clamp(min=1e-30)).max()) \
+            <= KERNEL_POS_TOL
+        assert bool((got[mag == 0] == 0).all())

@@ -328,13 +328,10 @@ def test_blender_plugin_flow(scene):
 
 
 def test_unported_modes_and_methods_raise(scene, tmp_path):
-    # the image and SDF engines are ported (test_torch_testbed_modes.py);
-    # the volume engine is not
-    with pytest.raises(NotImplementedError, match="engine"):
-        Testbed("volume", device="cpu")
+    # every engine is ported (the image and SDF modes in
+    # test_torch_testbed_modes.py, the volume mode in test_torch_volume.py);
+    # mesh export and playback are not
     tb = Testbed(device="cpu")
-    with pytest.raises(NotImplementedError, match="engine"):
-        tb.load_training_data(tmp_path / "volume.nvdb")
     for call in (lambda: tb.bake_playback(), lambda: tb.load_playback("x"),
                  lambda: tb.render_playback(8, 8),
                  lambda: tb.compute_marching_cubes_mesh(),
