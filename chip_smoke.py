@@ -150,6 +150,39 @@ Phases, each reported on its own line:
                launch in it), each frame's hit mask against the BVH's ray
                casts of its rays (≥ HIT_AGREE_MIN), K1 and K2 launching in
                the phase, and a 64×36 frame against the CPU path.
+ 13. mesh    — mesh export (cell smoke-mesh): the runner's --save_mesh of
+               the testbed phase's snapshot at 256³, the Testbed's NeRF
+               mesh with vertex colours (.ply; σ in the occupied cells,
+               the field's device ms by CUDA events and the host's
+               marching cubes printed) whose vertices' median distance to
+               the spheres must be ≤ MESH_SPHERE_VOXELS voxel widths, the
+               σ field at 64³ on the card against the CPU path (the mean
+               and the share of points within FIELD_POINT_TOL; the maximum
+               printed, not gated), the sdf phase's torus by marching
+               tetrahedra at 256³ (mean |torus distance| ≤
+               TORUS_MESH_VOXELS voxel widths, no interior edge outside
+               exactly two faces) and 64 PNG slices; K1 launches in the
+               phase and is held against its plain version on the field's
+               own inputs.
+ 14. takikawa — the Takikawa octree encoding (cell smoke-takikawa-torus):
+               configs/sdf/takikawa.json at full width on the torus (7
+               levels, depths 4..10, level groups of width 1), 8 batches
+               of 2^18 from the trainer's sampler pinned with
+               override_sdf_training_data, 256 steps; the IoU at 2^22 by
+               the octree rule (≥ IOU_MIN), an analytic-normals frame (K3)
+               against the BVH's ray casts (≥ HIT_AGREE_MIN); K1, K2 and
+               K3 at L = 7 on a step's and the frame's own inputs against
+               their plain versions (K3 bit-equal over two launches).
+ 15. playback — frozen-model playback (cell smoke-playback-spheres):
+               bake_playback() of the testbed phase's snapshot at D 256
+               and D_inner 512, the held-out PSNR within PLAYBACK_PSNR_DB
+               of the live renderer's, 640×360 and 1920×1080 frames
+               (twice, timed), an orbit over ±x, ±y, ±z after which each
+               cascade holds the two latest orientations, and the runner's
+               --video_camera_path --video_playback writing 20 frames; K1
+               on the bake's first batch against its plain version.
+Every gate of phases 13–15 prints ``gate <what>: <value> (limit ...;
+<share> of the limit)``.
 With ``--profile``, torch.profiler traces of one slice frame (K1's device
 ms and launches in it) and of 16 steady training steps are broken down by
 layer as well (the steps' table also to a file, see ``phase_profile``).
@@ -158,15 +191,18 @@ sweep positions from an untrained trainer), with the 2D K1–K5 on seeded
 image-width inputs, and ends with the kernels' JSON line.
 Then the script's total seconds, one JSON line with each kernel's
 figures and its launches in the testbed, multinerf, image, image-int8
-(per run: "fwd", "full", "uv"), volume and sdf phases
+(per run: "fwd", "full", "uv"), volume, sdf, mesh, takikawa and playback
+phases
 (K1's, K2's and K3's ray-ordered ones under "ray_ordered", K3's and K5's
 on one pose step under "pose_step", K4's at 2^18 uniform positions under
 "uniform_2e18" and on the sweep's positions under "sweep_ordered"; the 2D
 K1's and K2's, entries of their own whose main figures are on the image
 path's inputs, at 2^20 uniform positions under "uniform_2e20"; the 2D
 K3's, K4's and K5's likewise on the "full" image path's inputs, at
-uniform positions under "uniform_2e18" or "uniform_2e20"), and
-as the last line ``{"ok": true, "device":
+uniform positions under "uniform_2e18" or "uniform_2e20"; entries of
+their own for K1 on the mesh field and on the playback bake and for K1,
+K2 and K3 at L = 7 on the Takikawa path, each named with its input and
+carrying its kernel's ``launch_name``), and as the last line ``{"ok": true, "device":
 {...}}``. Any failure raises: there is no fallback to the CPU or to the
 plain version.
 """
@@ -191,6 +227,14 @@ FOCAL = (500.0, 500.0)
 KERNEL_TOL = 1e-5
 # K2 against its plain version, relative to Σ|w·g| of each table entry
 KERNEL_BWD_TOL = 1e-4
+# K2's zero pattern (which entries are exactly 0: the optimizer's
+# zero-gradient skip keys on them) is held where Σ|w·g| ≥ ZERO_FLOOR, the
+# floor the relative check clamps its scale to. Below it every w·g lies
+# within a few FLT_MIN of 0, and the f32 reductions flush a denormal
+# partial sum (.FTZ), so the order of the adds decides whether such an
+# entry ends at 0: on the card, 5 entries in 40 trained steps' table
+# gradients, every one reached only by terms below 6e-38
+ZERO_FLOOR = 1e-30
 # K3 against its plain version, relative to Σ|term| of each component: the
 # 256 terms (16 levels × 8 corners × 2 features) cancel, and the two sum
 # them in other orders (the kernel with FMAs)
@@ -488,17 +532,26 @@ def check_k2(pos, cot, meta, what: str) -> float:
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"K2 output is not finite ({what})")
     err = float((got - ref).abs().max())
-    rel = float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
-    zeros_equal = bool(torch.equal(got == 0, ref == 0))
+    rel = float(((got - ref).abs() / scale.clamp(min=ZERO_FLOOR)).max())
+    zeros_equal, below = zero_patterns(got, ref, scale)
     print(f"K2: {bgc.launch_name('blocked_grid_encode_bwd', meta)} "
           f"{pos.shape[0]} {what} positions -> "
           f"{tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
           f"relative to sum|w*g| {rel:.3e} (tolerance {KERNEL_BWD_TOL}); "
-          f"zero patterns equal: {zeros_equal} "
-          f"({float((ref == 0).float().mean()):.4f} of entries zero)")
+          f"zero patterns equal where sum|w*g| >= {ZERO_FLOOR}: "
+          f"{zeros_equal} ({below} differing entries below it; "
+          f"{float((ref == 0).float().mean()):.4f} of entries zero)")
     if not (rel <= KERNEL_BWD_TOL and zeros_equal):
         raise RuntimeError(f"K2 disagrees with its plain version ({what})")
     return err
+
+
+def zero_patterns(got, ref, scale):
+    """(whether K2's and the plain backward's exact zeros agree wherever
+    Σ|w·g| ≥ ZERO_FLOOR, how many entries below it differ)."""
+    held = scale >= ZERO_FLOOR
+    differ = (got == 0) != (ref == 0)
+    return (not bool(differ[held].any()), int(differ[~held].sum()))
 
 
 def time_k2(p, c, meta, err: float, what: str) -> dict:
@@ -981,7 +1034,7 @@ def phase_slice(dev):
                                 FRAME_H, focal=FOCAL, spp=1)
     d = (plain - frames[0]).abs()
     print(f"slice: frame 0 kernel vs plain encode: mean |Δ| "
-          f"{float(d.mean()):.3e}, max {float(d.max()):.3e}")
+          f"{float(d.mean()):.3e} (allowed 2e-4), max {float(d.max()):.3e}")
     if not float(d.mean()) <= 2e-4:
         raise RuntimeError("render with the kernel disagrees with the plain "
                            "encode")
@@ -995,7 +1048,8 @@ def phase_slice(dev):
     err = (gpu.cpu() - cpu).abs()
     within = float((err <= 2e-3).all(-1).float().mean())
     print(f"slice: {w}x{h} frame GPU vs CPU path: mean |Δ| "
-          f"{float(err.mean()):.3e}, {within:.4f} of pixels within 2e-3")
+          f"{float(err.mean()):.3e} (allowed 2e-4), {within:.4f} of pixels "
+          f"within 2e-3 (required 0.995)")
     if not (float(err.mean()) <= 2e-4 and within >= 0.995):
         raise RuntimeError("GPU render disagrees with the CPU path")
     return launches, renderer, grid.bitfield
@@ -1160,7 +1214,7 @@ def step_grad_check(tr):
     against the plain backward on the same inputs: the step's table
     gradient, with the K2 phase's tolerance and zero-pattern check.
     Returns (max |Δ| relative to Σ|w·g|, whether the zero patterns are
-    equal)."""
+    equal above ZERO_FLOOR, the entries below it whose zeros differ)."""
     from ngp_tpu_torch.kernels.blocked_grid import encode_backward_reference
     grads, seen = capture_step(tr, SEED + 2, "launch_bwd")
     pos, grad, meta = seen["launch_bwd"]
@@ -1168,8 +1222,8 @@ def step_grad_check(tr):
     with torch.no_grad():
         ref = encode_backward_reference(pos, grad, meta)
         scale = encode_backward_reference(pos, grad.abs(), meta)
-    rel = float(((got - ref).abs() / scale.clamp(min=1e-30)).max())
-    return rel, bool(torch.equal(got == 0, ref == 0))
+    rel = float(((got - ref).abs() / scale.clamp(min=ZERO_FLOOR)).max())
+    return (rel, *zero_patterns(got, ref, scale))
 
 
 def phase_train(dev, n_views: int = TRAIN_VIEWS, res: int = TRAIN_RES,
@@ -1230,10 +1284,12 @@ def phase_train(dev, n_views: int = TRAIN_VIEWS, res: int = TRAIN_RES,
           f"(+{psnr1 - psnr0:.2f} dB; required +{PSNR_RISE_DB})")
     if not psnr1 - psnr0 >= PSNR_RISE_DB:
         raise RuntimeError("training did not raise the PSNR enough")
-    rel, zeros_equal = step_grad_check(tr)
+    rel, zeros_equal, below = step_grad_check(tr)
     print(f"train: one step's table gradient, K2 vs plain backward on its "
           f"inputs: max |Δ| relative to sum|w*g| {rel:.3e} (tolerance "
-          f"{KERNEL_BWD_TOL}); zero patterns equal: {zeros_equal}")
+          f"{KERNEL_BWD_TOL}); zero patterns equal where sum|w*g| >= "
+          f"{ZERO_FLOOR}: {zeros_equal} ({below} differing entries below "
+          f"it)")
     if not (rel <= KERNEL_BWD_TOL and zeros_equal):
         raise RuntimeError("the step's K2 gradient disagrees with the plain "
                            "backward")
@@ -1975,6 +2031,8 @@ def phase_multinerf(dev, view0_psnr: float, root: Path = None,
     gone = _timed_request(r.render, req(two, modifiers=[everything]),
                           "two fields under a subtract box over the AABB",
                           W, H)
+    print(f"multinerf: a subtract box over the AABB leaves max alpha "
+          f"{float(gone[..., 3].max())} (required 0)")
     if gone[..., 3].max() != 0.0:
         raise RuntimeError("a subtract box over the whole AABB left alpha")
     alone = r_sum.render(req([desc()]))
@@ -2000,6 +2058,8 @@ def phase_multinerf(dev, view0_psnr: float, root: Path = None,
                 transform=cam, model="quadrilateral_hexahedron",
                 qh_corners=corners))):
         f = _timed_request(r.render, req([desc()], camp), what, W, H)
+        print(f"multinerf: the {what} camera's max alpha "
+              f"{float(f[..., 3].max()):.4f} (required > 0.05)")
         if not f[..., 3].max() > 0.05:
             raise RuntimeError(f"the {what} camera saw nothing")
 
@@ -2069,8 +2129,9 @@ def phase_multinerf(dev, view0_psnr: float, root: Path = None,
     da = plain[..., 3] - cut[..., 3]
     print(f"multinerf: render_masks box: mean alpha through it "
           f"{plain[..., 3][hit].mean():.4f} -> {cut[..., 3][hit].mean():.4f} "
-          f"({int(hit.sum())} px); outside max |Δ| "
-          f"{np.abs(da[clear]).max():.3e} ({int(clear.sum())} px)")
+          f"({int(hit.sum())} px; cut required >= {MASK_CUT}); outside max "
+          f"|Δ| {np.abs(da[clear]).max():.3e} ({int(clear.sum())} px; "
+          f"allowed 1e-4)")
     if not (da[hit].mean() >= MASK_CUT
             and np.abs(da[clear]).max() <= 1e-4):
         raise RuntimeError("render_masks did not cut alpha in the box alone")
@@ -2292,9 +2353,12 @@ IMAGE_FRAMES = ((FRAME_W, FRAME_H), (IMAGE_RES, IMAGE_RES))
 # across: 32,768 triangles) fitted by the runner for SDF_STEPS
 # (configs/sdf/base.json at full width, batch 2^18, raystab signs); the IoU
 # of IOU_SAMPLES uniform samples must reach IOU_MIN, and the frames' hit
-# masks agree with the BVH's ray casts on HIT_AGREE_MIN of pixels
+# masks agree with the BVH's ray casts on HIT_AGREE_MIN of pixels. Each
+# step waits on the host BVH's batch (1.2-1.4 s on the card's machine), so
+# the phase trains 128 steps (256 until the mesh, takikawa and playback
+# phases joined the script; PERF.md has the IoU at both)
 TORUS = (0.3, 0.1, 256, 64)
-SDF_STEPS, IOU_SAMPLES, IOU_MIN, HIT_AGREE_MIN = 256, 1 << 22, 0.9, 0.95
+SDF_STEPS, IOU_SAMPLES, IOU_MIN, HIT_AGREE_MIN = 128, 1 << 22, 0.9, 0.95
 # a small frame of each engine on the card against the CPU path: the
 # slice phase's tolerances (mean |Δ|, and 2e-3 on 99.5 % of pixels) for
 # the image; for the SDF frame the hit masks (99 % equal: a ray whose
@@ -2687,8 +2751,9 @@ def _cpu_frame_check(tag: str, gpu: torch.Tensor, cpu: torch.Tensor,
     pixels)."""
     err = (gpu.cpu() - cpu).abs()
     within = float((err <= 2e-3).all(-1).float().mean())
-    print(f"{tag}: {what} GPU vs CPU path: mean |Δ| {float(err.mean()):.3e}, "
-          f"{within:.4f} of pixels within 2e-3")
+    print(f"{tag}: {what} GPU vs CPU path: mean |Δ| {float(err.mean()):.3e} "
+          f"(allowed {ENGINE_CPU_TOL}), {within:.4f} of pixels within 2e-3 "
+          f"(required 0.995)")
     if not (float(err.mean()) <= ENGINE_CPU_TOL and within >= 0.995):
         raise RuntimeError(f"the {tag} frame on the card disagrees with the "
                            "CPU path")
@@ -2956,12 +3021,531 @@ def phase_sdf(dev, steps: int = SDF_STEPS, config=None, torus=TORUS,
     same = float(((gpu[..., 3] > 0) == (cpu[..., 3] > 0)).mean())
     err = float(np.abs(gpu - cpu).mean())
     print(f"sdf: {cpu_size[0]}x{cpu_size[1]} frame GPU vs CPU path: mean "
-          f"|Δ| {err:.3e}, hit masks {same:.4f} equal")
+          f"|Δ| {err:.3e} (allowed {SDF_CPU_TOL}), hit masks {same:.4f} "
+          f"equal (required 0.99)")
     if not (err <= SDF_CPU_TOL and same >= 0.99):
         raise RuntimeError("the SDF frame on the card disagrees with the CPU "
                            "path")
     print(f"sdf: phase {time.perf_counter() - t_phase:.1f} s")
     return launches, k3
+
+
+# the mesh phase (cell smoke-mesh): the testbed phase's trained spheres
+# meshed at MESH_RES³ by the runner's --save_mesh and by the Testbed (with
+# vertex colours, as .ply), the median distance of the Testbed mesh's
+# vertices to the spheres' surfaces at most MESH_SPHERE_VOXELS voxel
+# widths; the sdf phase's torus meshed by marching tetrahedra at MESH_RES³,
+# its vertices' mean |torus distance| at most TORUS_MESH_VOXELS voxel
+# widths and every edge in exactly two faces; MESH_SLICES PNG slices
+MESH_RES, MESH_SLICES, MESH_CPU_RES = 256, 64, 64
+MESH_SPHERE_VOXELS, TORUS_MESH_VOXELS = 3.0, 1.0
+# The card's σ field against the CPU path's, both from the snapshot's
+# weights: the MLP rounds each layer's input to bf16 and the two devices
+# sum a layer's f32 products in other orders, so a hidden value within an
+# f32 ulp of a bf16 rounding boundary rounds one bf16 ulp (2^-8 relative)
+# apart on the two. One such flip moves the raw density by about that
+# relative amount of one layer's term, so σ = exp(raw) by up to ~2^-8
+# relative at that point and nowhere else; which points flip depends on
+# the trained field, a different one each run. The gate therefore holds
+# the mean (ENGINE_CPU_TOL, relative to max(σ, 1)) and the share of points
+# within FIELD_POINT_TOL (≥ FIELD_POINT_SHARE), and prints the maximum
+# without gating on it.
+FIELD_POINT_TOL, FIELD_POINT_SHARE = 2e-3, 0.995
+# the takikawa phase (cell smoke-takikawa-torus): configs/sdf/takikawa.json
+# at full width on the sdf phase's torus, TAK_BATCHES batches of 2^18 from
+# the trainer's own sampler pinned with override_sdf_training_data, then
+# TAK_STEPS steps; IoU at IOU_SAMPLES ≥ IOU_MIN (octree rule), an
+# analytic-normals frame's hit mask ≥ HIT_AGREE_MIN against the BVH
+TAK_BATCHES, TAK_STEPS = 8, 256
+# the playback phase (cell smoke-playback-spheres): the testbed phase's
+# snapshot baked at PLAYBACK_D (PLAYBACK_D_INNER for cascade 0); the
+# held-out PSNR of playback frames within PLAYBACK_PSNR_DB of the live
+# renderer's; an orbit over the three axes leaves the renderer holding the
+# two latest orientations of each cascade; the runner's --video_playback
+# writes VIDEO_FPS · VIDEO_SECONDS frames
+PLAYBACK_D, PLAYBACK_D_INNER, PLAYBACK_PSNR_DB = 256, 512, 3.0
+VIDEO_FPS, VIDEO_SECONDS = 10, 2
+PLAYBACK_FRAMES = ((FRAME_W, FRAME_H), (1920, 1080))
+
+
+def _gate(tag: str, what: str, value, limit, ok: bool, share: float,
+          fmt: str = ".4g"):
+    """Print a gate's value beside its limit and the share of the limit it
+    used (for a minimum, the shortfall's share of the allowed
+    shortfall); raise unless ``ok``."""
+    print(f"{tag}: gate {what}: {value:{fmt}} (limit {limit}; "
+          f"{share:.3f} of the limit)")
+    if not ok:
+        raise RuntimeError(f"{tag}: {what} {value} is outside its limit "
+                           f"{limit}")
+
+
+def _gate_max(tag, what, value, limit):
+    _gate(tag, what, value, f"<= {limit}", value <= limit, value / limit)
+
+
+def _gate_min(tag, what, value, limit, top: float = 1.0):
+    """A gate ``value >= limit`` on a quantity whose best is ``top``."""
+    _gate(tag, what, value, f">= {limit}", value >= limit,
+          (top - value) / (top - limit))
+
+
+def _sphere_distance(v: np.ndarray) -> np.ndarray:
+    """|distance| of world positions (V, 3) to the nearest sphere surface
+    of SPHERES."""
+    d = [np.abs(np.linalg.norm(v - np.asarray(c), axis=-1) - r)
+         for c, r, _, _ in SPHERES]
+    return np.min(np.stack(d), 0)
+
+
+def _torus_distance(v: np.ndarray, major: float, minor: float):
+    """|distance| of positions (V, 3) in the OBJ's own units to the torus
+    about z (write_torus_obj)."""
+    ring = np.hypot(v[:, 0], v[:, 1]) - major
+    return np.abs(np.hypot(ring, v[:, 2]) - minor)
+
+
+def _edges_not_in_two_faces(verts: np.ndarray, faces: np.ndarray):
+    """(interior, boundary): the mesh's edges that lie in other than two
+    faces, split by whether both ends lie on the lattice's outer faces
+    (vertex coordinates 0 or 1), where a surface leaving the lattice is
+    open by construction."""
+    e = np.sort(np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                                faces[:, [2, 0]]]), 1)
+    edges, counts = np.unique(e, axis=0, return_counts=True)
+    bad = edges[counts != 2]
+    on_side = ((verts <= 1e-6) | (verts >= 1 - 1e-6)).any(-1)
+    side = on_side[bad[:, 0]] & on_side[bad[:, 1]]
+    return int((~side).sum()), int(side.sum())
+
+
+def _nerf_testbed(dev, root: Path, config: Path, snap: Path):
+    """A Testbed on the testbed phase's sphere scene from its snapshot."""
+    from ngp_tpu_torch.api.testbed import Testbed
+    tb = Testbed(device=dev)
+    tb.reload_network_from_file(config)
+    tb.load_training_data(root / "transforms.json")
+    tb.load_snapshot(snap)
+    return tb
+
+
+def phase_mesh(dev, res: int = MESH_RES, config=None, sdf_config=None,
+               torus=TORUS, cpu_res: int = MESH_CPU_RES,
+               slices: int = MESH_SLICES):
+    """Mesh export on the card (cell smoke-mesh), after the testbed and
+    sdf phases: the runner's --save_mesh of the spheres' snapshot, the
+    Testbed's NeRF mesh with vertex colours (.ply) and its field's device
+    and host times, the σ field on the card against the CPU path at
+    cpu_res³, the SDF's marching-tetrahedra mesh of the torus, the PNG
+    slices. Returns (the phase's launch counts, K1's entry on the field's
+    own inputs)."""
+    from ngp_tpu_torch import run
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.render.mesh_export import grid_positions
+    t_phase = time.perf_counter()
+    nerf_root = ROOT / "build" / "testbed_smoke"
+    sdf_root = ROOT / "build" / "sdf_smoke"
+    root = ROOT / "build" / "mesh_smoke"
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    config = Path(config or ROOT / "configs/nerf/base.json")
+    snap = nerf_root / "snapshot.msgpack"
+    _reset_launches()
+    t0 = time.perf_counter()
+    out = _run_entry(run.main, [
+        "--scene", str(nerf_root / "transforms.json"), "--network",
+        str(config), "--load_snapshot", str(snap), "--device", str(dev),
+        "--save_mesh", str(root / "spheres.obj"), "--marching_cubes_res",
+        str(res)])
+    line = re.findall(r"^saved mesh .*$", out, re.M)
+    print(f"mesh: runner --save_mesh spheres.obj at {res}^3 in "
+          f"{time.perf_counter() - t0:.2f} s: {line[0] if line else out}")
+    if not line or not (root / "spheres.obj").exists():
+        raise RuntimeError("the runner wrote no mesh")
+    tb = _nerf_testbed(dev, nerf_root, config, snap)
+    tr = tb.trainer
+    # the field alone: σ in the occupied cells on the res³ voxel centres,
+    # device time by CUDA events; then marching cubes on the host
+    pts = grid_positions(res, float(tr.aabb_min), float(tr.aabb_size), dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    sigma = torch.cat([tr.sigma_at(c, occupied_only=True)
+                       for c in pts.split(1 << 18)])
+    end.record()
+    torch.cuda.synchronize()
+    field_ms = start.elapsed_time(end)
+    from ngp_tpu_torch.render.mesh_export import marching_cubes
+    t0 = time.perf_counter()
+    field = sigma.cpu().numpy().reshape(res, res, res)
+    v, f = marching_cubes(-field, -2.5)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    print(f"mesh: σ in the occupied cells on {res}^3 voxel centres, "
+          f"{len(pts.split(1 << 18))} chunks of 2^18: {field_ms:.1f} ms on "
+          f"the "
+          f"device (CUDA events); copy and marching cubes {host_ms:.1f} ms "
+          f"on the host: {len(v)} vertices, {len(f)} faces")
+    t0 = time.perf_counter()
+    m = tb.compute_marching_cubes_mesh(res)
+    tb.compute_and_save_marching_cubes_mesh(root / "spheres.ply", res)
+    print(f"mesh: Testbed mesh with vertex colours at {res}^3 (computed, "
+          f"then saved as .ply) in {time.perf_counter() - t0:.2f} s: "
+          f"{len(m['V'])} vertices, {len(m['F'])} faces, mean colour "
+          f"{m['C'].mean(0).round(4).tolist()}")
+    if len(m["V"]) == 0:
+        raise RuntimeError("the NeRF mesh is empty")
+    voxel = float(tr.aabb_size) / res
+    dist = _sphere_distance(m["V"]) / voxel
+    print(f"mesh: NeRF mesh vertices' |sphere distance| median "
+          f"{np.median(dist):.3f}, mean {dist.mean():.3f}, max "
+          f"{dist.max():.3f} voxel widths ({voxel:.5f})")
+    _gate_max("mesh", "NeRF mesh median |sphere distance| (voxel widths)",
+              float(np.median(dist)), MESH_SPHERE_VOXELS)
+    # the SDF: marching tetrahedra of the sdf phase's torus snapshot
+    tb_sdf = _engine_testbed(
+        dev, "sdf", Path(sdf_config or ROOT / "configs/sdf/base.json"),
+        sdf_root / "torus.obj", sdf_root / "sdf.msgpack")
+    t0 = time.perf_counter()
+    ms = tb_sdf.compute_marching_cubes_mesh(res)
+    st = tb_sdf.trainer
+    q = ms["V"] * st.mesh_scale + st.mesh_offset
+    tdist = _torus_distance(q, torus[0], torus[1]) / (st.mesh_scale / res)
+    bad, side = _edges_not_in_two_faces(ms["V"], ms["F"])
+    print(f"mesh: SDF marching tetrahedra at {res}^3 in "
+          f"{time.perf_counter() - t0:.2f} s: {len(ms['V'])} vertices, "
+          f"{len(ms['F'])} faces; |torus distance| mean {tdist.mean():.3f}, "
+          f"max {tdist.max():.3f} voxel widths; edges in other than two "
+          f"faces on the lattice's sides {side}")
+    _gate_max("mesh", "SDF mesh mean |torus distance| (voxel widths)",
+              float(tdist.mean()), TORUS_MESH_VOXELS)
+    _gate("mesh", "SDF mesh interior edges not in exactly two faces", bad,
+          "== 0",
+          bad == 0, 0.0 if bad == 0 else float("inf"), "d")
+    tb.compute_and_save_png_slices(str(root / "slices"), slices)
+    n_png = len(list(root.glob("slices_*.png")))
+    _gate("mesh", "PNG density slices written", n_png, f"== {slices}",
+          n_png == slices, 0.0 if n_png == slices else float("inf"), "d")
+    launches = dict(bgc.launches)
+    print(f"mesh: launches in the phase {launches}")
+    if launches["blocked_grid_encode_fwd"] <= 0:
+        raise RuntimeError("the mesh phase never launched K1")
+    # the σ field on the card against the CPU path, the same weights
+    model, params = _cpu_copy(tr.model, tr.inference_params())
+    from torch.func import functional_call
+    small = grid_positions(cpu_res, float(tr.aabb_min), float(tr.aabb_size),
+                           dev)
+    gpu = torch.cat([tr.sigma_at(c) for c in small.split(1 << 18)]).cpu()
+    with torch.no_grad():
+        raw = functional_call(model, params, (
+            (small.cpu() - tr.aabb_min) / tr.aabb_size,))[..., 0]
+    cpu = torch.exp(torch.clamp(raw, -15.0, 15.0))
+    rel = (gpu - cpu).abs() / torch.clamp(cpu.abs(), min=1.0)
+    within = float((rel <= FIELD_POINT_TOL).float().mean())
+    print(f"mesh: {cpu_res}^3 σ field GPU vs CPU path: |Δ| relative to "
+          f"max(σ, 1) mean {float(rel.mean()):.3e}, max {float(rel.max()):.3e}"
+          f" (not gated), {within:.6f} of points within {FIELD_POINT_TOL}")
+    _gate_max("mesh", "σ field GPU vs CPU mean relative |Δ|",
+              float(rel.mean()), ENGINE_CPU_TOL)
+    _gate_min("mesh", f"σ field share of points within {FIELD_POINT_TOL}",
+              within, FIELD_POINT_SHARE)
+    # K1 on the field's own inputs: the lattice's middle chunk of 2^18
+    # (x at the AABB's centre), warped, with the snapshot's table
+    mid = (pts.shape[0] >> 19) << 18
+    warped = ((pts[mid:mid + (1 << 18)] - tr.aabb_min)
+              / tr.aabb_size).contiguous()
+    table = tr.inference_params()["pos_encoding.table"].detach()
+    meta = tr.model.pos_encoding.meta
+    err = check_k1(table, warped, meta, "mesh-field")
+    entry = time_k1(table, warped, meta, err, "mesh-field")
+    print(f"mesh: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, entry
+
+
+def _tak_step_cotangent(tr, pos, dist):
+    """The cotangent K2 gets in a Takikawa training step on (pos, dist):
+    d loss / d features, masked by the octree, with the step's loss
+    scale."""
+    from ngp_tpu_torch.common import LOSS_SCALE
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    enc = tr.tak_encoding
+    with torch.no_grad():
+        feats = bgc.launch_fwd(enc.table.detach(), pos, enc.grid_meta)
+        masks = torch.stack([enc._level_mask(lvl, pos)
+                             for lvl in range(enc.meta.n_levels)], -1)
+    feats.requires_grad_(True)
+    masked = feats * torch.repeat_interleave(masks, 2, dim=-1)
+    pred = tr.model.net(masked)[:, 0].to(torch.float32)
+    loss = torch.mean(tr.loss(dist, pred)) * LOSS_SCALE
+    return torch.autograd.grad(loss, feats)[0].contiguous()
+
+
+def phase_takikawa(dev, config=None, steps: int = TAK_STEPS,
+                   n_batches: int = TAK_BATCHES, frame=(FRAME_W, FRAME_H),
+                   iou_samples: int = IOU_SAMPLES):
+    """The Takikawa octree encoding on the card (cell
+    smoke-takikawa-torus), on the sdf phase's torus: a Testbed with
+    configs/sdf/takikawa.json at full width (octree depths 4..10: 7 levels,
+    level groups of width 1), n_batches batches drawn by the trainer's own
+    sampler and pinned with override_sdf_training_data, ``steps`` steps,
+    the IoU by the octree rule, an analytic-normals frame (K3) against the
+    BVH's ray casts. Returns (the phase's launch counts, the K1/K2/K3
+    kernel entries at L = 7 on the path's own inputs)."""
+    from ngp_tpu_torch.api.testbed import Testbed
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.render.sdf_render import (SdfRenderer,
+                                                 SdfRenderOptions)
+    t_phase = time.perf_counter()
+    obj = ROOT / "build" / "sdf_smoke" / "torus.obj"
+    config = Path(config or ROOT / "configs/sdf/takikawa.json")
+    _reset_launches()
+    t0 = time.perf_counter()
+    tb = Testbed("sdf", device=dev)
+    tb.reload_network_from_file(config)
+    tb.load_training_data(obj)
+    tr = tb.trainer
+    enc = tr.tak_encoding
+    meta = enc.grid_meta
+    width = bgc.kernel_plan("blocked_grid_encode_fwd", 1 << 18, meta).width
+    print(f"takikawa: trainer built in {time.perf_counter() - t0:.2f} s: "
+          f"octree depths {enc.meta.start_depth}..{enc.meta.max_depth}, "
+          f"table {(meta.n_levels, meta.rows, 128)}, level groups of "
+          f"{width} (K1), {len(tr._octree_leaves)} octree leaves at depth "
+          f"{tr.octree_depth}, perturbation scale {tr.perturb_sigma:.5f}")
+    t0 = time.perf_counter()
+    batches = [tr.generate_training_batch() for _ in range(n_batches)]
+    print(f"takikawa: {n_batches} batches of {tr.batch_size} drawn with the "
+          f"trainer's sampler; host BVH {time.perf_counter() - t0:.2f} s")
+    tb.override_sdf_training_data(np.concatenate([b[0] for b in batches]),
+                                  np.concatenate([b[1] for b in batches]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = tb.train(steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    print(f"takikawa: {steps} steps on the pinned batches at {ms:.2f} "
+          f"ms/step; loss {loss:.5f}")
+    if not math.isfinite(loss):
+        raise RuntimeError("the Takikawa training loss is not finite")
+    t0 = time.perf_counter()
+    iou = tb.calculate_iou(iou_samples)
+    print(f"takikawa: calculate_iou over {iou_samples} samples (outside the "
+          f"octree counts as agreeing) {iou:.4f} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    _gate_min("takikawa", "IoU", iou, IOU_MIN)
+    W, H = frame
+    cam = orbit_camera(0.6, radius=1.3, height=0.9)
+    tb.set_camera_matrix(cam)
+    tb.sdf.analytic_normals = True
+    captured = []
+    launch_bwd_pos = bgc.launch_bwd_pos
+
+    def recording(table, pos, grad, meta_):
+        # the frame's largest K3 call (a chunk without hits makes none)
+        if pos.shape[0] > (captured[0][1].shape[0] if captured else 0):
+            captured[:] = [(table.clone(), pos.clone(), grad.clone())]
+        return launch_bwd_pos(table, pos, grad, meta_)
+    k3 = bgc.launches["blocked_grid_encode_bwd_pos"]
+    with mock.patch.object(bgc, "launch_bwd_pos", recording):
+        img = _timed_render("takikawa", lambda: tb.render(W, H),
+                            "analytic normals, shadows", W, H)
+    k3 = bgc.launches["blocked_grid_encode_bwd_pos"] - k3
+    launches = dict(bgc.launches)
+    print(f"takikawa: launches in the phase {launches}; K3 in the analytic "
+          f"frame {k3}")
+    missing = [k for k in ("blocked_grid_encode_fwd",
+                           "blocked_grid_encode_bwd") if launches[k] <= 0]
+    if missing or k3 <= 0 or not captured:
+        raise RuntimeError(f"the takikawa phase never launched "
+                           f"{missing or 'K3'}")
+    o, d = SdfRenderer(tr.model, SdfRenderOptions(
+        focal=float(H))).camera_rays(cam, W, H)
+    bvh_hit = (tr.bvh.raytrace(o, d)[1] >= 0).reshape(H, W)
+    agree = float(((img[..., 3] > 0) == bvh_hit).mean())
+    print(f"takikawa: analytic frame's hit mask vs the BVH's ray casts: "
+          f"{agree:.4f} of pixels agree ({float(bvh_hit.mean()):.4f} hit)")
+    _gate_min("takikawa", "analytic frame's hit agreement with the BVH",
+              agree, HIT_AGREE_MIN)
+    # K1, K2 and K3 at L = 7 on the path's own inputs: a pinned batch with
+    # the trained table and that step's cotangent; the frame's K3 call
+    pos = torch.as_tensor(batches[0][0], device=dev).contiguous()
+    dist = torch.as_tensor(batches[0][1], device=dev)
+    table = enc.table.detach().contiguous()
+    err = check_k1(table, pos, meta, "takikawa-step")
+    entries = [time_k1(table, pos, meta, err, "takikawa-step")]
+    cot = _tak_step_cotangent(tr, pos, dist)
+    err = check_k2(pos, cot, meta, "takikawa-step")
+    entries.append(time_k2(pos, cot, meta, err, "takikawa-step"))
+    t3, p3, g3 = captured[0]
+    err = check_k3(t3, p3, g3, meta, "takikawa-frame")
+    entries.append(time_k3(t3, p3, g3, meta, err, "takikawa-frame"))
+    print(f"takikawa: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, entries
+
+
+def _orientation_orbit(tb, size=(320, 180)):
+    """Frames looking along ±x, ±y, ±z in turn; after each, every
+    cascade's held orientations must be the latest two seen. Returns the
+    counts held after each frame."""
+    W, H = size
+    seen, counts, latest = [], [], True
+    for axis in range(3):
+        for sign in (1.0, -1.0):
+            fwd = np.full(3, 0.1)
+            fwd[axis] = sign
+            fwd /= np.linalg.norm(fwd)
+            up = np.array([0.0, 0.0, 1.0]) if axis != 2 else \
+                np.array([0.0, 1.0, 0.0])
+            right = np.cross(fwd, up)
+            right /= np.linalg.norm(right)
+            tb.camera_matrix = np.stack(
+                [right, np.cross(fwd, right), fwd, 0.5 - 1.3 * fwd],
+                1).astype(np.float32)
+            tb.render_playback(W, H)
+            r = next(r for k, r in tb._playback_renderers.items()
+                     if k[:2] == (W, H))
+            seen.append((axis, bool(sign < 0)))
+            held = [r.orientations(c) for c in range(len(r.cache.vols))]
+            counts.append(max(len(h) for h in held))
+            latest &= all(h == seen[-2:] for h in held)
+    return counts, latest
+
+
+def phase_playback(dev, config=None, frames=PLAYBACK_FRAMES,
+                   D=PLAYBACK_D, D_inner=PLAYBACK_D_INNER,
+                   video=(VIDEO_FPS, VIDEO_SECONDS)):
+    """Frozen-model playback on the card (cell smoke-playback-spheres),
+    from the testbed phase's snapshot: bake_playback() at D and D_inner
+    (K1 on the occupied voxels), the held-out PSNR of playback frames
+    against the live renderer's by the runner's protocol, frames at each
+    of ``frames`` (twice, timed), the orientations held over an orbit, and
+    the runner's --video_playback. Returns (the phase's launch counts,
+    K1's entry on the bake's first batch)."""
+    from ngp_tpu_torch import run
+    from ngp_tpu_torch.common import linear_to_srgb_np, mse2psnr
+    from ngp_tpu_torch.data.image_io import load_stbi
+    from ngp_tpu_torch.grid.occupancy import GRID_VOLUME
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.render.playback import (_cascade_lattice,
+                                               bake_playback_cache,
+                                               occupied_voxels)
+    t_phase = time.perf_counter()
+    nerf_root = ROOT / "build" / "testbed_smoke"
+    root = ROOT / "build" / "playback_smoke"
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    config = Path(config or ROOT / "configs/nerf/base.json")
+    snap = nerf_root / "snapshot.msgpack"
+    tb = _nerf_testbed(dev, nerf_root, config, snap)
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tb.bake_playback(D, D_inner, path=str(root / "playback.npz"))
+    torch.cuda.synchronize()
+    cache = tb._playback_cache
+    occupied = [round(float((v[..., -1] > 0).float().mean()), 4)
+                for v in cache.vols]
+    print(f"playback: bake_playback() (sides "
+          f"{[int(v.shape[0]) for v in cache.vols]}) in "
+          f"{time.perf_counter() - t0:.2f} s with the file; "
+          f"{bgc.launches['blocked_grid_encode_fwd']} K1 launches; occupied "
+          f"voxels per cascade {occupied}")
+    # the held-out views by the runner's protocol: black background, pixel
+    # centres, linear render → sRGB against the PNG
+    tb.background_color = np.array([0, 0, 0, 1], np.float32)
+    tb.snap_to_pixel_centers = True
+    test = json.loads((nerf_root / "transforms_test.json").read_text())
+    psnr = {"playback": [], "live": []}
+    for frame in test["frames"]:
+        gt = load_stbi(nerf_root / frame["file_path"])
+        H, W = gt.shape[:2]
+        tb._view_focal = np.array([test["fl_x"], test["fl_y"]], np.float32)
+        tb.set_nerf_camera_matrix(
+            np.asarray(frame["transform_matrix"], np.float32)[:3])
+        for way, render in (("playback", tb.render_playback),
+                            ("live", tb.render)):
+            img = render(W, H)
+            pred = linear_to_srgb_np(np.clip(img[..., :3], 0, 1))
+            want = linear_to_srgb_np(np.clip(gt[..., :3], 0, 1))
+            psnr[way].append(mse2psnr(float(np.mean((pred - want) ** 2))))
+    pb, live = float(np.mean(psnr["playback"])), float(np.mean(psnr["live"]))
+    print(f"playback: held-out PSNR over {len(test['frames'])} views: "
+          f"playback {pb:.2f} dB, live renderer {live:.2f} dB")
+    _gate_max("playback", "held-out PSNR below the live renderer's (dB)",
+              max(live - pb, 0.0), PLAYBACK_PSNR_DB)
+    # not gated: the JAX testbed's bake, toward the training cameras' mean
+    # position (inside an orbit's scene), on the same views
+    tb._playback_cache = bake_playback_cache(tb.trainer, D, D_inner)
+    tb._playback_renderers = {}
+    mean_eye = []
+    for frame in test["frames"]:
+        gt = load_stbi(nerf_root / frame["file_path"])
+        tb.set_nerf_camera_matrix(
+            np.asarray(frame["transform_matrix"], np.float32)[:3])
+        img = tb.render_playback(gt.shape[1], gt.shape[0])
+        mean_eye.append(mse2psnr(float(np.mean(
+            (linear_to_srgb_np(np.clip(img[..., :3], 0, 1))
+             - linear_to_srgb_np(np.clip(gt[..., :3], 0, 1))) ** 2))))
+    print(f"playback: baked toward the cameras' mean position instead (the "
+          f"JAX testbed's bake; not gated): held-out PSNR "
+          f"{np.mean(mean_eye):.2f} dB")
+    tb._playback_cache = cache
+    tb._playback_renderers = {}
+    tb._view_focal = np.array(FOCAL, np.float32)
+    tb.camera_matrix = orbit_camera(0.5)
+    for W, H in frames:
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = tb.render_playback(W, H)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            _check_frame(torch.from_numpy(img), W, H)
+        print(f"playback: {W}x{H} frame {times[0]:.1f} ms, then "
+              f"{times[1]:.1f} ms; mean alpha {float(img[..., 3].mean()):.4f}")
+    counts, latest = _orientation_orbit(tb)
+    print(f"playback: an orbit along ±x, ±y, ±z: orientations held per "
+          f"cascade after each frame {counts}")
+    _gate("playback", "orbit leaves each cascade holding the latest two "
+          "orientations", latest, "== True", latest, 0.0 if latest else
+          float("inf"), "")
+    fps, seconds = video
+    t0 = time.perf_counter()
+    out = _run_entry(run.main, [
+        "--scene", str(nerf_root / "transforms.json"), "--network",
+        str(config), "--load_snapshot", str(snap), "--device", str(dev),
+        "--video_camera_path", str(nerf_root / "camera_path.json"),
+        "--video_fps", str(fps), "--video_n_seconds", str(seconds),
+        "--video_playback", "--video_output", str(root / "video.mp4"),
+        "--width", str(FRAME_W), "--height", str(FRAME_H)])
+    n_jpg = len(list((root / "tmp_video_frames").glob("*.jpg")))
+    print(f"playback: runner --video_playback, {seconds} s at {fps} fps, in "
+          f"{time.perf_counter() - t0:.2f} s: {n_jpg} frames written"
+          + (f"; {out.strip().splitlines()[-1]}" if out.strip() else ""))
+    _gate("playback", "video frames written", n_jpg, f"== {fps * seconds}",
+          n_jpg == fps * seconds, 0.0 if n_jpg == fps * seconds
+          else float("inf"), "d")
+    launches = dict(bgc.launches)
+    print(f"playback: launches in the phase {launches}")
+    if launches["blocked_grid_encode_fwd"] <= 0:
+        raise RuntimeError("the playback phase never launched K1")
+    # K1 on the bake's first batch: cascade 0's first 2^17 occupied voxels
+    tr = tb.trainer
+    Dc = int(cache.vols[0].shape[0])
+    idx = torch.as_tensor(occupied_voxels(
+        tr.grid.bitfield[:GRID_VOLUME // 8].cpu().numpy(), Dc)[:1 << 17],
+        device=dev)
+    ax = torch.as_tensor(_cascade_lattice(Dc, 1.0), device=dev)
+    pos = torch.stack([ax[idx % Dc], ax[(idx // Dc) % Dc],
+                       ax[idx // (Dc * Dc)]], -1)
+    pos = ((pos - tr.aabb_min) / tr.aabb_size).contiguous()
+    table = tr.inference_params()["pos_encoding.table"].detach().contiguous()
+    meta = tr.model.pos_encoding.meta
+    err = check_k1(table, pos, meta, "playback-bake")
+    entry = time_k1(table, pos, meta, err, "playback-bake")
+    print(f"playback: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, entry
 
 
 def kernel_phases(dev, ray) -> list:
@@ -3011,6 +3595,11 @@ def main() -> int:
     int8_runs, kernels_int8 = phase_image_int8(dev, image_f32)
     volume_launches = phase_volume(dev)
     sdf_launches, analytic_k3 = phase_sdf(dev)
+    t_new = time.perf_counter()
+    mesh_launches, mesh_k1 = phase_mesh(dev)
+    tak_launches, tak_kernels = phase_takikawa(dev)
+    playback_launches, bake_k1 = phase_playback(dev)
+    print(f"mesh, takikawa, playback: {time.perf_counter() - t_new:.1f} s")
     # each kernel's launches in the run of the path it was ported for: the
     # training phase (K1, K2, K4), the pose phase (K3, K5), whose kernels
     # were also timed on one step's inputs, the image phase (2D K1, K2),
@@ -3042,6 +3631,22 @@ def main() -> int:
     k3 = _named(kernels, "blocked_grid_encode_bwd_pos")
     k3["testbed_normals_launches"] = normals_k3
     k3["sdf_analytic_launches"] = analytic_k3
+    # this slice's inputs, entries of their own: K1 on the mesh field and
+    # the playback bake, K1, K2 and K3 at L = 7 on the Takikawa path; each
+    # with its launches in its own phase
+    slice_entries = [(mesh_k1, "mesh field", mesh_launches)] + [
+        (e, "takikawa L=7", tak_launches) for e in tak_kernels] + [
+        (bake_k1, "playback bake", playback_launches)]
+    for e, what, counts in slice_entries:
+        e["launch_name"] = e["name"]
+        e["name"] = f"{e['name']} ({what})"
+        e["launches"] = counts[e["launch_name"]]
+    kernels += [e for e, _, _ in slice_entries]
+    for k in kernels:
+        name = k.get("launch_name", k["name"])
+        k["mesh_launches"] = mesh_launches[name]
+        k["takikawa_launches"] = tak_launches[name]
+        k["playback_launches"] = playback_launches[name]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

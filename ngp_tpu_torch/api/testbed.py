@@ -12,8 +12,7 @@ are stored and inert.
 
 It runs on the card unless the caller asks for another device
 (``Testbed(mode, device="cpu")``); without CUDA it raises rather than
-carry on on the CPU. Mesh export and playback are not ported yet and
-raise NotImplementedError. ``NGP_TPU_ENCODE_INT8`` selects every
+carry on on the CPU. ``NGP_TPU_ENCODE_INT8`` selects every
 trainer's int8 encode mode (``"full"``, or ``"fwd"`` for any other
 non-empty value), as the JAX package's encodings read it; ``render`` in
 volume mode raises ValueError, as the JAX testbed's does.
@@ -23,6 +22,13 @@ trainer runs on to the next 16-step boundary (its image and SDF trainers
 run n, as here). ``testbed.image.random_mode`` and
 ``testbed.sdf.mesh_sdf_mode`` take effect at every ``train`` call; the JAX
 testbed reads neither (mesh_sdf_mode only when it builds the trainer).
+The NeRF mesh and its PNG slices take σ only in cells the occupancy grid
+holds, as the reference's get_density_on_grid does; the JAX testbed
+meshes σ everywhere, floaters in unseen space included. ``bake_playback``
+bakes each voxel's colour toward its nearest training camera; the JAX
+testbed bakes toward the cameras' mean position, which an orbit capture
+puts inside the scene, so the network is asked for colours along
+directions it never saw (PERF.md has the held-out PSNR of both).
 """
 from __future__ import annotations
 
@@ -567,18 +573,66 @@ class Testbed:
                                      for k in range(3)], np.float32)
                 + m[:, 3] for i in range(8)]
 
-    # -- frozen-model playback: not ported -------------------------------
+    # -- frozen-model playback ------------------------------------------
 
     def bake_playback(self, D: int = 256, D_inner: int = 512,
                       path: str = ""):
-        _unported("the playback cache (ngp_tpu/render/playback.py)")
+        """Distill the trained NeRF into the dense playback cache
+        (render/playback.py) for camera-path frames without the live
+        network (ref: docs/index.html:317); saved to ``path`` if given.
+        Each voxel's colour is baked toward its nearest training camera
+        (``ref_eye="nearest"``)."""
+        from ngp_tpu_torch.render.playback import (bake_playback_cache,
+                                                   save_playback_cache)
+        _require(self, TestbedMode.NERF, "bake_playback")
+        self._playback_cache = bake_playback_cache(
+            self.trainer, D=D, D_inner=D_inner, ref_eye="nearest")
+        self._playback_renderers = {}
+        if path:
+            save_playback_cache(path, self._playback_cache)
 
     def load_playback(self, path: str):
-        _unported("the playback cache (ngp_tpu/render/playback.py)")
+        """A playback cache saved by either package, onto this testbed's
+        device."""
+        from ngp_tpu_torch.render.playback import load_playback_cache
+        self._playback_cache = load_playback_cache(path, self.device)
+        self._playback_renderers = {}
 
     def render_playback(self, width: int, height: int,
                         start_time: float = -1.0) -> np.ndarray:
-        _unported("the playback cache (ngp_tpu/render/playback.py)")
+        """Camera-path frame from the playback cache (pinhole + OpenCV
+        lens; DoF and rolling-shutter frames need ``render``), baked first
+        if there is none."""
+        from ngp_tpu_torch.render.playback import (PlaybackOptions,
+                                                   PlaybackRenderer)
+        if getattr(self, "_playback_cache", None) is None:
+            self.bake_playback()
+        if start_time >= 0.0 and self.camera_path is not None:
+            kf = self.camera_path.eval(start_time)
+            self.camera_matrix = kf.to_matrix()
+        ds = self.nerf.training.dataset
+        lens = (0.0, 0.0, 0.0, 0.0)
+        lmode = "perspective"
+        principal = (0.5, 0.5)
+        if ds is not None:
+            if self.nerf.render_with_lens_distortion and ds.lens_is_opencv:
+                lens = tuple(float(x) for x in ds.lens_params[0][:4])
+                lmode = "opencv"
+            if getattr(ds, "principal", None) is not None:
+                principal = tuple(float(x) for x in ds.principal[0])
+        key = (width, height, lens, lmode, principal,
+               tuple(self.background_color))
+        r = self._playback_renderers.get(key)
+        if r is None:
+            r = PlaybackRenderer(self._playback_cache, PlaybackOptions(
+                width=width, height=height, principal=principal,
+                lens_params=lens, lens_mode=lmode,
+                background=tuple(float(c) for c in self.background_color),
+                linear_out=True))
+            self._playback_renderers[key] = r
+        focal = getattr(self, "_view_focal", np.array([height, height]))
+        return r.render(self.camera_matrix, width, height,
+                        focal=(float(focal[0]), float(focal[1])))
 
     # -- rendering ----------------------------------------------------------
 
@@ -955,26 +1009,92 @@ class Testbed:
         self.nerf.training.dataset = ds
         return ds
 
-    # -- mesh / slice exports: not ported ------------------------------------
+    # -- mesh / slice exports ------------------------------------------------
+
+    def _mesh_field(self, res: int) -> np.ndarray:
+        """The field a mesh is cut from, (res, res, res) on the host: the
+        SDF's distance on the unit cube's voxel centres, or the NeRF's σ
+        on the AABB's where the occupancy grid holds the cell (see
+        ``NerfTrainer.sigma_at``)."""
+        from ngp_tpu_torch.render.mesh_export import density_field_on_grid
+        tr = self.trainer
+        if self.mode == TestbedMode.SDF:
+            return density_field_on_grid(tr.distance, res, device=tr.device)
+        return density_field_on_grid(
+            lambda p: tr.sigma_at(p, occupied_only=True), res,
+            float(tr.aabb_min), float(tr.aabb_size), device=tr.device)
 
     def compute_marching_cubes_mesh(self, resolution=(256, 256, 256),
                                     thresh: float = 2.5):
-        _unported("mesh export (ngp_tpu/render/mesh_export.py)")
+        """ref: pyngp compute_marching_cubes_mesh → {"V", "N", "C", "F"}:
+        marching tetrahedra at distance 0 in SDF mode; in NeRF mode
+        marching cubes at σ ``thresh``, smoothed once, coloured by the
+        radiance field."""
+        from ngp_tpu_torch.render.mesh_export import (marching_cubes,
+                                                      marching_tetrahedra,
+                                                      smooth_mesh,
+                                                      vertex_colors,
+                                                      vertex_normals)
+        if self.mode not in (TestbedMode.NERF, TestbedMode.SDF) \
+                or self.trainer is None:
+            raise ValueError("a mesh needs a trained NeRF or SDF testbed")
+        tr = self.trainer
+        res = resolution[0] if hasattr(resolution, "__len__") else resolution
+        field = self._mesh_field(res)
+        if self.mode == TestbedMode.SDF:
+            v, f = marching_tetrahedra(field, 0.0)
+        else:
+            v, f = marching_cubes(-field, -thresh)
+            v = v * float(tr.aabb_size) + float(tr.aabb_min)
+            if len(v):
+                v = smooth_mesh(v, f, 1)
+        n = vertex_normals(v, f) if len(v) else np.zeros((0, 3), np.float32)
+        if self.mode == TestbedMode.NERF and len(v):
+            c = vertex_colors(tr.model, tr.inference_params(), v,
+                              float(tr.aabb_min), float(tr.aabb_size))
+        else:
+            c = np.abs(n)
+        return {"V": v, "N": n, "C": c, "F": f}
 
     def get_rgba_on_grid(self, resolution: int = 128,
                          ray_dir=(0.0, 0.0, 1.0), depth: float = 0.01,
                          density_as_alpha: bool = False) -> np.ndarray:
-        _unported("mesh export (ngp_tpu/render/mesh_export.py)")
+        """NeRF RGBA on a voxel grid (ref: Testbed::get_rgba_on_grid,
+        src/testbed_nerf.cu:3532)."""
+        from ngp_tpu_torch.render.mesh_export import rgba_on_grid
+        _require(self, TestbedMode.NERF, "get_rgba_on_grid")
+        tr = self.trainer
+        return rgba_on_grid(tr.model, tr.inference_params(), resolution,
+                            float(tr.aabb_min), float(tr.aabb_size), ray_dir,
+                            depth, density_as_alpha)
 
     def compute_and_save_marching_cubes_mesh(self, filename,
                                              resolution=(256, 256, 256),
                                              thresh: float = 2.5,
                                              unwrap_it: bool = False):
-        _unported("mesh export (ngp_tpu/render/mesh_export.py)")
+        """ref: compute_and_save_marching_cubes_mesh + save_mesh
+        (src/marching_cubes.cu:823-944): a ``.ply`` with vertex colours,
+        else an OBJ with normals, or with ``unwrap_it`` the quad-atlas UV
+        unwrap and its debug .tga texture."""
+        from ngp_tpu_torch.render.mesh_export import (save_obj,
+                                                      save_obj_unwrapped,
+                                                      save_ply)
+        m = self.compute_marching_cubes_mesh(resolution, thresh)
+        if str(filename).endswith(".ply"):
+            save_ply(filename, m["V"], m["F"], m["C"])
+        elif unwrap_it:
+            save_obj_unwrapped(filename, m["V"], m["F"], m.get("C"),
+                               m["N"])
+        else:
+            save_obj(filename, m["V"], m["F"], m["N"])
 
     def compute_and_save_png_slices(self, filename_prefix, resolution=256,
                                     thresh: float = 2.5):
-        _unported("mesh export (ngp_tpu/render/mesh_export.py)")
+        """ref: pyngp compute_and_save_png_slices: the mesh's field as
+        ``<prefix>_<z:04d>.png`` slices."""
+        from ngp_tpu_torch.render.mesh_export import save_density_slices
+        _require(self, TestbedMode.NERF, "compute_and_save_png_slices")
+        save_density_slices(filename_prefix, self._mesh_field(resolution))
 
     def override_sdf_training_data(self, points: np.ndarray,
                                    distances: np.ndarray):

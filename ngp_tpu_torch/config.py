@@ -58,8 +58,13 @@ def load_commented_json(path: str | Path) -> dict:
 
 def load_network_config(path: str | Path) -> dict:
     """Load a network config, resolving the ``parent`` inheritance chain.
-    Children override parents key by key, recursing into nested dicts."""
+    Children override parents key by key, recursing into nested dicts. A
+    ``.msgpack`` path gives the config embedded in that snapshot (ref:
+    src/testbed.cu:120-146)."""
     path = Path(path)
+    if path.suffix == ".msgpack":
+        from ngp_tpu_torch.io.snapshot import load_msgpack_config
+        return load_msgpack_config(path)
     cfg = load_commented_json(path)
     if "parent" in cfg:
         merged = load_network_config(path.parent / cfg.pop("parent"))

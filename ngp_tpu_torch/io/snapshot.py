@@ -135,6 +135,18 @@ def load_snapshot(path) -> dict:
     return doc
 
 
+def load_msgpack_config(path) -> dict:
+    """The network config embedded in a snapshot msgpack: the document
+    without its ``snapshot`` section (ref: load_network_config accepting
+    .msgpack, src/testbed.cu:120-146)."""
+    import msgpack  # only snapshot I/O needs it
+
+    doc = msgpack.unpackb(Path(path).read_bytes(), raw=False,
+                          strict_map_key=False)
+    doc.pop("snapshot", None)
+    return doc
+
+
 def save_encoded_snapshot(path, network_config: dict, trainer) -> None:
     """A snapshot of an image, SDF or volume trainer (``model`` an
     EncodedNetwork, ``params``, ``opt_state``, ``training_step``): its

@@ -251,6 +251,6 @@ def create_encoding(n_dims: int, cfg: dict,
             remaining -= nd
         return Composite(parts)
     if otype == "takikawa":
-        raise NotImplementedError("the Takikawa octree encoding "
-                                  "(ngp_tpu/nn/takikawa.py): not ported yet")
+        raise ValueError("the Takikawa octree encoding needs the mesh's "
+                         "surface: SdfTrainer builds it (nn/takikawa.py)")
     raise ValueError(f"unknown encoding otype {cfg.get('otype')!r}")

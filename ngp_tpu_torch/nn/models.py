@@ -12,6 +12,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from ngp_tpu_torch.common import NerfActivation, network_activation
 from ngp_tpu_torch.config import autofill_hashgrid_config
@@ -28,19 +29,23 @@ class EncodedNetwork(nn.Module):
     Parameters: ``encoding.*`` (a grid's table; none for the analytic
     encodings) and ``net.weights.<i>``. ``grid_impl`` as in
     ``create_encoding``: ``"tcnn"`` builds the tcnn-layout grid whose flat
-    table a reference snapshot holds. ``forward(x, int8, tile)`` encodes in
-    the blocked grid's int8 mode ``int8`` (``""``, ``"fwd"`` or
-    ``"full"``; ``nn/encodings.encode``)."""
+    table a reference snapshot holds. ``encoding``, a module already built
+    (the SDF trainer's Takikawa encoding), takes the place of
+    ``encoding_cfg``. ``forward(x, int8, tile)`` encodes in the blocked
+    grid's int8 mode ``int8`` (``""``, ``"fwd"`` or ``"full"``;
+    ``nn/encodings.encode``)."""
 
     def __init__(self, n_input_dims: int, n_output_dims: int,
-                 encoding_cfg: dict, network_cfg: dict,
+                 encoding_cfg: Optional[dict], network_cfg: dict,
                  generator: Optional[torch.Generator] = None, device=None,
-                 grid_impl: str = "blocked"):
+                 grid_impl: str = "blocked",
+                 encoding: Optional[nn.Module] = None):
         super().__init__()
         self.n_input_dims = n_input_dims
         self.n_output_dims = n_output_dims
-        self.encoding = create_encoding(n_input_dims, encoding_cfg, generator,
-                                        device, grid_impl)
+        self.encoding = encoding if encoding is not None else \
+            create_encoding(n_input_dims, encoding_cfg, generator, device,
+                            grid_impl)
         self.net = MLP.from_config(self.encoding.n_output_dims,
                                    n_output_dims, network_cfg, generator,
                                    device)
@@ -123,6 +128,18 @@ class NerfNetwork(nn.Module):
         the encode's int8 mode (``BlockedGridEncoding``)."""
         return self(pos01, dir01, max_level=max_level, extra=extra, int8=int8,
                     tile=tile)
+
+    def rgb_sigma(self, pos01, dir01, extra=None, max_level=None,
+                  int8: str = "", params=None):
+        """Activated (rgb (N, 3), σ (N,)): the logistic colour and the
+        exponential density (port of ``NerfNetwork.rgb_sigma``). With
+        ``params`` the network runs on that parameter dict
+        (``functional_call``), as the renderer evaluates the EMA copy."""
+        kw = {"extra": extra, "max_level": max_level, "int8": int8}
+        rgb_raw, d_raw = (self(pos01, dir01, **kw) if params is None else
+                          functional_call(self, params, (pos01, dir01), kw))
+        return (network_activation(rgb_raw, NerfActivation.LOGISTIC),
+                network_activation(d_raw, NerfActivation.EXPONENTIAL))
 
     def density(self, pos01, max_level=None, int8: str = "",
                 quantized=None):

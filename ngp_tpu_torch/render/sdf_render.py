@@ -12,6 +12,14 @@ options' ``encode_int8`` mode. Hit points are shaded with a sun
 (Lambert and a Phong-like specular lobe with the BRDF knobs), soft shadows
 marched towards the sun, an ambient term and the background colour.
 
+A model with the Takikawa octree encoding is traced through its octree,
+as the reference traces it (the SphereTracer's octree jumps): outside the
+finest level's cells the features are 0, and the tracer steps by the
+empty cell's width instead of the network's output
+(``TakikawaEncoding.empty_space_distance``), and counts no hit there. The
+JAX renderer has no octree path: its rays stop at the first point outside
+the octree, where the network reads 0 (an intended divergence).
+
 The JAX renderer evaluates every ray of a chunk at every iteration and
 masks the dead ones; here only the live rays are evaluated, and shadows
 and shading only at hits. A ray's result does not depend on the others,
@@ -66,10 +74,20 @@ class SdfRenderer:
         self.model = model
         self.opts = opts or SdfRenderOptions()
 
+    def _octree(self):
+        """The model's octree encoding (Takikawa), or None."""
+        enc = getattr(self.model, "encoding", None)
+        return enc if hasattr(enc, "empty_space_distance") else None
+
     def _dist(self, params, p: torch.Tensor) -> torch.Tensor:
-        return functional_call(self.model, params, (p,), {
+        d = functional_call(self.model, params, (p,), {
             "int8": self.opts.encode_int8})[:, 0].to(
             torch.float32) * self.opts.distance_scale
+        octree = self._octree()
+        if octree is not None:
+            gap = octree.empty_space_distance(p)
+            d = torch.where(gap > 0, gap, d)
+        return d
 
     def _trace(self, params, o, d):
         """Sphere trace; returns (t, hit) per ray."""
@@ -87,8 +105,11 @@ class SdfRenderer:
             t[idx] = t_new
             alive[idx] = ~((torch.abs(sd) < opts.hit_epsilon)
                            | (t_new > tmax[idx]))
-        sd = self._dist(params, o + t[:, None] * d)
+        p = o + t[:, None] * d
+        sd = self._dist(params, p)
         hit = valid & (torch.abs(sd) < opts.hit_epsilon * 10) & (t < tmax)
+        if self._octree() is not None:
+            hit &= self._octree().contains(p)
         return t, hit
 
     def _normals(self, params, p: torch.Tensor) -> torch.Tensor:

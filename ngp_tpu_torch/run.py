@@ -12,18 +12,28 @@
 Mode inference (or ``--mode``), config resolution, training with
 ``iteration=`` prints, snapshot save/load, held-out PSNR/SSIM (black
 background, snap to pixel centres, linear render → sRGB compared to the
-target; ref run.py:216-303) and screenshots at the cameras of
-``--screenshot_transforms``. It runs on the card unless ``--device cpu``
-asks for the CPU. ``--n_steps`` is exact: the JAX package's NeRF trainer
-runs on to a 16-step boundary, this one does not. Mesh export
-(``--save_mesh``) and camera-path video (``--video_camera_path``) are not
-ported yet and raise.
+target; ref run.py:216-303), screenshots at the cameras of
+``--screenshot_transforms``, a mesh of the NeRF's density or the SDF
+(``--save_mesh x.obj|x.ply`` at ``--marching_cubes_res``) and a
+camera-path video (``--video_camera_path``; ``--video_playback`` renders
+it from the baked playback cache; the frames are encoded by ffmpeg where
+it is installed). It runs on the card unless ``--device cpu`` asks for the
+CPU.
+
+Intended divergences: ``--n_steps`` is exact (the JAX package's NeRF
+trainer runs on to a 16-step boundary); the NeRF mesh is cut from σ in
+the occupied cells only (``Testbed.compute_marching_cubes_mesh``); the
+video's frames are RGB JPEGs in ``tmp_video_frames`` beside
+``--video_output`` (the JAX runner writes RGBA, which JPEG cannot hold,
+into the working directory).
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
+import shutil
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -51,8 +61,16 @@ def parse_args(argv=None):
     p.add_argument("--screenshot_spp", type=int, default=16)
     p.add_argument("--width", type=int, default=0)
     p.add_argument("--height", type=int, default=0)
-    p.add_argument("--save_mesh", default="", help="not ported yet")
-    p.add_argument("--video_camera_path", default="", help="not ported yet")
+    p.add_argument("--save_mesh", default="")
+    p.add_argument("--marching_cubes_res", type=int, default=256)
+    p.add_argument("--video_camera_path", default="")
+    p.add_argument("--video_fps", type=int, default=30)
+    p.add_argument("--video_n_seconds", type=int, default=1)
+    p.add_argument("--video_spp", type=int, default=8)
+    p.add_argument("--video_output", default="video.mp4")
+    p.add_argument("--video_playback", action="store_true",
+                   help="render the camera path from the baked playback "
+                        "cache instead of the live network")
     p.add_argument("--nerf_compatibility", action="store_true",
                    help="upstream instant-ngp semantics: sRGB colors, cone "
                         "angle 0, world scale 0.33/offset .5 (ref: "
@@ -105,11 +123,6 @@ def main(argv=None) -> int:
     from ngp_tpu_torch.api.testbed import Testbed, mode_from_scene
     from ngp_tpu_torch.common import ColorSpace, TestbedMode
 
-    for flag, what in ((args.save_mesh, "mesh export (--save_mesh)"),
-                       (args.video_camera_path,
-                        "camera-path video (--video_camera_path)")):
-        if flag:
-            raise NotImplementedError(f"{what}: not ported yet")
     mode = TestbedMode(args.mode) if args.mode else \
         (mode_from_scene(args.scene) or TestbedMode.NERF)
     testbed = Testbed(mode, device=args.device)
@@ -155,12 +168,31 @@ def main(argv=None) -> int:
         testbed.save_snapshot(args.save_snapshot)
         print("saved snapshot to", args.save_snapshot)
 
+    if args.save_mesh and mode in (TestbedMode.NERF, TestbedMode.SDF):
+        save_mesh(testbed, args.save_mesh, args.marching_cubes_res)
+
     if args.test_transforms:
         evaluate_test_transforms(testbed, args)
 
     if args.screenshot_transforms:
         render_screenshots(testbed, args)
+
+    if args.video_camera_path:
+        render_video(testbed, args)
     return 0
+
+
+def save_mesh(testbed, path: str, res: int):
+    """The testbed's mesh at res³ (``compute_marching_cubes_mesh``) as a
+    PLY without colours or an OBJ with normals."""
+    from ngp_tpu_torch.render.mesh_export import save_obj, save_ply
+    m = testbed.compute_marching_cubes_mesh(res)
+    v, f = m["V"], m["F"]
+    if path.endswith(".ply"):
+        save_ply(path, v, f)
+    else:
+        save_obj(path, v, f, m["N"])
+    print(f"saved mesh ({len(v)} verts, {len(f)} faces) to", path)
 
 
 def evaluate_test_transforms(testbed, args):
@@ -240,6 +272,38 @@ def render_screenshots(testbed, args):
         name = Path(frame.get("file_path", "frame")).stem + ".png"
         write_image(outdir / name, img)
         print("wrote", outdir / name)
+
+
+def render_video(testbed, args):
+    """``--video_n_seconds`` · ``--video_fps`` frames along the camera
+    path (live at ``--video_spp`` with a half-open shutter, or from the
+    playback cache), written as JPEGs and encoded to ``--video_output`` by
+    ffmpeg where it is installed."""
+    testbed.load_camera_path(args.video_camera_path)
+    n_frames = args.video_n_seconds * args.video_fps
+    W = args.width or 1920
+    H = args.height or 1080
+    tmp = Path(args.video_output).parent / "tmp_video_frames"
+    tmp.mkdir(parents=True, exist_ok=True)
+    if args.video_playback:
+        testbed.bake_playback()
+    for i in range(n_frames):
+        t = i / max(n_frames - 1, 1)
+        if args.video_playback:
+            img = testbed.render_playback(W, H, start_time=t)
+        else:
+            img = testbed.render(W, H, spp=args.video_spp, linear=True,
+                                 start_time=t, end_time=t,
+                                 fps=args.video_fps, shutter_fraction=0.5)
+        write_image(tmp / f"{i:04d}.jpg", img[..., :3])
+        print(f"video frame {i + 1}/{n_frames}")
+    if shutil.which("ffmpeg"):
+        subprocess.run(["ffmpeg", "-y", "-framerate", str(args.video_fps),
+                        "-i", str(tmp / "%04d.jpg"), "-c:v", "libx264",
+                        "-pix_fmt", "yuv420p", args.video_output], check=False)
+        print("wrote", args.video_output)
+    else:
+        print("ffmpeg not found; frames left in", tmp)
 
 
 if __name__ == "__main__":

@@ -843,15 +843,29 @@ class NerfTrainer:
         return out.cpu().numpy()
 
     @torch.no_grad()
+    def sigma_at(self, pos: torch.Tensor,
+                 occupied_only: bool = False) -> torch.Tensor:
+        """σ at (N, 3) world positions (unwarped) on the trainer's device,
+        with the inference (EMA) parameters. ``occupied_only`` sets σ to
+        0 where the occupancy bitfield (at the position's own cascade)
+        marks the cell empty, as the reference masks the mesh's field by
+        its density grid (get_density_on_grid → grid_samples_half_to_float,
+        src/testbed_nerf.cu): what the renderer skips is not meshed."""
+        warped = (pos - self.aabb_min) / self.aabb_size
+        sigma = torch.exp(torch.clamp(functional_call(
+            self.model, self.inference_params(), (warped,))[..., 0],
+            -15.0, 15.0))
+        if occupied_only:
+            sigma = torch.where(occ.occupied_at(
+                self.grid.bitfield, pos,
+                occ.mip_from_pos(pos, self.max_cascade)), sigma, 0.0)
+        return sigma
+
     def density_at(self, pos: np.ndarray) -> np.ndarray:
         """σ at world positions (unwarped), with the inference (EMA)
         parameters."""
-        warped = (torch.as_tensor(np.asarray(pos, np.float32),
-                                  device=self.device) - self.aabb_min) \
-            / self.aabb_size
-        sigma = functional_call(self.model, self.inference_params(),
-                                (warped,))[..., 0]
-        return torch.exp(torch.clamp(sigma, -15.0, 15.0)).cpu().numpy()
+        return self.sigma_at(torch.as_tensor(
+            np.asarray(pos, np.float32), device=self.device)).cpu().numpy()
 
     # snapshot I/O ------------------------------------------------------
 

@@ -14,8 +14,15 @@ Adam and the EMA. ``encode_int8`` (the JAX package's
 ``NGP_TPU_ENCODE_INT8``) runs the encode on the int8-quantised table in
 training and inference: ``"fwd"`` K4 with K2, ``"full"`` K4 with K5.
 
-Not ported: the Takikawa octree encoding and its octree-uniform sampling
-(``create_encoding`` raises NotImplementedError for "Takikawa"). Intended
+An ``otype: Takikawa`` encoding (``nn/takikawa.py``) is built here from
+2^18 surface samples of the mesh, as the JAX trainer builds it; the model
+is then an ``EncodedNetwork`` over it (parameters ``encoding.table`` and
+``net.weights.<i>``, the JAX tree's ``encoding`` and ``net``), and the
+1/8 uniform samples are drawn inside the surface leaves of an octree of
+depth ``octree_depth`` (ref: uniform_octree_sample_kernel,
+src/testbed_sdf.cu:1118-1143), with the perturbation clamped to the leaf
+size. ``calculate_iou`` then counts a sample outside the octree as agreeing
+(ref: compare_signs_kernel, src/testbed_sdf.cu:464-466). Intended
 divergence: the weights are initialised from a ``torch.Generator``, not
 from a ``jax.random`` key.
 """
@@ -23,6 +30,7 @@ from __future__ import annotations
 
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,6 +43,7 @@ from ngp_tpu_torch.io.snapshot import (load_encoded_snapshot_state,
                                       save_encoded_snapshot)
 from ngp_tpu_torch.kernels.blocked_grid_cuda import check_int8_mode
 from ngp_tpu_torch.nn.models import EncodedNetwork
+from ngp_tpu_torch.nn.takikawa import TakikawaEncoding, TakikawaMeta
 from ngp_tpu_torch.opt.losses import create_loss
 from ngp_tpu_torch.opt.optimizers import (AdamConfig, apply_update,
                                           inference_params, init_state)
@@ -51,7 +60,9 @@ class SdfTrainer:
     def __init__(self, mesh_path, config: dict, seed: int = 1337,
                  batch_size: int = 1 << 18,
                  sign_mode: int = TriangleBvh.MODE_RAYSTAB, device="cuda",
-                 encode_int8: str = ""):
+                 encode_int8: str = "",
+                 use_octree_uniform: Optional[bool] = None,
+                 octree_depth: int = 7):
         self.encode_int8 = check_int8_mode(encode_int8)
         self.device = dev = resolve_device(device)
         self.vertices, self.faces, self.mesh_scale, self.mesh_offset = \
@@ -59,12 +70,22 @@ class SdfTrainer:
         self.bvh = TriangleBvh(self.vertices, self.faces)
         self.sign_mode = sign_mode
         enc_cfg = config["encoding"]
+        takikawa = enc_cfg.get("otype", "").lower() == "takikawa"
         if "grid" in enc_cfg.get("otype", "").lower():
             enc_cfg = autofill_hashgrid_config(enc_cfg, n_pos_dims=3,
                                                desired_resolution=2048.0)
         self.generator = torch.Generator(device=dev).manual_seed(seed)
+        self.tak_encoding = None
+        if takikawa:
+            # the octree encoding over the mesh's surface (ref:
+            # takikawa_encoding.cuh; src/testbed.cu:2401-2420)
+            surf = self.bvh.sample_surface(1 << 18,
+                                           np.random.default_rng(seed))
+            self.tak_encoding = TakikawaEncoding(
+                TakikawaMeta.from_config(enc_cfg), surf, self.generator, dev)
         self.model = EncodedNetwork(3, 1, enc_cfg, config["network"],
-                                    generator=self.generator, device=dev)
+                                    generator=self.generator, device=dev,
+                                    encoding=self.tak_encoding)
         self.loss = create_loss(config.get("loss", {"otype": "MAPE"}))
         self.opt_cfg = AdamConfig.from_config(config.get("optimizer", {}),
                                               loss_scale=LOSS_SCALE)
@@ -77,6 +98,31 @@ class SdfTrainer:
         self.last_loss = 0.0
         # perturbation scale relative to the unit cube (ref: :1120-1132)
         self.perturb_sigma = 1.0 / 1024.0 * 4.0
+        # octree-uniform sampling: the surface leaves at octree_depth are
+        # the voxels of 2^19 surface samples dilated by one voxel (a cover
+        # of the leaves the triangles cross), kept in the JAX trainer's
+        # set insertion order so that the batches are its bits
+        self.use_octree_uniform = bool(takikawa if use_octree_uniform is None
+                                       else use_octree_uniform)
+        self.octree_depth = int(octree_depth)
+        if self.use_octree_uniform:
+            res = 1 << self.octree_depth
+            surf = self.bvh.sample_surface(1 << 19, self.rng)
+            vox = np.clip((surf * res).astype(np.int64), 0, res - 1)
+            occ_set = set()
+            for dz in (-1, 0, 1):
+                for dy in (-1, 0, 1):
+                    for dx in (-1, 0, 1):
+                        v = np.clip(vox + [dx, dy, dz], 0, res - 1)
+                        occ_set.update(np.unique(
+                            (v[:, 2] * res + v[:, 1]) * res + v[:, 0]))
+            flat = np.fromiter(occ_set, np.int64)
+            self._octree_leaves = np.stack(
+                [flat % res, (flat // res) % res, flat // (res * res)],
+                -1).astype(np.float32)
+            # ref clamps the perturbation to the leaf size (:1131)
+            self.perturb_sigma = min(self.perturb_sigma,
+                                     2.0 ** (1 - self.octree_depth))
         # host seconds of each batch generate_training_batch made, newest
         # last (the BVH's queries dominate)
         self.batch_seconds: list = []
@@ -97,7 +143,14 @@ class SdfTrainer:
         pert = base + self.rng.logistic(
             0.0, self.perturb_sigma, (n_pert, 3)).astype(np.float32)
         pert = np.clip(pert, 0.0, 1.0)
-        unif = self.rng.random((n_unif, 3), np.float32)
+        if self.use_octree_uniform:
+            res = 1 << self.octree_depth
+            idx = self.rng.integers(0, len(self._octree_leaves), n_unif)
+            unif = ((self._octree_leaves[idx] +
+                     self.rng.random((n_unif, 3), np.float32)) /
+                    res).astype(np.float32)
+        else:
+            unif = self.rng.random((n_unif, 3), np.float32)
         queries = np.concatenate([pert, unif], 0)
         d_q = self.bvh.signed_distance(queries, mode=self.sign_mode)
         pos = np.concatenate([surf, queries], 0)
@@ -148,15 +201,19 @@ class SdfTrainer:
         return inference_params(self.params, self.opt_state, self.opt_cfg)
 
     @torch.inference_mode()
+    def distance(self, pos: torch.Tensor) -> torch.Tensor:
+        """The network's distance (inference parameters, the trainer's
+        int8 mode) at (n, 3) positions on the trainer's device."""
+        return functional_call(self.model, self.inference_params(), (pos,),
+                               {"int8": self.encode_int8})[:, 0].to(
+                                   torch.float32)
+
     def distance_at(self, pos: np.ndarray,
                     chunk: int = EVAL_CHUNK) -> np.ndarray:
-        """The network's distance (inference parameters, the trainer's
-        int8 mode) at (N, 3) positions, as numpy."""
-        p = self.inference_params()
-        mode = {"int8": self.encode_int8}
+        """``distance`` at (N, 3) positions, in chunks, as numpy."""
         pos = torch.as_tensor(np.asarray(pos, np.float32), device=self.device)
-        return torch.cat([functional_call(self.model, p, (c,), mode)[:, 0].to(
-            torch.float32) for c in pos.split(chunk)]).cpu().numpy()
+        return torch.cat([self.distance(c) for c in pos.split(chunk)]
+                         ).cpu().numpy()
 
     def calculate_iou(self, n_samples: int = 1 << 21, seed: int = 0,
                       block: int = 1 << 22) -> float:
@@ -171,6 +228,12 @@ class SdfTrainer:
             pts = rng.random((n, 3), np.float32)
             gt = self.bvh.signed_distance(pts, mode=self.sign_mode) <= 0
             pred = self.distance_at(pts) <= 0
+            if self.tak_encoding is not None:
+                # outside the octree the network has no features: the
+                # reference counts such samples as agreeing
+                inside = self.tak_encoding.contains(torch.as_tensor(
+                    pts, device=self.device)).cpu().numpy()
+                pred = np.where(inside, pred, gt)
             inter += int(np.logical_and(gt, pred).sum())
             union += int(np.logical_or(gt, pred).sum())
             remaining -= n

@@ -19,7 +19,9 @@ def test_port_imports_without_jax():
                  "api.pyngp_shim", "kernels.hashgrid", "rays.sampling",
                  "train.image", "train.sdf", "data.mesh",
                  "render.sdf_render", "data.nanovdb", "data.nanovdb_write",
-                 "train.volume", "render.volume_render"):
+                 "train.volume", "render.volume_render",
+                 "render.mesh_export", "render.playback", "nn.takikawa",
+                 "utils.flip", "utils.profiling"):
         assert f"ngp_tpu_torch.{name}" in names
     code = "\n".join([
         "import importlib, sys",

@@ -1,21 +1,22 @@
 """The CUDA kernels' arithmetic on the CPU. ngp_tpu_torch/csrc/
 blocked_grid_encode.cu is compiled by the host C++ compiler against a
-stand-in for the CUDA runtime (``RUNTIME`` below) that runs the threads of
-each launch one after another, and the library is loaded through the
-wrapper's own ctypes declarations; the launches then go through
-``blocked_grid_cuda``'s ``launch_*`` wrappers (their plans, argument order
-and launch names) on CPU tensors and are held against the plain versions
-with chip_smoke.py's tolerances. This covers each kernel's geometry, its
-corner loads (K4's byte picks from 2D and 3D lines), weights and stores on
-2D and 3D grids.
+stand-in for the CUDA runtime (``RUNTIME`` below) that runs the blocks of
+each launch one after another and each block's threads at once, one host
+thread each: ``__syncthreads`` is a barrier of the block, and every warp
+intrinsic (shuffles, ``__match_any_sync``, ``__reduce_max_sync``) a
+barrier of the warp's lanes, which swap their values through slots;
+atomics take a lock. The library is loaded through the wrapper's own
+ctypes declarations; the launches then go through ``blocked_grid_cuda``'s
+``launch_*`` wrappers (their plans, argument order and launch names) on
+CPU tensors and are held against the plain versions with chip_smoke.py's
+tolerances. This covers each kernel's geometry, its corner loads (K4's
+byte picks from 2D and 3D lines), weights, warp sums and stores on 2D and
+3D grids, and every kernel at 7 and 6 levels, whose plans take level
+groups of width 1 and 2.
 
-Sequential lanes cannot show what lanes do together: a warp's intrinsics
-see one lane (``__match_any_sync`` finds no peers, shuffles return the
-lane's own value). So K3 runs on one-level grids, where its level group
-is one lane; K5's max pass lets every lane add its own maximum (the
-source's one-lane-per-level store, edited in the emulated copy only). The
-warp sums, K3's butterflies across a group and its second pass stay with
-chip_smoke.py on the card."""
+What a host cannot show is the card's own: the order in which a warp's
+lanes run, f32 atomics' flush of denormals and the compiler's FMAs stay
+with chip_smoke.py on the card."""
 import re
 import shutil
 import subprocess
@@ -36,9 +37,15 @@ KERNEL_TOL, KERNEL_BWD_TOL, KERNEL_POS_TOL, KERNEL_I8_TOL = \
 RUNTIME = r"""
 #pragma once
 #include <algorithm>
+#include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <functional>
+#include <memory>
+#include <mutex>
+#include <thread>
+#include <vector>
 #define __global__
 #define __device__
 #define __forceinline__ inline
@@ -47,7 +54,8 @@ RUNTIME = r"""
 struct dim3 { unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {} };
 struct U3 { unsigned x, y, z; };
-inline U3 threadIdx, blockIdx, blockDim;
+inline thread_local U3 threadIdx;
+inline U3 blockIdx, blockDim;
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
@@ -67,35 +75,94 @@ inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
     r |= (unsigned)((v >> (8 * ((s >> (4 * i)) & 7))) & 0xff) << (8 * i);
   return r;
 }
-template <class T> T __shfl_sync(unsigned, T v, int) { return v; }
-template <class T> T __shfl_xor_sync(unsigned, T v, int) { return v; }
-inline unsigned __match_any_sync(unsigned, unsigned long long) {
-  return 1u << (threadIdx.x & 31);
+// a block's threads run at once, one std::thread each; a warp's lanes
+// meet at a barrier in every warp intrinsic and swap values through slots
+struct Warp {
+  std::unique_ptr<std::barrier<>> bar;
+  uint64_t slot[32];
+  bool live[32];
+};
+inline std::unique_ptr<std::barrier<>> g_block;
+inline std::vector<Warp> g_warps;
+inline std::mutex g_atomic;
+inline Warp& my_warp() { return g_warps[threadIdx.x / 32]; }
+template <class T> uint64_t to_slot(T v) {
+  uint64_t u = 0; memcpy(&u, &v, sizeof(T)); return u; }
+template <class T> T from_slot(uint64_t u) { T v; memcpy(&v, &u, sizeof(T)); return v; }
+// every lane publishes v, then reads what pick(lane slots) gives it
+template <class T, class F> T exchange(T v, F pick) {
+  Warp& w = my_warp();
+  w.slot[threadIdx.x & 31] = to_slot(v);
+  w.bar->arrive_and_wait();
+  const T r = pick(w);
+  w.bar->arrive_and_wait();
+  return r;
 }
-inline unsigned __reduce_max_sync(unsigned, unsigned v) { return v; }
+template <class T> T __shfl_sync(unsigned, T v, int src) {
+  return exchange(v, [&](Warp& w) { return from_slot<T>(w.slot[src & 31]); });
+}
+template <class T> T __shfl_xor_sync(unsigned, T v, int m) {
+  const int j = ((int)(threadIdx.x & 31)) ^ m;
+  return exchange(v, [&](Warp& w) { return from_slot<T>(w.slot[j]); });
+}
+inline unsigned __match_any_sync(unsigned, unsigned long long v) {
+  return exchange(v, [&](Warp& w) {
+    unsigned m = 0;
+    for (int j = 0; j < 32; ++j)
+      if (w.live[j] && w.slot[j] == v) m |= 1u << j;
+    return (unsigned long long)m; });
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return exchange(v, [&](Warp& w) {
+    unsigned m = 0;
+    for (int j = 0; j < 32; ++j)
+      if (w.live[j]) m = std::max(m, (unsigned)w.slot[j]);
+    return m; });
+}
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(int v) { return __builtin_ffs(v); }
 inline float __uint_as_float(unsigned u) { float f; memcpy(&f, &u, 4); return f; }
 inline unsigned __float_as_uint(float f) { unsigned u; memcpy(&u, &f, 4); return u; }
-inline void __syncthreads() {}
+inline void __syncthreads() { g_block->arrive_and_wait(); }
 inline float2 atomicAdd(float2* p, float2 v) {
+  std::lock_guard<std::mutex> g(g_atomic);
   const float2 o = *p; p->x += v.x; p->y += v.y; return o; }
 inline float4 atomicAdd(float4* p, float4 v) {
+  std::lock_guard<std::mutex> g(g_atomic);
   const float4 o = *p; p->x += v.x; p->y += v.y; p->z += v.z; p->w += v.w;
   return o; }
 inline unsigned atomicMax(unsigned* p, unsigned v) {
+  std::lock_guard<std::mutex> g(g_atomic);
   const unsigned o = *p; *p = std::max(o, v); return o; }
 typedef struct CUstream_st* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
-// the launch: every block, and in each block every thread in turn
+// the launch: the blocks one after another, each block's t threads at
+// once; a thread that returns leaves its block's and its warp's barriers
 template <class F> void emulate(dim3 g, unsigned t, F f) {
   blockDim = {t, 1, 1};
   for (unsigned y = 0; y < g.y; ++y)
     for (unsigned x = 0; x < g.x; ++x) {
       blockIdx = {x, y, 0};
-      for (unsigned tx = 0; tx < t; ++tx) { threadIdx = {tx, 0, 0}; f(); }
+      g_block = std::make_unique<std::barrier<>>(t);
+      g_warps = std::vector<Warp>((t + 31) / 32);
+      for (unsigned k = 0; k < g_warps.size(); ++k) {
+        const unsigned lanes = std::min(32u, t - 32 * k);
+        g_warps[k].bar = std::make_unique<std::barrier<>>(lanes);
+        for (unsigned j = 0; j < 32; ++j) g_warps[k].live[j] = j < lanes;
+      }
+      std::vector<std::thread> threads;
+      for (unsigned tx = 0; tx < t; ++tx)
+        threads.emplace_back([&, tx] {
+          threadIdx = {tx, 0, 0};
+          f();
+          Warp& w = my_warp();
+          w.live[tx & 31] = false;
+          w.bar->arrive_and_drop();
+          g_block->arrive_and_drop();
+        });
+      for (auto& th : threads) th.join();
     }
 }
 using std::max;
@@ -127,10 +194,6 @@ def emulated_source(src: str) -> str:
     out = re.sub(r"(\w+(?:<D>)?)<<<(.*?)>>>\((.*?)\);", launch, src,
                  flags=re.S)
     assert out.count("emulate(") == src.count("<<<") > 0
-    # one lane per warp here: every lane adds its own tile maximum
-    edit = "(int)(threadIdx.x & 31) < width"
-    assert out.count(edit) == 1
-    out = out.replace(edit, "true")
     return out.replace("#include <cuda_runtime.h>",
                        '#include "emulated_runtime.h"')
 
@@ -148,8 +211,8 @@ def emulated(tmp_path_factory):
         (bgc.CSRC / "blocked_grid_encode.cu").read_text()))
     lib = d / "libkernels.so"
     proc = subprocess.run(
-        [cxx, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
-         "-Wno-unknown-pragmas", f"-I{d}", "-o", str(lib),
+        [cxx, "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC",
+         "-pthread", "-Wno-unknown-pragmas", f"-I{d}", "-o", str(lib),
          str(d / "kernels.cpp")], capture_output=True, text=True,
         timeout=300)
     assert proc.returncode == 0, proc.stderr
@@ -263,3 +326,66 @@ def test_emulated_position_backward_matches_plain(emulated, meta_kw):
         assert float(((got - ref).abs() / mag.clamp(min=1e-30)).max()) \
             <= KERNEL_POS_TOL
         assert bool((got[mag == 0] == 0).all())
+
+
+# level counts whose launch plans give level groups narrower than the
+# kernels' own: 7 levels (the Takikawa octree at depths 4..10) in groups of
+# width 1, 6 levels in groups of width 2
+ODD_METAS = [dict(n_dims=3, n_levels=7, base_resolution=16,
+                  per_level_scale=2.0, log2_rows=9),
+             dict(n_dims=3, n_levels=6, base_resolution=8,
+                  per_level_scale=1.5, log2_rows=9),
+             dict(n_dims=2, n_levels=7, base_resolution=16,
+                  per_level_scale=2.0, log2_rows=8),
+             dict(n_dims=2, n_levels=6, base_resolution=16,
+                  per_level_scale=1.5, log2_rows=8)]
+ODD_IDS = ["3d-L7", "3d-L6", "2d-L7", "2d-L6"]
+
+
+@pytest.mark.parametrize("meta_kw", ODD_METAS, ids=ODD_IDS)
+def test_emulated_kernels_at_odd_level_counts(emulated, meta_kw):
+    """All five kernels through their wrappers on a whole 7- or 6-level
+    grid, each plan in groups of width 1 or 2: K1 and K4 absolute, K2 and
+    K5 (tiles of 64 and 2048) relative with their zero patterns, and K3
+    relative to Σ|term| with its group partials added in order by its
+    second pass, bit-equal over two launches."""
+    meta = tbg.BlockedGridMeta(**meta_kw)
+    table, pos, cot = _inputs(meta, 4, n=600)
+    width = 1 if meta.n_levels == 7 else 2
+    for name in bgc.GROUP_KERNELS:
+        plan = bgc.kernel_plan(name, pos.shape[0], meta)
+        assert plan.width == width and plan.groups == meta.n_levels // width
+    before = {k: _count(k, meta) for k in bgc.GROUP_KERNELS}
+    got = bgc.launch_fwd(table, pos, meta)
+    assert float((got - tbg.encode_reference(table, pos, meta)).abs().max()
+                 ) <= KERNEL_TOL
+    tq, qs = tbg.quantize_table_i8(table)
+    got = bgc.launch_fwd_i8(tq, qs, pos, meta)
+    assert float((got - tbg.encode_reference_i8(tq, qs, pos, meta)).abs()
+                 .max()) <= KERNEL_TOL
+    got = bgc.launch_bwd(pos, cot, meta)
+    ref = tbg.encode_backward_reference(pos, cot, meta)
+    scale = tbg.encode_backward_reference(pos, cot.abs(), meta)
+    assert float(((got - ref).abs() / scale.clamp(min=1e-30)).max()) \
+        <= KERNEL_BWD_TOL
+    assert torch.equal(got == 0, ref == 0)
+    for tile in (64, 2048):
+        got = bgc.launch_bwd_i8(pos, cot, meta, tile)
+        ref = tbg.encode_backward_reference_i8(pos, cot, meta, tile)
+        mag = tbg.encode_backward_reference_i8(pos, cot, meta, tile,
+                                               magnitude=True)
+        assert float(((got - ref).abs() / mag.clamp(min=1e-30)).max()) \
+            <= KERNEL_I8_TOL
+        assert bool((got[mag == 0] == 0).all())
+    got = bgc.launch_bwd_pos(table, pos, cot, meta)
+    ref = tbg.encode_position_backward_reference(table, pos, cot, meta)
+    mag = tbg.encode_position_backward_reference(table, pos, cot, meta,
+                                                 magnitude=True)
+    assert float(((got - ref).abs() / mag.clamp(min=1e-30)).max()) \
+        <= KERNEL_POS_TOL
+    assert bool((got[mag == 0] == 0).all()) and float(mag.max()) > 0.1
+    assert torch.equal(bgc.launch_bwd_pos(table, pos, cot, meta), got)
+    after = {k: _count(k, meta) for k in bgc.GROUP_KERNELS}
+    assert after == {k: before[k] + {"blocked_grid_encode_bwd_i8": 2,
+                                     "blocked_grid_encode_bwd_pos": 2
+                                     }.get(k, 1) for k in before}

@@ -60,10 +60,11 @@ def test_composite_dir_encoding_matches_jax():
 def test_unported_encodings_raise():
     # Frequency and OneBlob are ported (test_torch_encoded_network), the
     # DenseGrid too (the tcnn-layout grid, test_torch_hashgrid); the
-    # Takikawa octree encoding is not
+    # Takikawa octree encoding needs the mesh's surface, so the SDF trainer
+    # builds it (test_torch_takikawa), not the factory
     assert tenc.create_encoding(3, {"otype": "Frequency"}).n_output_dims == 72
     assert tenc.create_encoding(3, {"otype": "OneBlob"}).n_output_dims == 48
-    with pytest.raises(NotImplementedError, match="Takikawa"):
+    with pytest.raises(ValueError, match="Takikawa"):
         tenc.create_encoding(3, {"otype": "Takikawa"})
 
 

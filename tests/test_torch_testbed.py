@@ -329,17 +329,20 @@ def test_blender_plugin_flow(scene):
 
 def test_unported_modes_and_methods_raise(scene, tmp_path):
     # every engine is ported (the image and SDF modes in
-    # test_torch_testbed_modes.py, the volume mode in test_torch_volume.py);
-    # mesh export and playback are not
+    # test_torch_testbed_modes.py, the volume mode in test_torch_volume.py),
+    # mesh export and playback too (test_torch_mesh_export.py,
+    # test_torch_playback.py): without a trained field they raise
     tb = Testbed(device="cpu")
-    for call in (lambda: tb.bake_playback(), lambda: tb.load_playback("x"),
+    for call in (lambda: tb.bake_playback(),
                  lambda: tb.render_playback(8, 8),
                  lambda: tb.compute_marching_cubes_mesh(),
                  lambda: tb.compute_and_save_marching_cubes_mesh("m.obj"),
                  lambda: tb.compute_and_save_png_slices("s"),
                  lambda: tb.get_rgba_on_grid()):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="trained"):
             call()
+    with pytest.raises(FileNotFoundError):
+        tb.load_playback(str(tmp_path / "absent.npz"))
     # the other engines' metrics and data need their mode
     for call in (lambda: tb.calculate_iou(), lambda: tb.compute_image_mse(),
                  lambda: tb.override_sdf_training_data(None, None)):
@@ -412,5 +415,11 @@ def test_cli_and_runner_on_the_cpu(scene, tmp_path, capsys, monkeypatch):
     assert re.search(r"^PSNR=\S+ \(min=\S+ max=\S+\) SSIM=\S+$", out, re.M)
     for name in ("r_000.png", "r_002.png"):
         assert np.asarray(Image.open(shots / name)).shape == (12, 16, 4)
-    with pytest.raises(NotImplementedError):
-        run.main(common + ["--save_mesh", str(tmp_path / "m.obj")])
+    # a mesh of the runner's snapshot (the mesh itself:
+    # test_torch_mesh_export.py)
+    assert run.main(common + [
+        "--load_snapshot", str(tmp_path / "run.msgpack"), "--save_mesh",
+        str(tmp_path / "m.obj"), "--marching_cubes_res", "16"]) == 0
+    assert re.search(r"^saved mesh \(\d+ verts, \d+ faces\) to ",
+                     capsys.readouterr().out, re.M)
+    assert (tmp_path / "m.obj").exists()

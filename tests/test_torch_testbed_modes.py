@@ -203,9 +203,14 @@ def test_cli_and_runner_in_image_and_sdf_mode(files, tmp_path, capsys,
         == (FH, FW, 4)
     assert j_load_snapshot(tmp_path / "run.msgpack")["snapshot"][
         "training_step"] == 4
-    with pytest.raises(NotImplementedError, match="save_mesh"):
-        run.main(common + ["--n_steps", "0", "--save_mesh",
-                           str(tmp_path / "m.obj")])
+    # the SDF's mesh from the snapshot, by marching tetrahedra
+    assert run.main(common + ["--load_snapshot",
+                              str(tmp_path / "run.msgpack"), "--save_mesh",
+                              str(tmp_path / "m.obj"),
+                              "--marching_cubes_res", "24"]) == 0
+    m = re.search(r"^saved mesh \((\d+) verts, (\d+) faces\) to ",
+                  capsys.readouterr().out, re.M)
+    assert m and (tmp_path / "m.obj").exists()
 
 
 def test_image_and_sdf_entry_points_default_to_the_card(files):
