@@ -138,32 +138,41 @@ typedef struct CUstream_st* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
-// the launch: the blocks one after another, each block's t threads at
-// once; a thread that returns leaves its block's and its warp's barriers
+// the launch: t host threads, made once, run the blocks one after
+// another, all t at once in each; between blocks they wait at `start`
+// while this thread sets the next block up, and a thread whose kernel
+// returns leaves its block's and its warp's barriers
 template <class F> void emulate(dim3 g, unsigned t, F f) {
   blockDim = {t, 1, 1};
-  for (unsigned y = 0; y < g.y; ++y)
-    for (unsigned x = 0; x < g.x; ++x) {
-      blockIdx = {x, y, 0};
-      g_block = std::make_unique<std::barrier<>>(t);
-      g_warps = std::vector<Warp>((t + 31) / 32);
-      for (unsigned k = 0; k < g_warps.size(); ++k) {
-        const unsigned lanes = std::min(32u, t - 32 * k);
-        g_warps[k].bar = std::make_unique<std::barrier<>>(lanes);
-        for (unsigned j = 0; j < 32; ++j) g_warps[k].live[j] = j < lanes;
+  const unsigned n_blocks = g.x * g.y;
+  std::barrier<> start(t + 1), done(t + 1);
+  std::vector<std::thread> threads;
+  for (unsigned tx = 0; tx < t; ++tx)
+    threads.emplace_back([&, tx] {
+      threadIdx = {tx, 0, 0};
+      for (unsigned b = 0; b < n_blocks; ++b) {
+        start.arrive_and_wait();
+        f();
+        Warp& w = my_warp();
+        w.live[tx & 31] = false;
+        w.bar->arrive_and_drop();
+        g_block->arrive_and_drop();
+        done.arrive_and_wait();
       }
-      std::vector<std::thread> threads;
-      for (unsigned tx = 0; tx < t; ++tx)
-        threads.emplace_back([&, tx] {
-          threadIdx = {tx, 0, 0};
-          f();
-          Warp& w = my_warp();
-          w.live[tx & 31] = false;
-          w.bar->arrive_and_drop();
-          g_block->arrive_and_drop();
-        });
-      for (auto& th : threads) th.join();
+    });
+  for (unsigned b = 0; b < n_blocks; ++b) {
+    blockIdx = {b % g.x, b / g.x, 0};
+    g_block = std::make_unique<std::barrier<>>(t);
+    g_warps = std::vector<Warp>((t + 31) / 32);
+    for (unsigned k = 0; k < g_warps.size(); ++k) {
+      const unsigned lanes = std::min(32u, t - 32 * k);
+      g_warps[k].bar = std::make_unique<std::barrier<>>(lanes);
+      for (unsigned j = 0; j < 32; ++j) g_warps[k].live[j] = j < lanes;
     }
+    start.arrive_and_wait();
+    done.arrive_and_wait();
+  }
+  for (auto& th : threads) th.join();
 }
 using std::max;
 using std::min;
