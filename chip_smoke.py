@@ -232,8 +232,8 @@ KERNEL_BWD_TOL = 1e-4
 # floor the relative check clamps its scale to. Below it every w·g lies
 # within a few FLT_MIN of 0, and the f32 reductions flush a denormal
 # partial sum (.FTZ), so the order of the adds decides whether such an
-# entry ends at 0: on the card, 5 entries in 40 trained steps' table
-# gradients, every one reached only by terms below 6e-38
+# entry ends at 0 (on the card a trained step's gradient can hold such
+# entries, reached only by terms within a few FLT_MIN of 0)
 ZERO_FLOOR = 1e-30
 # K3 against its plain version, relative to Σ|term| of each component: the
 # 256 terms (16 levels × 8 corners × 2 features) cancel, and the two sum
