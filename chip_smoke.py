@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``ngp_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--kernels]
+    python3 chip_smoke.py [--profile] [--kernels] [--k2-zeros N]
 
 Phases, each reported on its own line:
   1. device  — requires CUDA; prints the card and its power limit as
@@ -189,6 +189,9 @@ layer as well (the steps' table also to a file, see ``phase_profile``).
 ``--kernels`` runs phases 1, 2 and 4 alone, on a scene of its own (K4's
 sweep positions from an untrained trainer), with the 2D K1–K5 on seeded
 image-width inputs, and ends with the kernels' JSON line.
+``--k2-zeros N`` runs phases 1, 2 and the train phase, then the train
+phase's one-step K2 check on the draws of N seeds, and prints for each
+the entries whose zero patterns differ and their largest Σ|w·g|.
 Then the script's total seconds, one JSON line with each kernel's
 figures and its launches in the testbed, multinerf, image, image-int8
 (per run: "fwd", "full", "uv"), volume, sdf, mesh, takikawa and playback
@@ -226,15 +229,17 @@ FRAME_W, FRAME_H, N_FRAMES = 640, 360, 3
 FOCAL = (500.0, 500.0)
 KERNEL_TOL = 1e-5
 # K2 against its plain version, relative to Σ|w·g| of each table entry
-KERNEL_BWD_TOL = 1e-4
+# (clamped to REL_FLOOR)
+KERNEL_BWD_TOL, REL_FLOOR = 1e-4, 1e-30
 # K2's zero pattern (which entries are exactly 0: the optimizer's
-# zero-gradient skip keys on them) is held where Σ|w·g| ≥ ZERO_FLOOR, the
-# floor the relative check clamps its scale to. Below it every w·g lies
-# within a few FLT_MIN of 0, and the f32 reductions flush a denormal
-# partial sum (.FTZ), so the order of the adds decides whether such an
-# entry ends at 0 (on the card a trained step's gradient can hold such
-# entries, reached only by terms within a few FLT_MIN of 0)
-ZERO_FLOOR = 1e-30
+# zero-gradient skip keys on them) must equal the plain version's wherever
+# Σ|w·g| ≥ ZERO_FLOOR, about 85 FLT_MIN. Both sides add in f32 reductions
+# that flush a denormal product or partial sum to 0 (.FTZ), so an entry
+# whose terms all lie within a few FLT_MIN of 0 can end at 0 in one order
+# and not in the other. On the card a trained step's cotangents reach that
+# range (one call of the one-step check failed on it); `--k2-zeros N`
+# surveys N steps (PERF.md has the readings).
+ZERO_FLOOR = 1e-36
 # K3 against its plain version, relative to Σ|term| of each component: the
 # 256 terms (16 levels × 8 corners × 2 features) cancel, and the two sum
 # them in other orders (the kernel with FMAs)
@@ -532,26 +537,31 @@ def check_k2(pos, cot, meta, what: str) -> float:
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"K2 output is not finite ({what})")
     err = float((got - ref).abs().max())
-    rel = float(((got - ref).abs() / scale.clamp(min=ZERO_FLOOR)).max())
-    zeros_equal, below = zero_patterns(got, ref, scale)
+    rel = float(((got - ref).abs() / scale.clamp(min=REL_FLOOR)).max())
+    n_differ, top = zero_patterns(got, ref, scale)
     print(f"K2: {bgc.launch_name('blocked_grid_encode_bwd', meta)} "
           f"{pos.shape[0]} {what} positions -> "
           f"{tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
           f"relative to sum|w*g| {rel:.3e} (tolerance {KERNEL_BWD_TOL}); "
-          f"zero patterns equal where sum|w*g| >= {ZERO_FLOOR}: "
-          f"{zeros_equal} ({below} differing entries below it; "
-          f"{float((ref == 0).float().mean()):.4f} of entries zero)")
-    if not (rel <= KERNEL_BWD_TOL and zeros_equal):
+          f"{zero_pattern_text(n_differ, top)} "
+          f"({float((ref == 0).float().mean()):.4f} of entries zero)")
+    if not (rel <= KERNEL_BWD_TOL and top < ZERO_FLOOR):
         raise RuntimeError(f"K2 disagrees with its plain version ({what})")
     return err
 
 
 def zero_patterns(got, ref, scale):
-    """(whether K2's and the plain backward's exact zeros agree wherever
-    Σ|w·g| ≥ ZERO_FLOOR, how many entries below it differ)."""
-    held = scale >= ZERO_FLOOR
+    """(how many entries are exactly 0 in one of K2's output and the plain
+    backward's and not in the other, the largest Σ|w·g| among them or 0)."""
     differ = (got == 0) != (ref == 0)
-    return (not bool(differ[held].any()), int(differ[~held].sum()))
+    n = int(differ.sum())
+    return n, float(scale[differ].max()) if n else 0.0
+
+
+def zero_pattern_text(n_differ: int, top: float) -> str:
+    return (f"zero patterns differ at {n_differ} entries, the largest "
+            f"sum|w*g| among them {top:.3e} (limit < {ZERO_FLOOR}; "
+            f"{top / ZERO_FLOOR:.3f} of the limit)")
 
 
 def time_k2(p, c, meta, err: float, what: str) -> dict:
@@ -1209,21 +1219,51 @@ def capture_step(tr, seed: int, *names):
     return grads, seen
 
 
-def step_grad_check(tr):
-    """K2 on the positions and cotangent of one real training step,
-    against the plain backward on the same inputs: the step's table
-    gradient, with the K2 phase's tolerance and zero-pattern check.
-    Returns (max |Δ| relative to Σ|w·g|, whether the zero patterns are
-    equal above ZERO_FLOOR, the entries below it whose zeros differ)."""
+def step_k2(tr, seed: int):
+    """K2's output in one real training step of ``tr`` (its draws from
+    ``seed``), with the plain backward and the plain backward of |g| on
+    the same inputs: (got, ref, Σ|w·g|)."""
     from ngp_tpu_torch.kernels.blocked_grid import encode_backward_reference
-    grads, seen = capture_step(tr, SEED + 2, "launch_bwd")
+    grads, seen = capture_step(tr, seed, "launch_bwd")
     pos, grad, meta = seen["launch_bwd"]
-    got = grads["pos_encoding.table"]
     with torch.no_grad():
-        ref = encode_backward_reference(pos, grad, meta)
-        scale = encode_backward_reference(pos, grad.abs(), meta)
-    rel = float(((got - ref).abs() / scale.clamp(min=ZERO_FLOOR)).max())
-    return (rel, *zero_patterns(got, ref, scale))
+        return (grads["pos_encoding.table"],
+                encode_backward_reference(pos, grad, meta),
+                encode_backward_reference(pos, grad.abs(), meta))
+
+
+def step_grad_check(tr, seed: int = SEED + 2) -> dict:
+    """K2 on the positions and cotangent of one real training step (its
+    draws from ``seed``), against the plain backward on the same inputs:
+    the max |Δ| relative to Σ|w·g| ("rel"), the entries whose zero
+    patterns differ ("differ"), the largest Σ|w·g| and |value| of the side
+    that is not 0 among them, and how many entries have a Σ|w·g| in (0,
+    1e-37), [1e-37, 1e-36) and [1e-36, 1e-34): how many lie near
+    ZERO_FLOOR at all."""
+    got, ref, scale = step_k2(tr, seed)
+    rel = float(((got - ref).abs() / scale.clamp(min=REL_FLOOR)).max())
+    n_differ, top = zero_patterns(got, ref, scale)
+    differ = (got == 0) != (ref == 0)
+    bands = [int(((scale > lo if lo == 0 else scale >= lo)
+                  & (scale < hi)).sum())
+             for lo, hi in ((0.0, 1e-37), (1e-37, 1e-36), (1e-36, 1e-34))]
+    return {"seed": seed, "rel": rel, "differ": n_differ,
+            "max_sum_abs": top,
+            "max_value": float((got + ref)[differ].abs().max())
+            if n_differ else 0.0, "entries_by_sum_abs": bands}
+
+
+def k2_zero_survey(tr, n_seeds: int):
+    """The train phase's one-step K2 check on the draws of ``n_seeds``
+    seeds, one line each."""
+    rows = [step_grad_check(tr, seed)
+            for seed in range(SEED + 2, SEED + 2 + n_seeds)]
+    for r in rows:
+        print(f"k2-zeros: {json.dumps(r)}")
+    print(f"k2-zeros: {n_seeds} steps, {sum(r['differ'] for r in rows)} "
+          f"entries with differing zeros; the largest sum|w*g| among them "
+          f"{max(r['max_sum_abs'] for r in rows):.3e}, the largest value "
+          f"{max(r['max_value'] for r in rows):.3e}")
 
 
 def phase_train(dev, n_views: int = TRAIN_VIEWS, res: int = TRAIN_RES,
@@ -1284,13 +1324,13 @@ def phase_train(dev, n_views: int = TRAIN_VIEWS, res: int = TRAIN_RES,
           f"(+{psnr1 - psnr0:.2f} dB; required +{PSNR_RISE_DB})")
     if not psnr1 - psnr0 >= PSNR_RISE_DB:
         raise RuntimeError("training did not raise the PSNR enough")
-    rel, zeros_equal, below = step_grad_check(tr)
+    step = step_grad_check(tr)
     print(f"train: one step's table gradient, K2 vs plain backward on its "
-          f"inputs: max |Δ| relative to sum|w*g| {rel:.3e} (tolerance "
-          f"{KERNEL_BWD_TOL}); zero patterns equal where sum|w*g| >= "
-          f"{ZERO_FLOOR}: {zeros_equal} ({below} differing entries below "
-          f"it)")
-    if not (rel <= KERNEL_BWD_TOL and zeros_equal):
+          f"inputs: max |Δ| relative to sum|w*g| {step['rel']:.3e} "
+          f"(tolerance {KERNEL_BWD_TOL}); "
+          f"{zero_pattern_text(step['differ'], step['max_sum_abs'])}")
+    if not (step["rel"] <= KERNEL_BWD_TOL
+            and step["max_sum_abs"] < ZERO_FLOOR):
         raise RuntimeError("the step's K2 gradient disagrees with the plain "
                            "backward")
     return launches, tr
@@ -2353,12 +2393,9 @@ IMAGE_FRAMES = ((FRAME_W, FRAME_H), (IMAGE_RES, IMAGE_RES))
 # across: 32,768 triangles) fitted by the runner for SDF_STEPS
 # (configs/sdf/base.json at full width, batch 2^18, raystab signs); the IoU
 # of IOU_SAMPLES uniform samples must reach IOU_MIN, and the frames' hit
-# masks agree with the BVH's ray casts on HIT_AGREE_MIN of pixels. Each
-# step waits on the host BVH's batch (1.2-1.4 s on the card's machine), so
-# the phase trains 128 steps (256 until the mesh, takikawa and playback
-# phases joined the script; PERF.md has the IoU at both)
+# masks agree with the BVH's ray casts on HIT_AGREE_MIN of pixels
 TORUS = (0.3, 0.1, 256, 64)
-SDF_STEPS, IOU_SAMPLES, IOU_MIN, HIT_AGREE_MIN = 128, 1 << 22, 0.9, 0.95
+SDF_STEPS, IOU_SAMPLES, IOU_MIN, HIT_AGREE_MIN = 256, 1 << 22, 0.9, 0.95
 # a small frame of each engine on the card against the CPU path: the
 # slice phase's tolerances (mean |Δ|, and 2e-3 on 99.5 % of pixels) for
 # the image; for the SDF frame the hit masks (99 % equal: a ray whose
@@ -3261,22 +3298,22 @@ def phase_mesh(dev, res: int = MESH_RES, config=None, sdf_config=None,
     return launches, entry
 
 
-def _tak_step_cotangent(tr, pos, dist):
-    """The cotangent K2 gets in a Takikawa training step on (pos, dist):
-    d loss / d features, masked by the octree, with the step's loss
-    scale."""
-    from ngp_tpu_torch.common import LOSS_SCALE
+def capture_sdf_step(tr, pos, dist):
+    """One training step of the SDF trainer ``tr`` (no update) on the
+    batch (pos, dist), with the arguments of its K2 call: K2's positions,
+    the cotangent that came back to the encoding and the grid."""
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
-    enc = tr.tak_encoding
-    with torch.no_grad():
-        feats = bgc.launch_fwd(enc.table.detach(), pos, enc.grid_meta)
-        masks = torch.stack([enc._level_mask(lvl, pos)
-                             for lvl in range(enc.meta.n_levels)], -1)
-    feats.requires_grad_(True)
-    masked = feats * torch.repeat_interleave(masks, 2, dim=-1)
-    pred = tr.model.net(masked)[:, 0].to(torch.float32)
-    loss = torch.mean(tr.loss(dist, pred)) * LOSS_SCALE
-    return torch.autograd.grad(loss, feats)[0].contiguous()
+    seen = []
+    launch_bwd = bgc.launch_bwd
+
+    def spy(*args):
+        seen.append(args)
+        return launch_bwd(*args)
+    with mock.patch.object(bgc, "launch_bwd", spy):
+        tr._step_grads(pos, dist)
+    if len(seen) != 1:
+        raise RuntimeError(f"an SDF step made {len(seen)} K2 calls, not 1")
+    return seen[0]
 
 
 def phase_takikawa(dev, config=None, steps: int = TAK_STEPS,
@@ -3372,9 +3409,9 @@ def phase_takikawa(dev, config=None, steps: int = TAK_STEPS,
     table = enc.table.detach().contiguous()
     err = check_k1(table, pos, meta, "takikawa-step")
     entries = [time_k1(table, pos, meta, err, "takikawa-step")]
-    cot = _tak_step_cotangent(tr, pos, dist)
-    err = check_k2(pos, cot, meta, "takikawa-step")
-    entries.append(time_k2(pos, cot, meta, err, "takikawa-step"))
+    p2, cot, meta2 = capture_sdf_step(tr, pos, dist)
+    err = check_k2(p2, cot, meta2, "takikawa-step")
+    entries.append(time_k2(p2, cot, meta2, err, "takikawa-step"))
     t3, p3, g3 = captured[0]
     err = check_k3(t3, p3, g3, meta, "takikawa-frame")
     entries.append(time_k3(t3, p3, g3, meta, err, "takikawa-frame"))
@@ -3426,7 +3463,6 @@ def phase_playback(dev, config=None, frames=PLAYBACK_FRAMES,
     from ngp_tpu_torch.grid.occupancy import GRID_VOLUME
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     from ngp_tpu_torch.render.playback import (_cascade_lattice,
-                                               bake_playback_cache,
                                                occupied_voxels)
     t_phase = time.perf_counter()
     nerf_root = ROOT / "build" / "testbed_smoke"
@@ -3471,26 +3507,9 @@ def phase_playback(dev, config=None, frames=PLAYBACK_FRAMES,
     pb, live = float(np.mean(psnr["playback"])), float(np.mean(psnr["live"]))
     print(f"playback: held-out PSNR over {len(test['frames'])} views: "
           f"playback {pb:.2f} dB, live renderer {live:.2f} dB")
+    # signed: below 0 where playback beats the live renderer
     _gate_max("playback", "held-out PSNR below the live renderer's (dB)",
-              max(live - pb, 0.0), PLAYBACK_PSNR_DB)
-    # not gated: the JAX testbed's bake, toward the training cameras' mean
-    # position (inside an orbit's scene), on the same views
-    tb._playback_cache = bake_playback_cache(tb.trainer, D, D_inner)
-    tb._playback_renderers = {}
-    mean_eye = []
-    for frame in test["frames"]:
-        gt = load_stbi(nerf_root / frame["file_path"])
-        tb.set_nerf_camera_matrix(
-            np.asarray(frame["transform_matrix"], np.float32)[:3])
-        img = tb.render_playback(gt.shape[1], gt.shape[0])
-        mean_eye.append(mse2psnr(float(np.mean(
-            (linear_to_srgb_np(np.clip(img[..., :3], 0, 1))
-             - linear_to_srgb_np(np.clip(gt[..., :3], 0, 1))) ** 2))))
-    print(f"playback: baked toward the cameras' mean position instead (the "
-          f"JAX testbed's bake; not gated): held-out PSNR "
-          f"{np.mean(mean_eye):.2f} dB")
-    tb._playback_cache = cache
-    tb._playback_renderers = {}
+              live - pb, PLAYBACK_PSNR_DB)
     tb._view_focal = np.array(FOCAL, np.float32)
     tb.camera_matrix = orbit_camera(0.5)
     for W, H in frames:
@@ -3576,6 +3595,12 @@ def main() -> int:
                        sweep_ordered_inputs(tr))
         kernels += phase_k12_2d(dev) + phase_k345_2d(dev)
         print(json.dumps({"kernels": kernels}))
+        return 0
+    if "--k2-zeros" in args:
+        # the train phase, then its one-step K2 check on the draws of
+        # more seeds: no main path is run past it, so no "ok" line
+        _, tr = phase_train(dev)
+        k2_zero_survey(tr, int(args[args.index("--k2-zeros") + 1]))
         return 0
     _, renderer, bitfield = phase_slice(dev)
     if "--profile" in args:

@@ -180,20 +180,31 @@ static bool ray_tri(V3 o, V3 d, const Tri& t, float* out_t) {
   return true;
 }
 
+// A ray with the inverse of its direction per axis, for the slab tests
+struct Ray {
+  V3 o, d;
+  float inv[3];
+};
+static inline Ray make_ray(V3 o, V3 d) {
+  Ray r{o, d, {}};
+  const float* dd = &d.x;
+  for (int i = 0; i < 3; i++)
+    r.inv[i] = 1.0f / (std::fabs(dd[i]) < 1e-12f ? 1e-12f : dd[i]);
+  return r;
+}
+
 // prune=true: closest-hit only (raytrace). prune=false: visit every box
 // so the crossing COUNT is exact (raystab parity needs all hits).
-static void ray_all(const Bvh& bvh, V3 o, V3 d, int node_idx, int* count,
+static void ray_all(const Bvh& bvh, const Ray& ray, int node_idx, int* count,
                     float* closest, int* closest_tri, bool prune) {
   const Node& n = bvh.nodes[node_idx];
   // slab test
   float t0 = 0, t1 = 1e30f;
   const float* bm = &n.bmin.x;
   const float* bM = &n.bmax.x;
-  const float* oo = &o.x;
-  const float* dd = &d.x;
+  const float* oo = &ray.o.x;
   for (int i = 0; i < 3; i++) {
-    float inv = 1.0f / (std::fabs(dd[i]) < 1e-12f ? 1e-12f : dd[i]);
-    float a = (bm[i] - oo[i]) * inv, b = (bM[i] - oo[i]) * inv;
+    float a = (bm[i] - oo[i]) * ray.inv[i], b = (bM[i] - oo[i]) * ray.inv[i];
     t0 = std::max(t0, std::min(a, b));
     t1 = std::min(t1, std::max(a, b));
   }
@@ -201,7 +212,7 @@ static void ray_all(const Bvh& bvh, V3 o, V3 d, int node_idx, int* count,
   if (n.left < 0) {
     for (int i = n.start; i < n.start + n.count; i++) {
       float t;
-      if (ray_tri(o, d, bvh.tris[i], &t)) {
+      if (ray_tri(ray.o, ray.d, bvh.tris[i], &t)) {
         (*count)++;
         if (t < *closest) {
           *closest = t;
@@ -211,8 +222,8 @@ static void ray_all(const Bvh& bvh, V3 o, V3 d, int node_idx, int* count,
     }
     return;
   }
-  ray_all(bvh, o, d, n.left, count, closest, closest_tri, prune);
-  ray_all(bvh, o, d, n.start, count, closest, closest_tri, prune);
+  ray_all(bvh, ray, n.left, count, closest, closest_tri, prune);
+  ray_all(bvh, ray, n.start, count, closest, closest_tri, prune);
 }
 
 static void parallel_for(int64_t n, const std::function<void(int64_t, int64_t)>& fn) {
@@ -322,7 +333,8 @@ void bvh_signed_distance(void* handle, const float* points, int64_t n,
             int cnt = 0;
             float closest = 1e30f;
             int ctri = -1;
-            ray_all(bvh, o2, dir, 0, &cnt, &closest, &ctri, /*prune=*/true);
+            ray_all(bvh, make_ray(o2, dir), 0, &cnt, &closest, &ctri,
+                    /*prune=*/true);
             if (ctri < 0) {
               n_escaped++;
               break;
@@ -338,15 +350,23 @@ void bvh_signed_distance(void* handle, const float* points, int64_t n,
         }
         sign = n_escaped > 2 ? 1.0f : -1.0f;
       } else {
-        int inside_votes = 0;
+        // inside on a strict majority of odd crossing counts; the stabs
+        // stop once the votes cast decide it either way
+        const int n_dirs = (int)dirs.size(), majority = n_dirs / 2 + 1;
+        int inside_votes = 0, cast = 0;
         for (const V3& dir : dirs) {
           int cnt = 0;
           float closest = 1e30f;
           int ctri = -1;
-          ray_all(bvh, p, dir, 0, &cnt, &closest, &ctri, /*prune=*/false);
+          ray_all(bvh, make_ray(p, dir), 0, &cnt, &closest, &ctri,
+                  /*prune=*/false);
           if (cnt % 2 == 1) inside_votes++;
+          cast++;
+          if (inside_votes >= majority ||
+              inside_votes + (n_dirs - cast) < majority)
+            break;
         }
-        sign = inside_votes * 2 > (int)dirs.size() ? -1.0f : 1.0f;
+        sign = inside_votes * 2 > n_dirs ? -1.0f : 1.0f;
       }
       out[i] = sign * d;
     }
@@ -381,7 +401,7 @@ void bvh_raytrace(void* handle, const float* origins, const float* dirs_in,
       int cnt = 0;
       float closest = 1e30f;
       int ctri = -1;
-      ray_all(bvh, o, d, 0, &cnt, &closest, &ctri, /*prune=*/true);
+      ray_all(bvh, make_ray(o, d), 0, &cnt, &closest, &ctri, /*prune=*/true);
       if (ctri < 0) {
         out_t[i] = 1e10f;
         out_tri[i] = -1;

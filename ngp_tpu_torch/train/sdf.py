@@ -161,18 +161,23 @@ class SdfTrainer:
 
     # -- training --------------------------------------------------------
 
-    def step(self, pos, dist) -> torch.Tensor:
-        """One step on a batch (numpy or tensors): forward, loss ×
-        LOSS_SCALE, backward, Adam + EMA in place. Returns the loss (0-d,
-        unscaled) without a host sync."""
+    def _step_grads(self, pos, dist) -> tuple:
+        """A step's forward and backward on a batch (numpy or tensors),
+        without the update: (the loss × LOSS_SCALE, {name: gradient})."""
         pos = torch.as_tensor(pos, dtype=torch.float32, device=self.device)
         target = torch.as_tensor(dist, dtype=torch.float32,
                                  device=self.device)
         pred = self.model(pos, int8=self.encode_int8)[:, 0].to(torch.float32)
         scaled = torch.mean(self.loss(target, pred)) * LOSS_SCALE
         names = list(self.params)
-        grads = dict(zip(names, torch.autograd.grad(
+        return scaled, dict(zip(names, torch.autograd.grad(
             scaled, [self.params[k] for k in names])))
+
+    def step(self, pos, dist) -> torch.Tensor:
+        """One step on a batch (numpy or tensors): forward, loss ×
+        LOSS_SCALE, backward, Adam + EMA in place. Returns the loss (0-d,
+        unscaled) without a host sync."""
+        scaled, grads = self._step_grads(pos, dist)
         self.opt_state = apply_update(self.params, grads, self.opt_state,
                                       self.opt_cfg, self.matrix_names)
         self.training_step += 1

@@ -259,3 +259,25 @@ def test_runner_saves_a_mesh(sdf_testbed, tmp_path, capsys):
     for name in ("r.ply", "r.obj"):
         assert Path(tmp_path / name).read_bytes() == \
             (tmp_path / "j" / name).read_bytes()
+
+
+@pytest.mark.parametrize("extract", ["cubes", "tetrahedra"])
+def test_mesh_vertices_sit_on_the_unit_lattice_not_the_sample_points(
+        extract):
+    """A fault of the JAX package that the port keeps for bit parity: the
+    field is sampled at voxel centres (i + 0.5) / res, but the extraction
+    puts lattice node i at i / (res − 1), so a mesh is stretched by
+    res / (res − 1) about the cube's centre, up to half a voxel at the
+    sides. The plane x = c of a field sampled as the Testbed samples it
+    comes out at x = (c·res − 0.5) / (res − 1) in both packages (to 1e-6);
+    the ideal mesh would sit at c."""
+    res, c = 16, 0.2
+    field = tme.density_field_on_grid(lambda p: p[:, 0] - c, res)
+    fn = {"cubes": "marching_cubes", "tetrahedra": "marching_tetrahedra"}
+    v, f = getattr(tme, fn[extract])(field, 0.0)
+    jv, jf = getattr(jme, fn[extract])(field, 0.0)
+    np.testing.assert_array_equal(v, jv)
+    np.testing.assert_array_equal(f, jf)
+    stretched = (c * res - 0.5) / (res - 1)
+    np.testing.assert_allclose(v[:, 0], stretched, atol=1e-6)
+    assert abs(stretched - c) > 0.25 / res
