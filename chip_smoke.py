@@ -181,7 +181,27 @@ Phases, each reported on its own line:
                cascade holds the two latest orientations, and the runner's
                --video_camera_path --video_playback writing 20 frames; K1
                on the bake's first batch against its plain version.
-Every gate of phases 13–15 prints ``gate <what>: <value> (limit ...;
+ 16. captures — real captures (cell smoke-captures-spheres): the spheres
+               through an F-theta lens (24 views at 256², 4 held out)
+               written with 16-bit depth PNGs under integer_depth_scale,
+               alpha sidecars on the even views and a dynamic mask over
+               view 0's centre; the runner's main trains 512 steps with
+               --depth_supervision_lambda under the int8 grid sweep (the
+               held-out PSNR rise, K1, K2 and K4 launching); a Testbed from
+               the snapshot: view 0's DEPTH frame against the analytic
+               depth, one step in which no ray under the mask reaches the
+               loss, a 1024×512 LatLong panorama and a 640×360 F-theta
+               frame against the analytic spheres on their own rays, a 2×1
+               stereo quilt against its panels rendered alone, an envmap
+               scene (save_exr) whose clear pixels show the envmap; a
+               rolling-shutter capture (motion-blurred views) trains 256
+               steps; ray sidecars holding the camera's rays give its rays;
+               a Testbed under NGP_TPU_ENCODE_INT8=fwd renders 640×360
+               through K4 (PSNR against the f32 frame, a 64×36 frame
+               against the CPU, K4 on the frame's largest encode call held
+               against its plain version and timed); a tcnn-layout model
+               and a blocked one train 256 steps (ms/step side by side).
+Every gate of phases 13–16 prints ``gate <what>: <value> (limit ...;
 <share> of the limit)``.
 With ``--profile``, torch.profiler traces of one slice frame (K1's device
 ms and launches in it) and of 16 steady training steps are broken down by
@@ -190,12 +210,14 @@ layer as well (the steps' table also to a file, see ``phase_profile``).
 sweep positions from an untrained trainer), with the 2D K1–K5 on seeded
 image-width inputs, and ends with the kernels' JSON line.
 ``--k2-zeros N`` runs phases 1, 2 and the train phase, then the train
-phase's one-step K2 check on the draws of N seeds, and prints for each
-the entries whose zero patterns differ and their largest Σ|w·g|.
+phase's one-step K2 check on the draws of N seeds, then the image
+phase's K2 check on N more steps of an image trainer, and prints for
+each the entries whose zero patterns differ, their largest Σ|w·g| and
+the largest |value| of the side that is not 0, alone and over Σ|w·g|.
 Then the script's total seconds, one JSON line with each kernel's
 figures and its launches in the testbed, multinerf, image, image-int8
-(per run: "fwd", "full", "uv"), volume, sdf, mesh, takikawa and playback
-phases
+(per run: "fwd", "full", "uv"), volume, sdf, mesh, takikawa, playback and
+captures phases
 (K1's, K2's and K3's ray-ordered ones under "ray_ordered", K3's and K5's
 on one pose step under "pose_step", K4's at 2^18 uniform positions under
 "uniform_2e18" and on the sweep's positions under "sweep_ordered"; the 2D
@@ -204,9 +226,10 @@ path's inputs, at 2^20 uniform positions under "uniform_2e20"; the 2D
 K3's, K4's and K5's likewise on the "full" image path's inputs, at
 uniform positions under "uniform_2e18" or "uniform_2e20"; entries of
 their own for K1 on the mesh field and on the playback bake and for K1,
-K2 and K3 at L = 7 on the Takikawa path, each named with its input and
-carrying its kernel's ``launch_name``), and as the last line ``{"ok": true, "device":
-{...}}``. Any failure raises: there is no fallback to the CPU or to the
+K2 and K3 at L = 7 on the Takikawa path, and for K4 on the int8 NeRF
+frame's largest encode call (its launches: those of one frame), each
+named with its input and carrying its kernel's ``launch_name``), and as
+the last line ``{"ok": true, "device": {...}}``. Any failure raises: there is no fallback to the CPU or to the
 plain version.
 """
 from __future__ import annotations
@@ -1082,18 +1105,25 @@ def _sphere_field(pos: torch.Tensor):
 
 
 def _render_spheres(o, d, n_steps: int = 384, t0: float = 0.05,
-                    t1: float = 2.5):
-    """Brute-force volume render of the spheres along o + t·d → (linear
-    premultiplied rgb, alpha)."""
+                    t1: float = 2.5, with_depth: bool = False):
+    """Brute-force volume render of the spheres along o + t·d (d unit) →
+    (linear premultiplied rgb, alpha), and with ``with_depth`` the expected
+    depth Σ w·t / alpha (0 where alpha is 0). Each ray on its own: a batch
+    of many views' rays gives each the bits it gets alone, in one pass of
+    the step loop (a pass costs ~10^4 launches whatever its size)."""
     ts = torch.linspace(t0, t1, n_steps, device=o.device)
     dt = float(ts[1] - ts[0])
     acc = torch.zeros_like(o)
+    depth = torch.zeros(o.shape[0], device=o.device)
     T = torch.ones(o.shape[0], device=o.device)
     for t in ts:
         rgb, sigma = _sphere_field(o + t * d)
         alpha = 1.0 - torch.exp(-sigma * dt)
         acc += (T * alpha)[:, None] * rgb
+        depth += T * alpha * t
         T = T * (1.0 - alpha)
+    if with_depth:
+        return acc, 1.0 - T, depth / torch.clamp(1.0 - T, min=1e-9)
     return acc, 1.0 - T
 
 
@@ -1115,38 +1145,77 @@ def _orbit_xforms(n: int, radius: float = 1.05, seed: int = 0,
     return np.stack(out).astype(np.float32)
 
 
-def sphere_views(dev, xfs: np.ndarray, res: int) -> np.ndarray:
+def _to_u8(rgb: torch.Tensor, a: torch.Tensor, res: int) -> np.ndarray:
+    """Linear premultiplied rgb (N, 3) and alpha (N,) → an sRGB uint8 RGBA
+    image (res, res, 4)."""
+    from ngp_tpu_torch.common import linear_to_srgb
+    c = linear_to_srgb(torch.clamp(rgb / torch.clamp(a, min=1e-6)[:, None],
+                                   0.0, 1.0))
+    img = torch.cat([c, a[:, None]], -1).reshape(res, res, 4)
+    return torch.round(img * 255).to(torch.uint8).cpu().numpy()
+
+
+def sphere_views(dev, xfs: np.ndarray, res: int, xfs_end=None,
+                 n_times: int = 4) -> np.ndarray:
     """The spheres seen by cameras ``xfs`` (focal SPHERE_FOCAL·res, centred
     principal point), rendered on ``dev`` along the trainer's own
-    pixel-centre rays, as sRGB uint8 RGBA (the path real captures take)."""
-    from ngp_tpu_torch.common import linear_to_srgb
+    pixel-centre rays, as sRGB uint8 RGBA (the path real captures take).
+    With end transforms ``xfs_end`` each view is the mean of ``n_times``
+    renders at cameras slerped toward its end (a motion-blurred exposure,
+    what the trainer's per-ray shutter time models)."""
+    from ngp_tpu_torch.rays.camera import xform_slerp
     fl = SPHERE_FOCAL * res
     px = (torch.arange(res, device=dev, dtype=torch.float32) + 0.5) / res
     v, u = torch.meshgrid(px, px, indexing="ij")
     d_cam = torch.stack([(u - 0.5) * res / fl, (v - 0.5) * res / fl,
                          torch.ones_like(u)], -1).reshape(-1, 3)
-    u8 = np.empty((len(xfs), res, res, 4), np.uint8)
+    cams = []                         # (views, times, 3, 4)
     for i, xf in enumerate(torch.from_numpy(xfs).to(dev)):
-        d = d_cam @ xf[:, :3].T
-        d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
-        rgb, a = _render_spheres(xf[:, 3].expand_as(d), d)
-        c = linear_to_srgb(torch.clamp(rgb / torch.clamp(a, min=1e-6)[:, None],
-                                       0.0, 1.0))
-        img = torch.cat([c, a[:, None]], -1).reshape(res, res, 4)
-        u8[i] = torch.round(img * 255).to(torch.uint8).cpu().numpy()
+        if xfs_end is None:
+            cams.append(xf[None])
+        else:
+            xe = torch.as_tensor(xfs_end[i], device=dev)
+            ts = (torch.arange(n_times, device=dev) + 0.5) / n_times
+            cams.append(xform_slerp(xf, xe, ts))
+    cams = torch.stack(cams)
+    d = torch.einsum("pj,vtij->vtpi", d_cam, cams[..., :3])
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    o = cams[..., 3][:, :, None].expand_as(d)
+    c, al = _render_batched(o.reshape(-1, 3), d.reshape(-1, 3))
+    c = c.view(*d.shape)
+    al = al.view(*d.shape[:-1])
+    u8 = np.empty((len(xfs), res, res, 4), np.uint8)
+    for i in range(len(xfs)):
+        rgb = torch.zeros_like(d_cam)
+        a = torch.zeros(d_cam.shape[0], device=dev)
+        for t in range(cams.shape[1]):
+            rgb += c[i, t] / cams.shape[1]
+            a += al[i, t] / cams.shape[1]
+        u8[i] = _to_u8(rgb, a, res)
     return u8
 
 
-def build_sphere_dataset(dev, n_views: int, res: int, aabb_scale: int = 4):
+def _render_batched(o, d, with_depth: bool = False, chunk: int = 1 << 21):
+    """``_render_spheres`` over any number of rays, in chunks of ``chunk``
+    rays (the same bits as one call)."""
+    parts = [_render_spheres(oc, dc, with_depth=with_depth)
+             for oc, dc in zip(o.split(chunk), d.split(chunk))]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def build_sphere_dataset(dev, n_views: int, res: int, aabb_scale: int = 4,
+                         xfs_end=None):
     """The spheres seen from an orbit (``sphere_views``) in the port's
-    NerfDataset."""
+    NerfDataset; with end transforms ``xfs_end`` (a rolling shutter), the
+    views motion-blurred toward them."""
     from ngp_tpu_torch.data.nerf_loader import LazyImageArray, NerfDataset
     xfs = _orbit_xforms(n_views)
     fl = SPHERE_FOCAL * res
-    u8 = sphere_views(dev, xfs, res)
+    u8 = sphere_views(dev, xfs, res, xfs_end)
     n = n_views
     return NerfDataset(
-        images=LazyImageArray(u8), xforms=xfs, xforms_end=xfs.copy(),
+        images=LazyImageArray(u8), xforms=xfs,
+        xforms_end=xfs.copy() if xfs_end is None else xfs_end,
         focal=np.full((n, 2), fl, np.float32),
         principal=np.full((n, 2), 0.5, np.float32),
         resolution=np.full((n, 2), res, np.int32),
@@ -1157,24 +1226,28 @@ def build_sphere_dataset(dev, n_views: int, res: int, aabb_scale: int = 4):
         up=np.array([0.0, 0.0, 1.0], np.float32), images_u8=u8)
 
 
-def make_trainer(dataset, dev, config=None, **options):
+def make_trainer(dataset, dev, config=None, grid_impl: str = "blocked",
+                 **options):
     """The bench's trainer (bench.py: 4096 rays, dynamic live-ray count,
     both error-map samplers) with the int8 grid sweep, on base.json;
-    ``options`` set further NerfTrainerConfig fields."""
+    ``options`` set further NerfTrainerConfig fields (``grid_int8`` too)."""
     from ngp_tpu_torch.config import load_network_config
     from ngp_tpu_torch.train.nerf import NerfTrainer, NerfTrainerConfig
     cfg = config or load_network_config(ROOT / "configs/nerf/base.json")
     return NerfTrainer(dataset, cfg, seed=SEED, device=dev,
-                       tcfg=NerfTrainerConfig(
-                           n_rays=4096, adapt_rays=False, dynamic_rays=True,
-                           sample_image_proportional_to_error=True,
-                           sample_focal_plane_proportional_to_error=True,
-                           grid_int8=True, **options))
+                       grid_impl=grid_impl, tcfg=NerfTrainerConfig(**{
+                           "n_rays": 4096, "adapt_rays": False,
+                           "dynamic_rays": True,
+                           "sample_image_proportional_to_error": True,
+                           "sample_focal_plane_proportional_to_error": True,
+                           "grid_int8": True, **options}))
 
 
-def view_psnr(tr, view: int = 0) -> float:
+def view_psnr(tr, view: int = 0, spp: int = 1, motion: bool = False) -> float:
     """PSNR in sRGB of training view ``view`` rendered with the inference
-    (EMA) parameters over black, as bench.py measures it."""
+    (EMA) parameters over black, as bench.py measures it; with ``motion``
+    the frame is motion-blurred from the view's start to its end transform
+    (``spp`` shutter times per pixel)."""
     from ngp_tpu_torch.common import linear_to_srgb
     from ngp_tpu_torch.data.image_io import u8_to_linear_rgba
     from ngp_tpu_torch.render.nerf_render import NerfRenderer, RenderOptions
@@ -1183,7 +1256,9 @@ def view_psnr(tr, view: int = 0) -> float:
     r = NerfRenderer.for_trainer(tr, RenderOptions(
         width=W, height=H, background=(0, 0, 0, 0), linear_out=True))
     img = r.render(tr.inference_params(), tr.grid.bitfield, ds.xforms[view],
-                   W, H, focal=tuple(float(f) for f in ds.focal[view]))
+                   W, H, focal=tuple(float(f) for f in ds.focal[view]),
+                   spp=spp, camera_matrix_end=(ds.xforms_end[view] if motion
+                                               else None))
     _check_frame(img, W, H)
     gt = torch.from_numpy(u8_to_linear_rgba(ds.images_u8[view])).to(
         img.device)
@@ -1240,30 +1315,75 @@ def step_grad_check(tr, seed: int = SEED + 2) -> dict:
     that is not 0 among them, and how many entries have a Σ|w·g| in (0,
     1e-37), [1e-37, 1e-36) and [1e-36, 1e-34): how many lie near
     ZERO_FLOOR at all."""
-    got, ref, scale = step_k2(tr, seed)
+    return {"seed": seed, **k2_zero_row(*step_k2(tr, seed))}
+
+
+def k2_zero_row(got, ref, scale) -> dict:
+    """K2's output ``got`` against the plain backward ``ref`` and Σ|w·g|
+    ``scale``: the max |Δ| relative to Σ|w·g| ("rel"), the entries whose
+    zero patterns differ ("differ"), the largest Σ|w·g| and |value| of the
+    side that is not 0 among them and the largest ratio of the two, and
+    how many entries have a Σ|w·g| in (0, 1e-37), [1e-37, 1e-36) and
+    [1e-36, 1e-34): how many lie near ZERO_FLOOR at all."""
     rel = float(((got - ref).abs() / scale.clamp(min=REL_FLOOR)).max())
     n_differ, top = zero_patterns(got, ref, scale)
     differ = (got == 0) != (ref == 0)
+    value = (got + ref)[differ].abs()
     bands = [int(((scale > lo if lo == 0 else scale >= lo)
                   & (scale < hi)).sum())
              for lo, hi in ((0.0, 1e-37), (1e-37, 1e-36), (1e-36, 1e-34))]
-    return {"seed": seed, "rel": rel, "differ": n_differ,
-            "max_sum_abs": top,
-            "max_value": float((got + ref)[differ].abs().max())
+    return {"rel": rel, "differ": n_differ, "max_sum_abs": top,
+            "max_value": float(value.max()) if n_differ else 0.0,
+            "max_value_over_sum_abs": float((value / scale[differ]).max())
             if n_differ else 0.0, "entries_by_sum_abs": bands}
 
 
-def k2_zero_survey(tr, n_seeds: int):
+def k2_zero_survey(tr, n_seeds: int, tag: str = "k2-zeros"):
     """The train phase's one-step K2 check on the draws of ``n_seeds``
     seeds, one line each."""
-    rows = [step_grad_check(tr, seed)
-            for seed in range(SEED + 2, SEED + 2 + n_seeds)]
+    _print_survey(tag, [step_grad_check(tr, seed) for seed in
+                        range(SEED + 2, SEED + 2 + n_seeds)])
+
+
+def _print_survey(tag: str, rows: list):
     for r in rows:
-        print(f"k2-zeros: {json.dumps(r)}")
-    print(f"k2-zeros: {n_seeds} steps, {sum(r['differ'] for r in rows)} "
+        print(f"{tag}: {json.dumps(r)}")
+    print(f"{tag}: {len(rows)} steps, {sum(r['differ'] for r in rows)} "
           f"entries with differing zeros; the largest sum|w*g| among them "
           f"{max(r['max_sum_abs'] for r in rows):.3e}, the largest value "
-          f"{max(r['max_value'] for r in rows):.3e}")
+          f"{max(r['max_value'] for r in rows):.3e}, the largest value over "
+          f"its sum|w*g| {max(r['max_value_over_sum_abs'] for r in rows):.3e}")
+
+
+def image_k2_zero_survey(dev, n_steps: int):
+    """The image phase's K2 check on ``n_steps`` more steps of an image
+    trainer the runner trained IMAGE_STEPS on the phase's PNG, one line
+    each (no gate)."""
+    import shutil
+
+    from PIL import Image
+
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import encode_backward_reference
+    from ngp_tpu_torch.train.image import ImageTrainer
+    root = ROOT / "build" / "image_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    png = root / "image.png"
+    Image.fromarray(synth_image()).save(png)
+    _, tr, _, _ = _train_by_runner(
+        "k2-zeros-2d", dev, "image", png, ROOT / "configs/image/base.json",
+        IMAGE_STEPS, root / "image.msgpack", ImageTrainer)
+    meta = tr.model.encoding.meta
+    rows = []
+    for i in range(n_steps):
+        pos, cot = capture_image_step(tr)
+        with torch.no_grad():
+            rows.append({"step": i, **k2_zero_row(
+                bgc.launch_bwd(pos, cot, meta),
+                encode_backward_reference(pos, cot, meta),
+                encode_backward_reference(pos, cot.abs(), meta))})
+    _print_survey("k2-zeros-2d", rows)
 
 
 def phase_train(dev, n_views: int = TRAIN_VIEWS, res: int = TRAIN_RES,
@@ -3567,6 +3687,493 @@ def phase_playback(dev, config=None, frames=PLAYBACK_FRAMES,
     return launches, entry
 
 
+# the captures phase (cell smoke-captures-spheres): the spheres captured
+# through an F-theta lens, CAPTURE_VIEWS training views at CAPTURE_RES²
+# (the native frame) and CAPTURE_HELD_OUT held out, with depth PNGs under
+# integer_depth_scale DEPTH_SCALE, alpha sidecars on the even views and a
+# dynamic mask over MASK_BOX (a fraction of the frame, rows and columns) of
+# view 0; the runner trains CAPTURE_STEPS with depth supervision of weight
+# CAPTURE_DEPTH_LAMBDA under the int8 grid sweep
+CAPTURE_VIEWS, CAPTURE_HELD_OUT, CAPTURE_RES = 24, 4, 256
+CAPTURE_STEPS, CAPTURE_DEPTH_LAMBDA = 512, 0.1
+# θ(r) = p0 + p1·r + … + p4·r⁴ of the radius r in native pixels of a
+# CAPTURE_RES² frame: ~49° at its corners (ftheta_params scales it to
+# other native sizes, keeping the field of view)
+FTHETA_P = (0.0, 1.0 / 220.0, 0.0, 5e-9, 0.0)
+DEPTH_SCALE = 1e-4
+MASK_BOX = (0.25, 0.75)
+# the renderer's new options on the snapshot: a LatLong panorama at PANO
+# and an F-theta frame at FRAME_W × FRAME_H against the analytic spheres
+# on the same rays (PSNR ≥ LENS_PSNR_DB); each panel of a 2×1 stereo quilt
+# (IPD QUILT_IPD) against its frame rendered alone (mean |Δ| ≤ QUILT_TOL);
+# the pixels an envmap scene leaves transparent against the envmap's
+# sample (mean |Δ| ≤ ENVMAP_TOL)
+PANO = (1024, 512)
+LENS_PSNR_DB, QUILT_IPD, QUILT_TOL, ENVMAP_TOL = 20.0, 0.064, 1e-4, 1e-3
+# DEPTH frame of view 0 against the analytic depth over the pixels that hit
+# a sphere, mean |Δ| in scene units: a CPU rehearsal of this phase at full
+# width (base.json; 8 views at 64², 150 runner steps) read
+# CAPTURE_DEPTH_CPU; the limit is about twice it
+CAPTURE_DEPTH_CPU = 0.0221
+DEPTH_TOL = 0.045
+# rolling shutter: each view's end camera turned RS_ROT_DEG about the
+# vertical through the centre and moved RS_TRANS; views motion-blurred over
+# 4 shutter times; RS_STEPS steps at CAPTURE_SMALL_RES, rendered at RS_SPP
+# shutter times per pixel. A tcnn-layout model and a blocked one train
+# TCNN_STEPS on the spheres at CAPTURE_SMALL_RES. Sidecar rays equal the
+# camera's to RAYS_REL_TOL of the largest component.
+CAPTURE_SMALL_RES, RS_STEPS, TCNN_STEPS = 128, 256, 256
+RS_ROT_DEG, RS_TRANS, RS_SPP = 1.0, 0.01, 4
+RS_PSNR_RISE_DB, TCNN_PSNR_RISE_DB, RAYS_REL_TOL = 5.0, 5.0, 1e-6
+# the int8 renderer's frame against the f32 frame, PSNR in sRGB: the same
+# CPU rehearsal read CAPTURE_INT8_CPU dB after 150 steps; a table trained
+# longer spreads its values further from their level's maximum, which sets
+# the quantisation step, so the limit is set far below that reading
+CAPTURE_INT8_CPU = 80.2
+INT8_FRAME_PSNR_DB = 30.0
+
+
+def _gate_at_least(tag: str, what: str, value: float, limit: float):
+    """A gate ``value >= limit`` on a quantity with no best value (a PSNR
+    or its rise); the share is limit / value."""
+    _gate(tag, what, value, f">= {limit}", value >= limit,
+          limit / value if value > 0 else float("inf"))
+
+
+def _srgb_psnr(pred: torch.Tensor, gt: torch.Tensor) -> float:
+    """PSNR in sRGB of two linear rgb tensors, each clamped to [0, 1]."""
+    from ngp_tpu_torch.common import linear_to_srgb, mse2psnr
+    a = linear_to_srgb(torch.clamp(pred.reshape(-1, 3), 0.0, 1.0))
+    b = linear_to_srgb(torch.clamp(gt.reshape(-1, 3), 0.0, 1.0))
+    return mse2psnr(float(torch.mean((a - b) ** 2)))
+
+
+def ftheta_params(res: int) -> tuple:
+    """FTHETA_P for a native frame of res² pixels: the same θ at the same
+    fraction of the frame."""
+    k = CAPTURE_RES / res
+    return tuple(p * k ** i for i, p in enumerate(FTHETA_P))
+
+
+def _pixel_rays(dev, xf: np.ndarray, res: int, lens_mode: str,
+                lens7: tuple, focal: float = 1.0):
+    """World rays (o, unnormalised d) of a res² view's pixel centres by the
+    trainer's ``pixel_to_ray_train`` (centred principal point)."""
+    from ngp_tpu_torch.rays.camera import pixel_to_ray_train
+    size = torch.tensor([float(res), float(res)], device=dev)
+    y, x = torch.meshgrid(torch.arange(res, device=dev, dtype=torch.float32),
+                          torch.arange(res, device=dev, dtype=torch.float32),
+                          indexing="ij")
+    xy = (torch.stack([x, y], -1).reshape(-1, 2) + 0.5) / size
+    n = xy.shape[0]
+
+    def rows(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev).expand(
+            n, *np.shape(v))
+    return pixel_to_ray_train(xy, rows(xf), rows([focal, focal]),
+                              rows([0.5, 0.5]), size.expand(n, 2),
+                              rows(lens7), False, lens_mode=lens_mode)
+
+
+def write_ftheta_capture(dev, root: Path, n_train: int, n_test: int,
+                         res: int):
+    """The spheres through the F-theta lens on disk as a capture brings
+    them: ``transforms.json`` over ``train/r_*.png`` with ``ftheta_p*`` and
+    the native ``w``/``h``, a 16-bit depth PNG per view (the expected depth
+    along each pixel's ray, 0 where it misses the spheres) under
+    ``integer_depth_scale``, an alpha sidecar on each even view, a dynamic
+    mask over MASK_BOX of view 0; ``transforms_test.json`` over held-out
+    views. Returns (the two JSON paths, view 0's analytic depth and alpha,
+    flat)."""
+    from PIL import Image
+
+    from ngp_tpu_torch.common import linear_to_srgb
+    lens7 = ftheta_params(res) + (float(res), float(res))
+    root.mkdir(parents=True)
+    paths, view0 = [], None
+    for split, xfs in (("train", _orbit_xforms(n_train)),
+                       ("test", _orbit_xforms(n_test, seed=1, phase=0.3))):
+        (root / split).mkdir()
+        files = [f"{split}/r_{i:03d}.png" for i in range(len(xfs))]
+        cfg = _nerf_transforms(xfs, res, files)
+        cfg.update({f"ftheta_p{k}": v
+                    for k, v in enumerate(ftheta_params(res))})
+        cfg["integer_depth_scale"] = DEPTH_SCALE
+        rays = [_pixel_rays(dev, xf, res, "ftheta", lens7) for xf in xfs]
+        d = torch.cat([d for _, d in rays])
+        views = zip(*(p.split(res * res) for p in _render_batched(
+            torch.cat([o for o, _ in rays]),
+            d / torch.linalg.vector_norm(d, dim=-1, keepdim=True),
+            with_depth=True)))
+        for i, (name, (rgb, a, depth)) in enumerate(zip(files, views)):
+            Image.fromarray(_to_u8(rgb, a, res)).save(root / name)
+            if split == "test":
+                continue
+            depth = torch.where(a > 0.5, depth, 0.0)
+            stem = root / name[:-4]
+            Image.fromarray(np.round(depth.reshape(res, res).cpu().numpy()
+                                     / DEPTH_SCALE).astype(np.uint16)).save(
+                f"{stem}.depth.png")
+            cfg["frames"][i]["depth_path"] = f"{name[:-4]}.depth.png"
+            if i % 2 == 0:
+                # a grey whose sRGB decoding (load_stbi) is the alpha
+                grey = torch.round(linear_to_srgb(a) * 255).to(torch.uint8)
+                Image.fromarray(grey.reshape(res, res).cpu().numpy(),
+                                "L").save(f"{stem}.alpha.png")
+            if i == 0:
+                view0 = {"depth": depth, "alpha": a}
+        path = root / ("transforms.json" if split == "train"
+                       else "transforms_test.json")
+        path.write_text(json.dumps(cfg))
+        paths.append(path)
+    lo, hi = (int(f * res) for f in MASK_BOX)
+    mask = np.zeros((res, res), np.uint8)
+    mask[lo:hi, lo:hi] = 255
+    Image.fromarray(mask, "L").save(root / "train" / "dynamic_mask_r_000.png")
+    return paths[0], paths[1], view0
+
+
+def _timed(tag: str, what: str, render, W: int, H: int):
+    """``render()`` → an (H, W, 4) frame (tensor or numpy), gated (finite,
+    opacity in [0, 1]) and timed; returns it as a tensor."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    img = torch.as_tensor(img)
+    _check_frame(img, W, H)
+    print(f"{tag}: {what} {W}x{H} in {ms:.1f} ms; mean opacity "
+          f"{float(img[..., 3].mean()):.4f}")
+    return img
+
+
+def capture_frames(dev, tb, root: Path, test_xf: np.ndarray, frame,
+                   pano) -> None:
+    """The renderer's new options on the F-theta snapshot (Testbed ``tb``):
+    a LatLong panorama and an F-theta frame of a held-out view against
+    the analytic spheres on the same rays; a 2×1 stereo quilt, each panel
+    against its frame rendered alone; an envmap scene, its transparent
+    pixels against the envmap's sample."""
+    from ngp_tpu_torch.api.testbed import Testbed
+    from ngp_tpu_torch.common import srgb_to_linear
+    from ngp_tpu_torch.data.image_io import save_exr
+    from ngp_tpu_torch.render.nerf_render import NerfRenderer, RenderOptions
+    tr = tb.trainer
+    params, bitfield = tr.inference_params(), tr.grid.bitfield
+    W, H = frame
+    eye = _orbit_xforms(1, seed=2, phase=0.5)[0]
+    # the capture's lens over a W × H frame: the native frame's pixel scale,
+    # cropped to the frame's aspect
+    native = float(tr.dataset.resolution[0][0])
+    lens = tuple(float(x) for x in tr.dataset.lens_params[0][:5]) + (
+        native, native * H / W)
+    for what, (w, h), cam, kw in (
+            ("LatLong panorama", pano, eye, dict(lens_mode="latlong")),
+            ("F-theta frame of held-out view 0", frame, test_xf,
+             dict(lens_mode="ftheta", lens_params=lens))):
+        r = NerfRenderer.for_trainer(tr, RenderOptions(
+            width=w, height=h, background=(0, 0, 0, 0), linear_out=True,
+            march_steps=tr.tcfg.march_steps, **kw))
+        img = _timed("captures", what, lambda: r.render(
+            params, bitfield, cam, w, h, focal=FOCAL), w, h)
+        o, d, _, _ = r._gen_rays(0, w * h, w, h, *FOCAL,
+                                 torch.as_tensor(cam, device=dev))
+        gt, _ = _render_spheres(o, d)
+        _gate_at_least("captures", f"{what} PSNR against the analytic "
+                       "spheres (dB)", _srgb_psnr(img[..., :3], gt),
+                       LENS_PSNR_DB)
+    # the stereo quilt: panel k is the frame alone with head shift ±IPD/2
+    tb.camera_matrix = test_xf
+    tb.quilting_dims = (2, 1)
+    tb.parallax_shift = np.array([QUILT_IPD, 0.0, 0.5], np.float32)
+    quilt = _timed("captures", "2x1 stereo quilt", lambda: tb.render(W, H),
+                   W, H)
+    tb.quilting_dims = (1, 1)
+    for k, sign in enumerate((1.0, -1.0)):
+        tb.parallax_shift = np.array([sign * QUILT_IPD / 2, 0.0, 0.5],
+                                     np.float32)
+        alone = _timed("captures", f"quilt panel {k} alone",
+                       lambda: tb.render(W // 2, H), W // 2, H)
+        panel = quilt[:, k * (W // 2):(k + 1) * (W // 2)]
+        _gate_max("captures", f"quilt panel {k} mean |Δ| to its frame alone",
+                  float((panel - alone).abs().mean()), QUILT_TOL)
+    tb.parallax_shift = np.zeros(3, np.float32)
+    # the envmap scene: the capture with an envmap written by save_exr
+    hh = np.linspace(0.0, 1.0, 64, dtype=np.float32)[:, None]
+    ww = np.linspace(0.0, 1.0, 128, dtype=np.float32)[None, :]
+    env = np.stack(np.broadcast_arrays(
+        ww, hh, 0.5 + 0.5 * np.sin(ww * 16 * np.pi) * hh), -1)
+    save_exr(root / "env.exr", env.astype(np.float32))
+    cfg = json.loads((root / "transforms.json").read_text())
+    (root / "transforms_env.json").write_text(json.dumps(
+        {**cfg, "envmap": "env.exr"}))
+    tbe = Testbed(device=dev)
+    tbe.reload_network_from_json(tb.network_config)
+    tbe.load_training_data(root / "transforms_env.json")
+    tbe.load_snapshot(root / "snapshot.msgpack")
+    tbe.camera_matrix = test_xf
+    img = _timed("captures", "envmap scene", lambda: tbe.render(W, H), W, H)
+    r = tbe._nerf_renderer(W, H)
+    _, d, _, _ = r._gen_rays(0, W * H, W, H, *FOCAL,
+                             torch.as_tensor(test_xf, device=dev))
+    e = r.envmap_sampler(d)
+    bg = torch.as_tensor(tbe.background_color, device=dev)
+    want = srgb_to_linear(torch.clamp(e[:, :3] + bg[:3] * (1 - e[:, 3:]),
+                                      min=0.0)).reshape(H, W, 3).cpu()
+    clear = img[..., 3] < 1e-4
+    print(f"captures: envmap scene: {int(clear.sum())} of {W * H} pixels "
+          "with opacity < 1e-4")
+    if int(clear.sum()) < W * H // 10:
+        raise RuntimeError("the envmap scene left too few clear pixels")
+    _gate_max("captures", "envmap scene's clear pixels, mean |Δ| to the "
+              "envmap", float((img[..., :3][clear] - want[clear]).abs()
+                              .mean()), ENVMAP_TOL)
+
+
+def write_ray_capture(dev, root: Path, n_views: int, res: int) -> Path:
+    """The perspective sphere views with ``rays_<name>.dat`` sidecars that
+    hold exactly the camera's own pixel-centre rays (in NeRF space: the
+    loader's nerf→ngp axis cycle inverted). Returns transforms.json."""
+    from PIL import Image
+    root.mkdir(parents=True)
+    xfs = _orbit_xforms(n_views)
+    files = [f"r_{i:03d}.png" for i in range(n_views)]
+    for name, xf, img in zip(files, xfs, sphere_views(dev, xfs, res)):
+        Image.fromarray(img).save(root / name)
+        o, d = _pixel_rays(dev, xf, res, "perspective", (0.0,) * 7,
+                           SPHERE_FOCAL * res)
+        rays = torch.cat([o[:, [2, 0, 1]], d[:, [2, 0, 1]]], -1)
+        rays.cpu().numpy().astype(np.float32).tofile(
+            root / f"rays_{name[:-4]}.dat")
+    path = root / "transforms.json"
+    path.write_text(json.dumps(_nerf_transforms(xfs, res, files)))
+    return path
+
+
+def phase_captures(dev, config=None, res: int = CAPTURE_RES,
+                   n_views: int = CAPTURE_VIEWS, steps: int = CAPTURE_STEPS,
+                   small_res: int = CAPTURE_SMALL_RES,
+                   rs_steps: int = RS_STEPS, tcnn_steps: int = TCNN_STEPS,
+                   frame=(FRAME_W, FRAME_H), pano=PANO,
+                   cpu_size=(64, 36)):
+    """Real captures (cell smoke-captures-spheres): an F-theta capture
+    with every sidecar trained through the runner with depth supervision
+    and the int8 grid sweep; the renderer's lenses, quilt and envmap on its
+    snapshot; a rolling-shutter capture and a ray-sidecar capture; the
+    renderer under NGP_TPU_ENCODE_INT8=fwd (K4 on the render path); a
+    tcnn-layout model. Returns (the launch counts of the runner's training,
+    K4's entry on the int8 frame's largest encode call, with its launches
+    in that frame)."""
+    import dataclasses
+    import os
+    import shutil
+
+    from ngp_tpu_torch import run
+    from ngp_tpu_torch.common import RenderMode
+    from ngp_tpu_torch.config import load_network_config
+    from ngp_tpu_torch.data.nerf_loader import load_nerf
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import quantize_table_i8
+    from ngp_tpu_torch.render.nerf_render import NerfRenderer, RenderOptions
+    t_phase = time.perf_counter()
+    root = ROOT / "build" / "captures_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    config = Path(config or ROOT / "configs/nerf/base.json")
+    net_cfg = load_network_config(config)
+    t0 = time.perf_counter()
+    train_json, test_json, view0 = write_ftheta_capture(
+        dev, root, n_views, CAPTURE_HELD_OUT, res)
+    print(f"captures: F-theta capture of {n_views} + {CAPTURE_HELD_OUT} "
+          f"held-out {res}x{res} views with depth, alpha and mask sidecars "
+          f"written in {time.perf_counter() - t0:.2f} s")
+    snap = root / "snapshot.msgpack"
+    scene = ["--scene", str(train_json), "--network", str(config),
+             "--device", str(dev)]
+    with mock.patch.dict(os.environ, {"NGP_TPU_GRID_INT8": "1"}):
+        out = _run_entry(run.main, scene + ["--n_steps", "0",
+                                            "--test_transforms",
+                                            str(test_json)])
+        psnr0, _ = _held_out_psnr(out)
+        _reset_launches()
+        t0 = time.perf_counter()
+        out = _run_entry(run.main, scene + [
+            "--n_steps", str(steps), "--depth_supervision_lambda",
+            str(CAPTURE_DEPTH_LAMBDA), "--save_snapshot", str(snap),
+            "--test_transforms", str(test_json)])
+        launches = dict(bgc.launches)
+    its = _check_iterations(out, steps)
+    psnr1, ssim1 = _held_out_psnr(out)
+    rate = float(re.findall(r"\(([\d.]+) steps/s\)", out)[-1])
+    print(f"captures: runner trained {its[-1][0]} steps at "
+          f"{1e3 / rate:.2f} ms/step (the call {time.perf_counter() - t0:.2f}"
+          f" s with eval); held-out PSNR {psnr0:.2f} -> {psnr1:.2f} dB, "
+          f"SSIM {ssim1:.4f}; launches {launches}")
+    _gate_at_least("captures", "held-out PSNR rise (dB)", psnr1 - psnr0,
+               PSNR_RISE_DB)
+    missing = [k for k in ("blocked_grid_encode_fwd",
+                           "blocked_grid_encode_bwd",
+                           "blocked_grid_encode_fwd_i8") if launches[k] <= 0]
+    if missing:
+        raise RuntimeError(f"the F-theta training never launched {missing}")
+
+    tb = _nerf_testbed(dev, root, config, snap)
+    tr = tb.trainer
+    ds = tr.dataset
+    # the DEPTH frame of view 0 against the analytic depth
+    r = NerfRenderer.for_trainer(tr, RenderOptions(
+        width=res, height=res, render_mode=RenderMode.DEPTH,
+        linear_out=False, lens_mode="ftheta",
+        lens_params=tuple(float(x) for x in ds.lens_params[0]),
+        principal=tuple(float(x) for x in ds.principal[0]),
+        march_steps=tr.tcfg.march_steps, snap_to_pixel_centers=True))
+    img = _timed("captures", "DEPTH frame of view 0", lambda: r.render(
+        tr.inference_params(), tr.grid.bitfield, ds.xforms[0], res, res,
+        focal=tuple(float(f) for f in ds.focal[0])), res, res)
+    hit = view0["alpha"] > 0.5
+    err = float((img[..., 0].reshape(-1).to(dev)[hit]
+                 - view0["depth"][hit]).abs().mean())
+    print(f"captures: {int(hit.sum())} pixels of view 0 hit a sphere")
+    _gate_max("captures", "DEPTH frame mean |Δ| to the analytic depth over "
+              "the hit pixels (units)", err, DEPTH_TOL)
+    # one step's draws: no ray under view 0's dynamic mask reaches the loss
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    dep = tr._step_grads(tr.draws(tr.tcfg.n_rays, g), tr._error_state())[3]
+    img_i, xy, has = dep[0], dep[1], dep[-1]
+    pix = (xy * res).to(torch.int64)
+    lo, hi = (int(f * res) for f in MASK_BOX)
+    masked = (img_i == 0) & (pix >= lo).all(-1) & (pix < hi).all(-1)
+    n_masked, n_in_loss = int(masked.sum()), int((masked & has).sum())
+    print(f"captures: one step of {xy.shape[0]} rays: {n_masked} under view "
+          f"0's dynamic mask, {n_in_loss} of them in the loss")
+    if n_masked == 0:
+        raise RuntimeError("no ray of the step fell under the dynamic mask")
+    _gate("captures", "rays under the dynamic mask in the loss", n_in_loss,
+          "== 0", n_in_loss == 0, 0.0 if n_in_loss == 0 else float("inf"),
+          "d")
+
+    test_xf = _orbit_xforms(CAPTURE_HELD_OUT, seed=1, phase=0.3)[0]
+    capture_frames(dev, tb, root, test_xf, frame, pano)
+
+    # rolling shutter: end cameras turned and moved, views motion-blurred
+    R = _rotation_about(np.array([0.0, 0.0, 1.0]), math.radians(RS_ROT_DEG))
+    xfs = _orbit_xforms(n_views)
+    xe = xfs.copy()
+    xe[:, :, :3] = R @ xfs[:, :, :3]
+    xe[:, :, 3] = (xfs[:, :, 3] - 0.5) @ R.T + 0.5 + [RS_TRANS, 0.0, 0.0]
+    ds_rs = build_sphere_dataset(dev, n_views, small_res,
+                                 xfs_end=xe.astype(np.float32))
+    tr_rs = make_trainer(ds_rs, dev, net_cfg)
+    p0 = view_psnr(tr_rs, 0, RS_SPP, motion=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = tr_rs.train(rs_steps)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / rs_steps
+    p1 = view_psnr(tr_rs, 0, RS_SPP, motion=True)
+    print(f"captures: rolling shutter ({RS_ROT_DEG}° and {RS_TRANS} between "
+          f"start and end) {rs_steps} steps at {ms:.2f} ms/step, loss "
+          f"{loss:.4e}; motion-blurred view 0 PSNR {p0:.2f} -> {p1:.2f} dB")
+    if not math.isfinite(loss):
+        raise RuntimeError(f"the rolling-shutter loss is not finite: {loss}")
+    _gate_at_least("captures", "rolling-shutter PSNR rise (dB)", p1 - p0,
+               RS_PSNR_RISE_DB)
+    del tr_rs, ds_rs
+
+    # ray sidecars holding the camera's own rays: the same rays
+    ray_json = write_ray_capture(dev, root / "rays", 4, small_res // 2)
+    ds_r = load_nerf(ray_json)
+    trs = [make_trainer(d, dev, net_cfg, snap_to_pixel_centers=True)
+           for d in (ds_r, dataclasses.replace(ds_r, rays=None))]
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    draws = trs[0].draws(trs[0].tcfg.n_rays, g)
+    img_i, xy, _, _ = trs[0]._sample_pixels(trs[0]._error_state(),
+                                            draws.u_img, draws.u_xy)
+    (o_s, d_s, _), (o_c, d_c, _) = (t._build_rays(img_i, xy) for t in trs)
+    rel = max(float((o_s - o_c).abs().max() / o_c.abs().max()),
+              float((d_s - d_c).abs().max() / d_c.abs().max()))
+    loss = trs[0].train(16)
+    print(f"captures: ray sidecars on {xy.shape[0]} rays of one step's "
+          f"draws; 16 steps on them: loss {loss:.4e}, "
+          f"{trs[0].last_samples} samples in the last")
+    if not (math.isfinite(loss) and trs[0].last_samples > 0):
+        raise RuntimeError("the ray-sidecar steps trained nothing")
+    _gate_max("captures", "sidecar rays against the camera's, max |Δ| "
+              "relative", rel, RAYS_REL_TOL)
+    del trs
+
+    # the int8 renderer: K4 on the render path
+    with mock.patch.dict(os.environ, {"NGP_TPU_ENCODE_INT8": "fwd"}):
+        tb8 = _nerf_testbed(dev, root, config, snap)
+    W, H = frame
+    for t in (tb, tb8):
+        t.camera_matrix = test_xf
+    calls, encode = [], bgc.encode_quantized
+
+    def spy(tq, qs, pos, meta):
+        """Keeps the largest int8 encode call of the frame."""
+        if not calls or pos.shape[0] > calls[0][2].shape[0]:
+            calls[:] = [(tq, qs, pos.clone(), meta)]
+        return encode(tq, qs, pos, meta)
+    _reset_launches()
+    with mock.patch.object(bgc, "encode_quantized", spy):
+        img8 = _timed("captures", "NGP_TPU_ENCODE_INT8=fwd frame",
+                      lambda: tb8.render(W, H), W, H)
+    frame_launches = dict(bgc.launches)
+    f32 = _timed("captures", "f32 frame", lambda: tb.render(W, H), W, H)
+    print(f"captures: launches in the int8 frame {frame_launches}")
+    if frame_launches["blocked_grid_encode_fwd_i8"] <= 0:
+        raise RuntimeError("the int8 frame never launched K4")
+    _gate_at_least("captures", "int8 frame PSNR against the f32 frame (dB)",
+                   _srgb_psnr(img8[..., :3], f32[..., :3]),
+                   INT8_FRAME_PSNR_DB)
+    cw, ch = cpu_size
+    r8 = tb8._nerf_renderer(cw, ch)
+    tr8 = tb8.trainer
+    p8 = tr8.inference_params()
+    gpu = r8.render(p8, tr8.grid.bitfield, test_xf, cw, ch, focal=FOCAL)
+    tr8.model.cpu()
+    try:
+        cpu = r8.render({k: v.cpu() for k, v in p8.items()},
+                        tr8.grid.bitfield.cpu(), test_xf, cw, ch, focal=FOCAL)
+    finally:
+        tr8.model.to(dev)
+    _cpu_frame_check("captures", gpu, cpu, f"int8 {cw}x{ch} frame")
+    tq, qs, pos, meta = calls[0]
+    with torch.no_grad():
+        ref_q = quantize_table_i8(p8["pos_encoding.table"])
+    if not (torch.equal(ref_q[0], tq) and torch.equal(ref_q[1], qs)):
+        raise RuntimeError("the int8 frame's table is not the EMA table's "
+                           "quantisation")
+    err = check_k4(tq, qs, pos, meta, "nerf-render-int8")
+    k4 = time_k4(tq, qs, pos, meta, err, "nerf-render-int8")
+    k4["frame_launches"] = frame_launches["blocked_grid_encode_fwd_i8"]
+    del tb8, tr8
+
+    # a tcnn-layout model beside the blocked grid
+    ds_t = build_sphere_dataset(dev, n_views, small_res)
+    for impl in ("blocked", "tcnn"):
+        t = make_trainer(ds_t, dev, net_cfg, grid_impl=impl, grid_int8=False)
+        p0 = view_psnr(t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = t.train(tcnn_steps)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / tcnn_steps
+        p1 = view_psnr(t)
+        print(f"captures: grid_impl={impl} {tcnn_steps} steps at {ms:.2f} "
+              f"ms/step, loss {loss:.4e}; view 0 PSNR {p0:.2f} -> {p1:.2f} "
+              "dB")
+        if impl == "tcnn":
+            if not math.isfinite(loss):
+                raise RuntimeError("the tcnn-layout loss is not finite")
+            _gate_at_least("captures", "tcnn-layout PSNR rise (dB)", p1 - p0,
+                       TCNN_PSNR_RISE_DB)
+        del t
+    print(f"captures: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, k4
+
+
 def kernel_phases(dev, ray) -> list:
     """K1–K5 against their plain versions, timed; K1, K2 and K3 on the
     render path's ray-ordered inputs too."""
@@ -3599,8 +4206,11 @@ def main() -> int:
     if "--k2-zeros" in args:
         # the train phase, then its one-step K2 check on the draws of
         # more seeds: no main path is run past it, so no "ok" line
+        n = int(args[args.index("--k2-zeros") + 1])
         _, tr = phase_train(dev)
-        k2_zero_survey(tr, int(args[args.index("--k2-zeros") + 1]))
+        k2_zero_survey(tr, n)
+        del tr
+        image_k2_zero_survey(dev, n)
         return 0
     _, renderer, bitfield = phase_slice(dev)
     if "--profile" in args:
@@ -3625,6 +4235,7 @@ def main() -> int:
     tak_launches, tak_kernels = phase_takikawa(dev)
     playback_launches, bake_k1 = phase_playback(dev)
     print(f"mesh, takikawa, playback: {time.perf_counter() - t_new:.1f} s")
+    captures_launches, render_k4 = phase_captures(dev)
     # each kernel's launches in the run of the path it was ported for: the
     # training phase (K1, K2, K4), the pose phase (K3, K5), whose kernels
     # were also timed on one step's inputs, the image phase (2D K1, K2),
@@ -3666,12 +4277,18 @@ def main() -> int:
         e["launch_name"] = e["name"]
         e["name"] = f"{e['name']} ({what})"
         e["launches"] = counts[e["launch_name"]]
-    kernels += [e for e, _, _ in slice_entries]
+    # K4 on the NeRF renderer's path under NGP_TPU_ENCODE_INT8: its
+    # launches in one int8 frame
+    render_k4["launch_name"] = render_k4["name"]
+    render_k4["name"] = f"{render_k4['name']} (nerf render int8)"
+    render_k4["launches"] = render_k4.pop("frame_launches")
+    kernels += [e for e, _, _ in slice_entries] + [render_k4]
     for k in kernels:
         name = k.get("launch_name", k["name"])
         k["mesh_launches"] = mesh_launches[name]
         k["takikawa_launches"] = tak_launches[name]
         k["playback_launches"] = playback_launches[name]
+        k["captures_launches"] = captures_launches[name]
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

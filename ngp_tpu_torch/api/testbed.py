@@ -46,8 +46,17 @@ from ngp_tpu_torch.common import (BoundingBox, ColorSpace, EmaMeter,
                                   linear_to_srgb_np, resolve_device)
 from ngp_tpu_torch.config import default_config_path, load_network_config
 
-def _unported(what: str):
-    raise NotImplementedError(f"{what}: not ported yet")
+# the reference's ELossType in enum order (common.h; pyngp LossType), by
+# which the namespace's integer loss types name a loss
+LOSS_TYPE_NAMES = ("L2", "L1", "Mape", "Smape", "Huber", "LogL1",
+                   "RelativeL2")
+
+
+def loss_type_name(loss_type) -> str:
+    """A loss type as the trainers name it: a name, or an index of the
+    reference's ELossType (``LOSS_TYPE_NAMES``)."""
+    return loss_type if isinstance(loss_type, str) else \
+        LOSS_TYPE_NAMES[int(loss_type)]
 
 
 def _resample(img: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -207,6 +216,10 @@ class Testbed:
         self.floor_enable = False
         self.visualize_unit_cube = False
         self.parallax_shift = np.zeros(3, np.float32)   # ref: testbed.h:892
+        # the views of a VR / lenticular quilt (ref: apply_quilting's
+        # quilting_dims); (2, 1) is stereo VR. Not a JAX testbed attribute:
+        # the JAX testbed renders neither it nor the parallax shift
+        self.quilting_dims = (1, 1)
         self.max_level_rand_training = False
         self.visualized_dimension = -1
         self.shall_train_encoding = True
@@ -234,7 +247,10 @@ class Testbed:
             training=_NerfTrainingNS(
                 self,
                 random_bg_color=True, linear_colors=False,
-                loss_type=2, depth_loss_type=0,  # LossType.Huber
+                # indices of the reference's ELossType (LOSS_TYPE_NAMES);
+                # depth_loss_type L1 as in the reference (testbed.h:654;
+                # the JAX testbed's 0, L2, is never read)
+                loss_type=2, depth_loss_type=1,
                 snap_to_pixel_centers=False, optimize_extrinsics=False,
                 optimize_exposure=False, optimize_extra_dims=False,
                 optimize_distortion=False, optimize_focal_length=False,
@@ -351,6 +367,7 @@ class Testbed:
             n_steps_between_grid_updates=16,
             snap_to_pixel_centers=t.snap_to_pixel_centers,
             depth_supervision_lambda=t.depth_supervision_lambda,
+            depth_loss_type=loss_type_name(t.depth_loss_type),
             optimize_extrinsics=t.optimize_extrinsics,
             optimize_exposure=t.optimize_exposure,
             optimize_focal_length=t.optimize_focal_length,
@@ -812,20 +829,32 @@ class Testbed:
             visualized_level=int(self.visualized_layer),
             glow_mode=int(self.nerf.glow_mode),
             glow_y_cutoff=float(self.nerf.glow_y_cutoff),
-            lens_mode=lmode)
+            lens_mode=lmode,
+            parallax_shift=tuple(float(x) for x in self.parallax_shift),
+            quilting_dims=tuple(int(q) for q in self.quilting_dims))
         key = (opts.render_mode, opts.snap_to_pixel_centers, opts.exposure,
                opts.tonemap_curve, opts.background, opts.lens_params,
                opts.min_transmittance, ra_min, ra_max, opts.aperture_size,
                opts.focus_z, opts.slice_plane_z, opts.visualized_level,
                opts.glow_mode, opts.glow_y_cutoff, opts.lens_mode,
-               opts.principal, opts.march_steps,
+               opts.principal, opts.march_steps, opts.parallax_shift,
+               opts.quilting_dims,
                # intended divergence: the JAX testbed's key leaves the
                # masks out, so a render after a change to render_masks
                # reuses the renderer built with the old ones
                masks_key(list(self.render_masks or [])))
-        if ds is not None and ds.envmap is not None:
-            _unported("the envmap background")
         if key not in self._renderer_cache:
+            env = None
+            if ds is not None and ds.envmap is not None:
+                # the dataset's envmap as the background (ref: envmap read
+                # in composite, envmap.cuh:30-105)
+                from ngp_tpu_torch.nn.trainable_buffer import Envmap
+                env_t = torch.as_tensor(ds.envmap, dtype=torch.float32,
+                                        device=self.trainer.device)
+                sampler = Envmap(*ds.envmap.shape[:2])
+
+                def env(d):
+                    return sampler.sample(env_t, d)
             dist = None
             if "distortion" in self.trainer.cam_params:
                 tr = self.trainer
@@ -835,7 +864,7 @@ class Testbed:
                                                 uv)
             self._renderer_cache[key] = NerfRenderer.for_trainer(
                 self.trainer, opts, masks=list(self.render_masks or []),
-                distortion_sampler=dist)
+                envmap_sampler=env, distortion_sampler=dist)
         return self._renderer_cache[key]
 
     def render_dynamic(self, width: int, height: int) -> np.ndarray:
@@ -973,10 +1002,19 @@ class Testbed:
 
     def set_image(self, image_idx: int, image: np.ndarray,
                   depth: np.ndarray = None, depth_scale: float = 1.0):
-        """Replace a training image in place (ref: pyngp set_image)."""
-        if depth is not None:
-            _unported("depth supervision")
+        """Replace a training image in place (ref: pyngp set_image), and
+        its depth map when ``depth`` is given (stored as depth ·
+        ``depth_scale``, the reference's set_training_image); the trainer's
+        pools are uploaded again. The JAX testbed ignores ``depth``."""
         ds = self.nerf.training.dataset
+        if depth is not None:
+            if ds.depth_images is None:
+                ds.depth_images = np.zeros(np.asarray(ds.images).shape[:3],
+                                           np.float32)
+            d = np.asarray(depth, np.float32)
+            d = d.reshape(d.shape[:2])
+            ds.depth_images[image_idx, : d.shape[0], : d.shape[1]] = \
+                d * np.float32(depth_scale)
         if not isinstance(ds.images, np.ndarray):
             ds.images = np.asarray(ds.images)   # materialize a lazy view
         ds.images[image_idx, : image.shape[0], : image.shape[1]] = image

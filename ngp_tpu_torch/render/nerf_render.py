@@ -13,16 +13,23 @@ converts the frame to linear like the JAX renderer.
 Besides SHADE, every render mode of the static path (NORMALS, POSITIONS
 with ``show_accel``, DEPTH, AO, COST, ENCODING_VIS, SLICE and DISTORTION),
 glow, the render AABB crop, thin-lens depth of field and per-ray motion
-blur / rolling shutter between two camera matrices. NORMALS is the
+blur / rolling shutter between two camera matrices; the perspective,
+OpenCV, F-theta and LatLong lenses; VR / lenticular quilting with the
+parallax head shift; an environment map behind each ray. NORMALS is the
 gradient of the density with respect to the warped position, taken by
-autograd through the encode (K3 on the card).
+autograd through the f32 encode (K1 forward, K3 backward on the card).
+
+Under the int8 encode modes (``encode_int8`` "fwd" or "full", the
+trainer's; the JAX encoding reads ``NGP_TPU_ENCODE_INT8``) each frame
+quantises the table once and encodes every chunk through the int8 table
+(K4 on the card).
 
 Mask3D masks (``render/multi_nerf.py``) scale each sample's alpha, folded
 into its optical depth together with glow mode 4's mask.
 
-Not ported yet, and raising NotImplementedError: the envmap background,
-the F-theta and LatLong lenses, quilting and parallax, and the wave
-renderers (``wave``; False by default in the JAX package too).
+Not ported yet, and raising NotImplementedError: the wave renderers
+(``wave``; False by default in the JAX package too), which come with the
+port of ``dist/*`` (ROADMAP.md §1).
 
 Intended divergence: an end camera equal to the start camera renders the
 static frame (no per-ray interpolation and no time draws); the JAX
@@ -42,8 +49,13 @@ from ngp_tpu_torch.common import (NerfActivation, RenderMode, TonemapCurve,
                                   network_activation, srgb_to_linear)
 from ngp_tpu_torch.grid.occupancy import mip_from_pos
 from ngp_tpu_torch.kernels import blocked_grid_cuda
-from ngp_tpu_torch.rays.camera import (iterative_opencv_undistort,
-                                       ray_aabb_intersect, xform_slerp)
+from ngp_tpu_torch.kernels.blocked_grid import quantize_table_i8
+from ngp_tpu_torch.nn.encodings import BlockedGridEncoding
+from ngp_tpu_torch.rays.camera import (LENS_MODES, apply_quilting,
+                                       f_theta_undistort,
+                                       iterative_opencv_undistort,
+                                       latlong_to_dir, ray_aabb_intersect,
+                                       xform_slerp)
 from ngp_tpu_torch.rays.marching import (compact_samples, composite_samples,
                                          march_rays, merge_excess_samples,
                                          ray_sums)
@@ -60,8 +72,9 @@ class RenderOptions:
     principal: tuple = (0.5, 0.5)
     spp: int = 1
     render_mode: RenderMode = RenderMode.SHADE
-    lens_params: tuple = (0.0, 0.0, 0.0, 0.0)   # OpenCV k1 k2 p1 p2
-    lens_mode: str = "auto"              # auto | perspective | opencv
+    # OpenCV k1 k2 p1 p2, or F-theta p0..p4 and the native (w, h)
+    lens_params: tuple = (0.0, 0.0, 0.0, 0.0)
+    lens_mode: str = "auto"   # auto | perspective | opencv | ftheta | latlong
     background: tuple = (0.0, 0.0, 0.0, 0.0)
     linear_out: bool = True              # return linear RGB (like run.py eval)
     min_transmittance: float = 1e-4
@@ -78,7 +91,10 @@ class RenderOptions:
     exposure: float = 0.0
     tonemap_curve: TonemapCurve = TonemapCurve.IDENTITY
     snap_to_pixel_centers: bool = False  # eval protocol (ref run.py:228-241)
-    # VR / lenticular quilting + parallax head shift: not ported yet
+    # VR / lenticular quilting + parallax head shift (ref: apply_quilting,
+    # common_device.cuh:541-560; pixel_to_ray :302-306). quilting_dims
+    # (2, 1) is stereo VR (parallax_shift[0] = IPD); larger grids are
+    # HoloPlay view fans
     parallax_shift: tuple = (0.0, 0.0, 0.0)
     quilting_dims: tuple = (1, 1)
     slice_plane_z: float = 0.0           # SLICE mode plane offset
@@ -90,7 +106,8 @@ class RenderOptions:
     # 2 cutline, 4 mask-to-alpha, 8 radial, 16 grid-only
     glow_mode: int = 0
     glow_y_cutoff: float = 0.0
-    # the JAX package's live-sample renderers: not ported yet
+    # the JAX package's live-sample renderers: not ported yet (they come
+    # with dist/*)
     wave: bool = False
 
 
@@ -110,14 +127,18 @@ class NerfRenderer:
 
     ``aabb_min``/``aabb_size`` are the training AABB's scalar corner and
     side (the trainer's ``0.5 - aabb_scale/2`` and ``aabb_scale``).
+    ``envmap_sampler`` maps (N, 3) unit directions to the (N, 4) RGBA
+    environment behind each ray, blended over the background.
     ``distortion_sampler`` maps (N, 2) screen uv to the learned (N, 2) ray
     offset the DISTORTION mode shows. ``masks`` is a list of
-    ``multi_nerf.Mask3D``."""
+    ``multi_nerf.Mask3D``. ``encode_int8`` is the int8 encode mode
+    (``""``, ``"fwd"`` or ``"full"``; a blocked grid's only)."""
 
     def __init__(self, model, aabb_min, aabb_size, cone_angle: float,
                  max_cascade: int, opts: Optional[RenderOptions] = None,
-                 masks=None, envmap_sampler=None,
-                 distortion_sampler: Optional[Callable] = None):
+                 masks=None, envmap_sampler: Optional[Callable] = None,
+                 distortion_sampler: Optional[Callable] = None,
+                 encode_int8: str = ""):
         self.model = model
         # f32 values, and their f32 sum, as the JAX package computes them
         self.aabb_min = float(np.float32(aabb_min))
@@ -126,27 +147,31 @@ class NerfRenderer:
         self.cone_angle = cone_angle
         self.max_cascade = max_cascade
         self.opts = opts = opts or RenderOptions()
+        self.envmap_sampler = envmap_sampler
         self.distortion_sampler = distortion_sampler
         self.masks = list(masks or [])
-        unported = {
-            "the envmap background": envmap_sampler is not None,
-            f"lens mode {opts.lens_mode!r}":
-                opts.lens_mode not in ("auto", "perspective", "opencv"),
-            "quilting and parallax": (tuple(opts.quilting_dims) != (1, 1)
-                                      or any(opts.parallax_shift)),
-            "the wave renderers": opts.wave,
-        }
-        for what, hit in unported.items():
-            if hit:
-                raise NotImplementedError(f"{what}: not ported yet")
+        if opts.wave:
+            raise NotImplementedError(
+                "the wave renderers are not ported yet: they come with the "
+                "port of dist/* (ROADMAP.md §1)")
+        if opts.lens_mode not in ("auto",) + LENS_MODES:
+            raise ValueError(f"lens mode {opts.lens_mode!r} is not one of "
+                             f"{('auto',) + LENS_MODES}")
+        blocked_grid_cuda.check_int8_mode(encode_int8)
+        if encode_int8 and not isinstance(model.pos_encoding,
+                                          BlockedGridEncoding):
+            raise ValueError("the int8 encode modes exist for the blocked "
+                             "grid only")
+        self.encode_int8 = encode_int8
         # samples the last ``render`` call sent through the network
         self.last_n_samples = 0
 
     @classmethod
     def for_trainer(cls, trainer, opts: Optional[RenderOptions] = None,
                     **kw):
-        """A renderer of a trainer's scene: its model, AABB, cone angle and
-        cascades."""
+        """A renderer of a trainer's scene: its model, AABB, cone angle,
+        cascades and int8 encode mode."""
+        kw.setdefault("encode_int8", trainer.tcfg.encode_int8)
         return cls(trainer.model, trainer.aabb_min, trainer.aabb_size,
                    trainer.cone_angle, trainer.max_cascade, opts, **kw)
 
@@ -170,8 +195,9 @@ class NerfRenderer:
                   xf_end: Optional[torch.Tensor] = None,
                   rolling_shutter=(0.0, 0.0, 0.0, 1.0)):
         """Pixel idx → (o, d, u, v): world rays of one chunk and their
-        screen position, with per-pixel jitter, the OpenCV lens
-        undistortion, per-ray camera interpolation towards ``xf_end``
+        screen position within their panel, with quilting and the parallax
+        head shift, per-pixel jitter, the lens (OpenCV undistortion,
+        F-theta, LatLong), per-ray camera interpolation towards ``xf_end``
         (``pixel_t = rs.x + rs.y·u + rs.z·v + rs.w·time``) and thin-lens
         depth of field."""
         opts = self.opts
@@ -180,26 +206,44 @@ class NerfRenderer:
         idx = pix0 + torch.arange(n_rays, dtype=torch.int64, device=dev)
         px = (idx % W).to(torch.float32)
         py = (idx // W).to(torch.float32)
+        qx, qy = (int(q) for q in opts.quilting_dims)
+        We, He = W, H
+        ps = None           # the per-ray parallax shift, where there is one
+        if (qx, qy) != (1, 1):
+            px, py, ps = apply_quilting(px, py, (W, H), opts.parallax_shift,
+                                        (qx, qy))
+            We, He = W // qx, H // qy
+        elif any(opts.parallax_shift):
+            ps = torch.tensor(opts.parallax_shift, dtype=torch.float32,
+                              device=dev).expand(n_rays, 3)
         if draws.jitter is not None:
             jx, jy = draws.jitter[:, 0], draws.jitter[:, 1]
         else:
             jx = jy = 0.5
-        u = (px + jx) / W
-        v = (py + jy) / H
-        fx32 = torch.tensor(fx, dtype=torch.float32, device=dev)
-        fy32 = torch.tensor(fy, dtype=torch.float32, device=dev)
-        dx = (u - cx) * W / fx32
-        dy = (v - cy) * H / fy32
+        u = (px + jx) / We
+        v = (py + jy) / He
         lens_mode = opts.lens_mode
         if lens_mode == "auto":
             lens_mode = ("opencv" if any(abs(p) > 0 for p in
                                          opts.lens_params[:4])
                          else "perspective")
-        if lens_mode == "opencv":
-            k1, k2, p1, p2 = opts.lens_params[:4]
-            dx, dy = iterative_opencv_undistort(dx, dy, k1, k2, p1, p2)
-        d_cam = torch.stack([dx, dy, torch.ones_like(dx)], -1)
-        if draws.time is None and draws.lens is None:
+        if lens_mode == "latlong":
+            d_cam = latlong_to_dir(torch.stack([u, v], -1))
+        elif lens_mode == "ftheta":
+            lp = torch.tensor(opts.lens_params, dtype=torch.float32,
+                              device=dev).expand(n_rays, 7)
+            d_cam = f_theta_undistort(torch.stack([u - cx, v - cy], -1), lp,
+                                      lp.new_tensor([0.0, 0.0, 1.0]))
+        else:
+            fx32 = torch.tensor(fx, dtype=torch.float32, device=dev)
+            fy32 = torch.tensor(fy, dtype=torch.float32, device=dev)
+            dx = (u - cx) * We / fx32
+            dy = (v - cy) * He / fy32
+            if lens_mode == "opencv":
+                k1, k2, p1, p2 = opts.lens_params[:4]
+                dx, dy = iterative_opencv_undistort(dx, dy, k1, k2, p1, p2)
+            d_cam = torch.stack([dx, dy, torch.ones_like(dx)], -1)
+        if draws.time is None and draws.lens is None and ps is None:
             d_world = d_cam @ xf[:, :3].T
             o_world = xf[:, 3].expand(n_rays, 3)
         else:
@@ -210,7 +254,15 @@ class NerfRenderer:
                 xfs = xform_slerp(xf, xf_end, pixel_t)       # (N, 3, 4)
             else:
                 xfs = xf.expand(n_rays, 3, 4)
-            o_cam = torch.zeros_like(d_cam)
+            if ps is not None:
+                # the parallax head shift (ref: pixel_to_ray :302-306):
+                # rays leave the camera-space head position and tilt
+                # toward it
+                o_cam = torch.cat([ps[:, :2], torch.zeros_like(ps[:, :1])],
+                                  -1)
+                d_cam = d_cam - o_cam * ps[:, 2:3]
+            else:
+                o_cam = torch.zeros_like(d_cam)
             if draws.lens is not None:
                 # Shirley square→disk (ref: square2disk_shirley)
                 ab = draws.lens * 2.0 - 1.0
@@ -251,12 +303,18 @@ class NerfRenderer:
         nrm = -g / (torch.linalg.vector_norm(g, dim=-1, keepdim=True) + 1e-9)
         return nrm * 0.5 + 0.5
 
-    def _encoding_rgb(self, params, pos_w: torch.Tensor) -> torch.Tensor:
+    def _encoding_rgb(self, params, pos_w: torch.Tensor,
+                      quantized=None) -> torch.Tensor:
         """|features| of one hash level at each sample (ref:
-        visualize_activation / EncodingVis)."""
+        visualize_activation / EncodingVis), through the int8 table when
+        the frame has one."""
         enc = self.model.pos_encoding
-        feats = blocked_grid_cuda.blocked_grid_encode(
-            params["pos_encoding.table"], pos_w.contiguous(), enc.meta)
+        if quantized is not None:
+            feats = blocked_grid_cuda.encode_quantized(
+                *quantized, pos_w.contiguous(), enc.meta)
+        else:
+            feats = blocked_grid_cuda.blocked_grid_encode(
+                params["pos_encoding.table"], pos_w.contiguous(), enc.meta)
         lvl = self.opts.visualized_level
         f = feats[:, 2 * lvl: 2 * lvl + 2].to(torch.float32)
         return torch.stack([torch.abs(f[:, 0]), torch.abs(f[:, 1]),
@@ -305,9 +363,11 @@ class NerfRenderer:
 
     def _render_chunk(self, net, params, bitfield, xf, bg, draws: RayDraws,
                       pix0: int, fx: float, fy: float, n_rays: int, W: int,
-                      H: int, xf_end=None, rolling_shutter=None):
+                      H: int, xf_end=None, rolling_shutter=None,
+                      quantized=None):
         """One pixel chunk → (rgb (R,3) in network colour space, opacity
-        (R,), samples evaluated)."""
+        (R,), samples evaluated). ``quantized`` is the frame's int8 table,
+        where it has one."""
         opts = self.opts
         mode = opts.render_mode
         o, d, u, v = self._gen_rays(pix0, n_rays, W, H, fx, fy, xf, draws,
@@ -333,6 +393,12 @@ class NerfRenderer:
                 o, d, torch.tensor(opts.render_aabb_min, device=dev),
                 torch.tensor(opts.render_aabb_max, device=dev))
             emit = emit & (t >= ct0[:, None]) & (t <= ct1[:, None])
+        # the environment, or the constant background, behind each ray
+        if self.envmap_sampler is not None:
+            env = self.envmap_sampler(d)
+            bg_ray = env[:, :3] + bg[None, :3] * (1.0 - env[:, 3:4])
+        else:
+            bg_ray = bg[None, :3]
 
         nseg = max(opts.march_segments, 1)
         seg_len = opts.march_steps // nseg
@@ -357,7 +423,7 @@ class NerfRenderer:
             if mode == RenderMode.NORMALS:
                 rgb = self._normals_rgb(params, pos_w)
             elif mode == RenderMode.ENCODING_VIS:
-                rgb = self._encoding_rgb(params, pos_w)
+                rgb = self._encoding_rgb(params, pos_w, quantized)
             elif mode == RenderMode.POSITIONS:
                 rgb = self._accel_rgb(pos) if opts.show_accel >= 0 else pos_w
             else:
@@ -394,7 +460,7 @@ class NerfRenderer:
             logT = logT - torch.log(torch.clamp(1.0 - opac_seg, min=1e-10))
 
         opacity = 1.0 - torch.exp(-logT)
-        rgb_out = rgb_acc + torch.exp(-logT)[:, None] * bg[None, :3]
+        rgb_out = rgb_acc + torch.exp(-logT)[:, None] * bg_ray
         if mode == RenderMode.DEPTH:
             rgb_out = (depth_acc / torch.clamp(opacity, min=1e-6))[:, None] \
                 .expand(n_rays, 3)
@@ -421,7 +487,8 @@ class NerfRenderer:
         ``rolling_shutter`` (x0, y-row, x-col, motion-time) weights. The
         random numbers (jitter for spp > 1, shutter time, lens samples)
         come from a ``torch.Generator`` seeded by ``seed``; an spp-1
-        pinhole still draws none.
+        pinhole still draws none. Under an int8 encode mode the table is
+        quantised once for the frame.
         """
         opts = self.opts
         W = int(width or opts.width)
@@ -443,12 +510,16 @@ class NerfRenderer:
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
 
-        if params is None:
+        own = params is None
+        if own:
             params = dict(self.model.named_parameters())
-            net = self.model
-        else:
-            def net(*args):
-                return functional_call(self.model, params, args)
+        quantized = (quantize_table_i8(params["pos_encoding.table"])
+                     if self.encode_int8 else None)
+        kw = {} if quantized is None else {"quantized": quantized}
+
+        def net(*args):
+            return (self.model(*args, **kw) if own else
+                    functional_call(self.model, params, args, kw))
 
         n_chunks = -(-H * W // eff_chunk)
         acc = torch.zeros((n_chunks * eff_chunk, 4), device=dev)
@@ -460,7 +531,8 @@ class NerfRenderer:
                                    dev)
                 rgb, opac, n = self._render_chunk(
                     net, params, bitfield, xf, bg, draws, c * eff_chunk,
-                    float(fx), float(fy), eff_chunk, W, H, xf_end, rsh)
+                    float(fx), float(fy), eff_chunk, W, H, xf_end, rsh,
+                    quantized)
                 self.last_n_samples += n
                 lo = c * eff_chunk
                 acc[lo:lo + eff_chunk] += torch.cat([rgb, opac[:, None]],

@@ -18,7 +18,9 @@ target; ref run.py:216-303), screenshots at the cameras of
 camera-path video (``--video_camera_path``; ``--video_playback`` renders
 it from the baked playback cache; the frames are encoded by ffmpeg where
 it is installed). It runs on the card unless ``--device cpu`` asks for the
-CPU.
+CPU. ``--depth_supervision_lambda`` sets the NeRF trainer's depth
+supervision, which the JAX runner reaches only through the Testbed's
+attributes.
 
 Intended divergences: ``--n_steps`` is exact (the JAX package's NeRF
 trainer runs on to a 16-step boundary); the NeRF mesh is cut from σ in
@@ -78,6 +80,9 @@ def parse_args(argv=None):
     p.add_argument("--world_scale", type=float, default=None)
     p.add_argument("--world_offset", type=float, nargs=3, default=None)
     p.add_argument("--train", action="store_true")
+    p.add_argument("--depth_supervision_lambda", type=float, default=None,
+                   help="weight of the depth loss of a capture with depth "
+                   "maps (testbed.nerf.training.depth_supervision_lambda)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: the card)")
     return p.parse_args(argv)
@@ -131,6 +136,9 @@ def main(argv=None) -> int:
 
     if args.network:
         testbed.reload_network_from_file(args.network)
+    if args.depth_supervision_lambda is not None:
+        testbed.nerf.training.depth_supervision_lambda = \
+            args.depth_supervision_lambda
     if args.world_scale is not None or args.nerf_compatibility:
         testbed.nerf.training.world_scale = (
             args.world_scale if args.world_scale is not None else 0.33)

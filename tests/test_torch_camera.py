@@ -195,21 +195,26 @@ def test_trainer_defaults_to_the_card():
 
 
 def test_unported_options_still_raise():
-    """The camera flags train; depth supervision and rolling shutter
-    still raise, and an unknown int8 mode is refused."""
+    """Depth supervision and rolling shutter are ported: a trainer takes
+    them (tests/test_torch_captures.py steps them against JAX). What still
+    raises: an unknown int8 mode, and the int8 modes or the int8 grid sweep
+    on the tcnn-layout grid."""
     ds, cfg = sphere_scene(n_images=2)
-    with pytest.raises(NotImplementedError, match="depth"):
-        tnerf.NerfTrainer(ds, cfg, device="cpu",
-                          tcfg=tnerf.NerfTrainerConfig(
-                              depth_supervision_lambda=0.1))
+    tr = tnerf.NerfTrainer(ds, cfg, device="cpu", tcfg=tnerf.NerfTrainerConfig(
+        depth_supervision_lambda=0.1))
+    assert tr._xforms_end is None and tr.draws(4).time is None
     xe = ds.xforms.copy()
     xe[:, 0, 3] += 0.1
-    with pytest.raises(NotImplementedError, match="rolling shutter"):
-        tnerf.NerfTrainer(dataclasses.replace(ds, xforms_end=xe), cfg,
-                          device="cpu")
+    tr = tnerf.NerfTrainer(dataclasses.replace(ds, xforms_end=xe), cfg,
+                           device="cpu")
+    assert tr._xforms_end is not None and tr.draws(4).time.shape == (4,)
     with pytest.raises(ValueError, match="encode_int8"):
         tnerf.NerfTrainer(ds, cfg, device="cpu",
                           tcfg=tnerf.NerfTrainerConfig(encode_int8="yes"))
+    for kw in (dict(encode_int8="fwd"), dict(grid_int8=True)):
+        with pytest.raises(ValueError, match="blocked grid only"):
+            tnerf.NerfTrainer(ds, cfg, device="cpu", grid_impl="tcnn",
+                              tcfg=tnerf.NerfTrainerConfig(**kw))
 
 
 def test_every_camera_flag_trains_under_full_int8():

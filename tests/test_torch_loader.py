@@ -83,11 +83,18 @@ def test_sharpness_culling_matches_jax_and_sidecars_raise(tmp_path):
     assert 0 < t.n_images == j.n_images < 5
     np.testing.assert_array_equal(t.sharpness, j.sharpness)
     np.testing.assert_array_equal(t.xforms, j.xforms)
-    # an alpha sidecar is not ported: the port raises instead of ignoring it
+    # an alpha sidecar loads as in the JAX package (every sidecar:
+    # tests/test_torch_captures.py); a missing envmap still raises in both
     from PIL import Image
     Image.new("RGBA", (W, H)).save(tmp_path / "images" / "000.alpha.png")
-    with pytest.raises(NotImplementedError):
-        tload.load_nerf(paths)
+    t, j = tload.load_nerf(paths), jload.load_nerf(paths)
+    np.testing.assert_array_equal(np.asarray(t.images), np.asarray(j.images))
+    assert t.images_u8 is None and np.asarray(t.images)[0, ..., 3].max() == 0
+    cfg = json.loads(paths[0].read_text())
+    paths[0].write_text(json.dumps({**cfg, "envmap": "absent.exr"}))
+    for load in (tload.load_nerf, jload.load_nerf):
+        with pytest.raises(FileNotFoundError, match="Environment map"):
+            load(paths)
 
 
 def test_image_io_matches_jax(tmp_path):

@@ -33,6 +33,8 @@ from ngp_tpu_torch.nn.encodings import BlockedGridEncoding, GridEncoding
 from ngp_tpu_torch.render import multi_nerf as tmn
 
 W, H, FOCAL = 32, 24, 28.0
+FORK_W, FORK_H = 24, 16
+FORK_CAMERAS = ("spherical_quadrilateral", "quadrilateral_hexahedron")
 RENDER_TOL = 2e-4
 TOL = 1e-6
 
@@ -101,7 +103,15 @@ def _requests(mod, path, linear_name):
     dof = mod.RenderCameraProperties(transform=_camera(), focal_length=FOCAL,
                                      aperture_size=0.03, focus_z=0.9)
     curve = (JTonemapCurve if mod is jmn else TonemapCurve).ACES
-    return {
+    # the fork's two other camera models, at a smaller frame
+    fork = {kind: mod.RenderRequest(
+        mod.RenderOutputProperties(width=FORK_W, height=FORK_H,
+                                   color_space=linear_name,
+                                   background_color=(0.1, 0.2, 0.3, 0.0)),
+        mod.RenderCameraProperties(transform=_camera(),
+                                   **_camera_kinds()[kind]), one)
+        for kind in FORK_CAMERAS}
+    return {**fork,
         "one": mod.RenderRequest(out(), cam, one),
         "spp2-dof": mod.RenderRequest(out(spp=2), dof, one),
         "aces-exposure": mod.RenderRequest(
@@ -344,6 +354,17 @@ def test_frame_matches_jax(scene, name):
     got = _renderer().render(_requests(tmn, scene["path"], "srgb")[name])
     ref = scene["ref"][name]
     assert 0.05 < ref[..., 3].mean() < 0.95
+    _assert_close(got, ref)
+
+
+@pytest.mark.parametrize("kind", FORK_CAMERAS)
+def test_fork_camera_frame_matches_jax(scene, kind):
+    """The frames of the fork's spherical-quadrilateral and
+    quadrilateral-hexahedron cameras, as the rays of both are held in
+    ``test_generate_global_rays_matches_jax``."""
+    got = _renderer().render(_requests(tmn, scene["path"], "srgb")[kind])
+    ref = scene["ref"][kind]
+    assert ref.shape == (FORK_H, FORK_W, 4) and ref[..., 3].max() > 0.05
     _assert_close(got, ref)
 
 

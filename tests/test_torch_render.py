@@ -140,16 +140,23 @@ def test_render_from_jax_snapshot_matches_jax(scene, tmp_path):
 
 
 def test_unported_render_options_raise(scene):
+    """Only the wave renderers still raise; the lenses, quilting, parallax
+    and the envmap are ported (tests/test_torch_render_lenses.py); an
+    unknown lens mode or int8 mode is refused."""
     model = TNerfNetwork(scene["cfg"], aabb_scale=1)
-    for bad in (dict(lens_mode="ftheta"), dict(lens_mode="latlong"),
-                dict(quilting_dims=(2, 1)),
-                dict(parallax_shift=(0.05, 0.0, 0.0)), dict(wave=True)):
-        with pytest.raises(NotImplementedError):
-            TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS, **bad))
-    # Mask3D masks are ported (render/multi_nerf.py)
-    with pytest.raises(NotImplementedError):
-        TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS),
+    with pytest.raises(NotImplementedError, match="wave"):
+        TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS, wave=True))
+    for ok in (dict(lens_mode="ftheta"), dict(lens_mode="latlong"),
+               dict(quilting_dims=(2, 1)),
+               dict(parallax_shift=(0.05, 0.0, 0.0))):
+        TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS, **ok),
                   envmap_sampler=lambda d: d)
+    with pytest.raises(ValueError, match="lens mode"):
+        TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS,
+                                                    lens_mode="fisheye"))
+    with pytest.raises(ValueError, match="int8"):
+        TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS),
+                  encode_int8="half")
 
 
 @pytest.mark.parametrize("lens", [(0.0, 0.0, 0.0, 0.0),

@@ -131,7 +131,8 @@ def test_namespaces_match_jax(pair):
     assert tb.nerf.render_min_transmittance == 2e-4
     tb.nerf.render_min_transmittance = 1e-4
     # the Testbed's own attributes and methods: the JAX set plus the device
-    assert set(vars(tb)) - {"device"} == set(vars(jtb)) - {
+    # and the quilt's views (the JAX testbed renders no quilt)
+    assert set(vars(tb)) - {"device", "quilting_dims"} == set(vars(jtb)) - {
         "_playback_cache", "_playback_renderers"}
     public = {n for n in dir(JTestbed) if not n.startswith("_")}
     assert public <= set(dir(Testbed))
@@ -350,11 +351,17 @@ def test_unported_modes_and_methods_raise(scene, tmp_path):
             call()
     with pytest.raises(RuntimeError):
         tb.init_window(8, 8)
-    # render_masks are ported (test_torch_pyngp_shim); the envmap is not
+    # render_masks (test_torch_pyngp_shim) and the envmap are ported: an
+    # opaque envmap is the background behind every ray
     tb = _port(scene)
-    tb.nerf.training.dataset.envmap = np.zeros((4, 8, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="envmap"):
-        tb.render(8, 8)
+    tb.background_color = np.zeros(4, np.float32)
+    plain = tb.render(8, 8)
+    tb.nerf.training.dataset.envmap = np.ones((4, 8, 4), np.float32)
+    tb._renderer_cache = {}
+    img = tb.render(8, 8)
+    assert np.isfinite(img).all()
+    np.testing.assert_allclose(img[..., :3] - plain[..., :3],
+                               (1.0 - plain[..., 3:]) * np.ones(3), atol=1e-5)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="CUDA is available")

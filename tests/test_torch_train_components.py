@@ -48,9 +48,11 @@ def test_pixel_to_ray_train_matches_jax(lens):
     np.testing.assert_array_equal(t_o.numpy(), np.asarray(j_o))
     np.testing.assert_allclose(t_d.numpy(), np.asarray(j_d), rtol=1e-6,
                                atol=1e-6)
-    with pytest.raises(NotImplementedError):
+    # the F-theta and LatLong lenses are ported (test_torch_captures.py);
+    # an unknown lens mode raises
+    with pytest.raises(ValueError, match="lens mode"):
         tcam.pixel_to_ray_train(*map(_t, (xy, xf, focal, principal, res, lp)),
-                                False, lens_mode="ftheta")
+                                False, lens_mode="fisheye")
 
 
 def test_mark_untrained_and_coarse_mask_exact():
