@@ -213,7 +213,8 @@ image-width inputs, and ends with the kernels' JSON line.
 phase's one-step K2 check on the draws of N seeds, then the image
 phase's K2 check on N more steps of an image trainer, and prints for
 each the entries whose zero patterns differ, their largest Σ|w·g| and
-the largest |value| of the side that is not 0, alone and over Σ|w·g|.
+the largest |value| of the side that is not 0, alone, over Σ|w·g| and
+over its rounding envelope (``zero_patterns``).
 Then the script's total seconds, one JSON line with each kernel's
 figures and its launches in the testbed, multinerf, image, image-int8
 (per run: "fwd", "full", "uv"), volume, sdf, mesh, takikawa, playback and
@@ -256,12 +257,16 @@ KERNEL_TOL = 1e-5
 KERNEL_BWD_TOL, REL_FLOOR = 1e-4, 1e-30
 # K2's zero pattern (which entries are exactly 0: the optimizer's
 # zero-gradient skip keys on them) must equal the plain version's wherever
-# Σ|w·g| ≥ ZERO_FLOOR, about 85 FLT_MIN. Both sides add in f32 reductions
-# that flush a denormal product or partial sum to 0 (.FTZ), so an entry
-# whose terms all lie within a few FLT_MIN of 0 can end at 0 in one order
-# and not in the other. On the card a trained step's cotangents reach that
-# range (one call of the one-step check failed on it); `--k2-zeros N`
-# surveys N steps (PERF.md has the readings).
+# Σ|w·g| ≥ ZERO_FLOOR, about 85 FLT_MIN, and the side that is not 0
+# exceeds the entry's f32 rounding envelope n_e·2^-24·Σ|w·g| (n_e: the
+# (sample, corner) terms the entry sums, ``term_counts``). Both sides add
+# in f32 reductions that flush a denormal product or partial sum to 0
+# (.FTZ), so an entry whose terms all lie within a few FLT_MIN of 0 can
+# end at 0 in one order and not in the other; and terms that cancel can
+# sum to exactly 0 in one order of the additions and to a few ulps of
+# Σ|w·g| in another (one whole-script call of PR 13 failed on such an
+# entry, Σ|w·g| 1.36e-6). `--k2-zeros N` surveys N steps (PERF.md has the
+# readings).
 ZERO_FLOOR = 1e-36
 # K3 against its plain version, relative to Σ|term| of each component: the
 # 256 terms (16 levels × 8 corners × 2 features) cancel, and the two sum
@@ -352,11 +357,14 @@ def kernel_registers(build_log: str) -> str:
     info = []
     for ln in build_log.splitlines():
         name = re.search(r"blocked_grid_encode_(?:fwd|bwd)\w*?kernel"
-                         r"(?:ILi(\d)E)?", ln)
+                         r"(?:IL([ib])(\d)E)?", ln)
         regs = re.search(r"Used (\d+) registers", ln)
         spill = re.search(r"(\d+) bytes spill stores", ln)
         if "entry function" in ln and name:
-            dims = f"<{name.group(1)}>" if name.group(1) else ""
+            # <D>, or <int8> / <f32> for the 2D table backward's bool
+            dims = ("" if not name.group(1) else f"<{name.group(2)}>"
+                    if name.group(1) == "i" else
+                    "<int8>" if name.group(2) == "1" else "<f32>")
             info.append(name.group(0).split("kernel")[0] + "kernel" + dims)
         elif info and (regs or spill):
             info[-1] += (f" {regs.group(1)} registers" if regs
@@ -465,7 +473,10 @@ def kernel_bytes(name: str, meta, p) -> int:
     positions (4·D bytes each), the cotangent in or the features out, and
     the table entries the corners read (K1, K3, K4; one byte each for K4's
     int8 table, with its level scales) or the whole table gradient (K2,
-    K5); K3 also writes dpos (4·D bytes per sample)."""
+    K5); K3 also writes dpos (4·D bytes per sample). On the neural image's
+    grid (16 levels × 32768 rows, all dense) 242 MB of the 2D K2's and
+    K5's 268 MB of gradient are the zeros of rows no sample can reach:
+    the bound is mostly that fill."""
     name = name.removesuffix("_2d")
     n, n_levels, d = p.shape[0], meta.n_levels, meta.n_dims
     moved = 4 * d * n + 4 * 2 * n_levels * n
@@ -548,7 +559,8 @@ def time_k1(table, p, meta, err: float, what: str) -> dict:
 def check_k2(pos, cot, meta, what: str) -> float:
     """K2 against its plain version. Atomics sum in no fixed order, so each
     entry is held to KERNEL_BWD_TOL relative to Σ|w·g| of that entry (the
-    plain backward of |g|), and the zero patterns must be equal: the
+    plain backward of |g|), and the zero patterns must be equal where an
+    order of the additions cannot decide them (``zero_patterns``): the
     optimizer's zero-gradient skip keys on exact zeros. Returns max |Δ|."""
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     from ngp_tpu_torch.kernels.blocked_grid import encode_backward_reference
@@ -556,35 +568,67 @@ def check_k2(pos, cot, meta, what: str) -> float:
         got = bgc.launch_bwd(pos, cot, meta)
         ref = encode_backward_reference(pos, cot, meta)
         scale = encode_backward_reference(pos, cot.abs(), meta)
+        terms = term_counts(pos, cot, meta)
         torch.cuda.synchronize()
     if not bool(torch.isfinite(got).all()):
         raise RuntimeError(f"K2 output is not finite ({what})")
     err = float((got - ref).abs().max())
     rel = float(((got - ref).abs() / scale.clamp(min=REL_FLOOR)).max())
-    n_differ, top = zero_patterns(got, ref, scale)
+    zeros = zero_patterns(got, ref, scale, terms)
     print(f"K2: {bgc.launch_name('blocked_grid_encode_bwd', meta)} "
           f"{pos.shape[0]} {what} positions -> "
           f"{tuple(got.shape)}: max |kernel - plain| {err:.3e}, max "
           f"relative to sum|w*g| {rel:.3e} (tolerance {KERNEL_BWD_TOL}); "
-          f"{zero_pattern_text(n_differ, top)} "
+          f"{zero_pattern_text(zeros)} "
           f"({float((ref == 0).float().mean()):.4f} of entries zero)")
-    if not (rel <= KERNEL_BWD_TOL and top < ZERO_FLOOR):
+    if not (rel <= KERNEL_BWD_TOL and zeros["over"] == 0):
         raise RuntimeError(f"K2 disagrees with its plain version ({what})")
     return err
 
 
-def zero_patterns(got, ref, scale):
-    """(how many entries are exactly 0 in one of K2's output and the plain
-    backward's and not in the other, the largest Σ|w·g| among them or 0)."""
+def term_counts(pos, cot, meta) -> torch.Tensor:
+    """(L, R, 128) f32: how many (sample, corner) terms w·g_f with g_f ≠ 0
+    each table entry sums, by a plain scatter of ones over the corners
+    ``encode_backward_reference`` adds into."""
+    from ngp_tpu_torch.kernels.blocked_grid import LANES, _corner_index
+    L, F, n = meta.n_levels, meta.n_features_per_level, pos.shape[0]
+    idx, _ = _corner_index(meta, pos)                      # (L, N, C)
+    live = (cot.reshape(n, L, F).transpose(0, 1) != 0).float()
+    counts = torch.zeros((L, meta.rows * LANES), device=pos.device)
+    for f in range(F):
+        counts.scatter_add_(1, (idx + f).reshape(L, -1),
+                            live[:, :, f:f + 1].expand(idx.shape)
+                            .reshape(L, -1))
+    return counts.view(L, meta.rows, LANES)
+
+
+def zero_patterns(got, ref, scale, terms) -> dict:
+    """Where K2's output and the plain backward's differ in being exactly
+    0: how many entries ("differ"), the largest Σ|w·g| among them
+    ("max_sum_abs"); among those with Σ|w·g| ≥ ZERO_FLOOR, the largest
+    share that the side which is not 0 takes of the entry's rounding
+    envelope n_e·2^-24·Σ|w·g| ("max_envelope_share") and how many exceed
+    it ("over"): only those fail, as no order of the f32 additions can
+    sum them to 0."""
     differ = (got == 0) != (ref == 0)
     n = int(differ.sum())
-    return n, float(scale[differ].max()) if n else 0.0
+    if not n:
+        return {"differ": 0, "max_sum_abs": 0.0, "max_envelope_share": 0.0,
+                "over": 0}
+    held = differ & (scale >= ZERO_FLOOR)
+    share = (got + ref)[held].abs() / (terms[held] * 2.0 ** -24
+                                       * scale[held])
+    return {"differ": n, "max_sum_abs": float(scale[differ].max()),
+            "max_envelope_share": float(share.max()) if share.numel()
+            else 0.0, "over": int((share > 1).sum())}
 
 
-def zero_pattern_text(n_differ: int, top: float) -> str:
-    return (f"zero patterns differ at {n_differ} entries, the largest "
-            f"sum|w*g| among them {top:.3e} (limit < {ZERO_FLOOR}; "
-            f"{top / ZERO_FLOOR:.3f} of the limit)")
+def zero_pattern_text(z: dict) -> str:
+    return (f"zero patterns differ at {z['differ']} entries, the largest "
+            f"sum|w*g| among them {z['max_sum_abs']:.3e} (held where ≥ "
+            f"{ZERO_FLOOR}); the largest share of the rounding envelope "
+            f"n_e*2^-24*sum|w*g| among those held "
+            f"{z['max_envelope_share']:.3e} (limit 1), {z['over']} over it")
 
 
 def time_k2(p, c, meta, err: float, what: str) -> dict:
@@ -600,9 +644,29 @@ def time_k2(p, c, meta, err: float, what: str) -> dict:
     name = bgc.launch_name("blocked_grid_encode_bwd", meta)
     entry = _kernel_entry(name, 110, err, ks, ps, n, meta,
                           kernel_bytes(name, meta, p))
-    _print_times("K2", f"{n} {what} positions x {meta.n_levels} levels",
-                 entry, ks, ps)
+    plan = table_bwd_plan_text(p, c, meta, entry)
+    _print_times("K2", f"{n} {what} positions x {meta.n_levels} levels"
+                 f"{plan}", entry, ks, ps)
     return entry
+
+
+def table_bwd_plan_text(p, c, meta, entry: dict, tile=None) -> str:
+    """For a 2D grid: the table backward's plan (``table_bwd_plan_2d``)
+    and where its blocks summed each level on these inputs
+    (``table_bwd_branches``), into ``entry``; its text. "" in 3D."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    if meta.n_dims != 2:
+        return ""
+    plan = bgc.table_bwd_plan_2d(p.shape[0], meta, tile)
+    branches = bgc.table_bwd_branches(p, c, meta, plan)
+    entry["plan"] = {"chunk": plan.chunk, "width": plan.width,
+                     "smem_bytes": plan.smem_bytes, "where": list(plan.where),
+                     "shared_blocks": [b[0] for b in branches],
+                     "l2_blocks": [b[1] for b in branches]}
+    return (f", chunk {plan.chunk}, {plan.width} levels a block, "
+            f"{plan.smem_bytes / 1024:.1f} KiB shared, blocks in shared memory "
+            f"per level "
+            f"{[b[0] for b in branches]} of {plan.chunks}")
 
 
 def _figures(entry: dict) -> dict:
@@ -902,10 +966,14 @@ def time_k5(p, c, meta, tile: int, err: float, what: str) -> dict:
     name = bgc.launch_name("blocked_grid_encode_bwd_i8", meta)
     entry = _kernel_entry(name, 383, err, ks, ps, p.shape[0], meta,
                           kernel_bytes(name, meta, p))
-    entry["G"] = bgc.kernel_plan("blocked_grid_encode_bwd_i8", p.shape[0],
-                                 meta).width
+    if meta.n_dims == 2:
+        plan = table_bwd_plan_text(p, c, meta, entry, tile)
+    else:
+        entry["G"] = bgc.kernel_plan("blocked_grid_encode_bwd_i8",
+                                     p.shape[0], meta).width
+        plan = f", G {entry['G']}"
     _print_times("K5", f"{p.shape[0]} {what} positions x {meta.n_levels} "
-                 f"levels, tile {tile}, G {entry['G']}", entry, ks, ps)
+                 f"levels, tile {tile}{plan}", entry, ks, ps)
     return entry
 
 
@@ -1296,46 +1364,44 @@ def capture_step(tr, seed: int, *names):
 
 def step_k2(tr, seed: int):
     """K2's output in one real training step of ``tr`` (its draws from
-    ``seed``), with the plain backward and the plain backward of |g| on
-    the same inputs: (got, ref, Σ|w·g|)."""
+    ``seed``), with the plain backward, the plain backward of |g| and the
+    term counts on the same inputs: (got, ref, Σ|w·g|, n_e)."""
     from ngp_tpu_torch.kernels.blocked_grid import encode_backward_reference
     grads, seen = capture_step(tr, seed, "launch_bwd")
     pos, grad, meta = seen["launch_bwd"]
     with torch.no_grad():
         return (grads["pos_encoding.table"],
                 encode_backward_reference(pos, grad, meta),
-                encode_backward_reference(pos, grad.abs(), meta))
+                encode_backward_reference(pos, grad.abs(), meta),
+                term_counts(pos, grad, meta))
 
 
 def step_grad_check(tr, seed: int = SEED + 2) -> dict:
     """K2 on the positions and cotangent of one real training step (its
     draws from ``seed``), against the plain backward on the same inputs:
-    the max |Δ| relative to Σ|w·g| ("rel"), the entries whose zero
-    patterns differ ("differ"), the largest Σ|w·g| and |value| of the side
-    that is not 0 among them, and how many entries have a Σ|w·g| in (0,
-    1e-37), [1e-37, 1e-36) and [1e-36, 1e-34): how many lie near
-    ZERO_FLOOR at all."""
+    ``k2_zero_row``'s figures."""
     return {"seed": seed, **k2_zero_row(*step_k2(tr, seed))}
 
 
-def k2_zero_row(got, ref, scale) -> dict:
-    """K2's output ``got`` against the plain backward ``ref`` and Σ|w·g|
-    ``scale``: the max |Δ| relative to Σ|w·g| ("rel"), the entries whose
-    zero patterns differ ("differ"), the largest Σ|w·g| and |value| of the
-    side that is not 0 among them and the largest ratio of the two, and
-    how many entries have a Σ|w·g| in (0, 1e-37), [1e-37, 1e-36) and
-    [1e-36, 1e-34): how many lie near ZERO_FLOOR at all."""
+def k2_zero_row(got, ref, scale, terms) -> dict:
+    """K2's output ``got`` against the plain backward ``ref``, Σ|w·g|
+    ``scale`` and the term counts ``terms``: the max |Δ| relative to
+    Σ|w·g| ("rel"), ``zero_patterns``' figures, the largest |value| of the
+    side that is not 0 among the differing entries and the largest ratio
+    of it to Σ|w·g|, and how many entries have a Σ|w·g| in (0, 1e-37),
+    [1e-37, 1e-36) and [1e-36, 1e-34): how many lie near ZERO_FLOOR at
+    all."""
     rel = float(((got - ref).abs() / scale.clamp(min=REL_FLOOR)).max())
-    n_differ, top = zero_patterns(got, ref, scale)
+    zeros = zero_patterns(got, ref, scale, terms)
     differ = (got == 0) != (ref == 0)
     value = (got + ref)[differ].abs()
     bands = [int(((scale > lo if lo == 0 else scale >= lo)
                   & (scale < hi)).sum())
              for lo, hi in ((0.0, 1e-37), (1e-37, 1e-36), (1e-36, 1e-34))]
-    return {"rel": rel, "differ": n_differ, "max_sum_abs": top,
-            "max_value": float(value.max()) if n_differ else 0.0,
+    return {"rel": rel, **zeros,
+            "max_value": float(value.max()) if zeros["differ"] else 0.0,
             "max_value_over_sum_abs": float((value / scale[differ]).max())
-            if n_differ else 0.0, "entries_by_sum_abs": bands}
+            if zeros["differ"] else 0.0, "entries_by_sum_abs": bands}
 
 
 def k2_zero_survey(tr, n_seeds: int, tag: str = "k2-zeros"):
@@ -1352,7 +1418,10 @@ def _print_survey(tag: str, rows: list):
           f"entries with differing zeros; the largest sum|w*g| among them "
           f"{max(r['max_sum_abs'] for r in rows):.3e}, the largest value "
           f"{max(r['max_value'] for r in rows):.3e}, the largest value over "
-          f"its sum|w*g| {max(r['max_value_over_sum_abs'] for r in rows):.3e}")
+          f"its sum|w*g| {max(r['max_value_over_sum_abs'] for r in rows):.3e}"
+          f", the largest share of the rounding envelope among those held "
+          f"{max(r['max_envelope_share'] for r in rows):.3e}, "
+          f"{sum(r['over'] for r in rows)} over it")
 
 
 def image_k2_zero_survey(dev, n_steps: int):
@@ -1382,7 +1451,8 @@ def image_k2_zero_survey(dev, n_steps: int):
             rows.append({"step": i, **k2_zero_row(
                 bgc.launch_bwd(pos, cot, meta),
                 encode_backward_reference(pos, cot, meta),
-                encode_backward_reference(pos, cot.abs(), meta))})
+                encode_backward_reference(pos, cot.abs(), meta),
+                term_counts(pos, cot, meta))})
     _print_survey("k2-zeros-2d", rows)
 
 
@@ -1448,9 +1518,8 @@ def phase_train(dev, n_views: int = TRAIN_VIEWS, res: int = TRAIN_RES,
     print(f"train: one step's table gradient, K2 vs plain backward on its "
           f"inputs: max |Δ| relative to sum|w*g| {step['rel']:.3e} "
           f"(tolerance {KERNEL_BWD_TOL}); "
-          f"{zero_pattern_text(step['differ'], step['max_sum_abs'])}")
-    if not (step["rel"] <= KERNEL_BWD_TOL
-            and step["max_sum_abs"] < ZERO_FLOOR):
+          f"{zero_pattern_text(step)}")
+    if not (step["rel"] <= KERNEL_BWD_TOL and step["over"] == 0):
         raise RuntimeError("the step's K2 gradient disagrees with the plain "
                            "backward")
     return launches, tr

@@ -6,9 +6,11 @@
 //      positions -> (N, L*2) f32 features, sample-major; D = 3 (NeRF, SDF)
 //      or 2 (the neural image).
 //      Replaces ngp_tpu/kernels/hashgrid_pallas.py:_fwd_kernel.
-//   K2 blocked_grid_encode_bwd_kernel<D> (N, D) positions + (N, L*2) f32
-//      cotangent -> dTable (L, R, 128) f32 (zeroed by the caller), D = 3
-//      or 2. Replaces hashgrid_pallas.py:_bwd_table_kernel.
+//   K2 blocked_grid_encode_bwd_kernel<3> (N, 3) positions + (N, L*2) f32
+//      cotangent -> dTable (L, R, 128) f32 (zeroed by the caller); on 2D
+//      grids blocked_grid_encode_bwd_2d_kernel<false>, one block per
+//      (level, chunk of samples). Replaces
+//      hashgrid_pallas.py:_bwd_table_kernel.
 // K3, K4 and K5 are templated on D too (2D since the neural image runs
 // them: its int8 modes and its uv gradient).
 //   K3 blocked_grid_encode_bwd_pos_kernel<D> f32 table + positions +
@@ -20,10 +22,12 @@
 //   K4 blocked_grid_encode_fwd_i8_kernel<D> (L, R, 128) int8 table + (L,)
 //      f32 per-level scales + positions -> (N, L*2) f32 features.
 //      Replaces hashgrid_pallas.py:_fwd_kernel_i8.
-//   K5 blocked_grid_encode_bwd_i8{_max,}_kernel<D> positions + cotangent ->
+//   K5 blocked_grid_encode_bwd_i8{_max,}_kernel<3> positions + cotangent ->
 //      dTable with the products w*g quantised to int8 per (level, sample
 //      tile): pass 1 takes each tile's max |w*g|, pass 2 is K2's scatter
-//      of scale*q. Replaces hashgrid_pallas.py:_bwd_table_kernel_i8.
+//      of scale*q; on 2D grids blocked_grid_encode_bwd_2d_kernel<true>,
+//      one block per (level, tile) in one pass. Replaces
+//      hashgrid_pallas.py:_bwd_table_kernel_i8.
 //
 // The TPU kernels bring each sample's table row to the sample with a
 // one-hot matmul, because the TPU has no fast gather, and keep the lookup
@@ -49,9 +53,10 @@
 //  - K2: f32 vector reductions into L2. Coarse dense levels have few rows,
 //    so many samples add into the same addresses and serialise there; K2
 //    sums equal addresses inside the warp first (its note below). The sum
-//    order, and so the last bits, vary between runs. In 2D it is worse:
-//    the neural image's coarsest level is 3 x 3 blocks (9 rows), which a
-//    whole 2^18-sample batch adds into.
+//    order, and so the last bits, vary between runs. In 2D (the neural
+//    image: every level dense, 9 to 21,609 reachable rows, 26.1 MB of a
+//    268 MB gradient) the 2D table backward sums each level in shared
+//    memory where its rows fit (its note below).
 //  - K3: the same scattered corner reads as K1 (the f32 table, even in the
 //    int8 modes, as the JAX package's int8 backward reuses the f32 K3),
 //    plus the cotangent; it writes only 12 bytes per sample (and 12 per
@@ -65,7 +70,8 @@
 //    cell sum their quanta as integers, exactly, as the TPU sums a tile's
 //    quanta in int32 before scaling; the sums of different warps meet in
 //    f32, so entries differ from the TPU's by f32 rounding of the order
-//    (the checks are relative to sum_t scale_t * sum|q|).
+//    (the checks are relative to sum_t scale_t * sum|q|). In 2D the 2D
+//    table backward sums a whole tile's quanta as int32, in one pass.
 //
 // Numerics: x = pos * scale + 0.5 is rounded twice (__fmul_rn, __fadd_rn),
 // like the separate multiply and add of the reference; a fused multiply-add
@@ -293,9 +299,11 @@ __device__ __forceinline__ float4 corner_pair(const float* __restrict__ rowp, in
 // bounds K1 is the random corner gathers: 4 sectors per lookup from L2,
 // and the L1 wavefronts of the gathers, which the 16-byte paired loads
 // below cut by about a third. In 2D a lookup has 4 corners on 2 lines
-// (y, y + 1) of one row, so 2 paired loads where x is even; the neural
-// image's table is 16 MiB per level, so a group of 4 levels keeps 64 MiB
-// in flight (the 2D group is the 3D one, unswept).
+// (y, y + 1) of one row, so 2 paired loads where x is even. The neural
+// image's table is stored as 16 MiB per level, but every level is dense
+// and reaches only its blocks^2 rows: 26.1 MB for all 16 levels, inside
+// L2, so the slice in flight does not bound the 2D group (the 3D one,
+// unswept).
 template <int D>
 __global__ void blocked_grid_encode_fwd_kernel(
     const float* __restrict__ pos, const float* __restrict__ table,
@@ -400,8 +408,9 @@ template <> struct I8Lines<2> {
 // all levels of a sample in one group, each position read once) was the
 // fastest. As the 16-byte loads' gain suggests, what bounds K4 now is the
 // gathers' line lookups in L1 (a warp's load touches up to 32 lines), not
-// bytes. The neural image's int8 table is 4 MiB per level (64 MiB for 16
-// levels, more than L2); its group is the 3D one, unswept.
+// bytes. The neural image's int8 table is stored as 4 MiB per level, of
+// which its dense levels reach 6.5 MB in all; its group is the 3D one,
+// unswept.
 template <int D>
 __global__ void blocked_grid_encode_fwd_i8_kernel(
     const float* __restrict__ pos, const int8_t* __restrict__ table,
@@ -449,9 +458,7 @@ __device__ __forceinline__ float flush(float x) { return fabsf(x) < FLT_MIN ? 0.
 // Lanes of a warp that share a cell are summed in the warp first, so one
 // reduction goes out per cell; a group of 4 levels puts 8 samples of a
 // ray in each warp. The neural image's stratified batch is coherent the
-// same way: consecutive samples lie in neighbouring strata along x, so
-// the 8 samples of a warp share a coarse cell, and the warp sum is what
-// keeps the 9-row level 0 from taking 2^18 reductions per entry set.
+// same way, but 2D grids take the 2D table backward below instead.
 template <int D>
 __global__ void blocked_grid_encode_bwd_kernel(
     const float* __restrict__ pos, const float* __restrict__ grad,
@@ -545,8 +552,8 @@ __device__ __forceinline__ void add_corner_dfrac(float* dfrac, const Lookup<D>& 
 // cost 8 % on uniform positions against G = 8, but the path's own inputs
 // (a pose step's ~10^4 samples, ray-ordered samples whose neighbours share
 // rows) gained 5-14 % over G = 8. The 2D kernel (the neural image's uv
-// gradient) takes the 3D group, unswept; its 16 levels are 256 MiB of
-// table in flight.
+// gradient) takes the 3D group, unswept; its 16 levels reach 26.1 MB of
+// their 256 MiB table (every level dense), inside L2.
 template <int D>
 __global__ void blocked_grid_encode_bwd_pos_kernel(
     const float* __restrict__ pos, const float* __restrict__ table,
@@ -661,9 +668,8 @@ __device__ __forceinline__ int quantum(float w, float g, float scale) {
 // exactly, and adds scale * sum once. The 2 * 2^D quanta of a lookup
 // travel packed as bytes, 2^(D-1) shuffles per peer. Unlike K2's sums,
 // none needs a flush: every scale is at least 1e-20 / 127, so every
-// scale * q with q != 0 is a normal float. The 2D kernel takes the 3D
-// group (4), unswept: the neural image's f32 gradient is 16 MiB per
-// level, so a group's reductions spread over 64 MiB.
+// scale * q with q != 0 is a normal float. 2D grids take the 2D table
+// backward below.
 template <int D>
 __global__ void blocked_grid_encode_bwd_i8_kernel(
     const float* __restrict__ pos, const float* __restrict__ grad,
@@ -734,6 +740,328 @@ __global__ void blocked_grid_encode_bwd_i8_kernel(
       if ((a[2] | a[3]) != 0)
         atomicAdd(reinterpret_cast<float2*>(p + 2),
                   make_float2(__fmul_rn((float)a[2], scale), __fmul_rn((float)a[3], scale)));
+    }
+  }
+}
+
+// K2 and K5 on 2D grids (the neural image). Replace
+// hashgrid_pallas.py:_bwd_table_kernel and _bwd_table_kernel_i8 for D = 2.
+//
+// What bounds them on this card: the image grid (configs/image/base.json
+// at a 2048^2 image: 16 levels x 32768 rows, 256 MiB of gradient) is
+// dense at every level, so a level can address only blocks^2 rows: 50,940
+// rows in all, 26.1 MB, inside L2; the other 242 MB of the output are
+// zeros that no sample can reach (the caller's torch.zeros, most of the
+// bound). The pair-per-thread scatter above sent every corner of 2^18 x
+// 16 lookups to L2 as a vector reduction, and on the coarse levels (9 to
+// 256 rows) those serialise on a few addresses; what is left bounding
+// this kernel is the number of reductions into L2. The TPU kernel keeps
+// each level's dTable block in VMEM across its sequential tile axis.
+// Here one block takes a group of 4 levels of a chunk of consecutive
+// samples (K5: one quantisation tile), 4 lanes a sample as in K1, so the
+// cotangent comes as whole sectors; each thread takes a run of
+// consecutive samples of one level. The image's stratified batch runs
+// along x, so on the coarse levels a run stays in one cell for many
+// samples: its corner sums are formed in registers and leave once per
+// run. The plan (kernels/blocked_grid_cuda.py, table_bwd_plan_2d, from
+// level_needed_rows) says per level where they go:
+//  - kSumLevel: the level's needed rows fit in its share of the block's
+//    shared memory; the run sums go there by shared-memory atomics (int32
+//    ones are native; f32 ones are compare-and-swap loops on this card),
+//    and each nonzero 16-byte group of entries then leaves once: no
+//    reduction into L2 serialises on the 9-row level 0 of uniform
+//    positions.
+//  - kSumL2: one float2 reduction a corner, or one float4 for corners x
+//    and x + 1 where x is even (the other levels).
+//  - kSumWindow (an option of the plan, off: slower on the image's batch
+//    than L2, PERF.md): a dense level summed in the strip of rows its
+//    chunk reaches, [by0 * nblk, (by1 + 1) * nblk) of the raster, read
+//    from the block's own samples by a block reduction, where it still
+//    fits in the block's shared memory; else L2.
+// K5 takes each level's tile max |w*g| by a block reduction (exact and
+// order-free), then quantises. A run sums its quanta as int32, and a
+// kSumLevel level's shared rows sum the whole tile's, as the TPU kernel
+// does, then add f32(sum q) * scale once per entry: bit-equal to the
+// plain version's tile term, so only the f32 order across tiles remains;
+// elsewhere f32(run sum) * scale goes to L2. No first pass over memory
+// of its own, no tile_max buffer.
+enum : unsigned char { kSumL2 = 0, kSumLevel = 1, kSumWindow = 2 };
+
+struct TableBwdLevels {
+  Level level[kMaxLevels];
+  unsigned char where[kMaxLevels];
+};
+
+// the rows of a level that a sample can reach: blocks^2 dense, all hashed
+__host__ __device__ __forceinline__ int reachable_rows_2d(const Level& lv, int log2_rows) {
+  return lv.is_dense ? lv.blocks_per_dim * lv.blocks_per_dim : 1 << log2_rows;
+}
+
+// Sample i's block row (its block coordinate along y, clipped as in
+// lookup_geometry)
+__device__ __forceinline__ int block_row_2d(const float* __restrict__ pos, int i,
+                                            const Level& lv) {
+  const float x = lattice_coord<2>(pos, i, 1, lv.scale);
+  const int b = floor_div((int)floorf(x), Block<2>::kStride);
+  return min(max(b, 0), lv.blocks_per_dim - 1);
+}
+
+// Levels per block of the 2D table backward: a sample's 4 levels share
+// one 32-byte sector of the cotangent, so a block of 4 levels reads whole
+// sectors (lanes 4s .. 4s + 3 hold one sample's levels, as in K1)
+constexpr int kGroupTableBwd = 4;
+
+// A level's extent in a block: the lowest and highest block row of the
+// block's live samples and the largest |w*g| among them
+struct Extent {
+  int lo, hi;
+  float m;
+};
+
+__device__ __forceinline__ Extent merge_extent(Extent a, Extent b) {
+  return {min(a.lo, b.lo), max(a.hi, b.hi), fmaxf(a.m, b.m)};
+}
+
+// Each of the block's `width` levels' extent over the whole block, level
+// j's in out[j], in every thread: the lanes of one level (j, j + width,
+// ...) reduce by xor shuffles, then every thread combines the warps'
+__device__ __forceinline__ void block_extents(Extent e, int width, Extent* out) {
+  __shared__ Extent warp_extent[32][kGroupTableBwd];
+  const unsigned full = 0xffffffffu;
+  for (int d = 16; d >= width; d >>= 1) {
+    const Extent o = {__shfl_xor_sync(full, e.lo, d), __shfl_xor_sync(full, e.hi, d),
+                      __shfl_xor_sync(full, e.m, d)};
+    e = merge_extent(e, o);
+  }
+  const int lane = threadIdx.x & 31;
+  if (lane < width) warp_extent[threadIdx.x >> 5][lane] = e;
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kGroupTableBwd; ++j) {
+    if (j >= width) break;
+    Extent r = warp_extent[0][j];
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = merge_extent(r, warp_extent[w][j]);
+    out[j] = r;
+  }
+  __syncthreads();
+}
+
+// Adds the float4 `v` to the 16 aligned bytes at p, or nothing where it is
+// all zero
+__device__ __forceinline__ void add_nonzero4(float* p, float4 v) {
+  if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
+    atomicAdd(reinterpret_cast<float4*>(p), v);
+}
+
+// Adds corners c and c + 1 (x and x + 1: 4 adjacent floats at p) to L2:
+// one float4 reduction where p is 16-byte aligned, else two float2
+__device__ __forceinline__ void add_corner_pair(float* p, float4 v, bool paired) {
+  if (paired) {
+    add_nonzero4(p, v);
+    return;
+  }
+  if (v.x != 0.f || v.y != 0.f) atomicAdd(reinterpret_cast<float2*>(p), make_float2(v.x, v.y));
+  if (v.z != 0.f || v.w != 0.f) atomicAdd(reinterpret_cast<float2*>(p + 2), make_float2(v.z, v.w));
+}
+
+// A run's sums (feature f of corner c at 2c + f: f32 products for K2,
+// int32 quanta for K5) added where its level is summed: into the shared
+// rows `smem` at row `srow`, or, with srow < 0, to L2 at `gridp` (the
+// run's base corner in the gradient); zeros skipped
+template <bool kInt8>
+__device__ __forceinline__ void add_run(const float* acc, const int* qacc, float4* smem,
+                                        int srow, int base_lane, float* gridp, float scale) {
+  if (srow >= 0) {
+    const int s = srow * kLanes + base_lane;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int at = s + corner_offset<2>(k >> 1) + (k & 1);
+      if (kInt8) {
+        if (qacc[k] != 0) atomicAdd(reinterpret_cast<int*>(smem) + at, qacc[k]);
+      } else {
+        if (acc[k] != 0.f) atomicAdd(reinterpret_cast<float*>(smem) + at, acc[k]);
+      }
+    }
+    return;
+  }
+  const bool paired = (base_lane & 2) == 0;
+#pragma unroll
+  for (int c = 0; c < 4; c += 2) {
+    const int k = 2 * c;
+    const float4 v = kInt8 ? make_float4(__fmul_rn((float)qacc[k], scale), __fmul_rn((float)qacc[k + 1], scale),
+                                         __fmul_rn((float)qacc[k + 2], scale), __fmul_rn((float)qacc[k + 3], scale))
+                           : make_float4(acc[k], acc[k + 1], acc[k + 2], acc[k + 3]);
+    add_corner_pair(gridp + corner_offset<2>(c), v, paired);
+  }
+}
+
+template <bool kInt8>
+__global__ void blocked_grid_encode_bwd_2d_kernel(
+    const float* __restrict__ pos, const float* __restrict__ grad,
+    float* __restrict__ dtable, const TableBwdLevels tl, int n, int n_levels,
+    int log2_rows, int morton_hash, int log2_chunk, int log2_width, int smem_rows) {
+  extern __shared__ float4 smem4[];
+  // block b takes level group b % groups of chunk b / groups: a chunk's
+  // groups run side by side, so its positions and cotangent come from
+  // device memory once and from L2 after; thread t takes level
+  // t % width of the group, lanes 4s .. 4s + 3 one sample's 4 levels
+  const int width = 1 << log2_width, groups = n_levels >> log2_width;
+  const int group = (int)(blockIdx.x % groups), chunk_id = (int)(blockIdx.x / groups);
+  const int t = threadIdx.x, nthreads = blockDim.x;
+  const int j = t & (width - 1), l0 = group << log2_width, l = l0 + j;
+  const Level lv = tl.level[l];
+  const int where = tl.where[l];
+  const size_t rows = (size_t)1 << log2_rows;
+  // this thread's samples: a run of `per` consecutive ones, [begin, end)
+  const int per = (1 << (log2_chunk + log2_width)) / nthreads;
+  const int begin = (chunk_id << log2_chunk) + (t >> log2_width) * per;
+  const int end = min(begin + per, n);
+  const float2* g2 = reinterpret_cast<const float2*>(grad);
+
+  // pass 1 (a group with a window level; every group of K5): each level's
+  // extent in the block
+  bool scan = kInt8;
+  for (int jj = 0; jj < width; ++jj) scan |= tl.where[l0 + jj] == kSumWindow;
+  Extent ext[kGroupTableBwd];
+  if (scan) {
+    Extent e = {INT_MAX, -1, 0.f};
+    for (int i = begin; i < end; ++i) {
+      const float2 gv = __ldg(g2 + (size_t)i * n_levels + l);
+      if (gv.x == 0.f && gv.y == 0.f) continue;
+      if (where == kSumWindow) {
+        const int by = block_row_2d(pos, i, lv);
+        e.lo = min(e.lo, by);
+        e.hi = max(e.hi, by);
+      }
+      if (kInt8) {
+        const Lookup<2> g = lookup_fractions<2>(pos, i, lv.scale);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float w = corner_weight(g, c);
+          e.m = fmaxf(e.m, fmaxf(fabsf(__fmul_rn(w, gv.x)), fabsf(__fmul_rn(w, gv.y))));
+        }
+      }
+    }
+    block_extents(e, width, ext);
+  }
+  // The shared rows, the same in every thread: the group's kSumLevel
+  // levels' whole rows first (the plan keeps them inside the block's
+  // rows), then each window level's strip where it still fits. Level jj
+  // holds shared rows [off[jj], off[jj] + nr[jj]) for its rows from
+  // row0[jj]; nr[jj] = 0: summed in L2.
+  int off[kGroupTableBwd], nr[kGroupTableBwd], row0[kGroupTableBwd];
+  float scale[kGroupTableBwd];
+  int used = 0;
+#pragma unroll
+  for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+    for (int jj = 0; jj < kGroupTableBwd; ++jj) {
+      if (jj >= width) {
+        nr[jj] = 0;
+        continue;
+      }
+      const Level lj = tl.level[l0 + jj];
+      const int wj = tl.where[l0 + jj];
+      if (pass == 0) {
+        off[jj] = row0[jj] = nr[jj] = 0;
+        scale[jj] = kInt8 ? __fdiv_rn(fmaxf(ext[jj].m, 1e-20f), 127.f) : 0.f;
+        if (wj != kSumLevel) continue;
+        nr[jj] = reachable_rows_2d(lj, log2_rows);
+      } else {
+        if (wj != kSumWindow || ext[jj].hi < ext[jj].lo) continue;
+        const int strip = (ext[jj].hi - ext[jj].lo + 1) * lj.blocks_per_dim;
+        if (used + strip > smem_rows) continue;
+        row0[jj] = ext[jj].lo * lj.blocks_per_dim;
+        nr[jj] = strip;
+      }
+      off[jj] = used;
+      used += nr[jj];
+    }
+  }
+  // this thread's level: its shared rows (none: L2) and K5's scale
+  int my_off = 0, my_nr = 0, my_row0 = 0;
+  float my_scale = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < kGroupTableBwd; ++jj) {
+    if (jj == j) {
+      my_off = off[jj];
+      my_nr = nr[jj];
+      my_row0 = row0[jj];
+      my_scale = scale[jj];
+    }
+  }
+  for (int k = t; k < used * (kLanes / 4); k += nthreads) smem4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  // pass 2: the scatter. A thread's samples lie side by side along x, so
+  // on the coarse levels runs of them share a cell: their corner sums
+  // are formed in registers and added once per run.
+  float* level_grad = dtable + (size_t)l * rows * kLanes;
+  float acc[8];
+  int qacc[8];
+  int key = -1;   // the run's row * 128 + base lane; -1: no run
+  for (int i = begin; i <= end; ++i) {
+    float2 gv = make_float2(0.f, 0.f);
+    Lookup<2> g = {};
+    int k2 = -1;
+    if (i < end) {
+      gv = __ldg(g2 + (size_t)i * n_levels + l);
+      if (gv.x == 0.f && gv.y == 0.f) continue;
+      g = lookup_geometry<2>(pos, i, lv, log2_rows, morton_hash);
+      k2 = (int)g.row * kLanes + g.base_lane;
+    }
+    if (k2 != key) {
+      if (key >= 0) {
+        const int row = key / kLanes, base_lane = key % kLanes;
+        add_run<kInt8>(acc, qacc, smem4, my_nr > 0 ? row - my_row0 + my_off : -1, base_lane,
+                       level_grad + (size_t)row * kLanes + base_lane, my_scale);
+      }
+      key = k2;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        acc[k] = 0.f;
+        qacc[k] = 0;
+      }
+    }
+    if (i == end) break;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float w = corner_weight(g, c);
+      if (kInt8) {
+        qacc[2 * c] += quantum(w, gv.x, my_scale);
+        qacc[2 * c + 1] += quantum(w, gv.y, my_scale);
+      } else {
+        acc[2 * c] = flush(acc[2 * c] + flush(__fmul_rn(w, gv.x)));
+        acc[2 * c + 1] = flush(acc[2 * c + 1] + flush(__fmul_rn(w, gv.y)));
+      }
+    }
+  }
+  __syncthreads();
+  // the shared sums to the gradient, 16 bytes at a time, skipping zeros
+  for (int k = t; k < used * (kLanes / 4); k += nthreads) {
+    const int r = k / (kLanes / 4);
+    int jl = 0;
+#pragma unroll
+    for (int jj = 0; jj < kGroupTableBwd; ++jj)
+      if (nr[jj] > 0 && r >= off[jj] && r < off[jj] + nr[jj]) jl = jj;
+    int o = 0, r0 = 0;
+    float sc = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < kGroupTableBwd; ++jj) {
+      if (jj == jl) {
+        o = off[jj];
+        r0 = row0[jj];
+        sc = scale[jj];
+      }
+    }
+    float* dst = dtable + ((l0 + jl) * rows + r0 + (r - o)) * kLanes + (k % (kLanes / 4)) * 4;
+    if (kInt8) {
+      const int4 v = reinterpret_cast<const int4*>(smem4)[k];
+      add_nonzero4(dst, make_float4(__fmul_rn((float)v.x, sc), __fmul_rn((float)v.y, sc),
+                                    __fmul_rn((float)v.z, sc), __fmul_rn((float)v.w, sc)));
+    } else {
+      const float4 v = smem4[k];
+      add_nonzero4(dst, make_float4(flush(v.x), flush(v.y), flush(v.z), flush(v.w)));
     }
   }
 }
@@ -879,6 +1207,68 @@ int encode_bwd_i8(const float* pos, const float* grad, unsigned int* tile_max,
   return (int)cudaGetLastError();
 }
 
+// the most shared memory a block of this card may take (dynamic and
+// static together)
+constexpr int kMaxSmemBytes = 232448;
+
+// K2 (int8 = 0) or K5 (int8 = 1, chunks of the quantisation tile) on a 2D
+// grid, as kernels/blocked_grid_cuda.py's table_bwd_plan_2d plans it:
+// chunks of 2^log2_chunk samples, groups of 2^log2_width levels (at most
+// kGroupTableBwd), `threads` per block (a power of two from 32 to 256, at
+// most chunk x width), `smem_bytes` of shared memory (whole rows), `where`
+// per level; checked.
+template <bool kInt8>
+int table_bwd_2d(const float* pos, const float* grad, float* dtable,
+                 const float* scales, const int* blocks_per_dim,
+                 const unsigned char* is_dense, const unsigned char* where,
+                 int n, int n_levels, int log2_rows, int morton_hash,
+                 int log2_chunk, int log2_width, int threads, int smem_bytes,
+                 void* stream) {
+  LevelParams lp = {};
+  int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n, n_levels, log2_rows);
+  if (rc != 0) return rc;
+  const int smem_rows = smem_bytes / (kLanes * 4);
+  const int width = 1 << std::max(log2_width, 0);
+  if (log2_chunk < 5 || log2_chunk > 24 || log2_width < 0 || width > kGroupTableBwd ||
+      n_levels % width != 0 || threads < 32 || threads > kThreads ||
+      (threads & (threads - 1)) != 0 || threads > (width << log2_chunk) ||
+      smem_bytes < 0 || smem_bytes > kMaxSmemBytes || smem_bytes % (kLanes * 4) != 0)
+    return (int)cudaErrorInvalidValue;
+  TableBwdLevels tl = {};
+  // every level's where valid, and each group's whole levels inside the
+  // block's rows
+  int level_rows = 0;
+  for (int l = 0; l < n_levels; ++l) {
+    tl.level[l] = {lp.scale[l], lp.blocks_per_dim[l], lp.is_dense[l]};
+    tl.where[l] = where[l];
+    if (l % width == 0) level_rows = 0;
+    if (where[l] == kSumLevel) level_rows += reachable_rows_2d(tl.level[l], log2_rows);
+    const bool ok = where[l] == kSumL2 ||
+                    (where[l] != kSumL2 && where[l] <= kSumWindow && lp.is_dense[l]);
+    if (!ok || level_rows > smem_rows) return (int)cudaErrorInvalidValue;
+  }
+  // above 48 KiB a kernel takes dynamic shared memory only up to its
+  // attribute, raised here once to the largest plan seen (not a stream
+  // operation: a call inside a graph capture that needs no raise makes
+  // none)
+  static int smem_allowed = 48 << 10;
+  if (smem_bytes > smem_allowed) {
+    rc = (int)cudaFuncSetAttribute(blocked_grid_encode_bwd_2d_kernel<kInt8>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   smem_bytes);
+    if (rc != 0) return rc;
+    smem_allowed = smem_bytes;
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long chunks = ((long long)n + (1 << log2_chunk) - 1) >> log2_chunk;
+  if (chunks * n_levels > INT_MAX) return (int)cudaErrorInvalidValue;
+  blocked_grid_encode_bwd_2d_kernel<kInt8><<<(unsigned)(chunks * n_levels / width), threads,
+                                             smem_bytes, s>>>(
+      pos, grad, dtable, tl, n, n_levels, log2_rows, morton_hash, log2_chunk, log2_width,
+      smem_rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // The level group of kernel 0 = K1, 1 = K2, 2 = K4, 3 = K5, 4 = K3, so
@@ -953,10 +1343,6 @@ extern "C" int ngp_blocked_grid_encode_bwd(NGP_ENCODE_BWD_ARGS) {
   return encode_bwd<3>(NGP_ENCODE_BWD_PASS);
 }
 
-extern "C" int ngp_blocked_grid_encode_bwd_2d(NGP_ENCODE_BWD_ARGS) {
-  return encode_bwd<2>(NGP_ENCODE_BWD_PASS);
-}
-
 // K3: dpos (N, D) is written in full; no zeroing needed. Where the plan
 // has more than one level group, `partial` holds (groups, N, D) floats of
 // scratch (written in full by pass 1, read by pass 2 on the same stream);
@@ -996,8 +1382,20 @@ extern "C" int ngp_blocked_grid_encode_bwd_i8(NGP_ENCODE_BWD_I8_ARGS) {
   return encode_bwd_i8<3>(NGP_ENCODE_BWD_I8_PASS);
 }
 
-extern "C" int ngp_blocked_grid_encode_bwd_i8_2d(NGP_ENCODE_BWD_I8_ARGS) {
-  return encode_bwd_i8<2>(NGP_ENCODE_BWD_I8_PASS);
+// K2 (int8 = 0) and K5 (int8 = 1, chunks of the quantisation tile) on a
+// 2D grid: positions (N, 2), the per-level arrays and `where` (n_levels
+// entries each, host memory), the plan of table_bwd_plan_2d; dtable must
+// be zeroed by the caller.
+extern "C" int ngp_blocked_grid_table_bwd_2d(
+    const float* pos, const float* grad, float* dtable, const float* scales,
+    const int* blocks_per_dim, const unsigned char* is_dense,
+    const unsigned char* where, int n, int n_levels, int log2_rows,
+    int morton_hash, int log2_chunk, int log2_width, int threads,
+    int smem_bytes, int int8, void* stream) {
+  return (int8 ? table_bwd_2d<true> : table_bwd_2d<false>)(
+      pos, grad, dtable, scales, blocks_per_dim, is_dense, where, n, n_levels,
+      log2_rows, morton_hash, log2_chunk, log2_width, threads, smem_bytes,
+      stream);
 }
 
 extern "C" const char* ngp_cuda_error_string(int code) {

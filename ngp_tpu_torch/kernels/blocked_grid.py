@@ -105,6 +105,27 @@ class BlockedGridMeta:
         return tuple(b ** self.n_dims <= self.rows
                      for b in self.level_blocks_per_dim)
 
+    @functools.cached_property
+    def level_needed_rows(self) -> Tuple[int, ...]:
+        """Rows a level can address, per level: a dense level its blocks^D
+        raster rows rounded up to a power of two (min 8), a hashed level
+        the whole table (``ngp_tpu/kernels/blocked_grid.py``
+        ``level_needed_rows``, where the Pallas kernels group levels by
+        it). The 2D table backward's plan reads it to decide where each
+        level's gradient is summed (``blocked_grid_cuda.
+        table_bwd_plan_2d``); the stored table stays (L, rows, 128)."""
+        out = []
+        for l in range(self.n_levels):
+            if self.level_is_dense[l]:
+                need = 1 << max(
+                    3, int(math.ceil(math.log2(
+                        max(self.level_blocks_per_dim[l] ** self.n_dims,
+                            1)))))
+                out.append(min(need, self.rows))
+            else:
+                out.append(self.rows)
+        return tuple(out)
+
     @property
     def n_output_dims(self) -> int:
         return self.n_levels * self.n_features_per_level

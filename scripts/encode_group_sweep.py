@@ -6,6 +6,7 @@ an earlier version of that source, on one NVIDIA GPU.
 
     python3 scripts/encode_group_sweep.py [--baseline OLD.cu]
         [--sources OTHER.cu ...] [--groups 4 8 16] [--kernels K3]
+        [--plans SMEM_KIB:CHUNK:WINDOWS ...]
 
 For each G the source, and each of ``--sources`` (other versions of it with
 the same entry points), is copied with every level group (``kGroupFwd``,
@@ -14,7 +15,13 @@ built into ``build/ngp_tpu_torch/sweep/``, all builds at once.
 ``--baseline`` builds an earlier version of the source whose K1, K2, K4
 and K5 take a launch plan and whose K3 does not (one thread per sample
 over the levels, a grid of N/256 blocks): the parent of the K3 redesign,
-commit 1f1d465.
+commit 1f1d465. A version in ``--sources`` without the 2D table
+backward's entry point (``ngp_blocked_grid_table_bwd_2d``: the sources
+before its redesign) runs its 2D K2 and K5 as they were launched then:
+one thread per (sample, level) in its level groups, K5 in two passes
+over a zeroed tile_max. ``--plans`` times the tree's 2D table backward
+under other plans too (``blocked_grid_cuda.TABLE_BWD_SMEM`` in KiB,
+``TABLE_BWD_CHUNK``, ``TABLE_BWD_WINDOWS``), on the first G's library.
 
 Inputs, at the full NeRF width: K1 at 2^20 uniform and ray-ordered
 positions, K2 and K3 at 2^18 of each (``chip_smoke.ray_ordered_inputs``,
@@ -27,6 +34,12 @@ with seeded pose errors (the pose phase of chip_smoke.py); K4 at 2^20 and
 ``chip_smoke.sweep_ordered_inputs``); K5 at 2^18 uniform positions and on
 the positions and cotangent of one training step of a trainer with
 ``encode_int8="full"`` trained ``TRAIN_STEPS`` steps on the sphere views.
+``K2-2d`` and ``K5-2d``: the 2D K2 on one step of an ImageTrainer
+(configs/image/base.json, chip_smoke.py's seeded 2048² image, trained
+``IMAGE_STEPS`` steps) in f32 and at 2^18 and 2^20 uniform positions, the
+2D K5 on one step of such a trainer under ``encode_int8="full"`` (its
+tile, ``eff_tile``) and at 2^18 uniform positions in tiles of 2048 (the
+steps' inputs as ``chip_smoke.capture_image_step`` takes them).
 Every library is first checked against the plain versions with
 chip_smoke.py's tolerances (K3 also against a second launch of itself:
 bit-equal). Then each case is timed in turns (baseline, each variant, each
@@ -52,10 +65,11 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 from unittest import mock
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -64,7 +78,8 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc  # noqa: E402
 from ngp_tpu_torch.kernels.blocked_grid import (  # noqa: E402
-    DEFAULT_TILE, encode_backward_reference, encode_backward_reference_i8,
+    DEFAULT_TILE, eff_tile, encode_backward_reference,
+    encode_backward_reference_i8,
     encode_position_backward_reference, encode_reference,
     encode_reference_i8, quantize_table_i8)
 
@@ -73,6 +88,7 @@ ITERS = 20
 GROUP_CONSTANTS = ("kGroupFwd", "kGroupBwd", "kGroupPos", "kGroupI8",
                    "kGroupI8Bwd")
 TRAIN_VIEWS, TRAIN_RES, TRAIN_STEPS = 24, 128, 512
+IMAGE_STEPS = 256
 
 
 def _with_groups(src: str, group: int) -> str:
@@ -104,7 +120,7 @@ def _build_all(sources: dict) -> dict:
 
 def _reductions(lib_path: Path) -> str:
     """The reduction and atomic instructions of K2's, K3's and K5's
-    SASS."""
+    SASS (the 2D table backward's shared-memory ones among them)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return "cuobjdump not found"
@@ -114,6 +130,8 @@ def _reductions(lib_path: Path) -> str:
     for ln in sass.splitlines():
         if "Function :" in ln:
             fn = next((k for k, name in (
+                ("K2 2D", "blocked_grid_encode_bwd_2d_kernelILb0"),
+                ("K5 2D", "blocked_grid_encode_bwd_2d_kernelILb1"),
                 ("K2", "blocked_grid_encode_bwd_kernel"),
                 ("K3", "blocked_grid_encode_bwd_pos"),
                 ("K5 pass 1", "blocked_grid_encode_bwd_i8_max_kernel"),
@@ -150,17 +168,94 @@ class Baseline:
         return dpos
 
 
+class Parent2D:
+    """A library of sources from before the 2D table backward's redesign:
+    its 2D K2 and K5 launched as its wrappers launched them (pairs in the
+    library's level groups; K5's two passes over a zeroed tile_max), the
+    rest through the current wrappers."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        self.bwd, self.bwd_i8 = bgc.launch_bwd, bgc.launch_bwd_i8
+
+    def _run(self, kernel: str, pos, meta, *ptrs, tile=None):
+        n, lib = pos.shape[0], self.lib
+        plan = bgc.launch_plan(n, meta.n_levels, lib.ngp_blocked_grid_group(
+            bgc.GROUP_KERNELS.index(kernel)))
+        args, _keep = bgc._planned_args(meta, pos, plan)
+        if tile is not None:
+            args = args[:-1] + [tile.bit_length() - 1, args[-1]]
+        fn = getattr(lib, f"ngp_{kernel}_2d")
+        if fn(pos.data_ptr(), *ptrs, *args):
+            raise RuntimeError(f"parent {kernel}_2d launch failed")
+        bgc.launches[f"{kernel}_2d"] += 1
+
+    def launch_bwd(self, pos, grad, meta):
+        if meta.n_dims != 2:
+            return self.bwd(pos, grad, meta)
+        dtable = torch.zeros((meta.n_levels, meta.rows, 128),
+                             device=pos.device)
+        self._run("blocked_grid_encode_bwd", pos, meta, grad.data_ptr(),
+                  dtable.data_ptr())
+        return dtable
+
+    def launch_bwd_i8(self, pos, grad, meta, tile):
+        if meta.n_dims != 2:
+            return self.bwd_i8(pos, grad, meta, tile)
+        dtable = torch.zeros((meta.n_levels, meta.rows, 128),
+                             device=pos.device)
+        tile_max = torch.zeros((meta.n_levels, -(-pos.shape[0] // tile)),
+                               dtype=torch.int32, device=pos.device)
+        self._run("blocked_grid_encode_bwd_i8", pos, meta, grad.data_ptr(),
+                  tile_max.data_ptr(), dtable.data_ptr(), tile=tile)
+        return dtable
+
+
 @contextmanager
 def active(variant):
-    """The wrappers launch ``variant``'s kernels: a Baseline's, or those of
-    a library of the current source."""
+    """The wrappers launch ``variant``'s kernels: a Baseline's, a
+    Parent2D's, or those of a library of the current source, with a 2D
+    table-backward plan ((library, {setting: value}))."""
     if isinstance(variant, Baseline):
         with mock.patch.object(bgc, "_lib", variant.lib), \
                 mock.patch.object(bgc, "launch_bwd_pos", variant.bwd_pos):
             yield
-    else:
-        with mock.patch.object(bgc, "_lib", variant):
+    elif isinstance(variant, Parent2D):
+        with mock.patch.object(bgc, "_lib", variant.lib), \
+                mock.patch.object(bgc, "launch_bwd", variant.launch_bwd), \
+                mock.patch.object(bgc, "launch_bwd_i8",
+                                  variant.launch_bwd_i8):
             yield
+    else:
+        lib, settings = variant
+        with mock.patch.object(bgc, "_lib", lib), mock.patch.multiple(
+                bgc, **settings) if settings else nullcontext():
+            yield
+
+
+def _plan_settings(spec: str) -> dict:
+    """``SMEM_KIB:CHUNK:WINDOWS`` as blocked_grid_cuda's settings."""
+    smem, chunk, windows = (int(v) for v in spec.split(":"))
+    return {"TABLE_BWD_SMEM": smem << 10, "TABLE_BWD_CHUNK": chunk,
+            "TABLE_BWD_WINDOWS": bool(windows)}
+
+
+def image_step_inputs(dev, mode: str):
+    """An ImageTrainer (configs/image/base.json, encode_int8 ``mode``) on
+    chip_smoke.py's seeded image, trained IMAGE_STEPS steps, and the
+    positions and cotangent its encoding gets in one more step."""
+    from ngp_tpu_torch.common import srgb_to_linear_np
+    from ngp_tpu_torch.config import load_network_config
+    from ngp_tpu_torch.train.image import ImageTrainer
+    img = srgb_to_linear_np(cs.synth_image().astype(np.float32) / 255.0)
+    tr = ImageTrainer(img, load_network_config(
+        ROOT / "configs/image/base.json"), device=dev, encode_int8=mode)
+    tr.train(IMAGE_STEPS)
+    pos, cot = cs.capture_image_step(tr)
+    print(f"sweep: image trainer ({mode or 'f32'}) after "
+          f"{tr.training_step} steps, loss {tr.last_loss:.4e}; one step's "
+          f"encode inputs: {pos.shape[0]} samples")
+    return tr.model.encoding.meta, pos, cot
 
 
 def step_inputs(dev, launch: str, **options):
@@ -249,11 +344,15 @@ def main() -> int:
                     help="an earlier blocked_grid_encode.cu (K3 without a "
                          "launch plan)")
     ap.add_argument("--sources", type=Path, nargs="*", default=[],
-                    help="other versions of the source, same entry points")
+                    help="other versions of the source: the same entry "
+                         "points, or those from before the 2D table "
+                         "backward's redesign")
     ap.add_argument("--groups", type=int, nargs="+",
                     default=list(bgc.SWEPT_GROUPS))
     ap.add_argument("--kernels", nargs="+", default=["K3"],
-                    choices=["K1", "K2", "K3", "K4", "K5"])
+                    choices=["K1", "K2", "K3", "K4", "K5", "K2-2d", "K5-2d"])
+    ap.add_argument("--plans", nargs="*", default=[],
+                    help="2D table-backward plans, SMEM_KIB:CHUNK:WINDOWS")
     args = ap.parse_args()
     cs.phase_device()
     dev = torch.device("cuda", 0)
@@ -271,8 +370,16 @@ def main() -> int:
         own = ex.submit(bgc.build)     # the tree's library, for the sweep
         libs = _build_all(texts)
         own.result()
-    variants = {name: Baseline(path) if name == "baseline"
-                else bgc.load_library(path) for name, path in libs.items()}
+    variants = {}
+    for name, path in libs.items():
+        lib = None if name == "baseline" else bgc.load_library(path)
+        variants[name] = (Baseline(path) if lib is None else
+                          (lib, {}) if hasattr(lib, "ngp_blocked_grid_table_"
+                                               "bwd_2d") else Parent2D(lib))
+    first = f"G{args.groups[0]}"
+    for spec in args.plans:
+        variants[f"{first} plan {spec}"] = (variants[first][0],
+                                            _plan_settings(spec))
     for name, path in libs.items():
         print(f"sweep: {name}: reductions in SASS: {_reductions(path)}")
 
@@ -345,6 +452,33 @@ def main() -> int:
                 lambda p=p, c=c, m=m, t=t: encode_backward_reference_i8(
                     p, c, m, t),
                 "blocked_grid_encode_bwd_i8", p, m)
+    if "K2-2d" in args.kernels:
+        meta2, p2, c2 = image_step_inputs(dev, "")
+        uni = torch.rand((1 << 20, 2), generator=torch.Generator(
+            device=dev).manual_seed(cs.SEED + 6), device=dev)
+        cu = cs._cotangent(dev, meta2, 1 << 20, cs.SEED + 7)
+        for what, p, c in (("image step", p2, c2),
+                           ("uniform 2^18", uni[: 1 << 18], cu[: 1 << 18]),
+                           ("uniform 2^20", uni, cu)):
+            cases[f"K2-2d {what}"] = (
+                lambda p=p, c=c, what=what: cs.check_k2(p, c, meta2, what),
+                lambda p=p, c=c: bgc.launch_bwd(p, c, meta2),
+                lambda p=p, c=c: encode_backward_reference(p, c, meta2),
+                "blocked_grid_encode_bwd_2d", p, meta2)
+    if "K5-2d" in args.kernels:
+        meta5, p5, c5 = image_step_inputs(dev, "full")
+        u5 = torch.rand((1 << 18, 2), generator=torch.Generator(
+            device=dev).manual_seed(cs.SEED + 8), device=dev)
+        cu5 = cs._cotangent(dev, meta5, 1 << 18, cs.SEED + 9)
+        for what, p, c, t in (("image step", p5, c5, eff_tile(p5.shape[0])),
+                              ("uniform 2^18", u5, cu5, DEFAULT_TILE)):
+            cases[f"K5-2d {what}"] = (
+                lambda p=p, c=c, t=t, what=what: _check_k5(p, c, meta5, t,
+                                                           what),
+                lambda p=p, c=c, t=t: bgc.launch_bwd_i8(p, c, meta5, t),
+                lambda p=p, c=c, t=t: encode_backward_reference_i8(
+                    p, c, meta5, t),
+                "blocked_grid_encode_bwd_i8_2d", p, meta5)
     for name, v in variants.items():
         with active(v), torch.no_grad():
             print(f"sweep: checking {name}")

@@ -5,14 +5,19 @@ each launch one after another and each block's threads at once, one host
 thread each: ``__syncthreads`` is a barrier of the block, and every warp
 intrinsic (shuffles, ``__match_any_sync``, ``__reduce_max_sync``) a
 barrier of the warp's lanes, which swap their values through slots;
-atomics take a lock. The library is loaded through the wrapper's own
+atomics take a lock; a launch's dynamic shared memory (``extern
+__shared__``) is one buffer per block, filled with 0xff bytes (NaN floats,
+-1 ints) so that a sum the kernel does not zero first shows. The library is loaded through the wrapper's own
 ctypes declarations; the launches then go through ``blocked_grid_cuda``'s
 ``launch_*`` wrappers (their plans, argument order and launch names) on
 CPU tensors and are held against the plain versions with chip_smoke.py's
 tolerances. This covers each kernel's geometry, its corner loads (K4's
 byte picks from 2D and 3D lines), weights, warp sums and stores on 2D and
 3D grids, and every kernel at 7 and 6 levels, whose plans take level
-groups of width 1 and 2.
+groups of width 1 and 2. The 2D table backward (K2, K5) runs on an
+all-dense grid whose coarse levels are summed whole in shared memory and
+whose finer ones in their chunk's strip of rows where it fits and in L2
+where it does not, on stratified and on uniform positions.
 
 What a host cannot show is the card's own: the order in which a warp's
 lanes run, f32 atomics' flush of denormals and the compiler's FMAs stay
@@ -28,6 +33,7 @@ import torch
 
 import ngp_tpu_torch.kernels.blocked_grid as tbg
 from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+from ngp_tpu_torch.rays.sampling import sample_positions
 
 # chip_smoke.py's tolerances: K1, K4 absolute; K2 relative to Σ|w·g|; K3
 # relative to Σ|term|; K5 relative to Σ_t scale_t·Σ|q|
@@ -48,6 +54,7 @@ RUNTIME = r"""
 #include <vector>
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __shared__ static
 #define __restrict__
@@ -56,10 +63,13 @@ struct dim3 { unsigned x, y, z;
 struct U3 { unsigned x, y, z; };
 inline thread_local U3 threadIdx;
 inline U3 blockIdx, blockDim;
+// the dynamic shared memory of the block that runs
+inline std::vector<unsigned char> g_dynamic_smem;
 struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 struct uint2 { unsigned x, y; };
 struct uint4 { unsigned x, y, z, w; };
+struct int4 { int x, y, z, w; };
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
@@ -131,18 +141,28 @@ inline float4 atomicAdd(float4* p, float4 v) {
   std::lock_guard<std::mutex> g(g_atomic);
   const float4 o = *p; p->x += v.x; p->y += v.y; p->z += v.z; p->w += v.w;
   return o; }
+inline float atomicAdd(float* p, float v) {
+  std::lock_guard<std::mutex> g(g_atomic);
+  const float o = *p; *p += v; return o; }
+inline int atomicAdd(int* p, int v) {
+  std::lock_guard<std::mutex> g(g_atomic);
+  const int o = *p; *p += v; return o; }
 inline unsigned atomicMax(unsigned* p, unsigned v) {
   std::lock_guard<std::mutex> g(g_atomic);
   const unsigned o = *p; *p = std::max(o, v); return o; }
 typedef struct CUstream_st* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F> cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 // the launch: t host threads, made once, run the blocks one after
 // another, all t at once in each; between blocks they wait at `start`
-// while this thread sets the next block up, and a thread whose kernel
-// returns leaves its block's and its warp's barriers
-template <class F> void emulate(dim3 g, unsigned t, F f) {
+// while this thread sets the next block up (its `smem` bytes of dynamic
+// shared memory filled with 0xff), and a thread whose kernel returns
+// leaves its block's and its warp's barriers
+template <class F> void emulate(dim3 g, unsigned t, size_t smem, F f) {
   blockDim = {t, 1, 1};
   const unsigned n_blocks = g.x * g.y;
   std::barrier<> start(t + 1), done(t + 1);
@@ -162,6 +182,7 @@ template <class F> void emulate(dim3 g, unsigned t, F f) {
     });
   for (unsigned b = 0; b < n_blocks; ++b) {
     blockIdx = {b % g.x, b / g.x, 0};
+    g_dynamic_smem.assign(smem, 0xff);
     g_block = std::make_unique<std::barrier<>>(t);
     g_warps = std::vector<Warp>((t + 31) / 32);
     for (unsigned k = 0; k < g_warps.size(); ++k) {
@@ -194,15 +215,21 @@ def _split_top(s: str) -> list:
 
 
 def emulated_source(src: str) -> str:
-    """The kernel source with each ``kernel<<<grid, threads, ...>>>(args)``
-    launch run by ``emulate`` and the runtime stand-in included."""
+    """The kernel source with each ``kernel<<<grid, threads, smem,
+    ...>>>(args)`` launch run by ``emulate``, each ``extern __shared__``
+    array on the launch's dynamic shared memory, and the runtime stand-in
+    included."""
     def launch(m):
         cfg = _split_top(m.group(2))
-        return (f"emulate(dim3({cfg[0]}), {cfg[1]}, [&] {{ "
+        smem = cfg[2] if len(cfg) > 2 else "0"
+        return (f"emulate(dim3({cfg[0]}), {cfg[1]}, {smem}, [&] {{ "
                 f"{m.group(1)}({m.group(3)}); }});")
-    out = re.sub(r"(\w+(?:<D>)?)<<<(.*?)>>>\((.*?)\);", launch, src,
+    out = re.sub(r"(\w+(?:<\w+>)?)<<<(.*?)>>>\((.*?)\);", launch, src,
                  flags=re.S)
     assert out.count("emulate(") == src.count("<<<") > 0
+    out = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(g_dynamic_smem.data());",
+                 out)
     return out.replace("#include <cuda_runtime.h>",
                        '#include "emulated_runtime.h"')
 
@@ -362,6 +389,9 @@ def test_emulated_kernels_at_odd_level_counts(emulated, meta_kw):
     table, pos, cot = _inputs(meta, 4, n=600)
     width = 1 if meta.n_levels == 7 else 2
     for name in bgc.GROUP_KERNELS:
+        if meta.n_dims == 2 and name in ("blocked_grid_encode_bwd",
+                                         "blocked_grid_encode_bwd_i8"):
+            continue     # table_bwd_plan_2d's plan: one level per block
         plan = bgc.kernel_plan(name, pos.shape[0], meta)
         assert plan.width == width and plan.groups == meta.n_levels // width
     before = {k: _count(k, meta) for k in bgc.GROUP_KERNELS}
@@ -398,3 +428,104 @@ def test_emulated_kernels_at_odd_level_counts(emulated, meta_kw):
     assert after == {k: before[k] + {"blocked_grid_encode_bwd_i8": 2,
                                      "blocked_grid_encode_bwd_pos": 2
                                      }.get(k, 1) for k in before}
+
+
+# An all-dense 2D grid (8 levels of 9 to 1600 rows in 2048, the image
+# grid's shape at a small size), in two level groups of 4: at
+# TABLE_BWD_SMEM's 128 rows (32 a level) levels 0-1 are summed whole in
+# shared memory, levels 2-7 in their chunk's strip of rows where it still
+# fits and in L2 where it does not
+DENSE_2D = dict(n_dims=2, n_levels=8, base_resolution=16,
+                per_level_scale=1.5, log2_rows=11)
+# (kernel, tile, whether window levels are summed in their chunk's strip)
+TABLE_BWD_CASES = [("K2", None, False), ("K2", None, True), ("K5", 64, True),
+                   ("K5", 512, True), ("K5", 2048, False), ("K5", 2048, True)]
+TABLE_BWD_IDS = ["K2", "K2-windows", "K5-tile64-windows",
+                 "K5-tile512-windows", "K5-tile2048", "K5-tile2048-windows"]
+
+
+def _dense_2d_inputs(kind: str):
+    """The grid, 4096 stratified positions (the image step's order, 64 ×
+    64 strata) or 4096 uniform ones with edge positions (corners 0 and 1,
+    points up to 0.1 outside the square, every level's lattice vertices),
+    and a seeded cotangent with every fifth sample zero."""
+    meta = tbg.BlockedGridMeta(**DENSE_2D)
+    rng = np.random.default_rng(5)
+    if kind == "stratified":
+        pos = sample_positions("stratified", torch.Generator().manual_seed(5),
+                               1 << 12, 0).numpy()
+    else:
+        pts = [rng.random((1 << 12, 2), dtype=np.float32),
+               rng.random((64, 2), dtype=np.float32) * 1.2 - 0.1,
+               np.zeros((1, 2), np.float32), np.ones((1, 2), np.float32)]
+        for sc in meta.level_scales:
+            m = rng.integers(1, int(sc) + 1, (32, 2)).astype(np.float32)
+            pts.append(np.clip((m - np.float32(0.5)) / np.float32(sc), 0, 1))
+        pos = np.concatenate(pts).astype(np.float32)
+    cot = rng.standard_normal((pos.shape[0], 16)).astype(np.float32)
+    cot[::5] = 0.0
+    return meta, torch.from_numpy(pos), torch.from_numpy(cot)
+
+
+@pytest.mark.parametrize("kind", ["stratified", "uniform+edge"])
+@pytest.mark.parametrize("kernel,tile,windows", TABLE_BWD_CASES,
+                         ids=TABLE_BWD_IDS)
+def test_emulated_2d_table_backward_matches_plain(emulated, monkeypatch,
+                                                  kind, kernel, tile, windows):
+    """The 2D K2 (relative to Σ|w·g|, equal zero patterns) and K5 at
+    tiles 64, 512 and 2048 (relative to Σ_t scale_t·Σ|q|, exact zeros
+    where every quantum is 0) against their plain versions, one launch
+    each, with the levels past their share of shared memory in L2 (the
+    default plan) and in their chunk's strip where it fits."""
+    monkeypatch.setattr(bgc, "TABLE_BWD_WINDOWS", windows)
+    meta, pos, cot = _dense_2d_inputs(kind)
+    plan = bgc.table_bwd_plan_2d(pos.shape[0], meta, tile)
+    assert plan.where == (bgc.SUM_LEVEL,) * 2 + (
+        bgc.SUM_WINDOW if windows else bgc.SUM_L2,) * 6
+    assert (plan.width, plan.threads) == (4, 256)
+    # which blocks sum where: the test below
+    assert bgc.table_bwd_branches(pos, cot, meta, plan)[0][0] > 0
+    name = "blocked_grid_encode_bwd" if tile is None \
+        else "blocked_grid_encode_bwd_i8"
+    before = _count(name, meta)
+    if tile is None:
+        got = bgc.launch_bwd(pos, cot, meta)
+        ref = tbg.encode_backward_reference(pos, cot, meta)
+        scale = tbg.encode_backward_reference(pos, cot.abs(), meta)
+        assert float(((got - ref).abs() / scale.clamp(min=1e-30)).max()) \
+            <= KERNEL_BWD_TOL
+        assert torch.equal(got == 0, ref == 0)
+    else:
+        got = bgc.launch_bwd_i8(pos, cot, meta, tile)
+        ref = tbg.encode_backward_reference_i8(pos, cot, meta, tile)
+        mag = tbg.encode_backward_reference_i8(pos, cot, meta, tile,
+                                               magnitude=True)
+        assert float(((got - ref).abs() / mag.clamp(min=1e-30)).max()) \
+            <= KERNEL_I8_TOL
+        assert bool((got[mag == 0] == 0).all()) and bool((mag > 0).any())
+    assert _count(name, meta) == before + 1
+
+
+def test_emulated_2d_table_backward_windows_fit_on_stratified_positions(
+        monkeypatch):
+    """The default plan sums levels 0-1 in shared memory and 2-7 in L2.
+    With strips, on the stratified batch a window level's strip fits where
+    its chunk spans few block rows and its group's earlier levels left
+    room, and not where it spans many: K2 (chunks of 1024, a quarter of
+    the grid's height) sums levels 0-4 in shared memory, level 5 in 1 of 4
+    chunks, 6-7 in L2; K5 at tile 64 (one row of strata) levels 0-6, and
+    level 7 in 24 of its 64 tiles (where its strip lies in one block row),
+    at tile 512 levels 0-5; on uniform positions the window levels of the
+    second group go to L2."""
+    meta, pos, cot = _dense_2d_inputs("stratified")
+
+    def branches(tile=None):
+        return bgc.table_bwd_branches(
+            pos, cot, meta, bgc.table_bwd_plan_2d(pos.shape[0], meta, tile))
+    assert branches() == [(4, 0)] * 2 + [(0, 4)] * 6
+    monkeypatch.setattr(bgc, "TABLE_BWD_WINDOWS", True)
+    assert branches() == [(4, 0)] * 5 + [(1, 3)] + [(0, 4)] * 2
+    assert branches(64) == [(64, 0)] * 7 + [(24, 40)]
+    assert branches(512) == [(8, 0)] * 6 + [(0, 8)] * 2
+    meta, pos, cot = _dense_2d_inputs("uniform+edge")
+    assert branches() == [(5, 0)] * 4 + [(0, 5)] * 4
