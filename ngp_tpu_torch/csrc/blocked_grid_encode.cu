@@ -823,8 +823,9 @@ __device__ __forceinline__ Extent merge_extent(Extent a, Extent b) {
 }
 
 // Each of the block's `width` levels' extent over the whole block, level
-// j's in out[j], in every thread: the lanes of one level (j, j + width,
-// ...) reduce by xor shuffles, then every thread combines the warps'
+// j's in out[j] (shared memory), visible to every thread on return: the
+// lanes of one level (j, j + width, ...) reduce by xor shuffles, then
+// thread j combines the warps'
 __device__ __forceinline__ void block_extents(Extent e, int width, Extent* out) {
   __shared__ Extent warp_extent[32][kGroupTableBwd];
   const unsigned full = 0xffffffffu;
@@ -836,15 +837,22 @@ __device__ __forceinline__ void block_extents(Extent e, int width, Extent* out) 
   const int lane = threadIdx.x & 31;
   if (lane < width) warp_extent[threadIdx.x >> 5][lane] = e;
   __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kGroupTableBwd; ++j) {
-    if (j >= width) break;
-    Extent r = warp_extent[0][j];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = merge_extent(r, warp_extent[w][j]);
-    out[j] = r;
+  if ((int)threadIdx.x < width) {
+    Extent r = warp_extent[0][threadIdx.x];
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = merge_extent(r, warp_extent[w][threadIdx.x]);
+    out[threadIdx.x] = r;
   }
   __syncthreads();
 }
+
+// Where a block of the 2D table backward sums each of its levels: level
+// j holds shared rows [off[j], off[j] + nr[j]) for its rows from row0[j]
+// (nr[j] = 0: summed in L2), `used` rows in all; scale[j] is K5's
+struct SharedRows {
+  int off[kGroupTableBwd], nr[kGroupTableBwd], row0[kGroupTableBwd];
+  float scale[kGroupTableBwd];
+  int used;
+};
 
 // Adds the float4 `v` to the 16 aligned bytes at p, or nothing where it is
 // all zero
@@ -922,7 +930,7 @@ __global__ void blocked_grid_encode_bwd_2d_kernel(
   // extent in the block
   bool scan = kInt8;
   for (int jj = 0; jj < width; ++jj) scan |= tl.where[l0 + jj] == kSumWindow;
-  Extent ext[kGroupTableBwd];
+  __shared__ Extent ext[kGroupTableBwd];
   if (scan) {
     Extent e = {INT_MAX, -1, 0.f};
     for (int i = begin; i < end; ++i) {
@@ -944,52 +952,40 @@ __global__ void blocked_grid_encode_bwd_2d_kernel(
     }
     block_extents(e, width, ext);
   }
-  // The shared rows, the same in every thread: the group's kSumLevel
-  // levels' whole rows first (the plan keeps them inside the block's
-  // rows), then each window level's strip where it still fits. Level jj
-  // holds shared rows [off[jj], off[jj] + nr[jj]) for its rows from
-  // row0[jj]; nr[jj] = 0: summed in L2.
-  int off[kGroupTableBwd], nr[kGroupTableBwd], row0[kGroupTableBwd];
-  float scale[kGroupTableBwd];
-  int used = 0;
-#pragma unroll
-  for (int pass = 0; pass < 2; ++pass) {
-#pragma unroll
-    for (int jj = 0; jj < kGroupTableBwd; ++jj) {
-      if (jj >= width) {
-        nr[jj] = 0;
-        continue;
+  // The shared rows, set by thread 0: the group's kSumLevel levels'
+  // whole rows first (the plan keeps them inside the block's rows), then
+  // each window level's strip where it still fits
+  __shared__ SharedRows sr;
+  if (t == 0) {
+    int used = 0;
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int jj = 0; jj < width; ++jj) {
+        const Level lj = tl.level[l0 + jj];
+        const int wj = tl.where[l0 + jj];
+        int nr = 0, row0 = 0;
+        if (pass == 0) {
+          sr.nr[jj] = sr.off[jj] = sr.row0[jj] = 0;
+          sr.scale[jj] = kInt8 ? __fdiv_rn(fmaxf(ext[jj].m, 1e-20f), 127.f) : 0.f;
+          if (wj != kSumLevel) continue;
+          nr = reachable_rows_2d(lj, log2_rows);
+        } else {
+          if (wj != kSumWindow || ext[jj].hi < ext[jj].lo) continue;
+          nr = (ext[jj].hi - ext[jj].lo + 1) * lj.blocks_per_dim;
+          if (used + nr > smem_rows) continue;
+          row0 = ext[jj].lo * lj.blocks_per_dim;
+        }
+        sr.off[jj] = used;
+        sr.nr[jj] = nr;
+        sr.row0[jj] = row0;
+        used += nr;
       }
-      const Level lj = tl.level[l0 + jj];
-      const int wj = tl.where[l0 + jj];
-      if (pass == 0) {
-        off[jj] = row0[jj] = nr[jj] = 0;
-        scale[jj] = kInt8 ? __fdiv_rn(fmaxf(ext[jj].m, 1e-20f), 127.f) : 0.f;
-        if (wj != kSumLevel) continue;
-        nr[jj] = reachable_rows_2d(lj, log2_rows);
-      } else {
-        if (wj != kSumWindow || ext[jj].hi < ext[jj].lo) continue;
-        const int strip = (ext[jj].hi - ext[jj].lo + 1) * lj.blocks_per_dim;
-        if (used + strip > smem_rows) continue;
-        row0[jj] = ext[jj].lo * lj.blocks_per_dim;
-        nr[jj] = strip;
-      }
-      off[jj] = used;
-      used += nr[jj];
     }
+    sr.used = used;
   }
+  __syncthreads();
   // this thread's level: its shared rows (none: L2) and K5's scale
-  int my_off = 0, my_nr = 0, my_row0 = 0;
-  float my_scale = 0.f;
-#pragma unroll
-  for (int jj = 0; jj < kGroupTableBwd; ++jj) {
-    if (jj == j) {
-      my_off = off[jj];
-      my_nr = nr[jj];
-      my_row0 = row0[jj];
-      my_scale = scale[jj];
-    }
-  }
+  const int used = sr.used, my_off = sr.off[j], my_nr = sr.nr[j], my_row0 = sr.row0[j];
+  const float my_scale = sr.scale[j];
   for (int k = t; k < used * (kLanes / 4); k += nthreads) smem4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
@@ -1041,19 +1037,10 @@ __global__ void blocked_grid_encode_bwd_2d_kernel(
   for (int k = t; k < used * (kLanes / 4); k += nthreads) {
     const int r = k / (kLanes / 4);
     int jl = 0;
-#pragma unroll
-    for (int jj = 0; jj < kGroupTableBwd; ++jj)
-      if (nr[jj] > 0 && r >= off[jj] && r < off[jj] + nr[jj]) jl = jj;
-    int o = 0, r0 = 0;
-    float sc = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < kGroupTableBwd; ++jj) {
-      if (jj == jl) {
-        o = off[jj];
-        r0 = row0[jj];
-        sc = scale[jj];
-      }
-    }
+    for (int jj = 0; jj < width; ++jj)
+      if (r >= sr.off[jj] && r < sr.off[jj] + sr.nr[jj]) jl = jj;
+    const int o = sr.off[jl], r0 = sr.row0[jl];
+    const float sc = sr.scale[jl];
     float* dst = dtable + ((l0 + jl) * rows + r0 + (r - o)) * kLanes + (k % (kLanes / 4)) * 4;
     if (kInt8) {
       const int4 v = reinterpret_cast<const int4*>(smem4)[k];
