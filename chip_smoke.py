@@ -644,29 +644,26 @@ def time_k2(p, c, meta, err: float, what: str) -> dict:
     name = bgc.launch_name("blocked_grid_encode_bwd", meta)
     entry = _kernel_entry(name, 110, err, ks, ps, n, meta,
                           kernel_bytes(name, meta, p))
-    plan = table_bwd_plan_text(p, c, meta, entry)
+    plan = table_bwd_plan_text(n, meta, entry)
     _print_times("K2", f"{n} {what} positions x {meta.n_levels} levels"
                  f"{plan}", entry, ks, ps)
     return entry
 
 
-def table_bwd_plan_text(p, c, meta, entry: dict, tile=None) -> str:
-    """For a 2D grid: the table backward's plan (``table_bwd_plan_2d``)
-    and where its blocks summed each level on these inputs
-    (``table_bwd_branches``), into ``entry``; its text. "" in 3D."""
+def table_bwd_plan_text(n: int, meta, entry: dict, tile=None) -> str:
+    """For a 2D grid: the table backward's plan for n samples
+    (``table_bwd_plan_2d``: which levels it sums in shared memory), into
+    ``entry``; its text. "" in 3D."""
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     if meta.n_dims != 2:
         return ""
-    plan = bgc.table_bwd_plan_2d(p.shape[0], meta, tile)
-    branches = bgc.table_bwd_branches(p, c, meta, plan)
+    plan = bgc.table_bwd_plan_2d(n, meta, tile)
+    shared = [l for l, w in enumerate(plan.where) if w == bgc.SUM_LEVEL]
     entry["plan"] = {"chunk": plan.chunk, "width": plan.width,
-                     "smem_bytes": plan.smem_bytes, "where": list(plan.where),
-                     "shared_blocks": [b[0] for b in branches],
-                     "l2_blocks": [b[1] for b in branches]}
-    return (f", chunk {plan.chunk}, {plan.width} levels a block, "
-            f"{plan.smem_bytes / 1024:.1f} KiB shared, blocks in shared memory "
-            f"per level "
-            f"{[b[0] for b in branches]} of {plan.chunks}")
+                     "smem_bytes": plan.smem_bytes, "shared_levels": shared}
+    return (f", chunk {plan.chunk}, {plan.width} levels a block, levels "
+            f"{shared} in {plan.smem_bytes / 1024:.1f} KiB of shared memory, "
+            f"the rest in L2")
 
 
 def _figures(entry: dict) -> dict:
@@ -967,7 +964,7 @@ def time_k5(p, c, meta, tile: int, err: float, what: str) -> dict:
     entry = _kernel_entry(name, 383, err, ks, ps, p.shape[0], meta,
                           kernel_bytes(name, meta, p))
     if meta.n_dims == 2:
-        plan = table_bwd_plan_text(p, c, meta, entry, tile)
+        plan = table_bwd_plan_text(p.shape[0], meta, entry, tile)
     else:
         entry["G"] = bgc.kernel_plan("blocked_grid_encode_bwd_i8",
                                      p.shape[0], meta).width

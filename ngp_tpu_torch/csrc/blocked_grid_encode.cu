@@ -772,12 +772,10 @@ __global__ void blocked_grid_encode_bwd_i8_kernel(
 //    reduction into L2 serialises on the 9-row level 0 of uniform
 //    positions.
 //  - kSumL2: one float2 reduction a corner, or one float4 for corners x
-//    and x + 1 where x is even (the other levels).
-//  - kSumWindow (an option of the plan, off: slower on the image's batch
-//    than L2, PERF.md): a dense level summed in the strip of rows its
-//    chunk reaches, [by0 * nblk, (by1 + 1) * nblk) of the raster, read
-//    from the block's own samples by a block reduction, where it still
-//    fits in the block's shared memory; else L2.
+//    and x + 1 where x is even (the other levels). Summing a finer dense
+//    level in the strip of rows its chunk reaches was slower on the
+//    image's batch (PERF.md): its runs already fold the coarse levels,
+//    and the finer ones have 1-3 samples a vertex.
 // K5 takes each level's tile max |w*g| by a block reduction (exact and
 // order-free), then quantises. A run sums its quanta as int32, and a
 // kSumLevel level's shared rows sum the whole tile's, as the TPU kernel
@@ -785,7 +783,7 @@ __global__ void blocked_grid_encode_bwd_i8_kernel(
 // plain version's tile term, so only the f32 order across tiles remains;
 // elsewhere f32(run sum) * scale goes to L2. No first pass over memory
 // of its own, no tile_max buffer.
-enum : unsigned char { kSumL2 = 0, kSumLevel = 1, kSumWindow = 2 };
+enum : unsigned char { kSumL2 = 0, kSumLevel = 1 };
 
 struct TableBwdLevels {
   Level level[kMaxLevels];
@@ -797,59 +795,34 @@ __host__ __device__ __forceinline__ int reachable_rows_2d(const Level& lv, int l
   return lv.is_dense ? lv.blocks_per_dim * lv.blocks_per_dim : 1 << log2_rows;
 }
 
-// Sample i's block row (its block coordinate along y, clipped as in
-// lookup_geometry)
-__device__ __forceinline__ int block_row_2d(const float* __restrict__ pos, int i,
-                                            const Level& lv) {
-  const float x = lattice_coord<2>(pos, i, 1, lv.scale);
-  const int b = floor_div((int)floorf(x), Block<2>::kStride);
-  return min(max(b, 0), lv.blocks_per_dim - 1);
-}
-
 // Levels per block of the 2D table backward: a sample's 4 levels share
 // one 32-byte sector of the cotangent, so a block of 4 levels reads whole
 // sectors (lanes 4s .. 4s + 3 hold one sample's levels, as in K1)
 constexpr int kGroupTableBwd = 4;
 
-// A level's extent in a block: the lowest and highest block row of the
-// block's live samples and the largest |w*g| among them
-struct Extent {
-  int lo, hi;
-  float m;
-};
-
-__device__ __forceinline__ Extent merge_extent(Extent a, Extent b) {
-  return {min(a.lo, b.lo), max(a.hi, b.hi), fmaxf(a.m, b.m)};
-}
-
-// Each of the block's `width` levels' extent over the whole block, level
-// j's in out[j] (shared memory), visible to every thread on return: the
-// lanes of one level (j, j + width, ...) reduce by xor shuffles, then
-// thread j combines the warps'
-__device__ __forceinline__ void block_extents(Extent e, int width, Extent* out) {
-  __shared__ Extent warp_extent[32][kGroupTableBwd];
-  const unsigned full = 0xffffffffu;
-  for (int d = 16; d >= width; d >>= 1) {
-    const Extent o = {__shfl_xor_sync(full, e.lo, d), __shfl_xor_sync(full, e.hi, d),
-                      __shfl_xor_sync(full, e.m, d)};
-    e = merge_extent(e, o);
-  }
+// Each of the block's `width` levels' largest |w*g| over the whole block,
+// level j's in out[j] (shared memory), visible to every thread on return:
+// the lanes of one level (j, j + width, ...) reduce by xor shuffles, then
+// thread j takes the warps' largest (exact and order-free)
+__device__ __forceinline__ void block_level_max(float m, int width, float* out) {
+  __shared__ float warp_max[32][kGroupTableBwd];
+  for (int d = 16; d >= width; d >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, d));
   const int lane = threadIdx.x & 31;
-  if (lane < width) warp_extent[threadIdx.x >> 5][lane] = e;
+  if (lane < width) warp_max[threadIdx.x >> 5][lane] = m;
   __syncthreads();
   if ((int)threadIdx.x < width) {
-    Extent r = warp_extent[0][threadIdx.x];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = merge_extent(r, warp_extent[w][threadIdx.x]);
+    float r = warp_max[0][threadIdx.x];
+    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = fmaxf(r, warp_max[w][threadIdx.x]);
     out[threadIdx.x] = r;
   }
   __syncthreads();
 }
 
 // Where a block of the 2D table backward sums each of its levels: level
-// j holds shared rows [off[j], off[j] + nr[j]) for its rows from row0[j]
-// (nr[j] = 0: summed in L2), `used` rows in all; scale[j] is K5's
+// j holds its rows in shared rows [off[j], off[j] + nr[j]) (nr[j] = 0:
+// summed in L2), `used` rows in all; scale[j] is K5's
 struct SharedRows {
-  int off[kGroupTableBwd], nr[kGroupTableBwd], row0[kGroupTableBwd];
+  int off[kGroupTableBwd], nr[kGroupTableBwd];
   float scale[kGroupTableBwd];
   int used;
 };
@@ -907,7 +880,7 @@ template <bool kInt8>
 __global__ void blocked_grid_encode_bwd_2d_kernel(
     const float* __restrict__ pos, const float* __restrict__ grad,
     float* __restrict__ dtable, const TableBwdLevels tl, int n, int n_levels,
-    int log2_rows, int morton_hash, int log2_chunk, int log2_width, int smem_rows) {
+    int log2_rows, int morton_hash, int log2_chunk, int log2_width) {
   extern __shared__ float4 smem4[];
   // block b takes level group b % groups of chunk b / groups: a chunk's
   // groups run side by side, so its positions and cotangent come from
@@ -926,65 +899,40 @@ __global__ void blocked_grid_encode_bwd_2d_kernel(
   const int end = min(begin + per, n);
   const float2* g2 = reinterpret_cast<const float2*>(grad);
 
-  // pass 1 (a group with a window level; every group of K5): each level's
-  // extent in the block
-  bool scan = kInt8;
-  for (int jj = 0; jj < width; ++jj) scan |= tl.where[l0 + jj] == kSumWindow;
-  __shared__ Extent ext[kGroupTableBwd];
-  if (scan) {
-    Extent e = {INT_MAX, -1, 0.f};
+  // K5, pass 1: each level's largest |w*g| in the block (its tile)
+  __shared__ float level_max[kGroupTableBwd];
+  if (kInt8) {
+    float m = 0.f;
     for (int i = begin; i < end; ++i) {
       const float2 gv = __ldg(g2 + (size_t)i * n_levels + l);
       if (gv.x == 0.f && gv.y == 0.f) continue;
-      if (where == kSumWindow) {
-        const int by = block_row_2d(pos, i, lv);
-        e.lo = min(e.lo, by);
-        e.hi = max(e.hi, by);
-      }
-      if (kInt8) {
-        const Lookup<2> g = lookup_fractions<2>(pos, i, lv.scale);
+      const Lookup<2> g = lookup_fractions<2>(pos, i, lv.scale);
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float w = corner_weight(g, c);
-          e.m = fmaxf(e.m, fmaxf(fabsf(__fmul_rn(w, gv.x)), fabsf(__fmul_rn(w, gv.y))));
-        }
+      for (int c = 0; c < 4; ++c) {
+        const float w = corner_weight(g, c);
+        m = fmaxf(m, fmaxf(fabsf(__fmul_rn(w, gv.x)), fabsf(__fmul_rn(w, gv.y))));
       }
     }
-    block_extents(e, width, ext);
+    block_level_max(m, width, level_max);
   }
-  // The shared rows, set by thread 0: the group's kSumLevel levels'
-  // whole rows first (the plan keeps them inside the block's rows), then
-  // each window level's strip where it still fits
+  // The shared rows, set by thread 0: the group's kSumLevel levels' whole
+  // rows, side by side (the plan keeps them inside the block's rows)
   __shared__ SharedRows sr;
   if (t == 0) {
     int used = 0;
-    for (int pass = 0; pass < 2; ++pass) {
-      for (int jj = 0; jj < width; ++jj) {
-        const Level lj = tl.level[l0 + jj];
-        const int wj = tl.where[l0 + jj];
-        int nr = 0, row0 = 0;
-        if (pass == 0) {
-          sr.nr[jj] = sr.off[jj] = sr.row0[jj] = 0;
-          sr.scale[jj] = kInt8 ? __fdiv_rn(fmaxf(ext[jj].m, 1e-20f), 127.f) : 0.f;
-          if (wj != kSumLevel) continue;
-          nr = reachable_rows_2d(lj, log2_rows);
-        } else {
-          if (wj != kSumWindow || ext[jj].hi < ext[jj].lo) continue;
-          nr = (ext[jj].hi - ext[jj].lo + 1) * lj.blocks_per_dim;
-          if (used + nr > smem_rows) continue;
-          row0 = ext[jj].lo * lj.blocks_per_dim;
-        }
-        sr.off[jj] = used;
-        sr.nr[jj] = nr;
-        sr.row0[jj] = row0;
-        used += nr;
-      }
+    for (int jj = 0; jj < width; ++jj) {
+      const int nr = tl.where[l0 + jj] == kSumLevel
+                         ? reachable_rows_2d(tl.level[l0 + jj], log2_rows) : 0;
+      sr.off[jj] = used;
+      sr.nr[jj] = nr;
+      sr.scale[jj] = kInt8 ? __fdiv_rn(fmaxf(level_max[jj], 1e-20f), 127.f) : 0.f;
+      used += nr;
     }
     sr.used = used;
   }
   __syncthreads();
   // this thread's level: its shared rows (none: L2) and K5's scale
-  const int used = sr.used, my_off = sr.off[j], my_nr = sr.nr[j], my_row0 = sr.row0[j];
+  const int used = sr.used, my_off = sr.off[j], my_nr = sr.nr[j];
   const float my_scale = sr.scale[j];
   for (int k = t; k < used * (kLanes / 4); k += nthreads) smem4[k] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
@@ -1009,7 +957,7 @@ __global__ void blocked_grid_encode_bwd_2d_kernel(
     if (k2 != key) {
       if (key >= 0) {
         const int row = key / kLanes, base_lane = key % kLanes;
-        add_run<kInt8>(acc, qacc, smem4, my_nr > 0 ? row - my_row0 + my_off : -1, base_lane,
+        add_run<kInt8>(acc, qacc, smem4, my_nr > 0 ? row + my_off : -1, base_lane,
                        level_grad + (size_t)row * kLanes + base_lane, my_scale);
       }
       key = k2;
@@ -1039,9 +987,8 @@ __global__ void blocked_grid_encode_bwd_2d_kernel(
     int jl = 0;
     for (int jj = 0; jj < width; ++jj)
       if (r >= sr.off[jj] && r < sr.off[jj] + sr.nr[jj]) jl = jj;
-    const int o = sr.off[jl], r0 = sr.row0[jl];
     const float sc = sr.scale[jl];
-    float* dst = dtable + ((l0 + jl) * rows + r0 + (r - o)) * kLanes + (k % (kLanes / 4)) * 4;
+    float* dst = dtable + ((l0 + jl) * rows + (r - sr.off[jl])) * kLanes + (k % (kLanes / 4)) * 4;
     if (kInt8) {
       const int4 v = reinterpret_cast<const int4*>(smem4)[k];
       add_nonzero4(dst, make_float4(__fmul_rn((float)v.x, sc), __fmul_rn((float)v.y, sc),
@@ -1230,8 +1177,7 @@ int table_bwd_2d(const float* pos, const float* grad, float* dtable,
     tl.where[l] = where[l];
     if (l % width == 0) level_rows = 0;
     if (where[l] == kSumLevel) level_rows += reachable_rows_2d(tl.level[l], log2_rows);
-    const bool ok = where[l] == kSumL2 ||
-                    (where[l] != kSumL2 && where[l] <= kSumWindow && lp.is_dense[l]);
+    const bool ok = where[l] == kSumL2 || (where[l] == kSumLevel && lp.is_dense[l]);
     if (!ok || level_rows > smem_rows) return (int)cudaErrorInvalidValue;
   }
   // above 48 KiB a kernel takes dynamic shared memory only up to its
@@ -1251,8 +1197,7 @@ int table_bwd_2d(const float* pos, const float* grad, float* dtable,
   if (chunks * n_levels > INT_MAX) return (int)cudaErrorInvalidValue;
   blocked_grid_encode_bwd_2d_kernel<kInt8><<<(unsigned)(chunks * n_levels / width), threads,
                                              smem_bytes, s>>>(
-      pos, grad, dtable, tl, n, n_levels, log2_rows, morton_hash, log2_chunk, log2_width,
-      smem_rows);
+      pos, grad, dtable, tl, n, n_levels, log2_rows, morton_hash, log2_chunk, log2_width);
   return (int)cudaGetLastError();
 }
 

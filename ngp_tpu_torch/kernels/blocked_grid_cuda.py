@@ -195,21 +195,17 @@ def launch_plan(n: int, n_levels: int, group: int,
 
 
 # Where the 2D table backward sums a level's gradient (``where`` of
-# ``TableBwdPlan``): by reductions straight to L2, in a copy of the
-# level's rows in shared memory, or in the rows its block's samples reach
-# (a horizontal strip of the raster) where they fit, else L2
-SUM_L2, SUM_LEVEL, SUM_WINDOW = 0, 1, 2
+# ``TableBwdPlan``): by reductions straight to L2, or in a copy of the
+# level's rows in shared memory
+SUM_L2, SUM_LEVEL = 0, 1
 # levels per block of the 2D table backward: a sample's 4 levels share one
 # 32-byte sector of the cotangent
 TABLE_BWD_GROUP = 4
-# the 2D table backward's shared memory per block (a level group's), K2's
-# samples per block, and whether dense levels past their share of it are
-# summed in their chunk's strip where it fits (SUM_WINDOW) or in L2: the
-# fastest on an H100 of those scripts/encode_group_sweep.py timed
-# (PERF.md); strips lost to L2 on the image's batch
+# the 2D table backward's shared memory a level group may sum in, and K2's
+# samples per block: the fastest on an H100 of those
+# scripts/encode_group_sweep.py timed (PERF.md)
 TABLE_BWD_SMEM = 64 << 10
 TABLE_BWD_CHUNK = 1024
-TABLE_BWD_WINDOWS = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,15 +215,14 @@ class TableBwdPlan:
     [k·width, (k + 1)·width) of samples [c·chunk, (c + 1)·chunk) (K5:
     chunk = the quantisation tile; thread t level t % width of a run of
     chunk·width / threads consecutive samples) with ``smem_bytes`` of
-    shared memory, of which ``smem_rows`` rows are a group's to sum in;
-    ``where`` per level (``SUM_*``)."""
+    shared memory for its SUM_LEVEL levels' rows; ``where`` per level
+    (``SUM_*``)."""
     n: int
     chunk: int
     width: int
     threads: int
     chunks: int
     smem_bytes: int
-    smem_rows: int
     where: tuple
 
     @property
@@ -245,67 +240,24 @@ def table_bwd_plan_2d(n: int, meta: BlockedGridMeta,
     or K5 (chunks of ``tile``) on the 2D grid ``meta``, in level groups of
     TABLE_BWD_GROUP (narrowed, as ``launch_plan`` narrows, where that does
     not divide the level count): a level whose ``level_needed_rows`` fit
-    in its group's share of TABLE_BWD_SMEM is summed in shared memory
-    whole, another dense level in the strip of rows its chunk reaches
-    where that still fits, a hashed level in L2."""
+    in its share of TABLE_BWD_SMEM (a group's levels share it equally) is
+    summed in shared memory, the others in L2."""
     chunk = TABLE_BWD_CHUNK if tile is None else tile
     if chunk < 32 or chunk & (chunk - 1) or chunk > 1 << 24:
         raise ValueError(f"table backward chunk must be a power of two in "
                          f"[32, 2^24], got {chunk}")
     width = min(TABLE_BWD_GROUP, meta.n_levels & -meta.n_levels)
     smem_rows = TABLE_BWD_SMEM // (LANES * 4)
-    where = tuple(SUM_L2 if not dense else
-                  SUM_LEVEL if needed <= smem_rows // width else
-                  SUM_WINDOW if TABLE_BWD_WINDOWS else SUM_L2
+    where = tuple(SUM_LEVEL if dense and needed <= smem_rows // width
+                  else SUM_L2
                   for dense, needed in zip(meta.level_is_dense,
                                            meta.level_needed_rows))
-    # a block takes what its group can use: every row with strips, else
-    # its whole levels' rows
-    groups = [range(l0, l0 + width) for l0 in range(0, meta.n_levels, width)]
-    rows = smem_rows if SUM_WINDOW in where else max(
-        sum(meta.level_blocks_per_dim[l] ** 2 for l in g
-            if where[l] == SUM_LEVEL) for g in groups)
+    # a block's shared rows: its group's SUM_LEVEL levels' blocks^2 each
+    rows = max(sum(meta.level_blocks_per_dim[l] ** 2
+                   for l in range(l0, l0 + width) if where[l] == SUM_LEVEL)
+               for l0 in range(0, meta.n_levels, width))
     return TableBwdPlan(n, chunk, width, min(chunk * width, THREADS),
-                        -(-n // chunk), rows * LANES * 4, smem_rows, where)
-
-
-def table_bwd_branches(pos: torch.Tensor, grad: torch.Tensor,
-                       meta: BlockedGridMeta, plan: TableBwdPlan):
-    """Per level, how many of the plan's blocks sum in shared memory and
-    how many in L2 on these inputs, as the kernel decides it: a block
-    gives its group's SUM_LEVEL levels their whole rows, then each window
-    level, in level order, the block rows of its samples whose cotangent
-    is not 0 ((highest − lowest + 1) · blocks rows) where they still fit
-    in the plan's rows. A list of (shared, L2) pairs."""
-    pad = plan.chunks * plan.chunk - pos.shape[0]
-    out = []
-    for l0 in range(0, meta.n_levels, plan.width):
-        used = sum(meta.level_blocks_per_dim[l] ** 2
-                   for l in range(l0, l0 + plan.width)
-                   if plan.where[l] == SUM_LEVEL)
-        for l in range(l0, l0 + plan.width):
-            if plan.where[l] != SUM_WINDOW:
-                out.append((plan.chunks, 0) if plan.where[l] == SUM_LEVEL
-                           else (0, plan.chunks))
-                continue
-            nblk = meta.level_blocks_per_dim[l]
-            x = pos[:, 1] * torch.tensor(meta.level_scales[l],
-                                         dtype=torch.float32,
-                                         device=pos.device) + 0.5
-            by = torch.clamp(torch.div(torch.floor(x).to(torch.int64), 7,
-                                       rounding_mode="floor"), 0, nblk - 1)
-            live = (grad[:, 2 * l:2 * l + 2] != 0).any(-1)
-            hi = torch.nn.functional.pad(torch.where(live, by, -1), (0, pad),
-                                         value=-1).view(plan.chunks, -1)
-            lo = torch.nn.functional.pad(torch.where(live, by, nblk),
-                                         (0, pad), value=nblk).view(
-                                             plan.chunks, -1)
-            rows = (hi.amax(1) - lo.amin(1) + 1) * nblk
-            fits = (rows > 0) & (used + rows <= plan.smem_rows)
-            used = used + torch.where(fits, rows, 0)
-            shared = int(fits.sum())
-            out.append((shared, plan.chunks - shared))
-    return out
+                        -(-n // chunk), rows * LANES * 4, where)
 
 
 def _check(meta: BlockedGridMeta, pos: torch.Tensor, *tensors):

@@ -15,9 +15,8 @@ tolerances. This covers each kernel's geometry, its corner loads (K4's
 byte picks from 2D and 3D lines), weights, warp sums and stores on 2D and
 3D grids, and every kernel at 7 and 6 levels, whose plans take level
 groups of width 1 and 2. The 2D table backward (K2, K5) runs on an
-all-dense grid whose coarse levels are summed whole in shared memory and
-whose finer ones in their chunk's strip of rows where it fits and in L2
-where it does not, on stratified and on uniform positions.
+all-dense grid whose coarse levels are summed in shared memory and whose
+finer ones in L2, on stratified and on uniform positions.
 
 What a host cannot show is the card's own: the order in which a warp's
 lanes run, f32 atomics' flush of denormals and the compiler's FMAs stay
@@ -432,16 +431,13 @@ def test_emulated_kernels_at_odd_level_counts(emulated, meta_kw):
 
 # An all-dense 2D grid (8 levels of 9 to 1600 rows in 2048, the image
 # grid's shape at a small size), in two level groups of 4: at
-# TABLE_BWD_SMEM's 128 rows (32 a level) levels 0-1 are summed whole in
-# shared memory, levels 2-7 in their chunk's strip of rows where it still
-# fits and in L2 where it does not
+# TABLE_BWD_SMEM's 128 rows (32 a level) levels 0-1 are summed in shared
+# memory and levels 2-7 in L2
 DENSE_2D = dict(n_dims=2, n_levels=8, base_resolution=16,
                 per_level_scale=1.5, log2_rows=11)
-# (kernel, tile, whether window levels are summed in their chunk's strip)
-TABLE_BWD_CASES = [("K2", None, False), ("K2", None, True), ("K5", 64, True),
-                   ("K5", 512, True), ("K5", 2048, False), ("K5", 2048, True)]
-TABLE_BWD_IDS = ["K2", "K2-windows", "K5-tile64-windows",
-                 "K5-tile512-windows", "K5-tile2048", "K5-tile2048-windows"]
+# the kernel and its tile (K2: None)
+TABLE_BWD_CASES = [("K2", None), ("K5", 64), ("K5", 512), ("K5", 2048)]
+TABLE_BWD_IDS = ["K2", "K5-tile64", "K5-tile512", "K5-tile2048"]
 
 
 def _dense_2d_inputs(kind: str):
@@ -468,23 +464,18 @@ def _dense_2d_inputs(kind: str):
 
 
 @pytest.mark.parametrize("kind", ["stratified", "uniform+edge"])
-@pytest.mark.parametrize("kernel,tile,windows", TABLE_BWD_CASES,
-                         ids=TABLE_BWD_IDS)
-def test_emulated_2d_table_backward_matches_plain(emulated, monkeypatch,
-                                                  kind, kernel, tile, windows):
+@pytest.mark.parametrize("kernel,tile", TABLE_BWD_CASES, ids=TABLE_BWD_IDS)
+def test_emulated_2d_table_backward_matches_plain(emulated, kind, kernel,
+                                                  tile):
     """The 2D K2 (relative to Σ|w·g|, equal zero patterns) and K5 at
     tiles 64, 512 and 2048 (relative to Σ_t scale_t·Σ|q|, exact zeros
     where every quantum is 0) against their plain versions, one launch
-    each, with the levels past their share of shared memory in L2 (the
-    default plan) and in their chunk's strip where it fits."""
-    monkeypatch.setattr(bgc, "TABLE_BWD_WINDOWS", windows)
+    each, levels 0-1 summed in shared memory (9 + 16 rows) and 2-7 in
+    L2."""
     meta, pos, cot = _dense_2d_inputs(kind)
     plan = bgc.table_bwd_plan_2d(pos.shape[0], meta, tile)
-    assert plan.where == (bgc.SUM_LEVEL,) * 2 + (
-        bgc.SUM_WINDOW if windows else bgc.SUM_L2,) * 6
-    assert (plan.width, plan.threads) == (4, 256)
-    # which blocks sum where: the test below
-    assert bgc.table_bwd_branches(pos, cot, meta, plan)[0][0] > 0
+    assert plan.where == (bgc.SUM_LEVEL,) * 2 + (bgc.SUM_L2,) * 6
+    assert (plan.width, plan.threads, plan.smem_bytes) == (4, 256, 25 * 512)
     name = "blocked_grid_encode_bwd" if tile is None \
         else "blocked_grid_encode_bwd_i8"
     before = _count(name, meta)
@@ -504,28 +495,3 @@ def test_emulated_2d_table_backward_matches_plain(emulated, monkeypatch,
             <= KERNEL_I8_TOL
         assert bool((got[mag == 0] == 0).all()) and bool((mag > 0).any())
     assert _count(name, meta) == before + 1
-
-
-def test_emulated_2d_table_backward_windows_fit_on_stratified_positions(
-        monkeypatch):
-    """The default plan sums levels 0-1 in shared memory and 2-7 in L2.
-    With strips, on the stratified batch a window level's strip fits where
-    its chunk spans few block rows and its group's earlier levels left
-    room, and not where it spans many: K2 (chunks of 1024, a quarter of
-    the grid's height) sums levels 0-4 in shared memory, level 5 in 1 of 4
-    chunks, 6-7 in L2; K5 at tile 64 (one row of strata) levels 0-6, and
-    level 7 in 24 of its 64 tiles (where its strip lies in one block row),
-    at tile 512 levels 0-5; on uniform positions the window levels of the
-    second group go to L2."""
-    meta, pos, cot = _dense_2d_inputs("stratified")
-
-    def branches(tile=None):
-        return bgc.table_bwd_branches(
-            pos, cot, meta, bgc.table_bwd_plan_2d(pos.shape[0], meta, tile))
-    assert branches() == [(4, 0)] * 2 + [(0, 4)] * 6
-    monkeypatch.setattr(bgc, "TABLE_BWD_WINDOWS", True)
-    assert branches() == [(4, 0)] * 5 + [(1, 3)] + [(0, 4)] * 2
-    assert branches(64) == [(64, 0)] * 7 + [(24, 40)]
-    assert branches(512) == [(8, 0)] * 6 + [(0, 8)] * 2
-    meta, pos, cot = _dense_2d_inputs("uniform+edge")
-    assert branches() == [(5, 0)] * 4 + [(0, 5)] * 4

@@ -3,9 +3,8 @@ and the port's ``level_needed_rows``, which the plan reads, against the
 JAX package's on the grids the engines build: the image (configs/image/
 base.json at a 2048² image), NeRF base at aabb_scale 4, SDF base and the
 Takikawa octree's grid."""
-import jax  # noqa: F401  (the JAX package's config imports it)
+import jax  # noqa: F401  (both packages in one process, JAX on the CPU)
 import pytest
-import torch
 
 import ngp_tpu.config as jcfg
 import ngp_tpu.kernels.blocked_grid as jbg
@@ -59,11 +58,9 @@ def test_level_needed_rows_matches_jax(name):
 def test_image_grid_plan():
     """On the image grid (16 levels × 32768 rows, every level dense), in
     level groups of 4: the levels whose needed rows fit in a level's share
-    of 64 KiB (0-2: 16 of 32 rows) summed whole in shared memory (41 rows,
-    20.5 KiB), the others in L2, or with strips in their chunk's strip
-    where it fits (then the whole 64 KiB); chunks of 1024 samples for K2
-    and of the tile for K5, 256 threads (4 a sample: 128 for a tile of
-    32)."""
+    of 64 KiB (0-2: 16 of 32 rows) summed in shared memory (41 rows, 20.5
+    KiB), the others in L2; chunks of 1024 samples for K2 and of the tile
+    for K5, 256 threads (4 a sample: 128 for a tile of 32)."""
     meta = BlockedGridMeta.from_hashgrid_config(_hashgrid_configs("image")[0])
     assert all(meta.level_is_dense) and meta.rows == 32768
     reach = sum(b * b for b in meta.level_blocks_per_dim)
@@ -72,11 +69,6 @@ def test_image_grid_plan():
     assert plan.where == (bgc.SUM_LEVEL,) * 3 + (bgc.SUM_L2,) * 13
     assert (plan.chunk, plan.width, plan.threads, plan.chunks,
             plan.smem_bytes) == (1024, 4, 256, 256, 41 * 512)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(bgc, "TABLE_BWD_WINDOWS", True)
-        plan = bgc.table_bwd_plan_2d(1 << 18, meta)
-    assert plan.where == (bgc.SUM_LEVEL,) * 3 + (bgc.SUM_WINDOW,) * 13
-    assert plan.smem_bytes == 64 << 10
     for tile, threads in ((32, 128), (64, 256), (2048, 256)):
         p5 = bgc.table_bwd_plan_2d((1 << 18) + 5, meta, tile)
         assert (p5.chunk, p5.threads, p5.chunks) == (
@@ -101,26 +93,3 @@ def test_table_bwd_plan_sums_hashed_levels_in_l2():
     for tile in (16, 48):
         with pytest.raises(ValueError):
             bgc.table_bwd_plan_2d(1000, meta, tile)
-
-
-def test_table_bwd_branches_on_stratified_image_batch(monkeypatch):
-    """With strips, on the image step's stratified 2^18 batch (512 × 512
-    strata; chunks of 2 strata rows, strips of 1-2 block rows): in the
-    group of levels 8-11 levels 8 and 9 always fit, 10 in 248 of 256
-    blocks, 11 in 7; in the group of 12-15 level 12 (64 blocks a row)
-    fits and 13-15 go to L2. On uniform positions a strip is the whole
-    level: levels 0-4 fit."""
-    monkeypatch.setattr(bgc, "TABLE_BWD_WINDOWS", True)
-    from ngp_tpu_torch.rays.sampling import sample_positions
-    meta = BlockedGridMeta.from_hashgrid_config(_hashgrid_configs("image")[0])
-    pos = sample_positions("stratified", torch.Generator().manual_seed(0),
-                           1 << 18, 0)
-    cot = torch.ones((pos.shape[0], 32))
-    plan = bgc.table_bwd_plan_2d(pos.shape[0], meta)
-    got = bgc.table_bwd_branches(pos, cot, meta, plan)
-    assert got == [(256, 0)] * 10 + [(248, 8), (7, 249), (256, 0)] + [
-        (0, 256)] * 3
-    uni = torch.rand((1 << 16, 2), generator=torch.Generator().manual_seed(1))
-    plan = bgc.table_bwd_plan_2d(uni.shape[0], meta)
-    assert bgc.table_bwd_branches(uni, cot[: 1 << 16], meta, plan) == \
-        [(64, 0)] * 5 + [(0, 64)] * 11
