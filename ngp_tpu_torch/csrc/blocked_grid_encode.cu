@@ -781,8 +781,8 @@ __global__ void blocked_grid_encode_bwd_i8_kernel(
 // kSumLevel level's shared rows sum the whole tile's, as the TPU kernel
 // does, then add f32(sum q) * scale once per entry: bit-equal to the
 // plain version's tile term, so only the f32 order across tiles remains;
-// elsewhere f32(run sum) * scale goes to L2. No first pass over memory
-// of its own, no tile_max buffer.
+// elsewhere f32(run sum) * scale goes to L2. One launch, no tile_max
+// buffer: the block reads its tile's samples a second time from L2.
 enum : unsigned char { kSumL2 = 0, kSumLevel = 1 };
 
 struct TableBwdLevels {
@@ -891,7 +891,6 @@ __global__ void blocked_grid_encode_bwd_2d_kernel(
   const int t = threadIdx.x, nthreads = blockDim.x;
   const int j = t & (width - 1), l0 = group << log2_width, l = l0 + j;
   const Level lv = tl.level[l];
-  const int where = tl.where[l];
   const size_t rows = (size_t)1 << log2_rows;
   // this thread's samples: a run of `per` consecutive ones, [begin, end)
   const int per = (1 << (log2_chunk + log2_width)) / nthreads;
