@@ -264,8 +264,8 @@ KERNEL_BWD_TOL, REL_FLOOR = 1e-4, 1e-30
 # (.FTZ), so an entry whose terms all lie within a few FLT_MIN of 0 can
 # end at 0 in one order and not in the other; and terms that cancel can
 # sum to exactly 0 in one order of the additions and to a few ulps of
-# Σ|w·g| in another (one whole-script call of PR 13 failed on such an
-# entry, Σ|w·g| 1.36e-6). `--k2-zeros N` surveys N steps (PERF.md has the
+# Σ|w·g| in another (a whole-script call once failed on such an entry,
+# Σ|w·g| 1.36e-6). `--k2-zeros N` surveys N steps (PERF.md has the
 # readings).
 ZERO_FLOOR = 1e-36
 # K3 against its plain version, relative to Σ|term| of each component: the

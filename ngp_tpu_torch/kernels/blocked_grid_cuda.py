@@ -20,8 +20,8 @@ backward is launched as ``launch_plan`` sizes it: one thread per (sample,
 level), neighbouring threads on neighbouring levels of one sample, in
 level groups of each kernel's own width (``ngp_blocked_grid_group``). K2
 and K5 on 2D grids (the neural image) take ``table_bwd_plan_2d``'s plan:
-one block per (level, chunk of samples), each level's gradient summed in
-shared memory where its rows fit.
+one block per chunk of samples and group of levels, a level's gradient
+summed in shared memory where its rows fit, else in L2.
 """
 from __future__ import annotations
 
