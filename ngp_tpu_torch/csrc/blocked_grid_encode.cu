@@ -757,10 +757,10 @@ __global__ void blocked_grid_encode_bwd_i8_kernel(
 // 256 rows) those serialise on a few addresses; what is left bounding
 // this kernel is the number of reductions into L2. The TPU kernel keeps
 // each level's dTable block in VMEM across its sequential tile axis.
-// Here one block takes a group of 4 levels of a chunk of consecutive
-// samples (K5: one quantisation tile), 4 lanes a sample as in K1, so the
-// cotangent comes as whole sectors; each thread takes a run of
-// consecutive samples of one level. The image's stratified batch runs
+// Here one block takes a group of 4 (K5) or 2 (K2) levels of a chunk of
+// consecutive samples (K5: one quantisation tile), neighbouring lanes on
+// one sample's levels as in K1, so the cotangent comes as whole or half
+// sectors; each thread takes a run of consecutive samples of one level. The image's stratified batch runs
 // along x, so on the coarse levels a run stays in one cell for many
 // samples: its corner sums are formed in registers and leave once per
 // run. The plan (kernels/blocked_grid_cuda.py, table_bwd_plan_2d, from
@@ -795,9 +795,10 @@ __host__ __device__ __forceinline__ int reachable_rows_2d(const Level& lv, int l
   return lv.is_dense ? lv.blocks_per_dim * lv.blocks_per_dim : 1 << log2_rows;
 }
 
-// Levels per block of the 2D table backward: a sample's 4 levels share
-// one 32-byte sector of the cotangent, so a block of 4 levels reads whole
-// sectors (lanes 4s .. 4s + 3 hold one sample's levels, as in K1)
+// The most levels a block of the 2D table backward takes: a sample's 4
+// levels share one 32-byte sector of the cotangent, so a block of 4 levels
+// reads whole sectors (lanes 4s .. 4s + 3 hold one sample's levels, as in
+// K1); the plan gives K5 4 and K2 2 (half sectors, runs half as long)
 constexpr int kGroupTableBwd = 4;
 
 // Each of the block's `width` levels' largest |w*g| over the whole block,

@@ -198,9 +198,11 @@ def launch_plan(n: int, n_levels: int, group: int,
 # ``TableBwdPlan``): by reductions straight to L2, or in a copy of the
 # level's rows in shared memory
 SUM_L2, SUM_LEVEL = 0, 1
-# levels per block of the 2D table backward: a sample's 4 levels share one
-# 32-byte sector of the cotangent
-TABLE_BWD_GROUP = 4
+# levels per block of the 2D table backward, K2's and K5's: the fastest of
+# 1, 2 and 4 on an H100 on an image step (scripts/encode_group_sweep.py;
+# PERF.md). At 4 a sample's levels take one whole 32-byte sector of the
+# cotangent; K2's blocks of 2 run runs half as long, twice as many.
+TABLE_BWD_GROUP, TABLE_BWD_GROUP_I8 = 2, 4
 # the 2D table backward's shared memory a level group may sum in, and K2's
 # samples per block: the fastest on an H100 of those
 # scripts/encode_group_sweep.py timed (PERF.md)
@@ -236,17 +238,19 @@ class TableBwdPlan:
 
 def table_bwd_plan_2d(n: int, meta: BlockedGridMeta,
                       tile: Optional[int] = None) -> TableBwdPlan:
-    """The plan of K2 (``tile`` None: chunks of TABLE_BWD_CHUNK samples)
-    or K5 (chunks of ``tile``) on the 2D grid ``meta``, in level groups of
-    TABLE_BWD_GROUP (narrowed, as ``launch_plan`` narrows, where that does
-    not divide the level count): a level whose ``level_needed_rows`` fit
+    """The plan of K2 (``tile`` None: chunks of TABLE_BWD_CHUNK samples,
+    level groups of TABLE_BWD_GROUP) or K5 (chunks of ``tile``, groups of
+    TABLE_BWD_GROUP_I8) on the 2D grid ``meta``, each group narrowed as
+    ``launch_plan`` narrows where it does not divide the level count: a
+    level whose ``level_needed_rows`` fit
     in its share of TABLE_BWD_SMEM (a group's levels share it equally) is
     summed in shared memory, the others in L2."""
     chunk = TABLE_BWD_CHUNK if tile is None else tile
     if chunk < 32 or chunk & (chunk - 1) or chunk > 1 << 24:
         raise ValueError(f"table backward chunk must be a power of two in "
                          f"[32, 2^24], got {chunk}")
-    width = min(TABLE_BWD_GROUP, meta.n_levels & -meta.n_levels)
+    group = TABLE_BWD_GROUP if tile is None else TABLE_BWD_GROUP_I8
+    width = min(group, meta.n_levels & -meta.n_levels)
     smem_rows = TABLE_BWD_SMEM // (LANES * 4)
     where = tuple(SUM_LEVEL if dense and needed <= smem_rows // width
                   else SUM_L2

@@ -6,7 +6,7 @@ an earlier version of that source, on one NVIDIA GPU.
 
     python3 scripts/encode_group_sweep.py [--baseline OLD.cu]
         [--sources OTHER.cu ...] [--groups 4 8 16] [--kernels K3]
-        [--plans SMEM_KIB:CHUNK ...]
+        [--plans SMEM_KIB:CHUNK[:GROUP] ...]
 
 For each G the source, and each of ``--sources`` (other versions of it with
 the same entry points), is copied with every level group (``kGroupFwd``,
@@ -21,7 +21,8 @@ before its redesign) runs its 2D K2 and K5 as they were launched then:
 one thread per (sample, level) in its level groups, K5 in two passes
 over a zeroed tile_max. ``--plans`` times the tree's 2D table backward
 under other plans too (``blocked_grid_cuda.TABLE_BWD_SMEM`` in KiB,
-``TABLE_BWD_CHUNK``), on the first G's library.
+``TABLE_BWD_CHUNK``, ``TABLE_BWD_GROUP`` and ``_I8``: levels a block),
+on the first G's library.
 
 Inputs, at the full NeRF width: K1 at 2^20 uniform and ray-ordered
 positions, K2 and K3 at 2^18 of each (``chip_smoke.ray_ordered_inputs``,
@@ -234,9 +235,12 @@ def active(variant):
 
 
 def _plan_settings(spec: str) -> dict:
-    """``SMEM_KIB:CHUNK`` as blocked_grid_cuda's settings."""
-    smem, chunk = (int(v) for v in spec.split(":"))
-    return {"TABLE_BWD_SMEM": smem << 10, "TABLE_BWD_CHUNK": chunk}
+    """``SMEM_KIB:CHUNK[:GROUP]`` as blocked_grid_cuda's settings."""
+    smem, chunk, *group = (int(v) for v in spec.split(":"))
+    return {"TABLE_BWD_SMEM": smem << 10, "TABLE_BWD_CHUNK": chunk,
+            "TABLE_BWD_GROUP": group[0] if group else bgc.TABLE_BWD_GROUP,
+            "TABLE_BWD_GROUP_I8": group[0] if group
+            else bgc.TABLE_BWD_GROUP_I8}
 
 
 def image_step_inputs(dev, mode: str):
@@ -351,7 +355,7 @@ def main() -> int:
     ap.add_argument("--kernels", nargs="+", default=["K3"],
                     choices=["K1", "K2", "K3", "K4", "K5", "K2-2d", "K5-2d"])
     ap.add_argument("--plans", nargs="*", default=[],
-                    help="2D table-backward plans, SMEM_KIB:CHUNK")
+                    help="2D table-backward plans, SMEM_KIB:CHUNK[:GROUP]")
     args = ap.parse_args()
     cs.phase_device()
     dev = torch.device("cuda", 0)

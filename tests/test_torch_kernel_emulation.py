@@ -430,9 +430,9 @@ def test_emulated_kernels_at_odd_level_counts(emulated, meta_kw):
 
 
 # An all-dense 2D grid (8 levels of 9 to 1600 rows in 2048, the image
-# grid's shape at a small size), in two level groups of 4: at
-# TABLE_BWD_SMEM's 128 rows (32 a level) levels 0-1 are summed in shared
-# memory and levels 2-7 in L2
+# grid's shape at a small size): of TABLE_BWD_SMEM's 128 rows a level
+# takes 64 in K2's groups of 2 levels (levels 0-3 in shared memory, 4-7
+# in L2) and 32 in K5's groups of 4 (levels 0-1, and 2-7 in L2)
 DENSE_2D = dict(n_dims=2, n_levels=8, base_resolution=16,
                 per_level_scale=1.5, log2_rows=11)
 # the kernel and its tile (K2: None)
@@ -470,12 +470,16 @@ def test_emulated_2d_table_backward_matches_plain(emulated, kind, kernel,
     """The 2D K2 (relative to Σ|w·g|, equal zero patterns) and K5 at
     tiles 64, 512 and 2048 (relative to Σ_t scale_t·Σ|q|, exact zeros
     where every quantum is 0) against their plain versions, one launch
-    each, levels 0-1 summed in shared memory (9 + 16 rows) and 2-7 in
-    L2."""
+    each: K2 in groups of 2 levels with levels 0-3 in shared memory (a
+    block's largest pair 36 + 64 rows), K5 in groups of 4 with levels 0-1
+    (9 + 16 rows); the rest in L2."""
     meta, pos, cot = _dense_2d_inputs(kind)
     plan = bgc.table_bwd_plan_2d(pos.shape[0], meta, tile)
-    assert plan.where == (bgc.SUM_LEVEL,) * 2 + (bgc.SUM_L2,) * 6
-    assert (plan.width, plan.threads, plan.smem_bytes) == (4, 256, 25 * 512)
+    shared, width, rows = (4, 2, 100) if tile is None else (2, 4, 25)
+    assert plan.where == (bgc.SUM_LEVEL,) * shared + (bgc.SUM_L2,) * (
+        8 - shared)
+    assert (plan.width, plan.threads, plan.smem_bytes) == (width, 256,
+                                                           rows * 512)
     name = "blocked_grid_encode_bwd" if tile is None \
         else "blocked_grid_encode_bwd_i8"
     before = _count(name, meta)

@@ -56,23 +56,26 @@ def test_level_needed_rows_matches_jax(name):
 
 
 def test_image_grid_plan():
-    """On the image grid (16 levels × 32768 rows, every level dense), in
-    level groups of 4: the levels whose needed rows fit in a level's share
-    of 64 KiB (0-2: 16 of 32 rows) summed in shared memory (41 rows, 20.5
-    KiB), the others in L2; chunks of 1024 samples for K2 and of the tile
-    for K5, 256 threads (4 a sample: 128 for a tile of 32)."""
+    """On the image grid (16 levels × 32768 rows, every level dense): the
+    levels whose needed rows fit in a level's share of 64 KiB summed in
+    shared memory, the others in L2; K2 in groups of 2 levels (share 64
+    rows: levels 0-4; a block's largest pair 16 + 36 rows) and chunks of
+    1024 samples, K5 in groups of 4 (share 32: levels 0-2, 9 + 16 + 16
+    rows) and chunks of the tile; 256 threads (128 for a tile of 32)."""
     meta = BlockedGridMeta.from_hashgrid_config(_hashgrid_configs("image")[0])
     assert all(meta.level_is_dense) and meta.rows == 32768
     reach = sum(b * b for b in meta.level_blocks_per_dim)
     assert reach == 50940                  # 26.1 MB of the 268 MB gradient
     plan = bgc.table_bwd_plan_2d(1 << 18, meta)
-    assert plan.where == (bgc.SUM_LEVEL,) * 3 + (bgc.SUM_L2,) * 13
+    assert plan.where == (bgc.SUM_LEVEL,) * 5 + (bgc.SUM_L2,) * 11
     assert (plan.chunk, plan.width, plan.threads, plan.chunks,
-            plan.smem_bytes) == (1024, 4, 256, 256, 41 * 512)
+            plan.smem_bytes) == (1024, 2, 256, 256, 52 * 512)
     for tile, threads in ((32, 128), (64, 256), (2048, 256)):
         p5 = bgc.table_bwd_plan_2d((1 << 18) + 5, meta, tile)
-        assert (p5.chunk, p5.threads, p5.chunks) == (
-            tile, threads, -(-((1 << 18) + 5) // tile))
+        assert p5.where == (bgc.SUM_LEVEL,) * 3 + (bgc.SUM_L2,) * 13
+        assert (p5.chunk, p5.width, p5.threads, p5.chunks,
+                p5.smem_bytes) == (tile, 4, threads,
+                                   -(-((1 << 18) + 5) // tile), 41 * 512)
 
 
 def test_table_bwd_plan_sums_hashed_levels_in_l2():
