@@ -111,8 +111,10 @@ Phases, each reported on its own line:
                the trainer's own batch, its trained table and one real
                step's cotangent, and at 2^20 uniform positions with the
                edge positions, and timed beside its bound on both (``K1:``
-               and ``K2:`` lines naming ``_2d``); a 64×64 frame on the card
-               against the CPU path.
+               and ``K2:`` lines naming ``_2d``; the 2D K1 with its plan,
+               ``fwd_plan_2d``), K1 also on the first 2^18 pixel centres
+               of the 2048² frame (the render's own input); a 64×64 frame
+               on the card against the CPU path.
  10. image-int8 — the image engine under NGP_TPU_ENCODE_INT8 (cell
                smoke-image-int8): on phase 9's PNG, the runner's ``--mode
                image`` for IMAGE_STEPS under "fwd" and then "full", each
@@ -126,8 +128,9 @@ Phases, each reported on its own line:
                against their plain versions at the 3D tolerances and timed
                beside their bounds on one "full" step's positions and
                cotangent and on uniform positions (2^20 for K4, 2^18 for K3
-               and K5; ``K3:``/``K4:``/``K5:`` lines naming ``_2d``), and a
-               64×64 frame on the card is held against the CPU path.
+               and K5; ``K3:``/``K4:``/``K5:`` lines naming ``_2d``), K4
+               also on the first 2^18 pixel centres of the 2048² frame,
+               and a 64×64 frame on the card is held against the CPU path.
  11. volume  — the neural volume (cell smoke-volume-plume): the 128³
                procedural plume written by the port's write_nvdb, the
                runner's ``--mode volume`` for VOLUME_STEPS with configs/
@@ -225,7 +228,8 @@ on one pose step under "pose_step", K4's at 2^18 uniform positions under
 K1's and K2's, entries of their own whose main figures are on the image
 path's inputs, at 2^20 uniform positions under "uniform_2e20"; the 2D
 K3's, K4's and K5's likewise on the "full" image path's inputs, at
-uniform positions under "uniform_2e18" or "uniform_2e20"; entries of
+uniform positions under "uniform_2e18" or "uniform_2e20"; the 2D K1's
+and K4's on a frame's pixel centres under "pixel_chunk"; entries of
 their own for K1 on the mesh field and on the playback bake and for K1,
 K2 and K3 at L = 7 on the Takikawa path, and for K4 on the int8 NeRF
 frame's largest encode call (its launches: those of one frame), each
@@ -352,14 +356,16 @@ def phase_device() -> dict:
 
 
 def kernel_registers(build_log: str) -> str:
-    """Each kernel's spills and registers, from nvcc's ``-Xptxas -v``
-    output (entry function, then spills, then registers)."""
+    """Each kernel's spills, stack frame (where not 0) and registers, from
+    nvcc's ``-Xptxas -v`` output (entry function, then spills, then
+    registers)."""
     info = []
     for ln in build_log.splitlines():
         name = re.search(r"blocked_grid_encode_(?:fwd|bwd)\w*?kernel"
                          r"(?:IL([ib])(\d)E)?", ln)
         regs = re.search(r"Used (\d+) registers", ln)
         spill = re.search(r"(\d+) bytes spill stores", ln)
+        stack = re.search(r"(\d+) bytes stack frame", ln)
         if "entry function" in ln and name:
             # <D>, or <int8> / <f32> for the 2D table backward's bool
             dims = ("" if not name.group(1) else f"<{name.group(2)}>"
@@ -369,6 +375,8 @@ def kernel_registers(build_log: str) -> str:
         elif info and (regs or spill):
             info[-1] += (f" {regs.group(1)} registers" if regs
                          else f" {spill.group(1)} B spilled,")
+            if stack and int(stack.group(1)):
+                info[-1] += f" {stack.group(1)} B stack,"
     return " | ".join(info)
 
 
@@ -551,9 +559,24 @@ def time_k1(table, p, meta, err: float, what: str) -> dict:
     name = bgc.launch_name("blocked_grid_encode_fwd", meta)
     entry = _kernel_entry(name, 85, err, ks, ps, n, meta,
                           kernel_bytes(name, meta, p))
-    _print_times("K1", f"{n} {what} positions x {meta.n_levels} levels",
-                 entry, ks, ps)
+    plan = fwd_plan_text(n, meta, entry, False)
+    _print_times("K1", f"{n} {what} positions x {meta.n_levels} levels"
+                 f"{plan}", entry, ks, ps)
     return entry
+
+
+def fwd_plan_text(n: int, meta, entry: dict, int8: bool) -> str:
+    """For a 2D grid: the 2D encode forward's plan of K1 (or K4, ``int8``)
+    for n samples (``fwd_plan_2d``), into ``entry``; its text. "" in
+    3D."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    if meta.n_dims != 2:
+        return ""
+    plan = bgc.fwd_plan_2d(n, meta, int8)
+    entry["plan"] = {"samples": plan.samples, "threads": plan.threads,
+                     "smem_bytes": plan.smem_bytes}
+    return (f", tiles of {plan.samples} samples x all levels, "
+            f"{plan.threads} threads")
 
 
 def check_k2(pos, cot, meta, what: str) -> float:
@@ -745,9 +768,13 @@ def time_k4(tq, qs, p, meta, err: float, what: str) -> dict:
     name = bgc.launch_name("blocked_grid_encode_fwd_i8", meta)
     entry = _kernel_entry(name, 354, err, ks, ps, n, meta,
                           kernel_bytes(name, meta, p))
-    entry["G"] = bgc.kernel_plan("blocked_grid_encode_fwd_i8", n, meta).width
-    _print_times("K4", f"{n} {what} positions x {meta.n_levels} levels, G "
-                 f"{entry['G']}", entry, ks, ps)
+    plan = fwd_plan_text(n, meta, entry, True)
+    if not plan:
+        entry["G"] = bgc.kernel_plan("blocked_grid_encode_fwd_i8", n,
+                                     meta).width
+        plan = f", G {entry['G']}"
+    _print_times("K4", f"{n} {what} positions x {meta.n_levels} levels"
+                 f"{plan}", entry, ks, ps)
     return entry
 
 
@@ -2771,11 +2798,20 @@ def _image_kernel_inputs(dev, tr=None, seed: int = SEED + 3):
     return meta, table, pos, cot, what, uni
 
 
+def pixel_chunk(dev) -> torch.Tensor:
+    """The first network call's positions of a Testbed frame of the image
+    at IMAGE_RES²: a 2^18 chunk (EVAL_CHUNK) of its row-major pixel
+    centres, the 2D encode forward's input on the render path."""
+    from ngp_tpu_torch.train.image import EVAL_CHUNK, pixel_centres
+    return pixel_centres(IMAGE_RES, IMAGE_RES, dev)[:EVAL_CHUNK]
+
+
 def phase_k12_2d(dev, tr=None) -> list:
     """The 2D K1 and K2 against their plain versions, with the 3D
     tolerances, each timed beside its bound on the image path's own inputs
     (``_image_kernel_inputs``) and at 2^20 uniform positions (with the
-    edge positions in the checks)."""
+    edge positions in the checks); K1 also on a chunk of a frame's pixel
+    centres (``pixel_chunk``), under "pixel_chunk"."""
     meta, table, pos, cot, what, uni = _image_kernel_inputs(dev, tr)
     n_u = 1 << 20
     err = check_k1(table, pos, meta, what)
@@ -2783,6 +2819,10 @@ def phase_k12_2d(dev, tr=None) -> list:
     err = check_k1(table, uni, meta, "uniform+edge")
     _sub_entry(k1, time_k1(table, uni[:n_u], meta, err, "uniform"),
                "uniform_2e20")
+    pix = pixel_chunk(dev)
+    err = check_k1(table, pix, meta, "pixel-chunk")
+    _sub_entry(k1, time_k1(table, pix, meta, err, "pixel-chunk"),
+               "pixel_chunk")
     err = check_k2(pos, cot, meta, what)
     k2 = time_k2(pos, cot, meta, err, what)
     cot_u = _cotangent(dev, meta, uni.shape[0], SEED + 6)
@@ -2800,9 +2840,10 @@ def phase_k345_2d(dev, tr=None) -> list:
     timed beside its bound on the image path's own inputs
     (``_image_kernel_inputs``; with ``tr`` an image trainer in the
     ``full`` int8 mode, one real step's) and on uniform positions: 2^20
-    for K4, 2^18 for K3 and K5, the edge positions in the checks. K4 reads
-    the table quantised as the int8 modes quantise it, K5 takes the
-    step's tile (``eff_tile``)."""
+    for K4, 2^18 for K3 and K5, the edge positions in the checks; K4 also
+    on a chunk of a frame's pixel centres (``pixel_chunk``, under
+    "pixel_chunk"). K4 reads the table quantised as the int8 modes
+    quantise it, K5 takes the step's tile (``eff_tile``)."""
     from ngp_tpu_torch.kernels.blocked_grid import eff_tile, quantize_table_i8
     meta, table, pos, cot, what, uni = _image_kernel_inputs(dev, tr,
                                                             SEED + 7)
@@ -2827,6 +2868,10 @@ def phase_k345_2d(dev, tr=None) -> list:
     err = check_k4(tq, qs, uni, meta, "uniform+edge")
     _sub_entry(k4, time_k4(tq, qs, uni[: 1 << 20], meta, err, "uniform"),
                "uniform_2e20")
+    pix = pixel_chunk(dev)
+    err = check_k4(tq, qs, pix, meta, "pixel-chunk")
+    _sub_entry(k4, time_k4(tq, qs, pix, meta, err, "pixel-chunk"),
+               "pixel_chunk")
     tile = eff_tile(pos.shape[0])
     err = check_k5(pos, cot, meta, tile, what)
     k5 = time_k5(pos, cot, meta, tile, err, what)

@@ -1,10 +1,12 @@
 // Blocked hash-grid encode kernels for Hopper (sm_90a), sharing one
 // lookup-geometry function; one thread per (sample, level), neighbouring
-// lanes on neighbouring levels of one sample:
+// lanes on neighbouring levels of one sample, except on 2D grids (below):
 //
-//   K1 blocked_grid_encode_fwd_kernel<D> (L, R, 128) f32 table + (N, D) f32
-//      positions -> (N, L*2) f32 features, sample-major; D = 3 (NeRF, SDF)
-//      or 2 (the neural image).
+//   K1 blocked_grid_encode_fwd_kernel<3> (L, R, 128) f32 table + (N, 3) f32
+//      positions -> (N, L*2) f32 features, sample-major (NeRF, SDF); on 2D
+//      grids (the neural image) blocked_grid_encode_fwd_2d_kernel<false>,
+//      one block per tile of samples x all levels, lanes on neighbouring
+//      samples of one level.
 //      Replaces ngp_tpu/kernels/hashgrid_pallas.py:_fwd_kernel.
 //   K2 blocked_grid_encode_bwd_kernel<3> (N, 3) positions + (N, L*2) f32
 //      cotangent -> dTable (L, R, 128) f32 (zeroed by the caller); on 2D
@@ -19,8 +21,9 @@
 //      atomics).
 //      Replaces hashgrid_pallas.py:_bwd_frac_kernel and the einsum that
 //      chains its dfrac to dpos.
-//   K4 blocked_grid_encode_fwd_i8_kernel<D> (L, R, 128) int8 table + (L,)
-//      f32 per-level scales + positions -> (N, L*2) f32 features.
+//   K4 blocked_grid_encode_fwd_i8_kernel<3> (L, R, 128) int8 table + (L,)
+//      f32 per-level scales + positions -> (N, L*2) f32 features; on 2D
+//      grids blocked_grid_encode_fwd_2d_kernel<true>, K1's 2D mapping.
 //      Replaces hashgrid_pallas.py:_fwd_kernel_i8.
 //   K5 blocked_grid_encode_bwd_i8{_max,}_kernel<3> positions + cotangent ->
 //      dTable with the products w*g quantised to int8 per (level, sample
@@ -49,7 +52,11 @@
 //    quarter of K1's bytes per corner: a lookup's 8 corners lie in 2
 //    sectors of its row and come in 2-4 aligned line loads; the whole
 //    int8 table fits in L2, so its group is set by the sweep alone (K4's
-//    note below).
+//    note below). On 2D grids (the neural image: every level dense, 26.1
+//    MB of f32 rows reachable, 6.5 MB of int8 ones, both inside L2) the
+//    bytes bind neither: the L1 line lookups of the gathers do, and the 2D
+//    encode forward gives each warp 32 neighbouring samples of one level,
+//    whose coherent positions share rows (its note below).
 //  - K2: f32 vector reductions into L2. Coarse dense levels have few rows,
 //    so many samples add into the same addresses and serialise there; K2
 //    sums equal addresses inside the warp first (its note below). The sum
@@ -107,7 +114,7 @@ template <> struct Block<2> { static constexpr int kSide = 8, kStride = 7; };
 // and ray-ordered positions, 16 for K4 on uniform and grid-sweep
 // positions, 4 for K5 on uniform positions and a training step's, 16 for
 // K3 on ray-ordered positions and a camera-optimising step's (8 was 8 %
-// faster on uniform positions).
+// faster on uniform positions). On 2D grids only K3 takes its group.
 constexpr int kGroupFwd = 4;
 constexpr int kGroupBwd = 4;
 constexpr int kGroupPos = 16;
@@ -298,12 +305,9 @@ __device__ __forceinline__ float4 corner_pair(const float* __restrict__ rowp, in
 // kGroupFwd is 4 and not 16: 16 levels are 64 MiB, more than L2. What
 // bounds K1 is the random corner gathers: 4 sectors per lookup from L2,
 // and the L1 wavefronts of the gathers, which the 16-byte paired loads
-// below cut by about a third. In 2D a lookup has 4 corners on 2 lines
-// (y, y + 1) of one row, so 2 paired loads where x is even. The neural
-// image's table is stored as 16 MiB per level, but every level is dense
-// and reaches only its blocks^2 rows: 26.1 MB for all 16 levels, inside
-// L2, so the slice in flight does not bound the 2D group (the 3D one,
-// unswept).
+// below cut by about a third. 2D grids take the 2D encode forward below:
+// the neural image's table reaches only 26.1 MB of rows, inside L2, so
+// the slice in flight does not bound it, and its batches are coherent.
 template <int D>
 __global__ void blocked_grid_encode_fwd_kernel(
     const float* __restrict__ pos, const float* __restrict__ table,
@@ -408,9 +412,9 @@ template <> struct I8Lines<2> {
 // all levels of a sample in one group, each position read once) was the
 // fastest. As the 16-byte loads' gain suggests, what bounds K4 now is the
 // gathers' line lookups in L1 (a warp's load touches up to 32 lines), not
-// bytes. The neural image's int8 table is stored as 4 MiB per level, of
-// which its dense levels reach 6.5 MB in all; its group is the 3D one,
-// unswept.
+// bytes. On 2D grids the 2D encode forward below takes K4 too: with the
+// level-fastest lanes a warp's load there spanned 16 levels of 2 samples,
+// 16 or more lines.
 template <int D>
 __global__ void blocked_grid_encode_fwd_i8_kernel(
     const float* __restrict__ pos, const int8_t* __restrict__ table,
@@ -437,6 +441,185 @@ __global__ void blocked_grid_encode_fwd_i8_kernel(
     f1 += __fmul_rn((float)sbyte(b, 3), s) * w1;
   }
   reinterpret_cast<float2*>(out)[(size_t)q.i * n_levels + q.l] = make_float2(f0, f1);
+}
+
+// K1 and K4 on 2D grids (the neural image). Replace
+// hashgrid_pallas.py:_fwd_kernel and _fwd_kernel_i8 for D = 2.
+//
+// What bounds them on this card: not bytes (the image grid,
+// configs/image/base.json at a 2048^2 image, is dense at every level and
+// reaches 26.1 MB of f32 rows or 6.5 MB of int8 ones, inside the 50 MB
+// L2), but the L1 line lookups of the gathers: a warp's load is served a
+// line at a time. The pair kernels above give neighbouring lanes
+// neighbouring levels of one sample, so a load spans 4 (K1) or 16 (K4)
+// levels, each its own row. The image's batches are coherent: the
+// stratified training batch puts sample k in cell (k mod 512, k div 512),
+// and the eval chunks are row-major pixel centres. So here a block takes
+// a tile of 2^log2_samples consecutive samples x all levels, and each
+// warp one level of 32 consecutive samples at a time (lanes
+// sample-fastest): its 32 lookups fall in about one row on the coarse
+// levels and about 10 on the finest (32 samples of a stratified row span
+// ~64 cells there, blocks of 7). The level is warp-uniform, so its
+// parameters are one uniform read of the kernel's parameters (no shared
+// staging). The features pass through shared memory (one pad word per
+// 32, so a warp's 32 samples of one level land on 32 banks) and leave as
+// float4 stores, each tile's 8 * L * 2^log2_samples contiguous bytes in
+// whole 128-byte lines. A warp takes one 32-sample column of the tile
+// (its lanes' positions read once) and walks its levels warp / columns,
+// + warps / columns, ..., kFwd2dBatch at a time: the batch's gathers are
+// issued before any of its sums. Each lookup's arithmetic is the pair
+// kernels': the same lattice coordinate, corner loads, order of sums
+// and, for K4, __fmul_rn(q, scale) before the weight.
+//
+// Where x is odd K1's corners x and x + 1 straddle a 16-byte boundary:
+// with kFwd2dOddAligned they come as two aligned 16-byte loads and
+// selects, which every lane of a warp issues alike (an even x loads its
+// 16 bytes twice), instead of one 16-byte load where x is even and two
+// 8-byte loads where it is odd, a divergent pair of paths.
+constexpr bool kFwd2dOddAligned = false;
+// the levels of a warp's walk whose gathers are issued together, before
+// any of their sums
+constexpr int kFwd2dBatch = 1;
+// K4's int8 corners to f32: with kFwd2dBytePerm, byte k of a word w as
+// (2^23 + 128 + q) by one byte permute of w ^ 0x80808080 under the
+// exponent of 2^23, less 2^23 + 128 (both exact), instead of a sign
+// extension and an int-to-float conversion (I2F, a quarter-rate pipe)
+constexpr bool kFwd2dBytePerm = false;
+
+// K4's 2D lines: with kFwd2dI8Words, each line's corners come from the
+// two 4-byte words that hold them (words x / 2 and x / 2 + (x & 1): one
+// word twice where x is even) and one byte permute, instead of the whole
+// 16-byte line and a select of two of its words (I8Lines<2>)
+constexpr bool kFwd2dI8Words = true;
+
+__device__ __forceinline__ void i8_corners_2d(const int8_t* __restrict__ rowp, int base_lane,
+                                              uint32_t* v) {
+  if (!kFwd2dI8Words) {
+    I8Lines<2>::load(rowp, base_lane, v);
+    return;
+  }
+  // word x / 2 of the base corner's line (byte 16 * y); its x corner at byte 2x
+  const uint32_t* wp = reinterpret_cast<const uint32_t*>(rowp + (base_lane & ~3));
+  const int odd = (base_lane >> 1) & 1;   // x & 1
+  const uint32_t sel = odd ? 0x5432u : 0x3210u;
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+    v[k] = __byte_perm(__ldg(wp + 4 * k), __ldg(wp + 4 * k + odd), sel);
+}
+
+// Byte k of w as a signed int8 value, in f32 (exact either way)
+__device__ __forceinline__ float sbyte_f32(uint32_t w, int k) {
+  if (!kFwd2dBytePerm) return (float)sbyte(w, k);
+  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7440u | k)) - 8388736.f;
+}
+
+__device__ __forceinline__ float4 corner_pair_2d(const float* __restrict__ rowp, int c,
+                                                 bool paired) {
+  if (!kFwd2dOddAligned) return corner_pair<2>(rowp, c, paired);
+  const float* a = rowp + corner_offset<2>(c) - (paired ? 0 : 2);   // 16-byte aligned
+  const float4 lo = __ldg(reinterpret_cast<const float4*>(a));
+  const float4 hi = __ldg(reinterpret_cast<const float4*>(a + (paired ? 0 : 4)));
+  return paired ? lo : make_float4(lo.z, lo.w, hi.x, hi.y);
+}
+
+// The shared memory of a tile of 2^log2_samples samples x n_levels: 2
+// floats a (sample, level) and one pad word per 32 floats
+__host__ __device__ __forceinline__ int fwd_2d_smem_bytes(int log2_samples, int n_levels) {
+  const int floats = (2 * n_levels) << log2_samples;
+  return (floats + floats / 32) * 4;
+}
+
+template <bool kInt8>
+__global__ void blocked_grid_encode_fwd_2d_kernel(
+    const float* __restrict__ pos, const void* __restrict__ table,
+    const float* __restrict__ qscale, float* __restrict__ out,
+    const LevelParams lp, int n, int n_levels, int log2_rows,
+    int morton_hash, int log2_samples) {
+  extern __shared__ float tile_features[];
+  const int lane = (int)(threadIdx.x & 31), warp = (int)(threadIdx.x >> 5);
+  const int log2_cols = log2_samples - 5;    // 32-sample columns per level
+  const int first = (int)blockIdx.x << log2_samples;
+  const int width = 2 * n_levels;            // floats a sample
+  // this warp's column of 32 samples (the plan gives each column the same
+  // number of warps), its lane's sample and position, read once
+  const int s = ((warp & ((1 << log2_cols) - 1)) << 5) + lane;   // in the tile
+  const bool live = first + s < n;
+  float xy[2] = {0.f, 0.f};
+  if (live) {
+    xy[0] = __ldg(pos + 2 * (size_t)(first + s));
+    xy[1] = __ldg(pos + 2 * (size_t)(first + s) + 1);
+  }
+  const int level_step = (int)(blockDim.x >> 5) >> log2_cols;
+  for (int l0 = warp >> log2_cols; l0 < n_levels; l0 += kFwd2dBatch * level_step) {
+    // the batch's gathers first: each lookup's geometry and corner loads
+    Lookup<2> g[kFwd2dBatch];
+    float4 cf[kFwd2dBatch][2];     // K1: corners (0, 1) and (2, 3)
+    uint32_t cq[kFwd2dBatch][2];   // K4: corners c (x), c + 1 (x + 1) in [c / 2]
+#pragma unroll
+    for (int b = 0; b < kFwd2dBatch; ++b) {
+      const int l = l0 + b * level_step;
+      if (!live || l >= n_levels) continue;
+      g[b] = lookup_geometry<2>(xy, 0, level_of(lp, l), log2_rows, morton_hash);
+      const size_t row = ((size_t)l << log2_rows) + g[b].row;
+      if constexpr (kInt8) {
+        i8_corners_2d(static_cast<const int8_t*>(table) + row * kLanes, g[b].base_lane, cq[b]);
+      } else {
+        const float* rowp = static_cast<const float*>(table) + row * kLanes + g[b].base_lane;
+        const bool paired = (g[b].base_lane & 2) == 0;
+        cf[b][0] = corner_pair_2d(rowp, 0, paired);
+        cf[b][1] = corner_pair_2d(rowp, 2, paired);
+      }
+    }
+    // then their sums, into the tile's shared features
+#pragma unroll
+    for (int b = 0; b < kFwd2dBatch; ++b) {
+      const int l = l0 + b * level_step;
+      if (l >= n_levels) continue;
+      float f0 = 0.f, f1 = 0.f;
+      if (live) {
+        if constexpr (kInt8) {
+          const float sc = __ldg(qscale + l);
+#pragma unroll
+          for (int c = 0; c < 4; c += 2) {
+            // bytes q0(x) q1(x) q0(x+1) q1(x+1)
+            const uint32_t q = cq[b][c >> 1];
+            const float w0 = corner_weight(g[b], c), w1 = corner_weight(g[b], c + 1);
+            f0 += __fmul_rn(sbyte_f32(q, 0), sc) * w0;
+            f1 += __fmul_rn(sbyte_f32(q, 1), sc) * w0;
+            f0 += __fmul_rn(sbyte_f32(q, 2), sc) * w1;
+            f1 += __fmul_rn(sbyte_f32(q, 3), sc) * w1;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; c += 2) {
+            const float4 v = cf[b][c >> 1];
+            const float w0 = corner_weight(g[b], c), w1 = corner_weight(g[b], c + 1);
+            f0 += v.x * w0;
+            f1 += v.y * w0;
+            f0 += v.z * w1;
+            f1 += v.w * w1;
+          }
+        }
+      }
+      // float t of the tile at t + t / 32: f is even, so f + 1 is in f's 32
+      const int f = s * width + 2 * l;
+      tile_features[f + (f >> 5)] = f0;
+      tile_features[f + 1 + (f >> 5)] = f1;
+    }
+  }
+  __syncthreads();
+  // the tile's samples below n, 16 bytes a thread at a time (the tile
+  // starts 256-byte aligned), the last 8 bytes of an odd tail alone
+  const int floats = min(1 << log2_samples, n - first) * width;
+  float* o = out + (size_t)first * width;
+  for (int t = 4 * (int)threadIdx.x; t < floats; t += 4 * (int)blockDim.x) {
+    const float* src = tile_features + t + (t >> 5);
+    if (t + 4 <= floats) {
+      *reinterpret_cast<float4*>(o + t) = make_float4(src[0], src[1], src[2], src[3]);
+    } else {
+      for (int j = 0; j < floats - t; ++j) o[t + j] = src[j];
+    }
+  }
 }
 
 // A denormal flushed to zero, as the reductions into L2 flush what they
@@ -1089,6 +1272,39 @@ int encode_fwd_i8(const float* pos, const int8_t* table, const float* qscale,
   return (int)cudaGetLastError();
 }
 
+// the most shared memory a tile of the 2D encode forward may take: the
+// limit without an opt-in attribute
+constexpr int kFwd2dMaxSmemBytes = 48 << 10;
+
+// K1 (kInt8 false) and K4 on a 2D grid, as kernels/blocked_grid_cuda.py's
+// fwd_plan_2d plans it: tiles of 2^log2_samples samples (32 to 1024),
+// `threads` per block (whole warps, the same number on each 32-sample
+// column of the tile, at most one per level), exactly the blocks that
+// cover n samples, and the tile's features within kFwd2dMaxSmemBytes;
+// checked.
+template <bool kInt8>
+int encode_fwd_2d(const float* pos, const void* table, const float* qscale,
+                  float* out, const float* scales, const int* blocks_per_dim,
+                  const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+                  int morton_hash, int blocks, int threads, int log2_samples,
+                  void* stream) {
+  LevelParams lp = {};
+  const int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
+                             log2_rows);
+  if (rc != 0) return rc;
+  if (log2_samples < 5 || log2_samples > 10 || threads < 32 || threads > 1024 ||
+      threads % 32 != 0 || threads > (n_levels << log2_samples) ||
+      (threads >> 5) % (1 << (log2_samples - 5)) != 0 ||
+      (long long)blocks != (((long long)n + (1 << log2_samples) - 1) >> log2_samples))
+    return (int)cudaErrorInvalidValue;
+  const int smem = fwd_2d_smem_bytes(log2_samples, n_levels);
+  if (smem > kFwd2dMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  blocked_grid_encode_fwd_2d_kernel<kInt8><<<blocks, threads, smem,
+                                              static_cast<cudaStream_t>(stream)>>>(
+      pos, table, qscale, out, lp, n, n_levels, log2_rows, morton_hash, log2_samples);
+  return (int)cudaGetLastError();
+}
+
 // K3 for a D-dimensional grid: both passes on one stream
 template <int D>
 int encode_bwd_pos(const float* pos, const float* table, const float* grad,
@@ -1204,8 +1420,8 @@ int table_bwd_2d(const float* pos, const float* grad, float* dtable,
 }  // namespace
 
 // The level group of kernel 0 = K1, 1 = K2, 2 = K4, 3 = K5, 4 = K3, so
-// the wrapper can plan their launches; -1 for any other. 2D and 3D grids
-// take the same groups.
+// the wrapper can plan their launches; -1 for any other. 2D grids take
+// the same groups in K3; K1, K2, K4 and K5 take plans of their own there.
 extern "C" int ngp_blocked_grid_group(int kernel) {
   switch (kernel) {
     case 0: return kGroupFwd;
@@ -1224,7 +1440,7 @@ extern "C" int ngp_blocked_grid_group(int kernel) {
 // kernel takes the wrapper's launch plan (blocks and threads per level
 // group, log2 of the group's width). Each takes a 3D grid and positions
 // (N, 3); its _2d twin takes a 2D grid and positions (N, 2), with the same
-// arguments.
+// arguments (K1's and K4's with a plan of their own in the last three).
 #define NGP_ENCODE_FWD_ARGS                                                   \
     const float* pos, const float* table, float* out, const float* scales,    \
     const int* blocks_per_dim, const unsigned char* is_dense, int n,           \
@@ -1239,8 +1455,16 @@ extern "C" int ngp_blocked_grid_encode_fwd(NGP_ENCODE_FWD_ARGS) {
   return encode_fwd<3>(NGP_ENCODE_FWD_PASS);
 }
 
-extern "C" int ngp_blocked_grid_encode_fwd_2d(NGP_ENCODE_FWD_ARGS) {
-  return encode_fwd<2>(NGP_ENCODE_FWD_PASS);
+// K1 on a 2D grid, on fwd_plan_2d's plan: `blocks` tiles of
+// 2^log2_samples samples, `threads` per block
+extern "C" int ngp_blocked_grid_encode_fwd_2d(
+    const float* pos, const float* table, float* out, const float* scales,
+    const int* blocks_per_dim, const unsigned char* is_dense, int n,
+    int n_levels, int log2_rows, int morton_hash, int blocks, int threads,
+    int log2_samples, void* stream) {
+  return encode_fwd_2d<false>(pos, table, nullptr, out, scales, blocks_per_dim,
+                              is_dense, n, n_levels, log2_rows, morton_hash,
+                              blocks, threads, log2_samples, stream);
 }
 
 // K4
@@ -1257,8 +1481,16 @@ extern "C" int ngp_blocked_grid_encode_fwd_i8(NGP_ENCODE_FWD_I8_ARGS) {
   return encode_fwd_i8<3>(NGP_ENCODE_FWD_I8_PASS);
 }
 
-extern "C" int ngp_blocked_grid_encode_fwd_i8_2d(NGP_ENCODE_FWD_I8_ARGS) {
-  return encode_fwd_i8<2>(NGP_ENCODE_FWD_I8_PASS);
+// K4 on a 2D grid, on fwd_plan_2d's plan (K1's arguments and the level
+// scales)
+extern "C" int ngp_blocked_grid_encode_fwd_i8_2d(
+    const float* pos, const int8_t* table, const float* qscale, float* out,
+    const float* scales, const int* blocks_per_dim,
+    const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+    int morton_hash, int blocks, int threads, int log2_samples, void* stream) {
+  return encode_fwd_2d<true>(pos, table, qscale, out, scales, blocks_per_dim,
+                             is_dense, n, n_levels, log2_rows, morton_hash,
+                             blocks, threads, log2_samples, stream);
 }
 
 // K2: dtable must be zeroed by the caller; the kernel only adds into it.

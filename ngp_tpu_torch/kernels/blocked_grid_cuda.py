@@ -15,13 +15,16 @@ version.
 The kernels are compiled with ``nvcc`` into a shared library with a plain C
 interface on first use (into ``build/ngp_tpu_torch/`` at the repository
 root, named by a hash of the sources and flags, so an unchanged tree is
-not rebuilt) and loaded with ``ctypes``. Every kernel but the 2D table
-backward is launched as ``launch_plan`` sizes it: one thread per (sample,
-level), neighbouring threads on neighbouring levels of one sample, in
-level groups of each kernel's own width (``ngp_blocked_grid_group``). K2
-and K5 on 2D grids (the neural image) take ``table_bwd_plan_2d``'s plan:
-one block per chunk of samples and group of levels, a level's gradient
-summed in shared memory where its rows fit, else in L2.
+not rebuilt) and loaded with ``ctypes``. Every kernel on 3D grids, and K3
+on 2D ones, is launched as ``launch_plan`` sizes it: one thread per
+(sample, level), neighbouring threads on neighbouring levels of one
+sample, in level groups of each kernel's own width
+(``ngp_blocked_grid_group``). On 2D grids (the neural image) K1 and K4
+take ``fwd_plan_2d``'s plan: one block per tile of samples × all levels,
+neighbouring lanes on neighbouring samples of one level; K2 and K5 take
+``table_bwd_plan_2d``'s: one block per chunk of samples and group of
+levels, a level's gradient summed in shared memory where its rows fit,
+else in L2.
 """
 from __future__ import annotations
 
@@ -165,6 +168,11 @@ class LaunchPlan:
     def log2_width(self) -> int:
         return self.width.bit_length() - 1
 
+    @property
+    def launch_args(self) -> tuple:
+        """The plan as the entry points take it, before the stream."""
+        return self.blocks, self.threads, self.log2_width
+
     def pairs(self):
         """(sample, level) of every thread, each (groups, blocks·threads),
         in thread order; a sample ≥ n marks an idle thread."""
@@ -192,6 +200,131 @@ def launch_plan(n: int, n_levels: int, group: int,
     width = min(group, n_levels & -n_levels)
     return LaunchPlan(n, n_levels, width, threads,
                       -(-n * width // threads), n_levels // width)
+
+
+# The 2D encode forward's tile (samples a block, a power of two from 32)
+# and the levels each warp walks in turn (1: one warp per 32 samples of a
+# level; 0: all levels, one thread per sample), K1's and K4's: the fastest
+# on an H100 on an image step and on a frame's pixel centres of those
+# scripts/encode_group_sweep.py timed (PERF.md)
+FWD_2D_SAMPLES, FWD_2D_SAMPLES_I8 = 32, 32
+FWD_2D_LEVELS_PER_WARP, FWD_2D_LEVELS_PER_WARP_I8 = 4, 4
+# the most shared memory its tile may take (the entry point's limit)
+FWD_2D_SMEM = 48 << 10
+
+
+def fwd_2d_smem_bytes(samples: int, n_levels: int) -> int:
+    """The shared memory of a 2D encode-forward tile: 2 floats a (sample,
+    level) and one pad word per 32 floats."""
+    floats = 2 * n_levels * samples
+    return (floats + floats // 32) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan2D:
+    """A launch of the 2D encode forward (K1, K4): ``blocks`` blocks of
+    ``threads`` threads, block b taking the tile of samples
+    [b·samples, (b + 1)·samples) × all ``n_levels`` levels. The tile has
+    samples / 32 columns of 32 consecutive samples, and each column the
+    same number of warps, ``steps`` = threads / samples: warp w takes
+    column c = w mod (samples / 32), lane j its sample 32·c + j, and walks
+    the levels w // (samples / 32), + steps, .... The features pass
+    through ``smem_bytes`` of shared memory and leave as 16-byte stores,
+    thread t taking the tile's floats 4t, 4t + 4·threads, ...; samples ≥
+    n are neither looked up nor stored."""
+    n: int
+    n_levels: int
+    samples: int
+    threads: int
+    blocks: int
+
+    @property
+    def log2_samples(self) -> int:
+        return self.samples.bit_length() - 1
+
+    @property
+    def smem_bytes(self) -> int:
+        return fwd_2d_smem_bytes(self.samples, self.n_levels)
+
+    @property
+    def launch_args(self) -> tuple:
+        """The plan as the entry points take it, before the stream."""
+        return self.blocks, self.threads, self.log2_samples
+
+    @property
+    def steps(self) -> int:
+        """Warps per 32-sample column: the stride of a warp's walk."""
+        return self.threads // self.samples
+
+    def pairs(self):
+        """(sample, level, warp) of every lookup, each (blocks, lookups of
+        a tile, 32 lanes), in the kernel's own mapping (each warp's walk in
+        turn); a sample ≥ n marks a lane that looks nothing up."""
+        cols = self.samples // 32
+        warp = np.repeat(np.arange(self.threads // 32),
+                         [len(range(w // cols, self.n_levels, self.steps))
+                          for w in range(self.threads // 32)])
+        level = np.concatenate([np.arange(w // cols, self.n_levels,
+                                          self.steps)
+                                for w in range(self.threads // 32)])
+        sample = (np.arange(self.blocks)[:, None, None] * self.samples
+                  + (warp % cols * 32)[None, :, None] + np.arange(32))
+        shape = sample.shape
+        return (sample, np.broadcast_to(level[None, :, None], shape),
+                np.broadcast_to(warp[None, :, None], shape))
+
+    def stores(self):
+        """Every store of the features to the output, in the kernel's own
+        mapping: (block, byte offset, bytes) arrays, one 16-byte store per
+        4 floats of a tile and a 4-byte one per float of a tail shorter
+        than 4."""
+        width = 2 * self.n_levels
+        block, offset, size = [], [], []
+        for b in range(self.blocks):
+            floats = min(self.samples, self.n - b * self.samples) * width
+            whole = np.arange(0, floats - 3, 4)
+            tail = np.arange(4 * whole.size, floats)
+            base = b * self.samples * width
+            for t, nbytes in ((whole, 16), (tail, 4)):
+                block.append(np.full(t.size, b))
+                offset.append(4 * (base + t))
+                size.append(np.full(t.size, nbytes))
+        return tuple(np.concatenate(a) if a else np.zeros(0, np.int64)
+                     for a in (block, offset, size))
+
+
+def fwd_plan_2d(n: int, meta: BlockedGridMeta, int8: bool = False,
+                samples: Optional[int] = None,
+                levels_per_warp: Optional[int] = None) -> FwdPlan2D:
+    """The plan of K1 (``int8`` False) or K4 on the 2D grid ``meta`` for n
+    samples: tiles of ``samples`` samples (default FWD_2D_SAMPLES or
+    ``_I8``), each warp walking ``levels_per_warp`` levels (default
+    FWD_2D_LEVELS_PER_WARP or ``_I8``; 0 there: all) of a 32-sample
+    column, so a block
+    of samples / 32 · ⌈L / levels_per_warp⌉ warps. Raises ValueError for
+    what the kernel does not take: a grid that is not 2D or has more than
+    32 levels, a tile that is not a power of two in [32, 1024], a walk not
+    in [1, L], more than 1024 threads or a tile past FWD_2D_SMEM."""
+    n_levels = meta.n_levels
+    samples = samples or (FWD_2D_SAMPLES_I8 if int8 else FWD_2D_SAMPLES)
+    per_warp = levels_per_warp or (FWD_2D_LEVELS_PER_WARP_I8 if int8
+                                   else FWD_2D_LEVELS_PER_WARP) or n_levels
+    if meta.n_dims != 2 or not 1 <= n_levels <= 32:
+        raise ValueError(f"the 2D encode forward takes 2D grids of 1 to 32 "
+                         f"levels, got {meta.n_dims}D, {n_levels} levels")
+    if samples < 32 or samples & (samples - 1) or samples > 1024:
+        raise ValueError(f"2D encode-forward tile must be a power of two in "
+                         f"[32, 1024], got {samples}")
+    if not 1 <= per_warp <= n_levels:
+        raise ValueError(f"levels a warp walks must be in [1, {n_levels}], "
+                         f"got {per_warp}")
+    threads = samples // 32 * -(-n_levels // per_warp) * 32
+    if threads > 1024 or fwd_2d_smem_bytes(samples, n_levels) > FWD_2D_SMEM:
+        raise ValueError(f"a 2D encode-forward tile of {samples} samples × "
+                         f"{n_levels} levels takes {threads} threads and "
+                         f"{fwd_2d_smem_bytes(samples, n_levels)} bytes of "
+                         f"shared memory (limits 1024, {FWD_2D_SMEM})")
+    return FwdPlan2D(n, n_levels, samples, threads, -(-n // samples))
 
 
 # Where the 2D table backward sums a level's gradient (``where`` of
@@ -329,11 +462,11 @@ def kernel_plan(name: str, n: int, meta: BlockedGridMeta) -> LaunchPlan:
         GROUP_KERNELS.index(name)))
 
 
-def _planned_args(meta: BlockedGridMeta, pos: torch.Tensor, plan: LaunchPlan):
-    """``_level_args`` with a launch plan before the stream."""
+def _planned_args(meta: BlockedGridMeta, pos: torch.Tensor, plan):
+    """``_level_args`` with a launch plan (a ``LaunchPlan`` or a
+    ``FwdPlan2D``) before the stream."""
     args, arrays = _level_args(meta, pos)
-    return args[:-1] + [plan.blocks, plan.threads, plan.log2_width,
-                        args[-1]], arrays
+    return args[:-1] + [*plan.launch_args, args[-1]], arrays
 
 
 def check_warps_in_tiles(plan: LaunchPlan, tile: int):
@@ -361,6 +494,14 @@ def launch_name(kernel: str, meta: BlockedGridMeta) -> str:
     return kernel if meta.n_dims == 3 else f"{kernel}_2d"
 
 
+def _fwd_plan(kernel: str, n: int, meta: BlockedGridMeta):
+    """The plan of K1 or K4 (``kernel``): ``fwd_plan_2d``'s on 2D grids,
+    the kernel's level groups on 3D ones."""
+    if meta.n_dims == 2:
+        return fwd_plan_2d(n, meta, kernel == "blocked_grid_encode_fwd_i8")
+    return kernel_plan(kernel, n, meta)
+
+
 def launch_fwd(table: torch.Tensor, pos: torch.Tensor,
                meta: BlockedGridMeta) -> torch.Tensor:
     """K1: (L, R, 128) f32 table + (N, D) positions → (N, L·2), D = 3 or
@@ -373,7 +514,7 @@ def launch_fwd(table: torch.Tensor, pos: torch.Tensor,
         return out
     lib = build()
     name = launch_name("blocked_grid_encode_fwd", meta)
-    args, _keep = _planned_args(meta, pos, kernel_plan(
+    args, _keep = _planned_args(meta, pos, _fwd_plan(
         "blocked_grid_encode_fwd", pos.shape[0], meta))
     _run(name, getattr(lib, f"ngp_{name}"), pos.data_ptr(), table.data_ptr(),
          out.data_ptr(), *args)
@@ -395,7 +536,7 @@ def launch_fwd_i8(table_q: torch.Tensor, qscales: torch.Tensor,
         return out
     lib = build()
     name = launch_name("blocked_grid_encode_fwd_i8", meta)
-    args, _keep = _planned_args(meta, pos, kernel_plan(
+    args, _keep = _planned_args(meta, pos, _fwd_plan(
         "blocked_grid_encode_fwd_i8", pos.shape[0], meta))
     _run(name, getattr(lib, f"ngp_{name}"), pos.data_ptr(),
          table_q.data_ptr(), qscales.data_ptr(), out.data_ptr(), *args)

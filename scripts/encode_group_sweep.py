@@ -6,12 +6,13 @@ an earlier version of that source, on one NVIDIA GPU.
 
     python3 scripts/encode_group_sweep.py [--baseline OLD.cu]
         [--sources OTHER.cu ...] [--groups 4 8 16] [--kernels K3]
-        [--plans SMEM_KIB:CHUNK[:GROUP] ...]
+        [--plans SMEM_KIB:CHUNK[:GROUP] fwd:SAMPLES:WALK[:BUILD...] ...]
 
 For each G the source, and each of ``--sources`` (other versions of it with
 the same entry points), is copied with every level group (``kGroupFwd``,
-``kGroupBwd``, ``kGroupPos``, ``kGroupI8``, ``kGroupI8Bwd``) set to G and
-built into ``build/ngp_tpu_torch/sweep/``, all builds at once.
+``kGroupBwd``, ``kGroupPos``, ``kGroupI8``, ``kGroupI8Bwd``) set to G (G
+0: each source's own groups) and built into
+``build/ngp_tpu_torch/sweep/``, all builds at once.
 ``--baseline`` builds an earlier version of the source whose K1, K2, K4
 and K5 take a launch plan and whose K3 does not (one thread per sample
 over the levels, a grid of N/256 blocks): the parent of the K3 redesign,
@@ -19,10 +20,23 @@ commit 1f1d465. A version in ``--sources`` without the 2D table
 backward's entry point (``ngp_blocked_grid_table_bwd_2d``: the sources
 before its redesign) runs its 2D K2 and K5 as they were launched then:
 one thread per (sample, level) in its level groups, K5 in two passes
-over a zeroed tile_max. ``--plans`` times the tree's 2D table backward
-under other plans too (``blocked_grid_cuda.TABLE_BWD_SMEM`` in KiB,
-``TABLE_BWD_CHUNK``, ``TABLE_BWD_GROUP`` and ``_I8``: levels a block),
-on the first G's library.
+over a zeroed tile_max; one without the 2D encode forward
+(``blocked_grid_encode_fwd_2d_kernel``) runs its 2D K1 and K4 so too.
+``--plans`` times the tree's 2D table backward under other plans too
+(``blocked_grid_cuda.TABLE_BWD_SMEM`` in KiB, ``TABLE_BWD_CHUNK``,
+``TABLE_BWD_GROUP`` and ``_I8``: levels a block), and, for specs
+``fwd:SAMPLES:WALK[:BUILD...]``, its 2D encode forward under other plans
+(``FWD_2D_SAMPLES`` and ``FWD_2D_LEVELS_PER_WARP``, K1's and K4's: the
+tile and the levels each warp walks, 0 for all of them: one thread a
+sample), on the first G's library or, with suffixes, on a build of the
+source with ``kFwd2dOddAligned`` set (``odd``: K1's odd-x corners as two
+aligned 16-byte loads), ``kFwd2dBytePerm`` set (``prmt``: K4's int8
+corners to f32 by a byte permute), ``kFwd2dI8Words`` cleared (``i8l``:
+K4's corners from whole 16-byte lines and a select of two words) or
+``kFwd2dBatch`` N (``b2``, ``b4``, ``b8``: the levels of a warp's walk
+whose gathers are issued together). Each library's SASS is summarised where ``cuobjdump`` is found:
+K2's, K3's and K5's reductions and atomics, and the 2D encode forward's
+instructions (all, and its loads, stores, conversions and permutes).
 
 Inputs, at the full NeRF width: K1 at 2^20 uniform and ray-ordered
 positions, K2 and K3 at 2^18 of each (``chip_smoke.ray_ordered_inputs``,
@@ -41,6 +55,14 @@ the positions and cotangent of one training step of a trainer with
 2D K5 on one step of such a trainer under ``encode_int8="full"`` (its
 tile, ``eff_tile``) and at 2^18 uniform positions in tiles of 2048 (the
 steps' inputs as ``chip_smoke.capture_image_step`` takes them).
+``K1-2d`` and ``K4-2d``: the 2D K1 on one step of the f32 ImageTrainer
+(its stratified batch and trained table), the 2D K4 on one step of the
+``full`` one (its table quantised as the step quantises it), each also
+on the first 2^18 pixel centres of a 2048² frame
+(``chip_smoke.pixel_chunk``: an eval chunk, row-major) and at 2^20
+uniform positions; every case also prints each variant's max |Δ| to the
+output of the first ``--sources`` version (or of the tree's, without
+one).
 Every library is first checked against the plain versions with
 chip_smoke.py's tolerances (K3 also against a second launch of itself:
 bit-equal). Then each case is timed in turns (baseline, each variant, each
@@ -88,12 +110,26 @@ SWEEP_DIR = bgc.BUILD_DIR / "sweep"
 ITERS = 20
 GROUP_CONSTANTS = ("kGroupFwd", "kGroupBwd", "kGroupPos", "kGroupI8",
                    "kGroupI8Bwd")
+# the 2D encode forward's compile-time variants: a plan spec's suffix ->
+# (the source's line, the variant's)
+FWD_2D_BUILDS = {
+    "odd": ("constexpr bool kFwd2dOddAligned = false;",
+            "constexpr bool kFwd2dOddAligned = true;"),
+    "prmt": ("constexpr bool kFwd2dBytePerm = false;",
+             "constexpr bool kFwd2dBytePerm = true;"),
+    "i8l": ("constexpr bool kFwd2dI8Words = true;",
+            "constexpr bool kFwd2dI8Words = false;"),
+    **{f"b{b}": ("constexpr int kFwd2dBatch = 1;",
+                 f"constexpr int kFwd2dBatch = {b};") for b in (2, 4, 8)}}
+FWD_2D_KERNEL = "blocked_grid_encode_fwd_2d_kernel"
 TRAIN_VIEWS, TRAIN_RES, TRAIN_STEPS = 24, 128, 512
 IMAGE_STEPS = 256
 
 
 def _with_groups(src: str, group: int) -> str:
-    """``src`` with every level group set to ``group``."""
+    """``src`` with every level group set to ``group`` (0: as it is)."""
+    if group == 0:
+        return src
     for k in GROUP_CONSTANTS:
         src, n = re.subn(rf"constexpr int {k} = \d+;",
                          f"constexpr int {k} = {group};", src)
@@ -119,9 +155,15 @@ def _build_all(sources: dict) -> dict:
     return {name: out for name, out, _ in built}
 
 
-def _reductions(lib_path: Path) -> str:
-    """The reduction and atomic instructions of K2's, K3's and K5's
-    SASS (the 2D table backward's shared-memory ones among them)."""
+# the 2D encode forward's instructions _sass counts by opcode
+FWD_2D_OPS = ("LDG", "LDC", "STS", "LDS", "STG", "I2F", "PRMT", "FFMA",
+              "FMUL", "FADD")
+
+
+def _sass(lib_path: Path) -> str:
+    """The reduction and atomic instructions of K2's, K3's and K5's SASS
+    (the 2D table backward's shared-memory ones among them), and the 2D
+    encode forward's instruction count with those of FWD_2D_OPS."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return "cuobjdump not found"
@@ -131,6 +173,8 @@ def _reductions(lib_path: Path) -> str:
     for ln in sass.splitlines():
         if "Function :" in ln:
             fn = next((k for k, name in (
+                ("K1 2D", f"{FWD_2D_KERNEL}ILb0"),
+                ("K4 2D", f"{FWD_2D_KERNEL}ILb1"),
                 ("K2 2D", "blocked_grid_encode_bwd_2d_kernelILb0"),
                 ("K5 2D", "blocked_grid_encode_bwd_2d_kernelILb1"),
                 ("K2", "blocked_grid_encode_bwd_kernel"),
@@ -139,9 +183,17 @@ def _reductions(lib_path: Path) -> str:
                 ("K5 pass 2", "blocked_grid_encode_bwd_i8_kernel"))
                 if name in ln), None)
         elif fn:
-            m = re.search(r"\b((?:RED|ATOM)\S*)", ln)
-            if m:
-                key = f"{fn} {m.group(1)}"
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                          r"([A-Z][A-Z0-9]*)(\S*)", ln)
+            if not m:
+                continue
+            op = m.group(1)
+            if fn.endswith("2D") and fn[:2] in ("K1", "K4"):
+                keys = [f"{fn} all"] + [f"{fn} {op}"] * (op in FWD_2D_OPS)
+            else:
+                keys = [f"{fn} {op}{m.group(2)}"] * op.startswith(("RED",
+                                                                   "ATOM"))
+            for key in keys:
                 ops[key] = ops.get(key, 0) + 1
     return ", ".join(f"{k} x{v}" for k, v in sorted(ops.items())) or "none"
 
@@ -170,14 +222,16 @@ class Baseline:
 
 
 class Parent2D:
-    """A library of sources from before the 2D table backward's redesign:
-    its 2D K2 and K5 launched as its wrappers launched them (pairs in the
+    """A library of sources from before the 2D table backward's redesign
+    (``old_bwd``) or the 2D encode forward's (``old_fwd``): its 2D K2 and
+    K5, or K1 and K4, launched as its wrappers launched them (pairs in the
     library's level groups; K5's two passes over a zeroed tile_max), the
     rest through the current wrappers."""
 
-    def __init__(self, lib):
-        self.lib = lib
+    def __init__(self, lib, old_bwd: bool, old_fwd: bool):
+        self.lib, self.old_bwd, self.old_fwd = lib, old_bwd, old_fwd
         self.bwd, self.bwd_i8 = bgc.launch_bwd, bgc.launch_bwd_i8
+        self.fwd, self.fwd_i8 = bgc.launch_fwd, bgc.launch_fwd_i8
 
     def _run(self, kernel: str, pos, meta, *ptrs, tile=None):
         n, lib = pos.shape[0], self.lib
@@ -211,6 +265,30 @@ class Parent2D:
                   tile_max.data_ptr(), dtable.data_ptr(), tile=tile)
         return dtable
 
+    def launch_fwd(self, table, pos, meta):
+        if meta.n_dims != 2:
+            return self.fwd(table, pos, meta)
+        out = torch.empty((pos.shape[0], 2 * meta.n_levels),
+                          device=pos.device)
+        self._run("blocked_grid_encode_fwd", pos, meta, table.data_ptr(),
+                  out.data_ptr())
+        return out
+
+    def launch_fwd_i8(self, tq, qs, pos, meta):
+        if meta.n_dims != 2:
+            return self.fwd_i8(tq, qs, pos, meta)
+        out = torch.empty((pos.shape[0], 2 * meta.n_levels),
+                          device=pos.device)
+        self._run("blocked_grid_encode_fwd_i8", pos, meta, tq.data_ptr(),
+                  qs.data_ptr(), out.data_ptr())
+        return out
+
+    def patches(self) -> dict:
+        """The wrappers this library replaces."""
+        names = (["launch_bwd", "launch_bwd_i8"] if self.old_bwd else []) \
+            + (["launch_fwd", "launch_fwd_i8"] if self.old_fwd else [])
+        return {k: getattr(self, k) for k in names}
+
 
 @contextmanager
 def active(variant):
@@ -223,9 +301,7 @@ def active(variant):
             yield
     elif isinstance(variant, Parent2D):
         with mock.patch.object(bgc, "_lib", variant.lib), \
-                mock.patch.object(bgc, "launch_bwd", variant.launch_bwd), \
-                mock.patch.object(bgc, "launch_bwd_i8",
-                                  variant.launch_bwd_i8):
+                mock.patch.multiple(bgc, **variant.patches()):
             yield
     else:
         lib, settings = variant
@@ -234,8 +310,33 @@ def active(variant):
             yield
 
 
+def _build_name(first: str, spec: str) -> str:
+    """The library a plan spec runs on: ``first``'s, or for a 2D
+    encode-forward spec with build suffixes (``fwd:S:W:odd:b4``) a build
+    of its own."""
+    suffixes = spec.split(":")[3:] if spec.startswith("fwd:") else []
+    return "-".join([first] + suffixes)
+
+
+def _fwd_2d_build(src: str, spec: str) -> str:
+    """``src`` with the compile-time variants of a 2D encode-forward plan
+    spec's suffixes (``FWD_2D_BUILDS``)."""
+    for suffix in spec.split(":")[3:]:
+        old, new = FWD_2D_BUILDS[suffix]
+        if src.count(old) != 1:
+            raise RuntimeError(f"{old} not found once in the source")
+        src = src.replace(old, new)
+    return src
+
+
 def _plan_settings(spec: str) -> dict:
-    """``SMEM_KIB:CHUNK[:GROUP]`` as blocked_grid_cuda's settings."""
+    """``SMEM_KIB:CHUNK[:GROUP]`` or ``fwd:SAMPLES:WALK[:odd]`` as
+    blocked_grid_cuda's settings."""
+    if spec.startswith("fwd:"):
+        samples, walk = (int(v) for v in spec.split(":")[1:3])
+        return {"FWD_2D_SAMPLES": samples, "FWD_2D_SAMPLES_I8": samples,
+                "FWD_2D_LEVELS_PER_WARP": walk,
+                "FWD_2D_LEVELS_PER_WARP_I8": walk}
     smem, chunk, *group = (int(v) for v in spec.split(":"))
     return {"TABLE_BWD_SMEM": smem << 10, "TABLE_BWD_CHUNK": chunk,
             "TABLE_BWD_GROUP": group[0] if group else bgc.TABLE_BWD_GROUP,
@@ -243,10 +344,16 @@ def _plan_settings(spec: str) -> dict:
             else bgc.TABLE_BWD_GROUP_I8}
 
 
+_image_steps = {}
+
+
 def image_step_inputs(dev, mode: str):
     """An ImageTrainer (configs/image/base.json, encode_int8 ``mode``) on
-    chip_smoke.py's seeded image, trained IMAGE_STEPS steps, and the
-    positions and cotangent its encoding gets in one more step."""
+    chip_smoke.py's seeded image, trained IMAGE_STEPS steps: its grid, the
+    positions and cotangent its encoding gets in one more step, and its
+    trained table; one trainer per mode."""
+    if mode in _image_steps:
+        return _image_steps[mode]
     from ngp_tpu_torch.common import srgb_to_linear_np
     from ngp_tpu_torch.config import load_network_config
     from ngp_tpu_torch.train.image import ImageTrainer
@@ -258,7 +365,9 @@ def image_step_inputs(dev, mode: str):
     print(f"sweep: image trainer ({mode or 'f32'}) after "
           f"{tr.training_step} steps, loss {tr.last_loss:.4e}; one step's "
           f"encode inputs: {pos.shape[0]} samples")
-    return tr.model.encoding.meta, pos, cot
+    _image_steps[mode] = (tr.model.encoding.meta, pos, cot,
+                          tr.params["encoding.table"].detach())
+    return _image_steps[mode]
 
 
 def step_inputs(dev, launch: str, **options):
@@ -353,9 +462,12 @@ def main() -> int:
     ap.add_argument("--groups", type=int, nargs="+",
                     default=list(bgc.SWEPT_GROUPS))
     ap.add_argument("--kernels", nargs="+", default=["K3"],
-                    choices=["K1", "K2", "K3", "K4", "K5", "K2-2d", "K5-2d"])
+                    choices=["K1", "K2", "K3", "K4", "K5", "K1-2d", "K2-2d",
+                             "K4-2d", "K5-2d"])
     ap.add_argument("--plans", nargs="*", default=[],
-                    help="2D table-backward plans, SMEM_KIB:CHUNK[:GROUP]")
+                    help="2D table-backward plans, SMEM_KIB:CHUNK[:GROUP], "
+                         "and 2D encode-forward ones, "
+                         "fwd:SAMPLES:WALK[:BUILD...]")
     args = ap.parse_args()
     cs.phase_device()
     dev = torch.device("cuda", 0)
@@ -369,22 +481,32 @@ def main() -> int:
         src = path.read_text()
         for g in args.groups:
             texts[f"{label}G{g}"] = _with_groups(src, g)
+    first = f"G{args.groups[0]}"
+    builds = {spec: _build_name(first, spec) for spec in args.plans}
+    for spec, name in builds.items():
+        if name != first:
+            texts[name] = _fwd_2d_build(texts[first], spec)
     with ThreadPoolExecutor(1) as ex:
         own = ex.submit(bgc.build)     # the tree's library, for the sweep
         libs = _build_all(texts)
         own.result()
     variants = {}
     for name, path in libs.items():
-        lib = None if name == "baseline" else bgc.load_library(path)
-        variants[name] = (Baseline(path) if lib is None else
-                          (lib, {}) if hasattr(lib, "ngp_blocked_grid_table_"
-                                               "bwd_2d") else Parent2D(lib))
-    first = f"G{args.groups[0]}"
+        if name == "baseline":
+            variants[name] = Baseline(path)
+            continue
+        lib = bgc.load_library(path)
+        old_bwd = not hasattr(lib, "ngp_blocked_grid_table_bwd_2d")
+        old_fwd = FWD_2D_KERNEL not in texts[name]
+        variants[name] = (Parent2D(lib, old_bwd, old_fwd)
+                          if old_bwd or old_fwd else (lib, {}))
     for spec in args.plans:
-        variants[f"{first} plan {spec}"] = (variants[first][0],
+        variants[f"{first} plan {spec}"] = (variants[builds[spec]][0],
                                             _plan_settings(spec))
+    for name in set(builds.values()) - {first}:
+        variants.pop(name)
     for name, path in libs.items():
-        print(f"sweep: {name}: reductions in SASS: {_reductions(path)}")
+        print(f"sweep: {name}: SASS: {_sass(path)}")
 
     meta, table, pos_u, _ = cs._full_width_inputs(dev, 1 << 20)
     _, _, pos_u2, _ = cs._full_width_inputs(dev, 1 << 18)
@@ -455,8 +577,32 @@ def main() -> int:
                 lambda p=p, c=c, m=m, t=t: encode_backward_reference_i8(
                     p, c, m, t),
                 "blocked_grid_encode_bwd_i8", p, m)
+    if {"K1-2d", "K4-2d"} & set(args.kernels):
+        pix = cs.pixel_chunk(dev)
+        uni_f = torch.rand((1 << 20, 2), generator=torch.Generator(
+            device=dev).manual_seed(cs.SEED + 11), device=dev)
+    if "K1-2d" in args.kernels:
+        meta1, p1, _, t1 = image_step_inputs(dev, "")
+        for what, p in (("image step", p1), ("pixel chunk", pix),
+                        ("uniform 2^20", uni_f)):
+            cases[f"K1-2d {what}"] = (
+                lambda p=p, what=what: cs.check_k1(t1, p, meta1, what),
+                lambda p=p: bgc.launch_fwd(t1, p, meta1),
+                lambda p=p: encode_reference(t1, p, meta1),
+                "blocked_grid_encode_fwd_2d", p, meta1)
+    if "K4-2d" in args.kernels:
+        meta4, p4, _, t4 = image_step_inputs(dev, "full")
+        with torch.no_grad():
+            tq4, qs4 = quantize_table_i8(t4)
+        for what, p in (("full image step", p4), ("pixel chunk", pix),
+                        ("uniform 2^20", uni_f)):
+            cases[f"K4-2d {what}"] = (
+                lambda p=p, what=what: cs.check_k4(tq4, qs4, p, meta4, what),
+                lambda p=p: bgc.launch_fwd_i8(tq4, qs4, p, meta4),
+                lambda p=p: encode_reference_i8(tq4, qs4, p, meta4),
+                "blocked_grid_encode_fwd_i8_2d", p, meta4)
     if "K2-2d" in args.kernels:
-        meta2, p2, c2 = image_step_inputs(dev, "")
+        meta2, p2, c2, _ = image_step_inputs(dev, "")
         uni = torch.rand((1 << 20, 2), generator=torch.Generator(
             device=dev).manual_seed(cs.SEED + 6), device=dev)
         cu = cs._cotangent(dev, meta2, 1 << 20, cs.SEED + 7)
@@ -469,7 +615,7 @@ def main() -> int:
                 lambda p=p, c=c: encode_backward_reference(p, c, meta2),
                 "blocked_grid_encode_bwd_2d", p, meta2)
     if "K5-2d" in args.kernels:
-        meta5, p5, c5 = image_step_inputs(dev, "full")
+        meta5, p5, c5, _ = image_step_inputs(dev, "full")
         u5 = torch.rand((1 << 18, 2), generator=torch.Generator(
             device=dev).manual_seed(cs.SEED + 8), device=dev)
         cu5 = cs._cotangent(dev, meta5, 1 << 18, cs.SEED + 9)
@@ -487,6 +633,20 @@ def main() -> int:
             print(f"sweep: checking {name}")
             for check, *_ in cases.values():
                 check()
+    # each variant's output against the first --sources version's
+    ref_name = next((n for n in variants if n.endswith(f"-{first}")), first)
+    with torch.no_grad():
+        for case, (_, fn, *_) in cases.items():
+            with active(variants[ref_name]):
+                ref = fn().clone()
+            diffs = []
+            for name, v in variants.items():
+                with active(v):
+                    err = float((fn() - ref).abs().max())
+                diffs.append(f"{name} {err:.3e}")
+            print(f"sweep: {case}: max |output - {ref_name}'s|: "
+                  + "; ".join(diffs))
+            del ref
 
     order = list(variants.items())
     times = {case: {n: [] for n in variants} for case in cases}

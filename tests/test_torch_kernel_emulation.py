@@ -16,7 +16,12 @@ byte picks from 2D and 3D lines), weights, warp sums and stores on 2D and
 3D grids, and every kernel at 7 and 6 levels, whose plans take level
 groups of width 1 and 2. The 2D table backward (K2, K5) runs on an
 all-dense grid whose coarse levels are summed in shared memory and whose
-finer ones in L2, on stratified and on uniform positions.
+finer ones in L2, on stratified and on uniform positions; the 2D encode
+forward (K1, K4) at 16, 7 and 6 levels on the image path's three inputs
+(a stratified batch, a chunk of row-major pixel centres, uniform
+positions with the edge positions), under its default plan and two
+others, each with a ragged last tile, into outputs filled with NaN so
+that a (sample, level) it does not store shows.
 
 What a host cannot show is the card's own: the order in which a warp's
 lanes run, f32 atomics' flush of denormals and the compiler's FMAs stay
@@ -388,11 +393,14 @@ def test_emulated_kernels_at_odd_level_counts(emulated, meta_kw):
     table, pos, cot = _inputs(meta, 4, n=600)
     width = 1 if meta.n_levels == 7 else 2
     for name in bgc.GROUP_KERNELS:
-        if meta.n_dims == 2 and name in ("blocked_grid_encode_bwd",
-                                         "blocked_grid_encode_bwd_i8"):
-            continue     # table_bwd_plan_2d's plan: one level per block
+        if meta.n_dims == 2 and name != "blocked_grid_encode_bwd_pos":
+            continue     # fwd_plan_2d's and table_bwd_plan_2d's plans
         plan = bgc.kernel_plan(name, pos.shape[0], meta)
         assert plan.width == width and plan.groups == meta.n_levels // width
+    if meta.n_dims == 2:
+        for int8 in (False, True):
+            plan = bgc.fwd_plan_2d(pos.shape[0], meta, int8)
+            assert (plan.samples, plan.threads) == (32, 64)   # 2 walks
     before = {k: _count(k, meta) for k in bgc.GROUP_KERNELS}
     got = bgc.launch_fwd(table, pos, meta)
     assert float((got - tbg.encode_reference(table, pos, meta)).abs().max()
@@ -499,3 +507,120 @@ def test_emulated_2d_table_backward_matches_plain(emulated, kind, kernel,
             <= KERNEL_I8_TOL
         assert bool((got[mag == 0] == 0).all()) and bool((mag > 0).any())
     assert _count(name, meta) == before + 1
+
+
+@pytest.fixture
+def nan_outputs(monkeypatch):
+    """``torch.empty`` filling float tensors with NaN, so a feature the
+    kernel does not store shows, whatever memory the output reuses."""
+    empty = torch.empty
+
+    def filled(*args, **kwargs):
+        t = empty(*args, **kwargs)
+        return t.fill_(float("nan")) if t.is_floating_point() else t
+    monkeypatch.setattr(torch, "empty", filled)
+
+
+# the 2D encode forward's grids: the image grid's shape at a small size
+# (dense coarse levels of 9 to 2048 rows, hashed fine ones) at 16 levels,
+# and at 7 and 6 levels
+FWD_2D_METAS = {16: dict(n_dims=2, n_levels=16, base_resolution=16,
+                         per_level_scale=1.3, log2_rows=11),
+                7: dict(n_dims=2, n_levels=7, base_resolution=16,
+                        per_level_scale=2.0, log2_rows=11),
+                6: dict(n_dims=2, n_levels=6, base_resolution=16,
+                        per_level_scale=1.5, log2_rows=11)}
+# (samples a tile, levels a warp walks; None: all): the default, four
+# levels a warp, and one thread per sample
+FWD_2D_PLANS = [(32, 1), (64, 4), (128, None)]
+
+
+def _fwd_2d_positions(kind: str, meta) -> torch.Tensor:
+    """The image path's inputs at a small size, none a whole number of
+    tiles: a stratified batch (64 × 64 strata, as the image step's) less
+    its last 5 samples, the first 3000 row-major pixel centres of a 96²
+    frame (an eval chunk's order), or 4096 uniform positions with the edge
+    positions (corners 0 and 1, points up to 0.1 outside the square, every
+    level's lattice vertices)."""
+    from ngp_tpu_torch.train.image import pixel_centres
+    if kind == "stratified":
+        return sample_positions("stratified", torch.Generator().manual_seed(7),
+                                1 << 12, 0)[:-5].contiguous()
+    if kind == "pixels":
+        return pixel_centres(96, 96)[:3000].contiguous()
+    rng = np.random.default_rng(7)
+    pts = [rng.random((1 << 12, 2), dtype=np.float32),
+           rng.random((64, 2), dtype=np.float32) * 1.2 - 0.1,
+           np.zeros((1, 2), np.float32), np.ones((1, 2), np.float32)]
+    for sc in meta.level_scales:
+        m = rng.integers(1, int(sc) + 1, (32, 2)).astype(np.float32)
+        pts.append(np.clip((m - np.float32(0.5)) / np.float32(sc), 0, 1))
+    return torch.from_numpy(np.concatenate(pts).astype(np.float32))
+
+
+@pytest.mark.parametrize("kind", ["stratified", "pixels", "uniform+edge"])
+@pytest.mark.parametrize("n_levels", [16, 7, 6])
+def test_emulated_2d_encode_forward_matches_plain(emulated, nan_outputs,
+                                                  monkeypatch, n_levels,
+                                                  kind):
+    """The 2D K1 and K4 (one kernel, ``fwd_plan_2d``'s plan) against their
+    plain versions within KERNEL_TOL, under a warp per 32 samples of a
+    level, tiles of 64 with four levels a warp (the default's walk), and
+    tiles of 128 with one thread a sample; every input ends in a ragged
+    tile, and each launch counts once under its own launch name."""
+    meta = tbg.BlockedGridMeta(**FWD_2D_METAS[n_levels])
+    pos = _fwd_2d_positions(kind, meta)
+    assert pos.shape[0] % 32 != 0
+    rng = np.random.default_rng(n_levels)
+    table = torch.from_numpy((rng.standard_normal(
+        (meta.n_levels, meta.rows, 128)) * 0.5).astype(np.float32))
+    tq, qs = tbg.quantize_table_i8(table)
+    ref = tbg.encode_reference(table, pos, meta)
+    ref8 = tbg.encode_reference_i8(tq, qs, pos, meta)
+    assert float(ref8.abs().max()) > 0.1
+    for samples, per_warp in FWD_2D_PLANS:
+        for i8 in ("", "_I8"):
+            monkeypatch.setattr(bgc, f"FWD_2D_SAMPLES{i8}", samples)
+            monkeypatch.setattr(bgc, f"FWD_2D_LEVELS_PER_WARP{i8}",
+                                per_warp or n_levels)
+        k1, k4 = (_count(k, meta) for k in ("blocked_grid_encode_fwd",
+                                            "blocked_grid_encode_fwd_i8"))
+        got = bgc.launch_fwd(table, pos, meta)
+        assert float((got - ref).abs().max()) <= KERNEL_TOL, (samples, kind)
+        got = bgc.launch_fwd_i8(tq, qs, pos, meta)
+        assert float((got - ref8).abs().max()) <= KERNEL_TOL, (samples, kind)
+        assert _count("blocked_grid_encode_fwd", meta) == k1 + 1
+        assert _count("blocked_grid_encode_fwd_i8", meta) == k4 + 1
+
+
+def test_emulated_2d_encode_forward_refuses_other_plans(emulated):
+    """The 2D encode forward's entry points launch only what
+    ``fwd_plan_2d`` could plan: a block count that does not cover n
+    samples exactly, a tile outside [32, 1024], threads that are not whole
+    warps, exceed the tile's columns × levels or give its columns unequal
+    warps, and a tile past the shared-memory limit are refused before any
+    launch (a nonzero return); the plan itself launches (0)."""
+    meta = tbg.BlockedGridMeta(**FWD_2D_METAS[16])
+    table, pos, _ = _inputs(meta, 8, n=200)
+    out = torch.full((pos.shape[0], 32), float("nan"))
+    plan = bgc.fwd_plan_2d(pos.shape[0], meta)
+    lib = emulated
+
+    def run(blocks, threads, log2_samples):
+        args, _keep = bgc._level_args(meta, pos)
+        return lib.ngp_blocked_grid_encode_fwd_2d(
+            pos.data_ptr(), table.data_ptr(), out.data_ptr(), *args[:-1],
+            blocks, threads, log2_samples, args[-1])
+    for bad in ((plan.blocks + 1, plan.threads, plan.log2_samples),
+                (plan.blocks - 1, plan.threads, plan.log2_samples),
+                (-(-pos.shape[0] // 16), 512, 4),
+                (-(-pos.shape[0] // 2048), 512, 11),
+                (plan.blocks, 48, plan.log2_samples),
+                (plan.blocks, 544, plan.log2_samples),
+                (-(-pos.shape[0] // 64), 96, 6),       # 3 warps, 2 columns
+                (-(-pos.shape[0] // 512), 1024, 9)):   # 264 KiB a tile
+        assert run(*bad) != 0, bad
+    assert bool(out.isnan().all())
+    assert run(*plan.launch_args) == 0
+    assert float((out - tbg.encode_reference(table, pos, meta)).abs().max()
+                 ) <= KERNEL_TOL
