@@ -356,16 +356,14 @@ def phase_device() -> dict:
 
 
 def kernel_registers(build_log: str) -> str:
-    """Each kernel's spills, stack frame (where not 0) and registers, from
-    nvcc's ``-Xptxas -v`` output (entry function, then spills, then
-    registers)."""
+    """Each kernel's spills and registers, from nvcc's ``-Xptxas -v``
+    output (entry function, then spills, then registers)."""
     info = []
     for ln in build_log.splitlines():
         name = re.search(r"blocked_grid_encode_(?:fwd|bwd)\w*?kernel"
                          r"(?:IL([ib])(\d)E)?", ln)
         regs = re.search(r"Used (\d+) registers", ln)
         spill = re.search(r"(\d+) bytes spill stores", ln)
-        stack = re.search(r"(\d+) bytes stack frame", ln)
         if "entry function" in ln and name:
             # <D>, or <int8> / <f32> for the 2D table backward's bool
             dims = ("" if not name.group(1) else f"<{name.group(2)}>"
@@ -375,8 +373,6 @@ def kernel_registers(build_log: str) -> str:
         elif info and (regs or spill):
             info[-1] += (f" {regs.group(1)} registers" if regs
                          else f" {spill.group(1)} B spilled,")
-            if stack and int(stack.group(1)):
-                info[-1] += f" {stack.group(1)} B stack,"
     return " | ".join(info)
 
 
@@ -559,20 +555,19 @@ def time_k1(table, p, meta, err: float, what: str) -> dict:
     name = bgc.launch_name("blocked_grid_encode_fwd", meta)
     entry = _kernel_entry(name, 85, err, ks, ps, n, meta,
                           kernel_bytes(name, meta, p))
-    plan = fwd_plan_text(n, meta, entry, False)
+    plan = fwd_plan_text(n, meta, entry)
     _print_times("K1", f"{n} {what} positions x {meta.n_levels} levels"
                  f"{plan}", entry, ks, ps)
     return entry
 
 
-def fwd_plan_text(n: int, meta, entry: dict, int8: bool) -> str:
-    """For a 2D grid: the 2D encode forward's plan of K1 (or K4, ``int8``)
-    for n samples (``fwd_plan_2d``), into ``entry``; its text. "" in
-    3D."""
+def fwd_plan_text(n: int, meta, entry: dict) -> str:
+    """For a 2D grid: the 2D encode forward's plan (K1's and K4's) for n
+    samples (``fwd_plan_2d``), into ``entry``; its text. "" in 3D."""
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     if meta.n_dims != 2:
         return ""
-    plan = bgc.fwd_plan_2d(n, meta, int8)
+    plan = bgc.fwd_plan_2d(n, meta)
     entry["plan"] = {"samples": plan.samples, "threads": plan.threads,
                      "smem_bytes": plan.smem_bytes}
     return (f", tiles of {plan.samples} samples x all levels, "
@@ -768,7 +763,7 @@ def time_k4(tq, qs, p, meta, err: float, what: str) -> dict:
     name = bgc.launch_name("blocked_grid_encode_fwd_i8", meta)
     entry = _kernel_entry(name, 354, err, ks, ps, n, meta,
                           kernel_bytes(name, meta, p))
-    plan = fwd_plan_text(n, meta, entry, True)
+    plan = fwd_plan_text(n, meta, entry)
     if not plan:
         entry["G"] = bgc.kernel_plan("blocked_grid_encode_fwd_i8", n,
                                      meta).width

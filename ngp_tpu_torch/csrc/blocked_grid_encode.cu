@@ -54,9 +54,10 @@
 //    int8 table fits in L2, so its group is set by the sweep alone (K4's
 //    note below). On 2D grids (the neural image: every level dense, 26.1
 //    MB of f32 rows reachable, 6.5 MB of int8 ones, both inside L2) the
-//    bytes bind neither: the L1 line lookups of the gathers do, and the 2D
-//    encode forward gives each warp 32 neighbouring samples of one level,
-//    whose coherent positions share rows (its note below).
+//    bytes bind neither: the gathers' L1 line lookups and each lookup's
+//    instructions do, and the 2D encode forward gives each warp 32
+//    neighbouring samples of one level, whose coherent positions share
+//    rows (its note below).
 //  - K2: f32 vector reductions into L2. Coarse dense levels have few rows,
 //    so many samples add into the same addresses and serialise there; K2
 //    sums equal addresses inside the warp first (its note below). The sum
@@ -355,11 +356,13 @@ __device__ __forceinline__ int sbyte(uint32_t x, int k) {
 // sweep).
 //
 // 2D: vertex (x, y) holds its features at byte 2 * (x + 8y), so a y-line
-// of 8 vertices is 16 contiguous bytes, 16-aligned, at byte 16 * y: each
-// of the lookup's 2 lines is one 16-byte load. Corners x and x + 1 (x <=
-// 6) are bytes 2x .. 2x + 3, in words x / 2 and, for odd x, x / 2 + 1 of
-// the line; the words are picked by selects, not by an index into the
-// loaded vector (which would go through local memory).
+// of 8 vertices is 16 contiguous bytes, 16-aligned, at byte 16 * y.
+// Corners x and x + 1 (x <= 6) are bytes 2x .. 2x + 3, in words x / 2 and,
+// for odd x, x / 2 + 1 of the line: each line comes as those two 4-byte
+// loads (one word twice where x is even) and one byte permute. Loading
+// the whole line in one 16-byte load and picking the two words by selects
+// took 4-5 % longer on the image path (PERF.md): the selects, not the
+// loads, cost there.
 template <int D> struct I8Lines;
 
 template <> struct I8Lines<3> {
@@ -390,18 +393,13 @@ template <> struct I8Lines<3> {
 template <> struct I8Lines<2> {
   static __device__ __forceinline__ void load(const int8_t* __restrict__ rowp,
                                               int base_lane, uint32_t* v) {
-    // byte 16 * y of the base corner's line; its x corner at byte 2x
-    const int8_t* linep = rowp + (base_lane & ~15);
-    const int x = (base_lane & 15) >> 1;
-    const int w = x >> 1;
-    const uint32_t sel = (x & 1) ? 0x5432u : 0x3210u;
+    // word x / 2 of the base corner's line (byte 16 * y + 2x, rounded down
+    // to 4), and the word after it where x is odd
+    const uint32_t* wp = reinterpret_cast<const uint32_t*>(rowp + (base_lane & ~3));
+    const int odd = (base_lane >> 1) & 1;
+    const uint32_t sel = odd ? 0x5432u : 0x3210u;
 #pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const uint4 a = __ldg(reinterpret_cast<const uint4*>(linep + 16 * k));
-      const uint32_t lo = w == 0 ? a.x : w == 1 ? a.y : w == 2 ? a.z : a.w;
-      const uint32_t hi = w == 0 ? a.y : w == 1 ? a.z : a.w;
-      v[k] = __byte_perm(lo, hi, sel);
-    }
+    for (int k = 0; k < 2; ++k) v[k] = __byte_perm(__ldg(wp + 4 * k), __ldg(wp + 4 * k + odd), sel);
   }
 };
 
@@ -449,10 +447,10 @@ __global__ void blocked_grid_encode_fwd_i8_kernel(
 // What bounds them on this card: not bytes (the image grid,
 // configs/image/base.json at a 2048^2 image, is dense at every level and
 // reaches 26.1 MB of f32 rows or 6.5 MB of int8 ones, inside the 50 MB
-// L2), but the L1 line lookups of the gathers: a warp's load is served a
-// line at a time. The pair kernels above give neighbouring lanes
-// neighbouring levels of one sample, so a load spans 4 (K1) or 16 (K4)
-// levels, each its own row. The image's batches are coherent: the
+// L2), but the gathers' L1 line lookups and, once those are few, the
+// instructions of each lookup. The pair kernels above give neighbouring
+// lanes neighbouring levels of one sample, so a load spans 4 (K1) or 16
+// (K4) levels, each its own row. The image's batches are coherent: the
 // stratified training batch puts sample k in cell (k mod 512, k div 512),
 // and the eval chunks are row-major pixel centres. So here a block takes
 // a tile of 2^log2_samples consecutive samples x all levels, and each
@@ -466,62 +464,24 @@ __global__ void blocked_grid_encode_fwd_i8_kernel(
 // float4 stores, each tile's 8 * L * 2^log2_samples contiguous bytes in
 // whole 128-byte lines. A warp takes one 32-sample column of the tile
 // (its lanes' positions read once) and walks its levels warp / columns,
-// + warps / columns, ..., kFwd2dBatch at a time: the batch's gathers are
-// issued before any of its sums. Each lookup's arithmetic is the pair
-// kernels': the same lattice coordinate, corner loads, order of sums
-// and, for K4, __fmul_rn(q, scale) before the weight.
+// + warps / columns, ...; a lane past sample n - 1 looks that sample up
+// again (not stored), so no lane branches. On an H100 (PERF.md): the
+// sample-fastest lanes alone, one warp a level, took 10-12 % off the pair
+// kernels on an image step; the plan's 4 warps a tile of 32 samples, each
+// walking 4 levels, most of the rest (each position read once for 4
+// lookups, a quarter of the blocks); one thread a sample had too few
+// warps in flight. Issuing a walk's gathers ahead of its sums made the
+// coherent inputs slower and only uniform ones faster. K1 is 30 % faster
+// on a frame's pixel centres, its most coherent input, than on the
+// stratified step, K4 4 %: K4 is bound by its instructions (the byte
+// picks, conversions and scale products), K1 more by its gathers. Where x
+// is odd, K1's corners x and x + 1 straddle a 16-byte boundary and come
+// as two 8-byte loads (two aligned 16-byte loads and selects were slower
+// on the pixel centres). Each lookup's arithmetic is the pair kernels':
+// the same lattice coordinate, corner loads, order of sums and, for K4,
+// __fmul_rn(q, scale) before the weight, so the outputs equal theirs bit
+// for bit.
 //
-// Where x is odd K1's corners x and x + 1 straddle a 16-byte boundary:
-// with kFwd2dOddAligned they come as two aligned 16-byte loads and
-// selects, which every lane of a warp issues alike (an even x loads its
-// 16 bytes twice), instead of one 16-byte load where x is even and two
-// 8-byte loads where it is odd, a divergent pair of paths.
-constexpr bool kFwd2dOddAligned = false;
-// the levels of a warp's walk whose gathers are issued together, before
-// any of their sums
-constexpr int kFwd2dBatch = 1;
-// K4's int8 corners to f32: with kFwd2dBytePerm, byte k of a word w as
-// (2^23 + 128 + q) by one byte permute of w ^ 0x80808080 under the
-// exponent of 2^23, less 2^23 + 128 (both exact), instead of a sign
-// extension and an int-to-float conversion (I2F, a quarter-rate pipe)
-constexpr bool kFwd2dBytePerm = false;
-
-// K4's 2D lines: with kFwd2dI8Words, each line's corners come from the
-// two 4-byte words that hold them (words x / 2 and x / 2 + (x & 1): one
-// word twice where x is even) and one byte permute, instead of the whole
-// 16-byte line and a select of two of its words (I8Lines<2>)
-constexpr bool kFwd2dI8Words = true;
-
-__device__ __forceinline__ void i8_corners_2d(const int8_t* __restrict__ rowp, int base_lane,
-                                              uint32_t* v) {
-  if (!kFwd2dI8Words) {
-    I8Lines<2>::load(rowp, base_lane, v);
-    return;
-  }
-  // word x / 2 of the base corner's line (byte 16 * y); its x corner at byte 2x
-  const uint32_t* wp = reinterpret_cast<const uint32_t*>(rowp + (base_lane & ~3));
-  const int odd = (base_lane >> 1) & 1;   // x & 1
-  const uint32_t sel = odd ? 0x5432u : 0x3210u;
-#pragma unroll
-  for (int k = 0; k < 2; ++k)
-    v[k] = __byte_perm(__ldg(wp + 4 * k), __ldg(wp + 4 * k + odd), sel);
-}
-
-// Byte k of w as a signed int8 value, in f32 (exact either way)
-__device__ __forceinline__ float sbyte_f32(uint32_t w, int k) {
-  if (!kFwd2dBytePerm) return (float)sbyte(w, k);
-  return __uint_as_float(__byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7440u | k)) - 8388736.f;
-}
-
-__device__ __forceinline__ float4 corner_pair_2d(const float* __restrict__ rowp, int c,
-                                                 bool paired) {
-  if (!kFwd2dOddAligned) return corner_pair<2>(rowp, c, paired);
-  const float* a = rowp + corner_offset<2>(c) - (paired ? 0 : 2);   // 16-byte aligned
-  const float4 lo = __ldg(reinterpret_cast<const float4*>(a));
-  const float4 hi = __ldg(reinterpret_cast<const float4*>(a + (paired ? 0 : 4)));
-  return paired ? lo : make_float4(lo.z, lo.w, hi.x, hi.y);
-}
-
 // The shared memory of a tile of 2^log2_samples samples x n_levels: 2
 // floats a (sample, level) and one pad word per 32 floats
 __host__ __device__ __forceinline__ int fwd_2d_smem_bytes(int log2_samples, int n_levels) {
@@ -541,71 +501,50 @@ __global__ void blocked_grid_encode_fwd_2d_kernel(
   const int first = (int)blockIdx.x << log2_samples;
   const int width = 2 * n_levels;            // floats a sample
   // this warp's column of 32 samples (the plan gives each column the same
-  // number of warps), its lane's sample and position, read once
+  // number of warps), its lane's sample and position, read once; a lane
+  // past sample n - 1 (the last tile's) looks that sample up again, not
+  // stored, so that no lane branches
   const int s = ((warp & ((1 << log2_cols) - 1)) << 5) + lane;   // in the tile
-  const bool live = first + s < n;
-  float xy[2] = {0.f, 0.f};
-  if (live) {
-    xy[0] = __ldg(pos + 2 * (size_t)(first + s));
-    xy[1] = __ldg(pos + 2 * (size_t)(first + s) + 1);
-  }
+  const size_t i = (size_t)min(first + s, n - 1);
+  const float xy[2] = {__ldg(pos + 2 * i), __ldg(pos + 2 * i + 1)};
   const int level_step = (int)(blockDim.x >> 5) >> log2_cols;
-  for (int l0 = warp >> log2_cols; l0 < n_levels; l0 += kFwd2dBatch * level_step) {
-    // the batch's gathers first: each lookup's geometry and corner loads
-    Lookup<2> g[kFwd2dBatch];
-    float4 cf[kFwd2dBatch][2];     // K1: corners (0, 1) and (2, 3)
-    uint32_t cq[kFwd2dBatch][2];   // K4: corners c (x), c + 1 (x + 1) in [c / 2]
+  for (int l = warp >> log2_cols; l < n_levels; l += level_step) {
+    const Lookup<2> g = lookup_geometry<2>(xy, 0, level_of(lp, l), log2_rows, morton_hash);
+    // the level's table, and the row's offset in it in 32 bits (rows < 2^24)
+    const size_t level = ((size_t)l << log2_rows) * kLanes;
+    const uint32_t row = g.row * kLanes;
+    float f0 = 0.f, f1 = 0.f;
+    if constexpr (kInt8) {
+      uint32_t v[2];   // corners c (x) and c + 1 (x + 1) in v[c / 2]
+      I8Lines<2>::load(static_cast<const int8_t*>(table) + level + row, g.base_lane, v);
+      const float sc = __ldg(qscale + l);
 #pragma unroll
-    for (int b = 0; b < kFwd2dBatch; ++b) {
-      const int l = l0 + b * level_step;
-      if (!live || l >= n_levels) continue;
-      g[b] = lookup_geometry<2>(xy, 0, level_of(lp, l), log2_rows, morton_hash);
-      const size_t row = ((size_t)l << log2_rows) + g[b].row;
-      if constexpr (kInt8) {
-        i8_corners_2d(static_cast<const int8_t*>(table) + row * kLanes, g[b].base_lane, cq[b]);
-      } else {
-        const float* rowp = static_cast<const float*>(table) + row * kLanes + g[b].base_lane;
-        const bool paired = (g[b].base_lane & 2) == 0;
-        cf[b][0] = corner_pair_2d(rowp, 0, paired);
-        cf[b][1] = corner_pair_2d(rowp, 2, paired);
+      for (int c = 0; c < 4; c += 2) {
+        // bytes q0(x) q1(x) q0(x+1) q1(x+1)
+        const uint32_t q = v[c >> 1];
+        const float w0 = corner_weight(g, c), w1 = corner_weight(g, c + 1);
+        f0 += __fmul_rn((float)sbyte(q, 0), sc) * w0;
+        f1 += __fmul_rn((float)sbyte(q, 1), sc) * w0;
+        f0 += __fmul_rn((float)sbyte(q, 2), sc) * w1;
+        f1 += __fmul_rn((float)sbyte(q, 3), sc) * w1;
+      }
+    } else {
+      const float* rowp = static_cast<const float*>(table) + level + row + g.base_lane;
+      const bool paired = (g.base_lane & 2) == 0;
+#pragma unroll
+      for (int c = 0; c < 4; c += 2) {
+        const float4 v = corner_pair<2>(rowp, c, paired);
+        const float w0 = corner_weight(g, c), w1 = corner_weight(g, c + 1);
+        f0 += v.x * w0;
+        f1 += v.y * w0;
+        f0 += v.z * w1;
+        f1 += v.w * w1;
       }
     }
-    // then their sums, into the tile's shared features
-#pragma unroll
-    for (int b = 0; b < kFwd2dBatch; ++b) {
-      const int l = l0 + b * level_step;
-      if (l >= n_levels) continue;
-      float f0 = 0.f, f1 = 0.f;
-      if (live) {
-        if constexpr (kInt8) {
-          const float sc = __ldg(qscale + l);
-#pragma unroll
-          for (int c = 0; c < 4; c += 2) {
-            // bytes q0(x) q1(x) q0(x+1) q1(x+1)
-            const uint32_t q = cq[b][c >> 1];
-            const float w0 = corner_weight(g[b], c), w1 = corner_weight(g[b], c + 1);
-            f0 += __fmul_rn(sbyte_f32(q, 0), sc) * w0;
-            f1 += __fmul_rn(sbyte_f32(q, 1), sc) * w0;
-            f0 += __fmul_rn(sbyte_f32(q, 2), sc) * w1;
-            f1 += __fmul_rn(sbyte_f32(q, 3), sc) * w1;
-          }
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; c += 2) {
-            const float4 v = cf[b][c >> 1];
-            const float w0 = corner_weight(g[b], c), w1 = corner_weight(g[b], c + 1);
-            f0 += v.x * w0;
-            f1 += v.y * w0;
-            f0 += v.z * w1;
-            f1 += v.w * w1;
-          }
-        }
-      }
-      // float t of the tile at t + t / 32: f is even, so f + 1 is in f's 32
-      const int f = s * width + 2 * l;
-      tile_features[f + (f >> 5)] = f0;
-      tile_features[f + 1 + (f >> 5)] = f1;
-    }
+    // float t of the tile at t + t / 32: f is even, so f + 1 is in f's 32
+    const int f = s * width + 2 * l;
+    tile_features[f + (f >> 5)] = f0;
+    tile_features[f + 1 + (f >> 5)] = f1;
   }
   __syncthreads();
   // the tile's samples below n, 16 bytes a thread at a time (the tile

@@ -203,12 +203,11 @@ def launch_plan(n: int, n_levels: int, group: int,
 
 
 # The 2D encode forward's tile (samples a block, a power of two from 32)
-# and the levels each warp walks in turn (1: one warp per 32 samples of a
-# level; 0: all levels, one thread per sample), K1's and K4's: the fastest
+# and the most levels each warp walks in turn (1: one warp per 32 samples
+# of a level; 32: one thread per sample): for K1 and K4 alike the fastest
 # on an H100 on an image step and on a frame's pixel centres of those
 # scripts/encode_group_sweep.py timed (PERF.md)
-FWD_2D_SAMPLES, FWD_2D_SAMPLES_I8 = 32, 32
-FWD_2D_LEVELS_PER_WARP, FWD_2D_LEVELS_PER_WARP_I8 = 4, 4
+FWD_2D_SAMPLES, FWD_2D_LEVELS_PER_WARP = 32, 4
 # the most shared memory its tile may take (the entry point's limit)
 FWD_2D_SMEM = 48 << 10
 
@@ -230,8 +229,8 @@ class FwdPlan2D:
     column c = w mod (samples / 32), lane j its sample 32·c + j, and walks
     the levels w // (samples / 32), + steps, .... The features pass
     through ``smem_bytes`` of shared memory and leave as 16-byte stores,
-    thread t taking the tile's floats 4t, 4t + 4·threads, ...; samples ≥
-    n are neither looked up nor stored."""
+    thread t taking the tile's floats 4t, 4t + 4·threads, ...; a lane
+    past sample n - 1 looks that sample up again and stores nothing."""
     n: int
     n_levels: int
     samples: int
@@ -259,7 +258,7 @@ class FwdPlan2D:
     def pairs(self):
         """(sample, level, warp) of every lookup, each (blocks, lookups of
         a tile, 32 lanes), in the kernel's own mapping (each warp's walk in
-        turn); a sample ≥ n marks a lane that looks nothing up."""
+        turn); a sample ≥ n marks a lane whose lookup is not stored."""
         cols = self.samples // 32
         warp = np.repeat(np.arange(self.threads // 32),
                          [len(range(w // cols, self.n_levels, self.steps))
@@ -293,31 +292,26 @@ class FwdPlan2D:
                      for a in (block, offset, size))
 
 
-def fwd_plan_2d(n: int, meta: BlockedGridMeta, int8: bool = False,
-                samples: Optional[int] = None,
-                levels_per_warp: Optional[int] = None) -> FwdPlan2D:
-    """The plan of K1 (``int8`` False) or K4 on the 2D grid ``meta`` for n
-    samples: tiles of ``samples`` samples (default FWD_2D_SAMPLES or
-    ``_I8``), each warp walking ``levels_per_warp`` levels (default
-    FWD_2D_LEVELS_PER_WARP or ``_I8``; 0 there: all) of a 32-sample
-    column, so a block
-    of samples / 32 · ⌈L / levels_per_warp⌉ warps. Raises ValueError for
-    what the kernel does not take: a grid that is not 2D or has more than
-    32 levels, a tile that is not a power of two in [32, 1024], a walk not
-    in [1, L], more than 1024 threads or a tile past FWD_2D_SMEM."""
-    n_levels = meta.n_levels
-    samples = samples or (FWD_2D_SAMPLES_I8 if int8 else FWD_2D_SAMPLES)
-    per_warp = levels_per_warp or (FWD_2D_LEVELS_PER_WARP_I8 if int8
-                                   else FWD_2D_LEVELS_PER_WARP) or n_levels
+def fwd_plan_2d(n: int, meta: BlockedGridMeta) -> FwdPlan2D:
+    """The plan of K1 and K4 on the 2D grid ``meta`` for n samples: tiles
+    of FWD_2D_SAMPLES samples, each warp walking at most
+    FWD_2D_LEVELS_PER_WARP levels of a 32-sample column (all L where that
+    is more), so a block of samples / 32 · ⌈L / walk⌉ warps. Raises
+    ValueError for what the kernel does not take: a grid that is not 2D or
+    has more than 32 levels, a tile that is not a power of two in [32,
+    1024], a walk below 1, more than 1024 threads or a tile past
+    FWD_2D_SMEM."""
+    n_levels, samples = meta.n_levels, FWD_2D_SAMPLES
+    per_warp = min(FWD_2D_LEVELS_PER_WARP, n_levels)
     if meta.n_dims != 2 or not 1 <= n_levels <= 32:
         raise ValueError(f"the 2D encode forward takes 2D grids of 1 to 32 "
                          f"levels, got {meta.n_dims}D, {n_levels} levels")
     if samples < 32 or samples & (samples - 1) or samples > 1024:
         raise ValueError(f"2D encode-forward tile must be a power of two in "
                          f"[32, 1024], got {samples}")
-    if not 1 <= per_warp <= n_levels:
-        raise ValueError(f"levels a warp walks must be in [1, {n_levels}], "
-                         f"got {per_warp}")
+    if per_warp < 1:
+        raise ValueError(f"levels a warp walks must be at least 1, got "
+                         f"{per_warp}")
     threads = samples // 32 * -(-n_levels // per_warp) * 32
     if threads > 1024 or fwd_2d_smem_bytes(samples, n_levels) > FWD_2D_SMEM:
         raise ValueError(f"a 2D encode-forward tile of {samples} samples × "
@@ -498,7 +492,7 @@ def _fwd_plan(kernel: str, n: int, meta: BlockedGridMeta):
     """The plan of K1 or K4 (``kernel``): ``fwd_plan_2d``'s on 2D grids,
     the kernel's level groups on 3D ones."""
     if meta.n_dims == 2:
-        return fwd_plan_2d(n, meta, kernel == "blocked_grid_encode_fwd_i8")
+        return fwd_plan_2d(n, meta)
     return kernel_plan(kernel, n, meta)
 
 

@@ -6,7 +6,7 @@ an earlier version of that source, on one NVIDIA GPU.
 
     python3 scripts/encode_group_sweep.py [--baseline OLD.cu]
         [--sources OTHER.cu ...] [--groups 4 8 16] [--kernels K3]
-        [--plans SMEM_KIB:CHUNK[:GROUP] fwd:SAMPLES:WALK[:BUILD...] ...]
+        [--plans SMEM_KIB:CHUNK[:GROUP] fwd:SAMPLES:WALK ...]
 
 For each G the source, and each of ``--sources`` (other versions of it with
 the same entry points), is copied with every level group (``kGroupFwd``,
@@ -25,18 +25,10 @@ over a zeroed tile_max; one without the 2D encode forward
 ``--plans`` times the tree's 2D table backward under other plans too
 (``blocked_grid_cuda.TABLE_BWD_SMEM`` in KiB, ``TABLE_BWD_CHUNK``,
 ``TABLE_BWD_GROUP`` and ``_I8``: levels a block), and, for specs
-``fwd:SAMPLES:WALK[:BUILD...]``, its 2D encode forward under other plans
+``fwd:SAMPLES:WALK``, its 2D encode forward under other plans
 (``FWD_2D_SAMPLES`` and ``FWD_2D_LEVELS_PER_WARP``, K1's and K4's: the
-tile and the levels each warp walks, 0 for all of them: one thread a
-sample), on the first G's library or, with suffixes, on a build of the
-source with ``kFwd2dOddAligned`` set (``odd``: K1's odd-x corners as two
-aligned 16-byte loads), ``kFwd2dBytePerm`` set (``prmt``: K4's int8
-corners to f32 by a byte permute), ``kFwd2dI8Words`` cleared (``i8l``:
-K4's corners from whole 16-byte lines and a select of two words) or
-``kFwd2dBatch`` N (``b2``, ``b4``, ``b8``: the levels of a warp's walk
-whose gathers are issued together). Each library's SASS is summarised where ``cuobjdump`` is found:
-K2's, K3's and K5's reductions and atomics, and the 2D encode forward's
-instructions (all, and its loads, stores, conversions and permutes).
+tile and the most levels each warp walks; 32: one thread a sample), on
+the first G's library.
 
 Inputs, at the full NeRF width: K1 at 2^20 uniform and ray-ordered
 positions, K2 and K3 at 2^18 of each (``chip_smoke.ray_ordered_inputs``,
@@ -73,9 +65,10 @@ version twice by CUDA events, beside the case's bound
 (``chip_smoke.kernel_bytes`` at the card's memory rate). With K4, the K5
 trainer's full and partial grid sweeps are traced last with the table
 quantised once and once per network call (as before the sweep took a
-quantised pair), in turns: device and wall ms per sweep. Prints a line
-per measurement, each library's registers and spills, and the reductions
-and atomics of K2's, K3's and K5's SASS where ``cuobjdump`` is found.
+quantised pair), in turns: device and wall ms per sweep. Prints a line per measurement, each library's registers and spills, and,
+where ``cuobjdump`` is found, a summary of its SASS: the reductions and
+atomics of K2, K3 and K5, and the 2D encode forward's instruction count
+with its loads, stores, conversions and permutes.
 """
 from __future__ import annotations
 
@@ -110,17 +103,6 @@ SWEEP_DIR = bgc.BUILD_DIR / "sweep"
 ITERS = 20
 GROUP_CONSTANTS = ("kGroupFwd", "kGroupBwd", "kGroupPos", "kGroupI8",
                    "kGroupI8Bwd")
-# the 2D encode forward's compile-time variants: a plan spec's suffix ->
-# (the source's line, the variant's)
-FWD_2D_BUILDS = {
-    "odd": ("constexpr bool kFwd2dOddAligned = false;",
-            "constexpr bool kFwd2dOddAligned = true;"),
-    "prmt": ("constexpr bool kFwd2dBytePerm = false;",
-             "constexpr bool kFwd2dBytePerm = true;"),
-    "i8l": ("constexpr bool kFwd2dI8Words = true;",
-            "constexpr bool kFwd2dI8Words = false;"),
-    **{f"b{b}": ("constexpr int kFwd2dBatch = 1;",
-                 f"constexpr int kFwd2dBatch = {b};") for b in (2, 4, 8)}}
 FWD_2D_KERNEL = "blocked_grid_encode_fwd_2d_kernel"
 TRAIN_VIEWS, TRAIN_RES, TRAIN_STEPS = 24, 128, 512
 IMAGE_STEPS = 256
@@ -310,33 +292,12 @@ def active(variant):
             yield
 
 
-def _build_name(first: str, spec: str) -> str:
-    """The library a plan spec runs on: ``first``'s, or for a 2D
-    encode-forward spec with build suffixes (``fwd:S:W:odd:b4``) a build
-    of its own."""
-    suffixes = spec.split(":")[3:] if spec.startswith("fwd:") else []
-    return "-".join([first] + suffixes)
-
-
-def _fwd_2d_build(src: str, spec: str) -> str:
-    """``src`` with the compile-time variants of a 2D encode-forward plan
-    spec's suffixes (``FWD_2D_BUILDS``)."""
-    for suffix in spec.split(":")[3:]:
-        old, new = FWD_2D_BUILDS[suffix]
-        if src.count(old) != 1:
-            raise RuntimeError(f"{old} not found once in the source")
-        src = src.replace(old, new)
-    return src
-
-
 def _plan_settings(spec: str) -> dict:
-    """``SMEM_KIB:CHUNK[:GROUP]`` or ``fwd:SAMPLES:WALK[:odd]`` as
+    """``SMEM_KIB:CHUNK[:GROUP]`` or ``fwd:SAMPLES:WALK`` as
     blocked_grid_cuda's settings."""
     if spec.startswith("fwd:"):
-        samples, walk = (int(v) for v in spec.split(":")[1:3])
-        return {"FWD_2D_SAMPLES": samples, "FWD_2D_SAMPLES_I8": samples,
-                "FWD_2D_LEVELS_PER_WARP": walk,
-                "FWD_2D_LEVELS_PER_WARP_I8": walk}
+        samples, walk = (int(v) for v in spec.split(":")[1:])
+        return {"FWD_2D_SAMPLES": samples, "FWD_2D_LEVELS_PER_WARP": walk}
     smem, chunk, *group = (int(v) for v in spec.split(":"))
     return {"TABLE_BWD_SMEM": smem << 10, "TABLE_BWD_CHUNK": chunk,
             "TABLE_BWD_GROUP": group[0] if group else bgc.TABLE_BWD_GROUP,
@@ -466,8 +427,7 @@ def main() -> int:
                              "K4-2d", "K5-2d"])
     ap.add_argument("--plans", nargs="*", default=[],
                     help="2D table-backward plans, SMEM_KIB:CHUNK[:GROUP], "
-                         "and 2D encode-forward ones, "
-                         "fwd:SAMPLES:WALK[:BUILD...]")
+                         "and 2D encode-forward ones, fwd:SAMPLES:WALK")
     args = ap.parse_args()
     cs.phase_device()
     dev = torch.device("cuda", 0)
@@ -482,10 +442,6 @@ def main() -> int:
         for g in args.groups:
             texts[f"{label}G{g}"] = _with_groups(src, g)
     first = f"G{args.groups[0]}"
-    builds = {spec: _build_name(first, spec) for spec in args.plans}
-    for spec, name in builds.items():
-        if name != first:
-            texts[name] = _fwd_2d_build(texts[first], spec)
     with ThreadPoolExecutor(1) as ex:
         own = ex.submit(bgc.build)     # the tree's library, for the sweep
         libs = _build_all(texts)
@@ -501,10 +457,8 @@ def main() -> int:
         variants[name] = (Parent2D(lib, old_bwd, old_fwd)
                           if old_bwd or old_fwd else (lib, {}))
     for spec in args.plans:
-        variants[f"{first} plan {spec}"] = (variants[builds[spec]][0],
+        variants[f"{first} plan {spec}"] = (variants[first][0],
                                             _plan_settings(spec))
-    for name in set(builds.values()) - {first}:
-        variants.pop(name)
     for name, path in libs.items():
         print(f"sweep: {name}: SASS: {_sass(path)}")
 

@@ -4,6 +4,8 @@ takes, and which bytes of the output each block stores, emulated in
 numpy from the plan as the kernel reads it. The kernel runs only on the
 card; ``test_torch_kernel_emulation.py`` runs its source on the host and
 chip_smoke.py checks it there."""
+from unittest import mock
+
 import numpy as np
 import pytest
 
@@ -14,26 +16,32 @@ from test_torch_kernel_plan import SAMPLES
 
 ROOT = bgc.CSRC.parent.parent
 LEVELS = [1, 2, 6, 7, 12, 16, 24, 32]
-# (samples a tile, levels a warp walks; None: all of them)
-PLANS = [(32, 1), (64, 1), (32, 4), (128, None), (256, 3)]
+# (samples a tile, the most levels a warp walks; 32: one thread a sample)
+PLANS = [(32, 1), (64, 1), (32, 4), (128, 32), (256, 3)]
 
 
 def _meta(n_levels: int) -> BlockedGridMeta:
     return BlockedGridMeta(2, n_levels, 16, 1.3, log2_rows=11)
 
 
+def _plan(n: int, meta, samples: int, per_warp: int):
+    """``fwd_plan_2d`` with tiles of ``samples`` and walks of at most
+    ``per_warp`` levels."""
+    with mock.patch.multiple(bgc, FWD_2D_SAMPLES=samples,
+                             FWD_2D_LEVELS_PER_WARP=per_warp):
+        return bgc.fwd_plan_2d(n, meta)
+
+
 def _plans(n: int, n_levels: int):
-    """Every plan of PLANS that the kernel takes at n_levels, with K4's
-    beside K1's."""
+    """Every plan of PLANS that the kernel takes at n_levels, with the
+    walk it gives each warp."""
     meta = _meta(n_levels)
     for samples, per_warp in PLANS:
-        threads = samples // 32 * -(-n_levels // (per_warp or n_levels)) * 32
-        if (threads > 1024 or bgc.fwd_2d_smem_bytes(samples, n_levels)
-                > bgc.FWD_2D_SMEM or (per_warp or 1) > n_levels):
-            continue
-        for int8 in (False, True):
-            yield bgc.fwd_plan_2d(n, meta, int8, samples,
-                                  per_warp or n_levels), per_warp
+        walk = min(per_warp, n_levels)
+        threads = samples // 32 * -(-n_levels // walk) * 32
+        if (threads <= 1024 and bgc.fwd_2d_smem_bytes(samples, n_levels)
+                <= bgc.FWD_2D_SMEM):
+            yield _plan(n, meta, samples, per_warp), walk
 
 
 @pytest.mark.parametrize("n", SAMPLES)
@@ -52,10 +60,9 @@ def test_fwd_plan_2d_covers_every_pair_once(n_levels, n):
         assert busy[-1].any()
         warps = plan.threads // 32
         cols = plan.samples // 32
-        assert warps % cols == 0 and warps * (per_warp or n_levels) \
-            >= cols * n_levels
+        assert warps % cols == 0 and warps * per_warp >= cols * n_levels
         taken = np.bincount(warp[0, :, 0], minlength=warps)
-        assert taken.max() <= (per_warp or n_levels) and taken.min() >= 1
+        assert taken.max() <= per_warp and taken.min() >= 1
         # a warp walks one column: its lanes keep one position each
         for w in range(warps):
             first = sample[0][warp[0, :, 0] == w, 0]
@@ -98,14 +105,16 @@ def test_fwd_plan_2d_rejects_what_the_kernel_does_not_take():
         bgc.fwd_plan_2d(100, _meta(33))
     for samples in (16, 48, 2048):
         with pytest.raises(ValueError):
-            bgc.fwd_plan_2d(100, meta, samples=samples)
+            _plan(100, meta, samples, 4)
     with pytest.raises(ValueError):
-        bgc.fwd_plan_2d(100, meta, levels_per_warp=17)
+        _plan(100, meta, 32, 0)
     with pytest.raises(ValueError):                   # 2048 threads
-        bgc.fwd_plan_2d(100, _meta(32), samples=64, levels_per_warp=1)
+        _plan(100, _meta(32), 64, 1)
     with pytest.raises(ValueError):                   # 67.6 KB a tile
-        bgc.fwd_plan_2d(100, _meta(32), samples=256, levels_per_warp=32)
+        _plan(100, _meta(32), 256, 32)
     assert bgc.fwd_2d_smem_bytes(256, 32) > bgc.FWD_2D_SMEM
+    # a grid of fewer levels than the walk: every warp walks them all
+    assert _plan(100, _meta(2), 32, 4).threads == 32
 
 
 def test_fwd_plan_2d_on_the_image_grid():
@@ -118,8 +127,7 @@ def test_fwd_plan_2d_on_the_image_grid():
         ROOT / "configs/image/base.json")["encoding"], 2, 1024.0)
     meta = BlockedGridMeta.from_hashgrid_config(enc)
     assert meta.n_levels == 16 and all(meta.level_is_dense)
-    for int8 in (False, True):
-        plan = bgc.fwd_plan_2d(1 << 18, meta, int8)
-        assert (plan.samples, plan.threads, plan.blocks, plan.smem_bytes) \
-            == (32, 128, 8192, 4224)
-        assert plan.launch_args == (8192, 128, 5) and plan.steps == 4
+    plan = bgc.fwd_plan_2d(1 << 18, meta)
+    assert (plan.samples, plan.threads, plan.blocks, plan.smem_bytes) \
+        == (32, 128, 8192, 4224)
+    assert plan.launch_args == (8192, 128, 5) and plan.steps == 4

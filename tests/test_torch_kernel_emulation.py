@@ -398,9 +398,8 @@ def test_emulated_kernels_at_odd_level_counts(emulated, meta_kw):
         plan = bgc.kernel_plan(name, pos.shape[0], meta)
         assert plan.width == width and plan.groups == meta.n_levels // width
     if meta.n_dims == 2:
-        for int8 in (False, True):
-            plan = bgc.fwd_plan_2d(pos.shape[0], meta, int8)
-            assert (plan.samples, plan.threads) == (32, 64)   # 2 walks
+        plan = bgc.fwd_plan_2d(pos.shape[0], meta)
+        assert (plan.samples, plan.threads) == (32, 64)   # 2 walks
     before = {k: _count(k, meta) for k in bgc.GROUP_KERNELS}
     got = bgc.launch_fwd(table, pos, meta)
     assert float((got - tbg.encode_reference(table, pos, meta)).abs().max()
@@ -530,9 +529,9 @@ FWD_2D_METAS = {16: dict(n_dims=2, n_levels=16, base_resolution=16,
                         per_level_scale=2.0, log2_rows=11),
                 6: dict(n_dims=2, n_levels=6, base_resolution=16,
                         per_level_scale=1.5, log2_rows=11)}
-# (samples a tile, levels a warp walks; None: all): the default, four
-# levels a warp, and one thread per sample
-FWD_2D_PLANS = [(32, 1), (64, 4), (128, None)]
+# (samples a tile, the most levels a warp walks): a warp a level, four
+# levels a warp (the default's walk), and one thread per sample
+FWD_2D_PLANS = [(32, 1), (64, 4), (128, 32)]
 
 
 def _fwd_2d_positions(kind: str, meta) -> torch.Tensor:
@@ -579,10 +578,8 @@ def test_emulated_2d_encode_forward_matches_plain(emulated, nan_outputs,
     ref8 = tbg.encode_reference_i8(tq, qs, pos, meta)
     assert float(ref8.abs().max()) > 0.1
     for samples, per_warp in FWD_2D_PLANS:
-        for i8 in ("", "_I8"):
-            monkeypatch.setattr(bgc, f"FWD_2D_SAMPLES{i8}", samples)
-            monkeypatch.setattr(bgc, f"FWD_2D_LEVELS_PER_WARP{i8}",
-                                per_warp or n_levels)
+        monkeypatch.setattr(bgc, "FWD_2D_SAMPLES", samples)
+        monkeypatch.setattr(bgc, "FWD_2D_LEVELS_PER_WARP", per_warp)
         k1, k4 = (_count(k, meta) for k in ("blocked_grid_encode_fwd",
                                             "blocked_grid_encode_fwd_i8"))
         got = bgc.launch_fwd(table, pos, meta)
