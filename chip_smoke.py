@@ -123,14 +123,16 @@ Phases, each reported on its own line:
                frames; "fwd" must launch the 2D K4 and K2 and not K5,
                "full" the 2D K4 and K5 and not K2, the frames K4. The
                "full" field's gradient by uv at UV_RES² pixel centres must
-               launch the 2D K3, give the same bits twice and its K3 agree
-               with the plain version. Then the 2D K3, K4 and K5 are held
-               against their plain versions at the 3D tolerances and timed
-               beside their bounds on one "full" step's positions and
-               cotangent and on uniform positions (2^20 for K4, 2^18 for K3
-               and K5; ``K3:``/``K4:``/``K5:`` lines naming ``_2d``), K4
-               also on the first 2^18 pixel centres of the 2048² frame,
-               and a 64×64 frame on the card is held against the CPU path.
+               launch the 2D K3 and give the same bits twice. Then the 2D
+               K3, K4 and K5 are held against their plain versions at the
+               3D tolerances and timed beside their bounds on one "full"
+               step's positions and cotangent and on uniform positions
+               (2^20 for K4, 2^18 for K3 and K5; ``K3:``/``K4:``/``K5:``
+               lines naming ``_2d``, the 2D K3 with its plan,
+               ``fwd_plan_2d``), K3 also on the uv gradient's own
+               positions and cotangent, K4 also on the first 2^18 pixel
+               centres of the 2048² frame, and a 64×64 frame on the card
+               is held against the CPU path.
  11. volume  — the neural volume (cell smoke-volume-plume): the 128³
                procedural plume written by the port's write_nvdb, the
                runner's ``--mode volume`` for VOLUME_STEPS with configs/
@@ -916,9 +918,16 @@ def time_k3(table, p, c, meta, err: float, what: str) -> dict:
     name = bgc.launch_name("blocked_grid_encode_bwd_pos", meta)
     entry = _kernel_entry(name, 157, err, ks, ps, n, meta,
                           kernel_bytes(name, meta, p))
-    entry["G"] = bgc.kernel_plan("blocked_grid_encode_bwd_pos", n, meta).width
+    if meta.n_dims == 2:
+        plan = bgc.fwd_plan_2d(n, meta)
+        entry["G"] = f"tile {plan.samples}, walk {plan.walk}"
+        text = fwd_plan_text(n, meta, entry)
+    else:
+        entry["G"] = bgc.kernel_plan("blocked_grid_encode_bwd_pos", n,
+                                     meta).width
+        text = ""
     _print_times("K3", f"{n} {what} positions x {meta.n_levels} levels, G "
-                 f"{entry['G']}", entry, ks, ps)
+                 f"{entry['G']}{text}", entry, ks, ps)
     return entry
 
 
@@ -2827,7 +2836,7 @@ def phase_k12_2d(dev, tr=None) -> list:
     return [k1, k2]
 
 
-def phase_k345_2d(dev, tr=None) -> list:
+def phase_k345_2d(dev, tr=None, uv=None) -> list:
     """The 2D K3, K4 and K5 against their plain versions at their 3D
     counterparts' tolerances (K3 within KERNEL_POS_TOL of Σ|term| and
     bit-equal over two launches, K4 within KERNEL_TOL, K5 within
@@ -2835,11 +2844,15 @@ def phase_k345_2d(dev, tr=None) -> list:
     timed beside its bound on the image path's own inputs
     (``_image_kernel_inputs``; with ``tr`` an image trainer in the
     ``full`` int8 mode, one real step's) and on uniform positions: 2^20
-    for K4, 2^18 for K3 and K5, the edge positions in the checks; K4 also
-    on a chunk of a frame's pixel centres (``pixel_chunk``, under
+    for K4, 2^18 for K3 and K5, the edge positions in the checks; K3 also
+    on the uv gradient's own inputs (``uv``: the table, positions and
+    cotangent its encoding got, ``uv_gradient_inputs``; without them the
+    UV_RES² pixel centres and a seeded cotangent), under "uv_gradient"; K4
+    also on a chunk of a frame's pixel centres (``pixel_chunk``, under
     "pixel_chunk"). K4 reads the table quantised as the int8 modes
     quantise it, K5 takes the step's tile (``eff_tile``)."""
     from ngp_tpu_torch.kernels.blocked_grid import eff_tile, quantize_table_i8
+    from ngp_tpu_torch.train.image import pixel_centres
     meta, table, pos, cot, what, uni = _image_kernel_inputs(dev, tr,
                                                             SEED + 7)
     n3 = 1 << 18
@@ -2847,6 +2860,12 @@ def phase_k345_2d(dev, tr=None) -> list:
     cot_u = _cotangent(dev, meta, uni3.shape[0], SEED + 10)
     err = check_k3(table, pos, cot, meta, what)
     k3 = time_k3(table, pos, cot, meta, err, what)
+    if uv is None:
+        uv_pos = pixel_centres(UV_RES, UV_RES, dev)
+        uv = (table, uv_pos,
+              _cotangent(dev, meta, uv_pos.shape[0], SEED + 12))
+    err = check_k3(*uv, meta, "uv-gradient")
+    _sub_entry(k3, time_k3(*uv, meta, err, "uv-gradient"), "uv_gradient")
     err = check_k3(table, uni3, cot_u, meta, "uniform+edge")
     _sub_entry(k3, time_k3(table, uni3[:n3], cot_u[:n3], meta, err,
                            "uniform"), "uniform_2e18")
@@ -2959,16 +2978,13 @@ def _check_int8_launches(mode: str, launches: dict, frames_k4: int):
                            f"{frames_k4})")
 
 
-def uv_gradient_check(dev, tr, res: int = UV_RES) -> dict:
+def uv_gradient_inputs(tr, res: int = UV_RES):
     """The gradient of the trained image field ``tr`` by uv at the res²
-    pixel centres (``torch.autograd.grad`` through the network in the
-    trainer's int8 mode): it must launch the 2D K3, give the same bits
-    when taken again, and its K3 (the positions and cotangent the encoding
-    got) agree with the plain version (``check_k3``). Returns the launch
-    counts of the two gradients."""
+    pixel centres (``torch.autograd.grad`` through the network's inference
+    parameters in the trainer's int8 mode), and the table, positions and
+    cotangent its encoding got: the 2D K3's inputs on this path."""
     from torch.func import functional_call
 
-    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     from ngp_tpu_torch.train.image import pixel_centres
     params = {k: v.detach() for k, v in tr.inference_params().items()}
     seen = {}
@@ -2977,18 +2993,27 @@ def uv_gradient_check(dev, tr, res: int = UV_RES) -> dict:
         seen["pos"] = args[0].detach()
         out.register_hook(lambda g: seen.setdefault("cot",
                                                     g.detach().contiguous()))
-    grads = []
+    uv = pixel_centres(res, res, tr.device).requires_grad_(True)
+    handle = tr.model.encoding.register_forward_hook(hook)
+    try:
+        out = functional_call(tr.model, params, (uv,),
+                              {"int8": tr.encode_int8})
+        (g,) = torch.autograd.grad(out.to(torch.float32).sum(), uv)
+    finally:
+        handle.remove()
+    return g, (params["encoding.table"], seen["pos"], seen["cot"])
+
+
+def uv_gradient_check(tr, res: int = UV_RES):
+    """The uv gradient of ``tr`` (``uv_gradient_inputs``) taken twice: it
+    must launch the 2D K3 and give the same bits when taken again. Returns
+    the launch counts of the two gradients, and K3's inputs in the first
+    (table, positions, cotangent; checked and timed by
+    ``phase_k345_2d``)."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
     _reset_launches()
-    for _ in range(2):
-        uv = pixel_centres(res, res, dev).requires_grad_(True)
-        handle = tr.model.encoding.register_forward_hook(hook)
-        try:
-            out = functional_call(tr.model, params, (uv,),
-                                  {"int8": tr.encode_int8})
-            (g,) = torch.autograd.grad(out.to(torch.float32).sum(), uv)
-        finally:
-            handle.remove()
-        grads.append(g)
+    runs = [uv_gradient_inputs(tr, res) for _ in range(2)]
+    grads = [g for g, _ in runs]
     torch.cuda.synchronize()
     launches = dict(bgc.launches)
     same = bool(torch.equal(grads[0].view(torch.int32),
@@ -3002,9 +3027,7 @@ def uv_gradient_check(dev, tr, res: int = UV_RES) -> dict:
             and launches["blocked_grid_encode_bwd_pos_2d"] >= 2):
         raise RuntimeError("the uv gradient did not run K3 in 2D, or "
                            "differs between two launches")
-    check_k3(params["encoding.table"], seen["pos"], seen["cot"],
-             tr.model.encoding.meta, "uv-gradient")
-    return launches
+    return launches, runs[0][1]
 
 
 def _cpu_frame_check(tag: str, gpu: torch.Tensor, cpu: torch.Tensor,
@@ -3077,8 +3100,8 @@ def phase_image_int8(dev, f32: dict, steps: int = IMAGE_STEPS,
             raise RuntimeError(f"the image fit under {mode} did not raise "
                                "the PSNR enough")
         _check_int8_launches(mode, runs[mode], k4)
-    runs["uv"] = uv_gradient_check(dev, tr, uv_res)
-    entries = phase_k345_2d(dev, tr)
+    runs["uv"], uv = uv_gradient_check(tr, uv_res)
+    entries = phase_k345_2d(dev, tr, uv)
     pos = pixel_centres(cpu_size, cpu_size, dev)
     model, params = _cpu_copy(tr.model, tr.inference_params())
     with torch.no_grad():

@@ -13,12 +13,13 @@
 //      grids blocked_grid_encode_bwd_2d_kernel<false>, one block per
 //      (level, chunk of samples). Replaces
 //      hashgrid_pallas.py:_bwd_table_kernel.
-// K3, K4 and K5 are templated on D too (2D since the neural image runs
-// them: its int8 modes and its uv gradient).
-//   K3 blocked_grid_encode_bwd_pos_kernel<D> f32 table + positions +
-//      cotangent -> dpos (N, D) f32, summed across levels by shuffles
+// K3, K4 and K5 take 2D grids too (the neural image runs them: its int8
+// modes and its uv gradient).
+//   K3 blocked_grid_encode_bwd_pos_kernel<3> f32 table + positions +
+//      cotangent -> dpos (N, 3) f32, summed across levels by shuffles
 //      and, between level groups, by a second pass, in a fixed order (no
-//      atomics).
+//      atomics); on 2D grids blocked_grid_encode_bwd_pos_2d_kernel, K1's 2D
+//      mapping, the levels summed in level order in shared memory.
 //      Replaces hashgrid_pallas.py:_bwd_frac_kernel and the einsum that
 //      chains its dfrac to dpos.
 //   K4 blocked_grid_encode_fwd_i8_kernel<3> (L, R, 128) int8 table + (L,)
@@ -68,7 +69,8 @@
 //  - K3: the same scattered corner reads as K1 (the f32 table, even in the
 //    int8 modes, as the JAX package's int8 backward reuses the f32 K3),
 //    plus the cotangent; it writes only 12 bytes per sample (and 12 per
-//    sample and level group of partial sums, read back once).
+//    sample and level group of partial sums, read back once; in 2D 8
+//    bytes per sample and no partial sums).
 //  - K5: K2's reductions, minus those whose quanta are all 0, after a
 //    first pass that reads the positions and cotangent once more (but
 //    computes no row). Corners x and x + 1 go as one float4 reduction
@@ -115,7 +117,7 @@ template <> struct Block<2> { static constexpr int kSide = 8, kStride = 7; };
 // and ray-ordered positions, 16 for K4 on uniform and grid-sweep
 // positions, 4 for K5 on uniform positions and a training step's, 16 for
 // K3 on ray-ordered positions and a camera-optimising step's (8 was 8 %
-// faster on uniform positions). On 2D grids only K3 takes its group.
+// faster on uniform positions). 2D grids take none of them.
 constexpr int kGroupFwd = 4;
 constexpr int kGroupBwd = 4;
 constexpr int kGroupPos = 16;
@@ -441,8 +443,8 @@ __global__ void blocked_grid_encode_fwd_i8_kernel(
   reinterpret_cast<float2*>(out)[(size_t)q.i * n_levels + q.l] = make_float2(f0, f1);
 }
 
-// K1 and K4 on 2D grids (the neural image). Replace
-// hashgrid_pallas.py:_fwd_kernel and _fwd_kernel_i8 for D = 2.
+// K1 and K4 on 2D grids (the neural image), and the mapping of K3 there.
+// Replace hashgrid_pallas.py:_fwd_kernel and _fwd_kernel_i8 for D = 2.
 //
 // What bounds them on this card: not bytes (the image grid,
 // configs/image/base.json at a 2048^2 image, is dense at every level and
@@ -489,6 +491,44 @@ __host__ __device__ __forceinline__ int fwd_2d_smem_bytes(int log2_samples, int 
   return (floats + floats / 32) * 4;
 }
 
+// Float f of a tile's (samples, 2 * n_levels) floats in shared memory, at
+// f + f / 32: a warp's 32 samples of one level land on 32 banks, and for
+// even f, f + 1 is in f's 32
+__device__ __forceinline__ int tile_slot(int f) { return f + (f >> 5); }
+
+// A thread of a 2D tile mapping: the tile's first sample, the thread's
+// sample s in the tile and its position, read once, and its warp's walk
+// over the levels (level, level + level_step, ...). Warp w takes column
+// w mod (tile / 32) of 32 consecutive samples (the plan gives each column
+// the same number of warps); a lane past sample n - 1 (the last tile's)
+// takes that sample's position, so that no lane branches.
+struct TileLane2D {
+  int first, s, level, level_step;
+  float xy[2];
+};
+
+__device__ __forceinline__ TileLane2D tile_lane_2d(const float* __restrict__ pos, int n,
+                                                   int log2_samples) {
+  const int lane = (int)(threadIdx.x & 31), warp = (int)(threadIdx.x >> 5);
+  const int log2_cols = log2_samples - 5;    // 32-sample columns per level
+  TileLane2D t;
+  t.first = (int)blockIdx.x << log2_samples;
+  t.s = ((warp & ((1 << log2_cols) - 1)) << 5) + lane;
+  const size_t i = (size_t)min(t.first + t.s, n - 1);
+  t.xy[0] = __ldg(pos + 2 * i);
+  t.xy[1] = __ldg(pos + 2 * i + 1);
+  t.level = warp >> log2_cols;
+  t.level_step = (int)(blockDim.x >> 5) >> log2_cols;
+  return t;
+}
+
+// The f32 table at a 2D lookup's base corner at level l: the level's
+// table, then the row's offset in it in 32 bits (rows < 2^24)
+__device__ __forceinline__ const float* f32_corner_2d(const float* __restrict__ table, int l,
+                                                     int log2_rows, const Lookup<2>& g) {
+  return table + ((size_t)l << log2_rows) * kLanes + g.row * kLanes + g.base_lane;
+}
+
 template <bool kInt8>
 __global__ void blocked_grid_encode_fwd_2d_kernel(
     const float* __restrict__ pos, const void* __restrict__ table,
@@ -496,27 +536,17 @@ __global__ void blocked_grid_encode_fwd_2d_kernel(
     const LevelParams lp, int n, int n_levels, int log2_rows,
     int morton_hash, int log2_samples) {
   extern __shared__ float tile_features[];
-  const int lane = (int)(threadIdx.x & 31), warp = (int)(threadIdx.x >> 5);
-  const int log2_cols = log2_samples - 5;    // 32-sample columns per level
-  const int first = (int)blockIdx.x << log2_samples;
+  const TileLane2D t = tile_lane_2d(pos, n, log2_samples);
   const int width = 2 * n_levels;            // floats a sample
-  // this warp's column of 32 samples (the plan gives each column the same
-  // number of warps), its lane's sample and position, read once; a lane
-  // past sample n - 1 (the last tile's) looks that sample up again, not
-  // stored, so that no lane branches
-  const int s = ((warp & ((1 << log2_cols) - 1)) << 5) + lane;   // in the tile
-  const size_t i = (size_t)min(first + s, n - 1);
-  const float xy[2] = {__ldg(pos + 2 * i), __ldg(pos + 2 * i + 1)};
-  const int level_step = (int)(blockDim.x >> 5) >> log2_cols;
-  for (int l = warp >> log2_cols; l < n_levels; l += level_step) {
-    const Lookup<2> g = lookup_geometry<2>(xy, 0, level_of(lp, l), log2_rows, morton_hash);
-    // the level's table, and the row's offset in it in 32 bits (rows < 2^24)
-    const size_t level = ((size_t)l << log2_rows) * kLanes;
-    const uint32_t row = g.row * kLanes;
+  for (int l = t.level; l < n_levels; l += t.level_step) {
+    const Lookup<2> g = lookup_geometry<2>(t.xy, 0, level_of(lp, l), log2_rows, morton_hash);
     float f0 = 0.f, f1 = 0.f;
     if constexpr (kInt8) {
       uint32_t v[2];   // corners c (x) and c + 1 (x + 1) in v[c / 2]
-      I8Lines<2>::load(static_cast<const int8_t*>(table) + level + row, g.base_lane, v);
+      // the level's table, then the row's offset in it in 32 bits
+      const int8_t* rowp = static_cast<const int8_t*>(table)
+                           + ((size_t)l << log2_rows) * kLanes + g.row * kLanes;
+      I8Lines<2>::load(rowp, g.base_lane, v);
       const float sc = __ldg(qscale + l);
 #pragma unroll
       for (int c = 0; c < 4; c += 2) {
@@ -529,7 +559,7 @@ __global__ void blocked_grid_encode_fwd_2d_kernel(
         f1 += __fmul_rn((float)sbyte(q, 3), sc) * w1;
       }
     } else {
-      const float* rowp = static_cast<const float*>(table) + level + row + g.base_lane;
+      const float* rowp = f32_corner_2d(static_cast<const float*>(table), l, log2_rows, g);
       const bool paired = (g.base_lane & 2) == 0;
 #pragma unroll
       for (int c = 0; c < 4; c += 2) {
@@ -541,22 +571,24 @@ __global__ void blocked_grid_encode_fwd_2d_kernel(
         f1 += v.w * w1;
       }
     }
-    // float t of the tile at t + t / 32: f is even, so f + 1 is in f's 32
-    const int f = s * width + 2 * l;
-    tile_features[f + (f >> 5)] = f0;
-    tile_features[f + 1 + (f >> 5)] = f1;
+    // one pointer for both features: tile_slot(f + 1) would be computed
+    // apart (on an H100: 8 more instructions, K4 3 % slower on an image
+    // step; PERF.md)
+    float* slot = tile_features + tile_slot(t.s * width + 2 * l);
+    slot[0] = f0;
+    slot[1] = f1;
   }
   __syncthreads();
   // the tile's samples below n, 16 bytes a thread at a time (the tile
   // starts 256-byte aligned), the last 8 bytes of an odd tail alone
-  const int floats = min(1 << log2_samples, n - first) * width;
-  float* o = out + (size_t)first * width;
-  for (int t = 4 * (int)threadIdx.x; t < floats; t += 4 * (int)blockDim.x) {
-    const float* src = tile_features + t + (t >> 5);
-    if (t + 4 <= floats) {
-      *reinterpret_cast<float4*>(o + t) = make_float4(src[0], src[1], src[2], src[3]);
+  const int floats = min(1 << log2_samples, n - t.first) * width;
+  float* o = out + (size_t)t.first * width;
+  for (int k = 4 * (int)threadIdx.x; k < floats; k += 4 * (int)blockDim.x) {
+    const float* src = tile_features + tile_slot(k);
+    if (k + 4 <= floats) {
+      *reinterpret_cast<float4*>(o + k) = make_float4(src[0], src[1], src[2], src[3]);
     } else {
-      for (int j = 0; j < floats - t; ++j) o[t + j] = src[j];
+      for (int j = 0; j < floats - k; ++j) o[k + j] = src[j];
     }
   }
 }
@@ -673,9 +705,8 @@ __device__ __forceinline__ void add_corner_dfrac(float* dfrac, const Lookup<D>& 
 // and no second pass; the whole 64 MiB table is then in flight, which
 // cost 8 % on uniform positions against G = 8, but the path's own inputs
 // (a pose step's ~10^4 samples, ray-ordered samples whose neighbours share
-// rows) gained 5-14 % over G = 8. The 2D kernel (the neural image's uv
-// gradient) takes the 3D group, unswept; its 16 levels reach 26.1 MB of
-// their 256 MiB table (every level dense), inside L2.
+// rows) gained 5-14 % over G = 8. 2D grids take the 2D position backward
+// below.
 template <int D>
 __global__ void blocked_grid_encode_bwd_pos_kernel(
     const float* __restrict__ pos, const float* __restrict__ table,
@@ -732,6 +763,93 @@ __global__ void blocked_grid_encode_bwd_pos_sum_kernel(
   float s = __ldg(partial + t);
   for (int k = 1; k < groups; ++k) s += __ldg(partial + (size_t)k * nd + t);
   dpos[t] = s;
+}
+
+// K3 on 2D grids (the neural image's uv gradient). Replaces
+// hashgrid_pallas.py:_bwd_frac_kernel, and the einsum that chains its
+// dfrac to dpos, for D = 2.
+//
+// What bounds it on this card: K1's gathers on the f32 table (the image
+// grid reaches 26.1 MB of rows, inside L2) plus the cotangent, so the
+// gathers' L1 line lookups and each lookup's instructions, not bytes. The
+// pair kernel above gave a warp 2 samples x 16 levels, whose corner loads
+// touched 16 or more rows, and summed a sample's levels by 4 butterfly
+// rounds (at 7 and 6 levels in groups of 1 or 2, with partial sums and a
+// second pass). This one takes the 2D encode forward's mapping and plan
+// (fwd_plan_2d): a block per tile of 2^log2_samples consecutive samples x
+// all levels, each warp one 32-sample column walking its levels, lanes on
+// neighbouring samples of one level, each lane's position read once. The
+// cotangent comes in as the forward's features leave, backwards: the
+// tile's (samples, 2L) floats as 16-byte loads into shared memory, in the
+// forward's padded layout (so a warp's 32 samples of one level read 32
+// banks, where a direct 8-byte load of its level would touch 32 lines),
+// zeros past sample n - 1. A lane whose cotangent is zero skips its loads,
+// so dpos is exactly 0 where every term is; the others form their level's
+// dfrac * scale as the pair kernel does (the same corner loads and order
+// of terms) and write it over their cotangent. Then one thread per
+// (sample, component) adds the L values in level order, as the plain
+// version does, and the tile's dpos leaves as contiguous bytes: no
+// shuffles, partial sums or second pass at any level count, and the same
+// bits from launch to launch.
+__global__ void blocked_grid_encode_bwd_pos_2d_kernel(
+    const float* __restrict__ pos, const float* __restrict__ table,
+    const float* __restrict__ grad, float* __restrict__ dpos,
+    const LevelParams lp, int n, int n_levels, int log2_rows,
+    int morton_hash, int log2_samples) {
+  extern __shared__ float tile_cot[];
+  const TileLane2D t = tile_lane_2d(pos, n, log2_samples);
+  const int width = 2 * n_levels;            // floats a sample
+  const int samples = min(1 << log2_samples, n - t.first);   // below n
+  const int floats = samples * width;
+  // the tile's cotangent, 16 bytes a thread at a time where the tile's
+  // start is 16-byte aligned (the caller's tensor may start anywhere),
+  // zeros past sample n - 1
+  const float* g = grad + (size_t)t.first * width;
+  const bool aligned = (reinterpret_cast<uintptr_t>(g) & 15) == 0;
+  for (int k = 4 * (int)threadIdx.x; k < (width << log2_samples); k += 4 * (int)blockDim.x) {
+    float v[4];
+    if (aligned && k + 4 <= floats) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(g + k));
+      v[0] = q.x, v[1] = q.y, v[2] = q.z, v[3] = q.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[j] = k + j < floats ? __ldg(g + k + j) : 0.f;
+    }
+    // k is a multiple of 4: its 4 floats are in one 32
+    float* dst = tile_cot + tile_slot(k);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dst[j] = v[j];
+  }
+  __syncthreads();
+  for (int l = t.level; l < n_levels; l += t.level_step) {
+    float* slot = tile_cot + tile_slot(t.s * width + 2 * l);
+    const float g0 = slot[0], g1 = slot[1];
+    const Level lv = level_of(lp, l);
+    float dfrac[2] = {};
+    if (g0 != 0.f || g1 != 0.f) {
+      const Lookup<2> q = lookup_geometry<2>(t.xy, 0, lv, log2_rows, morton_hash);
+      const float* rowp = f32_corner_2d(table, l, log2_rows, q);
+      const bool paired = (q.base_lane & 2) == 0;
+#pragma unroll
+      for (int c = 0; c < 4; c += 2) {
+        const float4 v = corner_pair<2>(rowp, c, paired);
+        add_corner_dfrac(dfrac, q, c, v.x * g0 + v.y * g1);
+        add_corner_dfrac(dfrac, q, c + 1, v.z * g0 + v.w * g1);
+      }
+    }
+    slot[0] = dfrac[0] * lv.scale;
+    slot[1] = dfrac[1] * lv.scale;
+  }
+  __syncthreads();
+  // thread k takes component k & 1 of sample k >> 1: a warp's stores are
+  // 128 contiguous bytes
+  float* o = dpos + (size_t)t.first * 2;
+  for (int k = (int)threadIdx.x; k < 2 * samples; k += (int)blockDim.x) {
+    const int f = (k >> 1) * width + (k & 1);
+    float acc = tile_cot[tile_slot(f)];
+    for (int l = 1; l < n_levels; ++l) acc += tile_cot[tile_slot(f + 2 * l)];
+    o[k] = acc;
+  }
 }
 
 // K5, pass 1: the largest |w*g| of each (level, sample tile) into
@@ -1215,12 +1333,23 @@ int encode_fwd_i8(const float* pos, const int8_t* table, const float* qscale,
 // limit without an opt-in attribute
 constexpr int kFwd2dMaxSmemBytes = 48 << 10;
 
-// K1 (kInt8 false) and K4 on a 2D grid, as kernels/blocked_grid_cuda.py's
-// fwd_plan_2d plans it: tiles of 2^log2_samples samples (32 to 1024),
-// `threads` per block (whole warps, the same number on each 32-sample
-// column of the tile, at most one per level), exactly the blocks that
-// cover n samples, and the tile's features within kFwd2dMaxSmemBytes;
-// checked.
+// Checks a launch on kernels/blocked_grid_cuda.py's fwd_plan_2d plan (the
+// 2D encode forward's, and the 2D position backward's): tiles of
+// 2^log2_samples samples (32 to 1024), `threads` per block (whole warps,
+// the same number on each 32-sample column of the tile, at most one per
+// level), exactly the blocks that cover n samples, and the tile's floats
+// within kFwd2dMaxSmemBytes.
+int check_plan_2d(int n, int n_levels, int blocks, int threads, int log2_samples) {
+  if (log2_samples < 5 || log2_samples > 10 || threads < 32 || threads > 1024 ||
+      threads % 32 != 0 || threads > (n_levels << log2_samples) ||
+      (threads >> 5) % (1 << (log2_samples - 5)) != 0 ||
+      (long long)blocks != (((long long)n + (1 << log2_samples) - 1) >> log2_samples) ||
+      fwd_2d_smem_bytes(log2_samples, n_levels) > kFwd2dMaxSmemBytes)
+    return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+// K1 (kInt8 false) and K4 on a 2D grid, on fwd_plan_2d's plan, checked
 template <bool kInt8>
 int encode_fwd_2d(const float* pos, const void* table, const float* qscale,
                   float* out, const float* scales, const int* blocks_per_dim,
@@ -1228,23 +1357,34 @@ int encode_fwd_2d(const float* pos, const void* table, const float* qscale,
                   int morton_hash, int blocks, int threads, int log2_samples,
                   void* stream) {
   LevelParams lp = {};
-  const int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n, n_levels,
-                             log2_rows);
+  int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n, n_levels, log2_rows);
+  if (rc == 0) rc = check_plan_2d(n, n_levels, blocks, threads, log2_samples);
   if (rc != 0) return rc;
-  if (log2_samples < 5 || log2_samples > 10 || threads < 32 || threads > 1024 ||
-      threads % 32 != 0 || threads > (n_levels << log2_samples) ||
-      (threads >> 5) % (1 << (log2_samples - 5)) != 0 ||
-      (long long)blocks != (((long long)n + (1 << log2_samples) - 1) >> log2_samples))
-    return (int)cudaErrorInvalidValue;
-  const int smem = fwd_2d_smem_bytes(log2_samples, n_levels);
-  if (smem > kFwd2dMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  blocked_grid_encode_fwd_2d_kernel<kInt8><<<blocks, threads, smem,
+  blocked_grid_encode_fwd_2d_kernel<kInt8><<<blocks, threads,
+                                              fwd_2d_smem_bytes(log2_samples, n_levels),
                                               static_cast<cudaStream_t>(stream)>>>(
       pos, table, qscale, out, lp, n, n_levels, log2_rows, morton_hash, log2_samples);
   return (int)cudaGetLastError();
 }
 
-// K3 for a D-dimensional grid: both passes on one stream
+// K3 on a 2D grid, on fwd_plan_2d's plan, checked: one pass
+int encode_bwd_pos_2d(const float* pos, const float* table, const float* grad,
+                      float* dpos, const float* scales, const int* blocks_per_dim,
+                      const unsigned char* is_dense, int n, int n_levels, int log2_rows,
+                      int morton_hash, int blocks, int threads, int log2_samples,
+                      void* stream) {
+  LevelParams lp = {};
+  int rc = fill_levels(&lp, scales, blocks_per_dim, is_dense, n, n_levels, log2_rows);
+  if (rc == 0) rc = check_plan_2d(n, n_levels, blocks, threads, log2_samples);
+  if (rc != 0) return rc;
+  blocked_grid_encode_bwd_pos_2d_kernel<<<blocks, threads,
+                                          fwd_2d_smem_bytes(log2_samples, n_levels),
+                                          static_cast<cudaStream_t>(stream)>>>(
+      pos, table, grad, dpos, lp, n, n_levels, log2_rows, morton_hash, log2_samples);
+  return (int)cudaGetLastError();
+}
+
+// K3 for a 3D grid: both passes on one stream
 template <int D>
 int encode_bwd_pos(const float* pos, const float* table, const float* grad,
                    float* dpos, float* partial, const float* scales,
@@ -1358,9 +1498,9 @@ int table_bwd_2d(const float* pos, const float* grad, float* dtable,
 
 }  // namespace
 
-// The level group of kernel 0 = K1, 1 = K2, 2 = K4, 3 = K5, 4 = K3, so
-// the wrapper can plan their launches; -1 for any other. 2D grids take
-// the same groups in K3; K1, K2, K4 and K5 take plans of their own there.
+// The level group of kernel 0 = K1, 1 = K2, 2 = K4, 3 = K5, 4 = K3 on 3D
+// grids, so the wrapper can plan their launches; -1 for any other. On 2D
+// grids every kernel takes a plan of its own.
 extern "C" int ngp_blocked_grid_group(int kernel) {
   switch (kernel) {
     case 0: return kGroupFwd;
@@ -1379,7 +1519,8 @@ extern "C" int ngp_blocked_grid_group(int kernel) {
 // kernel takes the wrapper's launch plan (blocks and threads per level
 // group, log2 of the group's width). Each takes a 3D grid and positions
 // (N, 3); its _2d twin takes a 2D grid and positions (N, 2), with the same
-// arguments (K1's and K4's with a plan of their own in the last three).
+// arguments (K1's, K3's and K4's with a plan of their own in the last
+// three, K3's without partial sums).
 #define NGP_ENCODE_FWD_ARGS                                                   \
     const float* pos, const float* table, float* out, const float* scales,    \
     const int* blocks_per_dim, const unsigned char* is_dense, int n,           \
@@ -1446,7 +1587,7 @@ extern "C" int ngp_blocked_grid_encode_bwd(NGP_ENCODE_BWD_ARGS) {
   return encode_bwd<3>(NGP_ENCODE_BWD_PASS);
 }
 
-// K3: dpos (N, D) is written in full; no zeroing needed. Where the plan
+// K3: dpos (N, 3) is written in full; no zeroing needed. Where the plan
 // has more than one level group, `partial` holds (groups, N, D) floats of
 // scratch (written in full by pass 1, read by pass 2 on the same stream);
 // it may be null for a single group.
@@ -1463,8 +1604,16 @@ extern "C" int ngp_blocked_grid_encode_bwd_pos(NGP_ENCODE_BWD_POS_ARGS) {
   return encode_bwd_pos<3>(NGP_ENCODE_BWD_POS_PASS);
 }
 
-extern "C" int ngp_blocked_grid_encode_bwd_pos_2d(NGP_ENCODE_BWD_POS_ARGS) {
-  return encode_bwd_pos<2>(NGP_ENCODE_BWD_POS_PASS);
+// K3 on a 2D grid, on fwd_plan_2d's plan: `blocks` tiles of
+// 2^log2_samples samples, `threads` per block; no partial sums
+extern "C" int ngp_blocked_grid_encode_bwd_pos_2d(
+    const float* pos, const float* table, const float* grad, float* dpos,
+    const float* scales, const int* blocks_per_dim, const unsigned char* is_dense,
+    int n, int n_levels, int log2_rows, int morton_hash, int blocks, int threads,
+    int log2_samples, void* stream) {
+  return encode_bwd_pos_2d(pos, table, grad, dpos, scales, blocks_per_dim, is_dense, n,
+                           n_levels, log2_rows, morton_hash, blocks, threads,
+                           log2_samples, stream);
 }
 
 // K5: tile_max (L * ceil(n / 2^log2_tile) uint32) and dtable must be

@@ -15,15 +15,15 @@ version.
 The kernels are compiled with ``nvcc`` into a shared library with a plain C
 interface on first use (into ``build/ngp_tpu_torch/`` at the repository
 root, named by a hash of the sources and flags, so an unchanged tree is
-not rebuilt) and loaded with ``ctypes``. Every kernel on 3D grids, and K3
-on 2D ones, is launched as ``launch_plan`` sizes it: one thread per
-(sample, level), neighbouring threads on neighbouring levels of one
-sample, in level groups of each kernel's own width
-(``ngp_blocked_grid_group``). On 2D grids (the neural image) K1 and K4
-take ``fwd_plan_2d``'s plan: one block per tile of samples × all levels,
-neighbouring lanes on neighbouring samples of one level; K2 and K5 take
-``table_bwd_plan_2d``'s: one block per chunk of samples and group of
-levels, a level's gradient summed in shared memory where its rows fit,
+not rebuilt) and loaded with ``ctypes``. Every kernel on 3D grids is
+launched as ``launch_plan`` sizes it: one thread per (sample, level),
+neighbouring threads on neighbouring levels of one sample, in level groups
+of each kernel's own width (``ngp_blocked_grid_group``). On 2D grids (the
+neural image) K1, K3 and K4 take ``fwd_plan_2d``'s plan: one block per
+tile of samples × all levels, neighbouring lanes on neighbouring samples
+of one level (K3 then adds each sample's levels in level order); K2 and
+K5 take ``table_bwd_plan_2d``'s: one block per chunk of samples and group
+of levels, a level's gradient summed in shared memory where its rows fit,
 else in L2.
 """
 from __future__ import annotations
@@ -110,16 +110,17 @@ def load_library(path: Path) -> ctypes.CDLL:
                 "blocked_grid_encode_bwd_pos": [vp] * 5 + planned,
                 "blocked_grid_encode_bwd_i8": ([vp, vp, vp, vp]
                                                + planned[:-1] + [ci, vp])}
+    # the 2D twins, with the same arguments but K3's: no partial sums
+    argtypes.update({f"{name}_2d": types for name, types in argtypes.items()})
+    argtypes["blocked_grid_encode_bwd_pos_2d"] = [vp] * 4 + planned
     lib.ngp_blocked_grid_group.argtypes = [ci]
     lib.ngp_blocked_grid_group.restype = ci
     for name, types in argtypes.items():
-        # the 2D twins; a library built from older sources without some of
-        # them (a baseline of scripts/encode_group_sweep.py) serves 3D
-        # there
-        for entry in (f"ngp_{name}", f"ngp_{name}_2d"):
-            if hasattr(lib, entry):
-                fn = getattr(lib, entry)
-                fn.argtypes, fn.restype = types, ci
+        # a library built from older sources without some 2D twins (a
+        # baseline of scripts/encode_group_sweep.py) serves 3D there
+        if hasattr(lib, f"ngp_{name}"):
+            fn = getattr(lib, f"ngp_{name}")
+            fn.argtypes, fn.restype = types, ci
     # K2 and K5 on 2D grids (absent from a library of older sources)
     if hasattr(lib, "ngp_blocked_grid_table_bwd_2d"):
         lib.ngp_blocked_grid_table_bwd_2d.argtypes = (
@@ -206,7 +207,8 @@ def launch_plan(n: int, n_levels: int, group: int,
 # and the most levels each warp walks in turn (1: one warp per 32 samples
 # of a level; 32: one thread per sample): for K1 and K4 alike the fastest
 # on an H100 on an image step and on a frame's pixel centres of those
-# scripts/encode_group_sweep.py timed (PERF.md)
+# scripts/encode_group_sweep.py timed (PERF.md); the 2D K3 takes the same
+# plan
 FWD_2D_SAMPLES, FWD_2D_LEVELS_PER_WARP = 32, 4
 # the most shared memory its tile may take (the entry point's limit)
 FWD_2D_SMEM = 48 << 10
@@ -221,16 +223,21 @@ def fwd_2d_smem_bytes(samples: int, n_levels: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class FwdPlan2D:
-    """A launch of the 2D encode forward (K1, K4): ``blocks`` blocks of
-    ``threads`` threads, block b taking the tile of samples
-    [b·samples, (b + 1)·samples) × all ``n_levels`` levels. The tile has
-    samples / 32 columns of 32 consecutive samples, and each column the
-    same number of warps, ``steps`` = threads / samples: warp w takes
-    column c = w mod (samples / 32), lane j its sample 32·c + j, and walks
-    the levels w // (samples / 32), + steps, .... The features pass
-    through ``smem_bytes`` of shared memory and leave as 16-byte stores,
-    thread t taking the tile's floats 4t, 4t + 4·threads, ...; a lane
-    past sample n - 1 looks that sample up again and stores nothing."""
+    """A launch of the 2D encode forward (K1, K4) or of the 2D position
+    backward (K3): ``blocks`` blocks of ``threads`` threads, block b
+    taking the tile of samples [b·samples, (b + 1)·samples) × all
+    ``n_levels`` levels. The tile has samples / 32 columns of 32
+    consecutive samples, and each column the same number of warps,
+    ``steps`` = threads / samples: warp w takes column c = w mod
+    (samples / 32), lane j its sample 32·c + j, and walks the levels
+    w // (samples / 32), + steps, .... The features pass through
+    ``smem_bytes`` of shared memory and leave as 16-byte stores, thread t
+    taking the tile's floats 4t, 4t + 4·threads, ...; a lane past sample
+    n - 1 looks that sample up again and stores nothing. K3's cotangent
+    comes into the same shared memory by the same 16-byte steps (zeros
+    past sample n - 1), each lane writes its level's dfrac·scale over its
+    cotangent, and thread t adds component t mod 2 of sample t // 2 of the
+    tile (and t + threads, ...) over the levels in level order (``sums``)."""
     n: int
     n_levels: int
     samples: int
@@ -255,6 +262,11 @@ class FwdPlan2D:
         """Warps per 32-sample column: the stride of a warp's walk."""
         return self.threads // self.samples
 
+    @property
+    def walk(self) -> int:
+        """The most levels a warp walks."""
+        return -(-self.n_levels // self.steps)
+
     def pairs(self):
         """(sample, level, warp) of every lookup, each (blocks, lookups of
         a tile, 32 lanes), in the kernel's own mapping (each warp's walk in
@@ -271,6 +283,18 @@ class FwdPlan2D:
         shape = sample.shape
         return (sample, np.broadcast_to(level[None, :, None], shape),
                 np.broadcast_to(warp[None, :, None], shape))
+
+    def sums(self):
+        """K3's sums: (block, thread, sample, component) of every
+        (sample, component) of dpos with sample < n, in the kernel's own
+        mapping; each is stored by its thread, at float 2·sample +
+        component."""
+        out = []
+        for b in range(self.blocks):
+            k = np.arange(2 * min(self.samples, self.n - b * self.samples))
+            out.append((np.full(k.size, b), k % self.threads,
+                        b * self.samples + k // 2, k % 2))
+        return tuple(np.concatenate(a) for a in zip(*out))
 
     def stores(self):
         """Every store of the features to the output, in the kernel's own
@@ -293,7 +317,7 @@ class FwdPlan2D:
 
 
 def fwd_plan_2d(n: int, meta: BlockedGridMeta) -> FwdPlan2D:
-    """The plan of K1 and K4 on the 2D grid ``meta`` for n samples: tiles
+    """The plan of K1, K3 and K4 on the 2D grid ``meta`` for n samples: tiles
     of FWD_2D_SAMPLES samples, each warp walking at most
     FWD_2D_LEVELS_PER_WARP levels of a 32-sample column (all L where that
     is more), so a block of samples / 32 · ⌈L / walk⌉ warps. Raises
@@ -594,6 +618,11 @@ def launch_bwd_pos(table: torch.Tensor, pos: torch.Tensor,
         return dpos
     lib = build()
     name = launch_name("blocked_grid_encode_bwd_pos", meta)
+    if meta.n_dims == 2:
+        args, _keep = _planned_args(meta, pos, fwd_plan_2d(n, meta))
+        _run(name, lib.ngp_blocked_grid_encode_bwd_pos_2d, pos.data_ptr(),
+             table.data_ptr(), grad.data_ptr(), dpos.data_ptr(), *args)
+        return dpos
     plan = kernel_plan("blocked_grid_encode_bwd_pos", n, meta)
     # each level group's sum, added up in group order by the second pass
     partial = (torch.empty((plan.groups, n, d), dtype=torch.float32,

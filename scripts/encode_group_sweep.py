@@ -21,14 +21,18 @@ backward's entry point (``ngp_blocked_grid_table_bwd_2d``: the sources
 before its redesign) runs its 2D K2 and K5 as they were launched then:
 one thread per (sample, level) in its level groups, K5 in two passes
 over a zeroed tile_max; one without the 2D encode forward
-(``blocked_grid_encode_fwd_2d_kernel``) runs its 2D K1 and K4 so too.
+(``blocked_grid_encode_fwd_2d_kernel``) runs its 2D K1 and K4 so too, and
+one without the 2D position backward
+(``blocked_grid_encode_bwd_pos_2d_kernel``) its 2D K3: pairs in its K3
+level group, with partial sums and a second pass where the group does not
+cover every level.
 ``--plans`` times the tree's 2D table backward under other plans too
 (``blocked_grid_cuda.TABLE_BWD_SMEM`` in KiB, ``TABLE_BWD_CHUNK``,
 ``TABLE_BWD_GROUP`` and ``_I8``: levels a block), and, for specs
-``fwd:SAMPLES:WALK``, its 2D encode forward under other plans
-(``FWD_2D_SAMPLES`` and ``FWD_2D_LEVELS_PER_WARP``, K1's and K4's: the
-tile and the most levels each warp walks; 32: one thread a sample), on
-the first G's library.
+``fwd:SAMPLES:WALK``, its 2D encode forward and 2D position backward
+under other plans (``FWD_2D_SAMPLES`` and ``FWD_2D_LEVELS_PER_WARP``, the
+plan of K1, K3 and K4 on 2D grids: the tile and the most levels each warp
+walks; 32: one thread a sample), on the first G's library.
 
 Inputs, at the full NeRF width: K1 at 2^20 uniform and ray-ordered
 positions, K2 and K3 at 2^18 of each (``chip_smoke.ray_ordered_inputs``,
@@ -52,9 +56,13 @@ steps' inputs as ``chip_smoke.capture_image_step`` takes them).
 ``full`` one (its table quantised as the step quantises it), each also
 on the first 2^18 pixel centres of a 2048² frame
 (``chip_smoke.pixel_chunk``: an eval chunk, row-major) and at 2^20
-uniform positions; every case also prints each variant's max |Δ| to the
-output of the first ``--sources`` version (or of the tree's, without
-one).
+uniform positions. ``K3-2d``: the 2D K3 on one step of the ``full``
+ImageTrainer (its table, stratified batch and cotangent), on its field's
+gradient by uv at the 512² pixel centres (``chip_smoke.uv_gradient_inputs``:
+the table, positions and cotangent the encoding got) and at 2^18 uniform
+positions with a seeded cotangent. Every case also prints each variant's
+max |Δ| to the output of the first ``--sources`` version (or of the
+tree's, without one).
 Every library is first checked against the plain versions with
 chip_smoke.py's tolerances (K3 also against a second launch of itself:
 bit-equal). Then each case is timed in turns (baseline, each variant, each
@@ -104,6 +112,7 @@ ITERS = 20
 GROUP_CONSTANTS = ("kGroupFwd", "kGroupBwd", "kGroupPos", "kGroupI8",
                    "kGroupI8Bwd")
 FWD_2D_KERNEL = "blocked_grid_encode_fwd_2d_kernel"
+POS_2D_KERNEL = "blocked_grid_encode_bwd_pos_2d_kernel"
 TRAIN_VIEWS, TRAIN_RES, TRAIN_STEPS = 24, 128, 512
 IMAGE_STEPS = 256
 
@@ -144,8 +153,10 @@ FWD_2D_OPS = ("LDG", "LDC", "STS", "LDS", "STG", "I2F", "PRMT", "FFMA",
 
 def _sass(lib_path: Path) -> str:
     """The reduction and atomic instructions of K2's, K3's and K5's SASS
-    (the 2D table backward's shared-memory ones among them), and the 2D
-    encode forward's instruction count with those of FWD_2D_OPS."""
+    (the 2D table backward's shared-memory ones among them), and the
+    instruction counts, with those of FWD_2D_OPS, of the 2D encode
+    forward and of the 2D K3 (the 2D position backward, or the pair
+    kernel of older sources at D = 2)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return "cuobjdump not found"
@@ -160,6 +171,8 @@ def _sass(lib_path: Path) -> str:
                 ("K2 2D", "blocked_grid_encode_bwd_2d_kernelILb0"),
                 ("K5 2D", "blocked_grid_encode_bwd_2d_kernelILb1"),
                 ("K2", "blocked_grid_encode_bwd_kernel"),
+                ("K3 2D", POS_2D_KERNEL),
+                ("K3 pair 2D", "blocked_grid_encode_bwd_pos_kernelILi2E"),
                 ("K3", "blocked_grid_encode_bwd_pos"),
                 ("K5 pass 1", "blocked_grid_encode_bwd_i8_max_kernel"),
                 ("K5 pass 2", "blocked_grid_encode_bwd_i8_kernel"))
@@ -170,7 +183,7 @@ def _sass(lib_path: Path) -> str:
             if not m:
                 continue
             op = m.group(1)
-            if fn.endswith("2D") and fn[:2] in ("K1", "K4"):
+            if fn.endswith("2D") and fn[:2] in ("K1", "K3", "K4"):
                 keys = [f"{fn} all"] + [f"{fn} {op}"] * (op in FWD_2D_OPS)
             else:
                 keys = [f"{fn} {op}{m.group(2)}"] * op.startswith(("RED",
@@ -205,15 +218,26 @@ class Baseline:
 
 class Parent2D:
     """A library of sources from before the 2D table backward's redesign
-    (``old_bwd``) or the 2D encode forward's (``old_fwd``): its 2D K2 and
-    K5, or K1 and K4, launched as its wrappers launched them (pairs in the
-    library's level groups; K5's two passes over a zeroed tile_max), the
-    rest through the current wrappers."""
+    (``old_bwd``), the 2D encode forward's (``old_fwd``) or the 2D
+    position backward's (``old_pos``): its 2D K2 and K5, K1 and K4, or K3
+    launched as its wrappers launched them (pairs in the library's level
+    groups; K5's two passes over a zeroed tile_max; K3's group partials
+    and second pass, through the entry point's own signature at ``path``),
+    the rest through the current wrappers."""
 
-    def __init__(self, lib, old_bwd: bool, old_fwd: bool):
+    def __init__(self, lib, old_bwd: bool, old_fwd: bool, old_pos: bool,
+                 path: Path):
         self.lib, self.old_bwd, self.old_fwd = lib, old_bwd, old_fwd
+        self.old_pos = old_pos
         self.bwd, self.bwd_i8 = bgc.launch_bwd, bgc.launch_bwd_i8
         self.fwd, self.fwd_i8 = bgc.launch_fwd, bgc.launch_fwd_i8
+        self.bwd_pos = bgc.launch_bwd_pos
+        if old_pos:
+            # a second handle, so this entry point keeps its own signature
+            vp, ci = ctypes.c_void_p, ctypes.c_int
+            self.k3 = ctypes.CDLL(str(path)).ngp_blocked_grid_encode_bwd_pos_2d
+            self.k3.argtypes = [vp] * 8 + [ci] * 7 + [vp]
+            self.k3.restype = ci
 
     def _run(self, kernel: str, pos, meta, *ptrs, tile=None):
         n, lib = pos.shape[0], self.lib
@@ -265,10 +289,30 @@ class Parent2D:
                   qs.data_ptr(), out.data_ptr())
         return out
 
+    def launch_bwd_pos(self, table, pos, grad, meta):
+        if meta.n_dims != 2:
+            return self.bwd_pos(table, pos, grad, meta)
+        n = pos.shape[0]
+        group = self.lib.ngp_blocked_grid_group(
+            bgc.GROUP_KERNELS.index("blocked_grid_encode_bwd_pos"))
+        plan = bgc.launch_plan(n, meta.n_levels, group)
+        dpos = torch.empty((n, 2), device=pos.device)
+        partial = (torch.empty((plan.groups, n, 2), device=pos.device)
+                   if plan.groups > 1 else None)
+        args, _keep = bgc._planned_args(meta, pos, plan)
+        if self.k3(pos.data_ptr(), table.data_ptr(), grad.data_ptr(),
+                   dpos.data_ptr(),
+                   None if partial is None else partial.data_ptr(), *args):
+            raise RuntimeError("parent blocked_grid_encode_bwd_pos_2d launch "
+                               "failed")
+        bgc.launches["blocked_grid_encode_bwd_pos_2d"] += 1
+        return dpos
+
     def patches(self) -> dict:
         """The wrappers this library replaces."""
         names = (["launch_bwd", "launch_bwd_i8"] if self.old_bwd else []) \
-            + (["launch_fwd", "launch_fwd_i8"] if self.old_fwd else [])
+            + (["launch_fwd", "launch_fwd_i8"] if self.old_fwd else []) \
+            + (["launch_bwd_pos"] if self.old_pos else [])
         return {k: getattr(self, k) for k in names}
 
 
@@ -311,8 +355,8 @@ _image_steps = {}
 def image_step_inputs(dev, mode: str):
     """An ImageTrainer (configs/image/base.json, encode_int8 ``mode``) on
     chip_smoke.py's seeded image, trained IMAGE_STEPS steps: its grid, the
-    positions and cotangent its encoding gets in one more step, and its
-    trained table; one trainer per mode."""
+    positions and cotangent its encoding gets in one more step, its
+    trained table, and the trainer; one trainer per mode."""
     if mode in _image_steps:
         return _image_steps[mode]
     from ngp_tpu_torch.common import srgb_to_linear_np
@@ -327,7 +371,7 @@ def image_step_inputs(dev, mode: str):
           f"{tr.training_step} steps, loss {tr.last_loss:.4e}; one step's "
           f"encode inputs: {pos.shape[0]} samples")
     _image_steps[mode] = (tr.model.encoding.meta, pos, cot,
-                          tr.params["encoding.table"].detach())
+                          tr.params["encoding.table"].detach(), tr)
     return _image_steps[mode]
 
 
@@ -424,10 +468,11 @@ def main() -> int:
                     default=list(bgc.SWEPT_GROUPS))
     ap.add_argument("--kernels", nargs="+", default=["K3"],
                     choices=["K1", "K2", "K3", "K4", "K5", "K1-2d", "K2-2d",
-                             "K4-2d", "K5-2d"])
+                             "K3-2d", "K4-2d", "K5-2d"])
     ap.add_argument("--plans", nargs="*", default=[],
                     help="2D table-backward plans, SMEM_KIB:CHUNK[:GROUP], "
-                         "and 2D encode-forward ones, fwd:SAMPLES:WALK")
+                         "and those of the 2D encode forward and position "
+                         "backward, fwd:SAMPLES:WALK")
     args = ap.parse_args()
     cs.phase_device()
     dev = torch.device("cuda", 0)
@@ -454,8 +499,9 @@ def main() -> int:
         lib = bgc.load_library(path)
         old_bwd = not hasattr(lib, "ngp_blocked_grid_table_bwd_2d")
         old_fwd = FWD_2D_KERNEL not in texts[name]
-        variants[name] = (Parent2D(lib, old_bwd, old_fwd)
-                          if old_bwd or old_fwd else (lib, {}))
+        old_pos = POS_2D_KERNEL not in texts[name]
+        variants[name] = (Parent2D(lib, old_bwd, old_fwd, old_pos, path)
+                          if old_bwd or old_fwd or old_pos else (lib, {}))
     for spec in args.plans:
         variants[f"{first} plan {spec}"] = (variants[first][0],
                                             _plan_settings(spec))
@@ -536,7 +582,7 @@ def main() -> int:
         uni_f = torch.rand((1 << 20, 2), generator=torch.Generator(
             device=dev).manual_seed(cs.SEED + 11), device=dev)
     if "K1-2d" in args.kernels:
-        meta1, p1, _, t1 = image_step_inputs(dev, "")
+        meta1, p1, _, t1, _ = image_step_inputs(dev, "")
         for what, p in (("image step", p1), ("pixel chunk", pix),
                         ("uniform 2^20", uni_f)):
             cases[f"K1-2d {what}"] = (
@@ -545,7 +591,7 @@ def main() -> int:
                 lambda p=p: encode_reference(t1, p, meta1),
                 "blocked_grid_encode_fwd_2d", p, meta1)
     if "K4-2d" in args.kernels:
-        meta4, p4, _, t4 = image_step_inputs(dev, "full")
+        meta4, p4, _, t4, _ = image_step_inputs(dev, "full")
         with torch.no_grad():
             tq4, qs4 = quantize_table_i8(t4)
         for what, p in (("full image step", p4), ("pixel chunk", pix),
@@ -555,8 +601,25 @@ def main() -> int:
                 lambda p=p: bgc.launch_fwd_i8(tq4, qs4, p, meta4),
                 lambda p=p: encode_reference_i8(tq4, qs4, p, meta4),
                 "blocked_grid_encode_fwd_i8_2d", p, meta4)
+    if "K3-2d" in args.kernels:
+        meta3, p3, c3, t3, tr3 = image_step_inputs(dev, "full")
+        _, (uv_t, uv_p, uv_c) = cs.uv_gradient_inputs(tr3)
+        u3 = torch.rand((1 << 18, 2), generator=torch.Generator(
+            device=dev).manual_seed(cs.SEED + 13), device=dev)
+        cu3 = cs._cotangent(dev, meta3, 1 << 18, cs.SEED + 14)
+        for what, t, p, c in (("full image step", t3, p3, c3),
+                              (f"uv gradient ({uv_p.shape[0]})", uv_t, uv_p,
+                               uv_c),
+                              ("uniform 2^18", t3, u3, cu3)):
+            cases[f"K3-2d {what}"] = (
+                lambda t=t, p=p, c=c, what=what: cs.check_k3(t, p, c, meta3,
+                                                             what),
+                lambda t=t, p=p, c=c: bgc.launch_bwd_pos(t, p, c, meta3),
+                lambda t=t, p=p, c=c: encode_position_backward_reference(
+                    t, p, c, meta3),
+                "blocked_grid_encode_bwd_pos_2d", p, meta3)
     if "K2-2d" in args.kernels:
-        meta2, p2, c2, _ = image_step_inputs(dev, "")
+        meta2, p2, c2, _, _ = image_step_inputs(dev, "")
         uni = torch.rand((1 << 20, 2), generator=torch.Generator(
             device=dev).manual_seed(cs.SEED + 6), device=dev)
         cu = cs._cotangent(dev, meta2, 1 << 20, cs.SEED + 7)
@@ -569,7 +632,7 @@ def main() -> int:
                 lambda p=p, c=c: encode_backward_reference(p, c, meta2),
                 "blocked_grid_encode_bwd_2d", p, meta2)
     if "K5-2d" in args.kernels:
-        meta5, p5, c5, _ = image_step_inputs(dev, "full")
+        meta5, p5, c5, _, _ = image_step_inputs(dev, "full")
         u5 = torch.rand((1 << 18, 2), generator=torch.Generator(
             device=dev).manual_seed(cs.SEED + 8), device=dev)
         cu5 = cs._cotangent(dev, meta5, 1 << 18, cs.SEED + 9)

@@ -21,7 +21,10 @@ forward (K1, K4) at 16, 7 and 6 levels on the image path's three inputs
 (a stratified batch, a chunk of row-major pixel centres, uniform
 positions with the edge positions), under its default plan and two
 others, each with a ragged last tile, into outputs filled with NaN so
-that a (sample, level) it does not store shows.
+that a (sample, level) it does not store shows; the 2D position backward
+(K3) on the same grids, inputs and plans, its cotangent also from a
+tensor that is not 16-byte aligned, into a NaN-filled dpos, bit-equal
+over two launches.
 
 What a host cannot show is the card's own: the order in which a warp's
 lanes run, f32 atomics' flush of denormals and the compiler's FMAs stay
@@ -385,19 +388,20 @@ ODD_IDS = ["3d-L7", "3d-L6", "2d-L7", "2d-L6"]
 @pytest.mark.parametrize("meta_kw", ODD_METAS, ids=ODD_IDS)
 def test_emulated_kernels_at_odd_level_counts(emulated, meta_kw):
     """All five kernels through their wrappers on a whole 7- or 6-level
-    grid, each plan in groups of width 1 or 2: K1 and K4 absolute, K2 and
-    K5 (tiles of 64 and 2048) relative with their zero patterns, and K3
-    relative to Σ|term| with its group partials added in order by its
-    second pass, bit-equal over two launches."""
+    grid, each 3D plan in groups of width 1 or 2: K1 and K4 absolute, K2
+    and K5 (tiles of 64 and 2048) relative with their zero patterns, and K3
+    relative to Σ|term| (in 3D with its group partials added in order by
+    its second pass; in 2D in one pass, on K1's 2D plan), bit-equal over
+    two launches."""
     meta = tbg.BlockedGridMeta(**meta_kw)
     table, pos, cot = _inputs(meta, 4, n=600)
     width = 1 if meta.n_levels == 7 else 2
-    for name in bgc.GROUP_KERNELS:
-        if meta.n_dims == 2 and name != "blocked_grid_encode_bwd_pos":
-            continue     # fwd_plan_2d's and table_bwd_plan_2d's plans
-        plan = bgc.kernel_plan(name, pos.shape[0], meta)
-        assert plan.width == width and plan.groups == meta.n_levels // width
-    if meta.n_dims == 2:
+    if meta.n_dims == 3:
+        for name in bgc.GROUP_KERNELS:
+            plan = bgc.kernel_plan(name, pos.shape[0], meta)
+            assert plan.width == width \
+                and plan.groups == meta.n_levels // width
+    else:
         plan = bgc.fwd_plan_2d(pos.shape[0], meta)
         assert (plan.samples, plan.threads) == (32, 64)   # 2 walks
     before = {k: _count(k, meta) for k in bgc.GROUP_KERNELS}
@@ -621,3 +625,106 @@ def test_emulated_2d_encode_forward_refuses_other_plans(emulated):
     assert run(*plan.launch_args) == 0
     assert float((out - tbg.encode_reference(table, pos, meta)).abs().max()
                  ) <= KERNEL_TOL
+
+
+def _check_k3(got, table, pos, cot, meta, what):
+    """K3's output against the plain position backward: within
+    KERNEL_POS_TOL of each component's Σ|term|, exactly 0 where every term
+    is."""
+    ref = tbg.encode_position_backward_reference(table, pos, cot, meta)
+    mag = tbg.encode_position_backward_reference(table, pos, cot, meta,
+                                                 magnitude=True)
+    assert got.shape == pos.shape and bool(torch.isfinite(got).all()), what
+    assert float(((got - ref).abs() / mag.clamp(min=1e-30)).max()) \
+        <= KERNEL_POS_TOL, what
+    assert bool((got[mag == 0] == 0).all()) and bool((mag == 0).any()), what
+    assert float(mag.max()) > 0.1
+
+
+# the 2D K3's plans (samples a tile, the most levels a warp walks), none
+# above 128 threads at 16 levels (the emulation's cost is its host
+# threads): the default, tiles of 64 with walks of 8, one thread a sample
+# in tiles of 128
+K3_2D_PLANS = [(32, 4), (64, 8), (128, 32)]
+
+
+@pytest.mark.parametrize("kind", ["stratified", "pixels", "uniform+edge"])
+@pytest.mark.parametrize("n_levels", [16, 7, 6])
+def test_emulated_2d_position_backward_matches_plain(emulated, nan_outputs,
+                                                     monkeypatch, n_levels,
+                                                     kind):
+    """The 2D K3 (one launch on ``fwd_plan_2d``'s plan, no partial sums)
+    against the plain position backward under K3_2D_PLANS, on 1003 of the
+    2D forward's inputs (the first of the stratified batch and of the
+    pixel chunk, the last of the uniform set: its edge positions), so the
+    last tile is ragged, into a NaN-filled dpos (the dynamic shared memory
+    starts NaN too, so a slot read before it is written shows): within
+    KERNEL_POS_TOL of Σ|term|, exactly 0 where every term is (every fifth
+    sample's cotangent is zero, and some samples' first two levels), and
+    the same bits under every plan, from a second launch and from a
+    cotangent that is not 16-byte aligned; each launch counts once under
+    ``blocked_grid_encode_bwd_pos_2d``."""
+    meta = tbg.BlockedGridMeta(**FWD_2D_METAS[n_levels])
+    pos = _fwd_2d_positions(kind, meta)
+    pos = (pos[-1003:] if kind == "uniform+edge" else pos[:1003]).contiguous()
+    n = pos.shape[0]
+    rng = np.random.default_rng(100 + n_levels)
+    table = torch.from_numpy((rng.standard_normal(
+        (meta.n_levels, meta.rows, 128)) * 0.5).astype(np.float32))
+    cot = rng.standard_normal((n, 2 * n_levels)).astype(np.float32)
+    cot[::5] = 0.0
+    cot[1::7, :4] = 0.0
+    cot = torch.from_numpy(cot)
+    # the same cotangent 4 bytes past a 16-byte boundary
+    flat = torch.empty(cot.numel() + 4)
+    shifted = flat[1:cot.numel() + 1].view(cot.shape).copy_(cot)
+    assert shifted.data_ptr() % 16 != 0
+    name = bgc.launch_name("blocked_grid_encode_bwd_pos", meta)
+    assert name == "blocked_grid_encode_bwd_pos_2d"
+    before = bgc.launches[name]
+    runs = []
+    for samples, per_warp in K3_2D_PLANS:
+        monkeypatch.setattr(bgc, "FWD_2D_SAMPLES", samples)
+        monkeypatch.setattr(bgc, "FWD_2D_LEVELS_PER_WARP", per_warp)
+        runs.append(bgc.launch_bwd_pos(table, pos, cot, meta))
+        if not runs[1:]:
+            runs += [bgc.launch_bwd_pos(table, pos, c, meta)
+                     for c in (cot, shifted)]
+    _check_k3(runs[0], table, pos, cot, meta, kind)
+    for got in runs[1:]:
+        assert torch.equal(got.view(torch.int32), runs[0].view(torch.int32))
+    assert bgc.launches[name] == before + len(runs) == before + 5
+
+
+def test_emulated_2d_position_backward_refuses_other_plans(emulated):
+    """The 2D K3's entry point launches only what ``fwd_plan_2d`` could
+    plan (the refusals of the 2D encode forward's, and the 3D K3's pair
+    plan of the same grid) before any launch; the plan itself launches, in
+    one pass with no partial sums."""
+    meta = tbg.BlockedGridMeta(**FWD_2D_METAS[16])
+    table, pos, cot = _inputs(meta, 9, n=200)
+    n = pos.shape[0]
+    dpos = torch.full((n, 2), float("nan"))
+    plan = bgc.fwd_plan_2d(n, meta)
+    pair = bgc.kernel_plan("blocked_grid_encode_bwd_pos", n, meta)
+    lib = emulated
+
+    def run(blocks, threads, log2_samples):
+        args, _keep = bgc._level_args(meta, pos)
+        return lib.ngp_blocked_grid_encode_bwd_pos_2d(
+            pos.data_ptr(), table.data_ptr(), cot.data_ptr(),
+            dpos.data_ptr(), *args[:-1], blocks, threads, log2_samples,
+            args[-1])
+    for bad in ((plan.blocks + 1, plan.threads, plan.log2_samples),
+                (plan.blocks - 1, plan.threads, plan.log2_samples),
+                (-(-n // 16), 512, 4),
+                (-(-n // 2048), 512, 11),
+                (plan.blocks, 48, plan.log2_samples),
+                (plan.blocks, 544, plan.log2_samples),
+                (-(-n // 64), 96, 6),          # 3 warps, 2 columns
+                (-(-n // 512), 1024, 9),       # 264 KiB a tile
+                pair.launch_args):
+        assert run(*bad) != 0, bad
+    assert bool(dpos.isnan().all())
+    assert run(*plan.launch_args) == 0
+    _check_k3(dpos, table, pos, cot, meta, "the plan")

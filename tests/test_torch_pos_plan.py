@@ -1,9 +1,11 @@
 """The launch plan of K3 (the encode's position backward) and its sum across
 levels, emulated in numpy: each (sample, level) lane forms its level's
-dfrac·scale, the lanes of a level group add theirs by xor butterflies, and
-the groups' partial sums are added in group order. The kernel runs only on
-the card; chip_smoke.py holds it against the plain version there, and
-against a second launch of itself."""
+dfrac·scale; on 3D grids the lanes of a level group add theirs by xor
+butterflies, and the groups' partial sums are added in group order; on 2D
+grids the 2D K3 adds each sample's levels in level order
+(``test_torch_pos_plan_2d.emulate_k3_2d``). The kernel runs only on the
+card; chip_smoke.py holds it against the plain version there, and against
+a second launch of itself."""
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,11 @@ SIXTEEN = dict(n_dims=3, n_levels=16, base_resolution=16,
                per_level_scale=1.38, log2_rows=8, row_hash="prime")
 METAS = SMALL + [SIXTEEN]
 META_IDS = SMALL_IDS + ["3d-16-levels"]
+# 2D grids take no level group (the 2D K3 runs on fwd_plan_2d's plan): each
+# group's 2D case runs one of these plans (samples a tile, the most levels
+# a warp walks) instead: the default, a warp a level of 64 samples, one
+# thread a sample
+PLANS_2D = dict(zip(GROUPS, [(32, 4), (64, 1), (128, 32)]))
 
 
 @pytest.fixture(autouse=True)
@@ -117,11 +124,20 @@ def _kernel_sum(values, width: int):
 
 
 def _emulated(meta_kw, group, seed):
+    """The kernel's dpos: in 3D with its lanes after the butterflies, in 2D
+    (lanes None) on the plan PLANS_2D[group]."""
     meta = tbg.BlockedGridMeta(**meta_kw)
     table, pos, cot = (torch.from_numpy(a)
                        for a in _inputs(meta_kw, seed=seed))
+    values = _lane_values(table, pos, cot, meta)
+    if meta.n_dims == 2:
+        # imported here: that module imports this one
+        from test_torch_pos_plan_2d import emulate_k3_2d, plan_2d
+        plan = plan_2d(pos.shape[0], meta, *PLANS_2D[group])
+        dpos = emulate_k3_2d(plan, values, cot.numpy())[0]
+        return meta, (table, pos, cot), None, dpos
     width = bgc.launch_plan(pos.shape[0], meta.n_levels, group).width
-    lanes, dpos = _kernel_sum(_lane_values(table, pos, cot, meta), width)
+    lanes, dpos = _kernel_sum(values, width)
     assert lanes.dtype == np.float32 and dpos.dtype == np.float32
     return meta, (table, pos, cot), lanes, dpos
 
@@ -129,9 +145,11 @@ def _emulated(meta_kw, group, seed):
 @pytest.mark.parametrize("group", GROUPS)
 @pytest.mark.parametrize("meta_kw", METAS, ids=META_IDS)
 def test_k3_summation_order_matches_the_plain_version(meta_kw, group):
-    """The kernel's order of summation, at f32, against the plain position
-    backward: each component within KERNEL_POS_TOL of its Σ|term|, and
-    exactly 0 where every term is."""
+    """The kernel's order of summation, at f32 (3D: butterflies in groups
+    of ``group``, then the groups' partials; 2D: the level-order sum on the
+    plan PLANS_2D[group]), against the plain position backward: each
+    component within KERNEL_POS_TOL of its Σ|term|, and exactly 0 where
+    every term is."""
     meta, args, _, dpos = _emulated(meta_kw, group, seed=21)
     ref = tbg.encode_position_backward_reference(*args, meta).numpy()
     mag = tbg.encode_position_backward_reference(*args, meta,
@@ -145,8 +163,15 @@ def test_k3_summation_order_matches_the_plain_version(meta_kw, group):
 def test_k3_butterfly_gives_every_lane_of_a_group_the_same_bits(meta_kw):
     """After the butterflies every lane of a group holds its group's sum
     bit for bit (IEEE addition commutes), so which lane stores a
-    component does not change it, and neither does a second launch."""
+    component does not change it, and neither does a second launch. On 2D
+    grids, with no butterflies, every plan of PLANS_2D gives the same
+    bits."""
+    runs = []
     for group in GROUPS:
-        _, _, lanes, _ = _emulated(meta_kw, group, seed=22)
+        _, _, lanes, dpos = _emulated(meta_kw, group, seed=22)
+        if lanes is None:
+            runs.append(dpos.view(np.uint32))
+            continue
         bits = lanes.view(np.uint32)
         assert (bits == bits[:, :1]).all()
+    assert all(np.array_equal(r, runs[0]) for r in runs)
