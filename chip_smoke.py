@@ -98,7 +98,24 @@ Phases, each reported on its own line:
                64×36 frame of them against the CPU (mean |Δ| ≤
                MULTINERF_CPU_TOL). Each request's ms is printed; K1 must
                launch in the phase and K2–K5 must not.
-  9. image   — the neural image (cell smoke-image-synth): a seeded
+  9. wave    — the wave (live-sample) renderers on the testbed phase's
+               snapshot, held-out view 0 at 640×360 with the Testbed's
+               render options: the static frame, the device-dispatch wave
+               frame (the defaults) and the host-dispatch one (fused,
+               "bulk"), WAVE_FRAMES each in turns, with ms/frame, samples
+               and host syncs per frame (``count_syncs``: sync debug
+               warnings plus the renderer's own event waits), and the wave
+               frame's PSNR against the static one (printed); gates: host
+               segmented at wave_cap c against the static frame at
+               samples_per_chunk_factor c, the device dispatch against host
+               fused (a top stream that does not bind), the wave frame
+               twice bit for bit, an empty bitfield, a 64×36 frame against
+               the CPU path, K1 launching in the f32 wave frames and K2–K5
+               not, K4 in an ``encode_int8="fwd"`` wave frame, fewer syncs
+               on the device dispatch than on the static frame; K1 on the
+               wave frame's largest encode call against its plain version
+               and timed beside its bound.
+ 10. image   — the neural image (cell smoke-image-synth): a seeded
                2048×2048 PNG (colour gradients, a fine grating, hard-edged
                discs), ``python -m ngp_tpu_torch.run --mode image``'s main
                for IMAGE_STEPS with configs/image/base.json at full width
@@ -115,7 +132,7 @@ Phases, each reported on its own line:
                ``fwd_plan_2d``), K1 also on the first 2^18 pixel centres
                of the 2048² frame (the render's own input); a 64×64 frame
                on the card against the CPU path.
- 10. image-int8 — the image engine under NGP_TPU_ENCODE_INT8 (cell
+ 11. image-int8 — the image engine under NGP_TPU_ENCODE_INT8 (cell
                smoke-image-int8): on phase 9's PNG, the runner's ``--mode
                image`` for IMAGE_STEPS under "fwd" and then "full", each
                with compute_image_mse's PSNR rise (≥ PSNR_RISE_DB) and
@@ -133,7 +150,7 @@ Phases, each reported on its own line:
                positions and cotangent, K4 also on the first 2^18 pixel
                centres of the 2048² frame, and a 64×64 frame on the card
                is held against the CPU path.
- 11. volume  — the neural volume (cell smoke-volume-plume): the 128³
+ 12. volume  — the neural volume (cell smoke-volume-plume): the 128³
                procedural plume written by the port's write_nvdb, the
                runner's ``--mode volume`` for VOLUME_STEPS with configs/
                volume/base.json at full width (16 levels × 8192 rows, batch
@@ -144,7 +161,7 @@ Phases, each reported on its own line:
                ground-truth density: the IoU of their opacity > 0.5 masks
                ≥ VOLUME_IOU_MIN; K1 and K2 launch in the phase; a 32×32
                frame on the card against the CPU path.
- 12. sdf     — the SDF engine (cell smoke-sdf-synth): a torus OBJ (radii
+ 13. sdf     — the SDF engine (cell smoke-sdf-synth): a torus OBJ (radii
                0.3 and 0.1, 256 × 64 segments, 32,768 triangles), the
                runner's ``--mode sdf`` for SDF_STEPS with configs/sdf/
                base.json at full width (16 levels × 8192 rows, batch
@@ -155,7 +172,7 @@ Phases, each reported on its own line:
                launch in it), each frame's hit mask against the BVH's ray
                casts of its rays (≥ HIT_AGREE_MIN), K1 and K2 launching in
                the phase, and a 64×36 frame against the CPU path.
- 13. mesh    — mesh export (cell smoke-mesh): the runner's --save_mesh of
+ 14. mesh    — mesh export (cell smoke-mesh): the runner's --save_mesh of
                the testbed phase's snapshot at 256³, the Testbed's NeRF
                mesh with vertex colours (.ply; σ in the occupied cells,
                the field's device ms by CUDA events and the host's
@@ -169,7 +186,7 @@ Phases, each reported on its own line:
                exactly two faces) and 64 PNG slices; K1 launches in the
                phase and is held against its plain version on the field's
                own inputs.
- 14. takikawa — the Takikawa octree encoding (cell smoke-takikawa-torus):
+ 15. takikawa — the Takikawa octree encoding (cell smoke-takikawa-torus):
                configs/sdf/takikawa.json at full width on the torus (7
                levels, depths 4..10, level groups of width 1), 8 batches
                of 2^18 from the trainer's sampler pinned with
@@ -178,7 +195,7 @@ Phases, each reported on its own line:
                against the BVH's ray casts (≥ HIT_AGREE_MIN); K1, K2 and
                K3 at L = 7 on a step's and the frame's own inputs against
                their plain versions (K3 bit-equal over two launches).
- 15. playback — frozen-model playback (cell smoke-playback-spheres):
+ 16. playback — frozen-model playback (cell smoke-playback-spheres):
                bake_playback() of the testbed phase's snapshot at D 256
                and D_inner 512, the held-out PSNR within PLAYBACK_PSNR_DB
                of the live renderer's, 640×360 and 1920×1080 frames
@@ -186,7 +203,7 @@ Phases, each reported on its own line:
                cascade holds the two latest orientations, and the runner's
                --video_camera_path --video_playback writing 20 frames; K1
                on the bake's first batch against its plain version.
- 16. captures — real captures (cell smoke-captures-spheres): the spheres
+ 17. captures — real captures (cell smoke-captures-spheres): the spheres
                through an F-theta lens (24 views at 256², 4 held out)
                written with 16-bit depth PNGs under integer_depth_scale,
                alpha sidecars on the even views and a dynamic mask over
@@ -206,7 +223,7 @@ Phases, each reported on its own line:
                against the CPU, K4 on the frame's largest encode call held
                against its plain version and timed); a tcnn-layout model
                and a blocked one train 256 steps (ms/step side by side).
-Every gate of phases 13–16 prints ``gate <what>: <value> (limit ...;
+Every gate of phases 9 and 14–17 prints ``gate <what>: <value> (limit ...;
 <share> of the limit)``.
 With ``--profile``, torch.profiler traces of one slice frame (K1's device
 ms and launches in it) and of 16 steady training steps are broken down by
@@ -221,7 +238,7 @@ each the entries whose zero patterns differ, their largest Σ|w·g| and
 the largest |value| of the side that is not 0, alone, over Σ|w·g| and
 over its rounding envelope (``zero_patterns``).
 Then the script's total seconds, one JSON line with each kernel's
-figures and its launches in the testbed, multinerf, image, image-int8
+figures and its launches in the testbed, multinerf, wave, image, image-int8
 (per run: "fwd", "full", "uv"), volume, sdf, mesh, takikawa, playback and
 captures phases
 (K1's, K2's and K3's ray-ordered ones under "ray_ordered", K3's and K5's
@@ -234,7 +251,9 @@ uniform positions under "uniform_2e18" or "uniform_2e20"; the 2D K1's
 and K4's on a frame's pixel centres under "pixel_chunk"; entries of
 their own for K1 on the mesh field and on the playback bake and for K1,
 K2 and K3 at L = 7 on the Takikawa path, and for K4 on the int8 NeRF
-frame's largest encode call (its launches: those of one frame), each
+frame's largest encode call (its launches: those of one frame) and for
+K1 on the wave frame's largest encode call (its launches: those of the
+wave phase's f32 wave frames), each
 named with its input and carrying its kernel's ``launch_name``), and as
 the last line ``{"ok": true, "device": {...}}``. Any failure raises: there is no fallback to the CPU or to the
 plain version.
@@ -2432,6 +2451,278 @@ def phase_multinerf(dev, view0_psnr: float, root: Path = None,
     return launches
 
 
+
+# the wave phase: frames rendered in turns per renderer; the wave frames
+# held against the static and each other at the means and shares of the
+# static render's parity test (mean |Δ| ≤ WAVE_MEAN_TOL, ≥ WAVE_SHARE of
+# the pixels within WAVE_PIXEL_TOL)
+WAVE_FRAMES = 3
+WAVE_MEAN_TOL, WAVE_PIXEL_TOL, WAVE_SHARE = 2e-4, 2e-3, 0.995
+
+
+def count_syncs(fn):
+    """``fn()`` under the card's sync debug mode ("warn"): returns (its
+    result, a Counter of the synchronizing CUDA operations it made by the
+    source line that called them: each ``nonzero``, ``.item()``, copy to
+    or from the host that waits, and synchronize). An event's or stream's
+    own wait is not among them: the renderer counts those it makes
+    (``last_event_waits``)."""
+    import collections
+    import warnings
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchronizing" in str(w.message))
+
+
+def _gate_frames(tag: str, what: str, got: torch.Tensor, ref: torch.Tensor):
+    """Two gates on a frame against another: the mean |Δ| and the share
+    of pixels within WAVE_PIXEL_TOL on every channel."""
+    err = (got - ref).abs()
+    within = float((err <= WAVE_PIXEL_TOL).all(-1).float().mean())
+    _gate_max(tag, f"{what}: mean |Δ|", float(err.mean()), WAVE_MEAN_TOL)
+    _gate_min(tag, f"{what}: share of pixels within {WAVE_PIXEL_TOL}",
+              within, WAVE_SHARE)
+
+
+def _gate_zero(tag: str, what: str, value: int):
+    """A gate on a count that must be 0 (its share: the count itself)."""
+    _gate(tag, what, value, "== 0", value == 0, float(value), fmt="d")
+
+
+def _gate_some(tag: str, what: str, value: int):
+    """A gate on a count that must be at least 1 (its share: 1 / count)."""
+    _gate(tag, what, value, ">= 1", value >= 1, 1.0 / max(value, 1),
+          fmt="d")
+
+
+def _launches_in(fn):
+    """(``fn()``, the kernel launches it made)."""
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    before = dict(bgc.launches)
+    out = fn()
+    return out, {k: v - before[k] for k, v in bgc.launches.items()}
+
+
+def phase_wave(dev, root: Path = None, config=None, cpu_size=(64, 36),
+               frames: int = WAVE_FRAMES, profile: bool = False):
+    """The wave (live-sample) renderers on the testbed phase's snapshot
+    (``root``/snapshot.msgpack), at held-out view 0 and 640×360 with the
+    Testbed's own render options: the static frame, the device-dispatch
+    wave frame (the defaults) and the host-dispatch one (fused, "bulk")
+    ``frames`` times each in turns (ms/frame after the first, samples,
+    host syncs per frame by ``count_syncs`` plus the renderer's own event
+    waits), the PSNR of the wave frame against the static one; then the
+    gates: host segmented at wave_cap c against the static frame at
+    samples_per_chunk_factor c, the device dispatch against host fused
+    with a top stream that does not bind, the default wave frame twice
+    bit for bit, an empty bitfield (nothing composited, the background
+    everywhere), a small frame on the card against the CPU path, the
+    launches (K1 in the f32 wave frames and K2-K5 not, K4 in a wave frame
+    under encode_int8="fwd"), fewer syncs on the device dispatch than on
+    the static frame; and K1 on the wave frame's largest encode call
+    against its plain version, timed beside its bound. Returns (the
+    phase's launch counts, that K1 entry with its launches in the phase's
+    f32 wave frames). ``profile`` traces one frame of each renderer by
+    layer (``trace_frame``)."""
+    import dataclasses
+
+    import ngp_tpu_torch.render.nerf_render as nr
+
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.render.nerf_render import NerfRenderer
+
+    t_phase = time.perf_counter()
+    root = root or ROOT / "build" / "testbed_smoke"
+    config = Path(config or ROOT / "configs/nerf/base.json")
+    tb = _nerf_testbed(dev, root, config, root / "snapshot.msgpack")
+    test = json.loads((root / "transforms_test.json").read_text())
+    tb.set_nerf_camera_matrix(np.asarray(
+        test["frames"][0]["transform_matrix"], np.float32)[:3])
+    focal = float(test["fl_x"])
+    tb._view_focal = np.array([focal, focal], np.float32)
+    W, H = FRAME_W, FRAME_H
+    tr = tb.trainer
+    params, bitfield = tr.inference_params(), tr.grid.bitfield
+    cam = np.asarray(tb.camera_matrix, np.float32)
+    static = tb._nerf_renderer(W, H)
+    _reset_launches()
+
+    def renderer(encode_int8=None, **kw):
+        extra = {} if encode_int8 is None else {"encode_int8": encode_int8}
+        return NerfRenderer.for_trainer(
+            tr, dataclasses.replace(static.opts, **kw), **extra)
+
+    def frame(r, bits=None, size=(W, H), f=focal):
+        return r.render(params, bitfield if bits is None else bits, cam,
+                        *size, focal=(f, f), spp=1)
+
+    opts = static.opts
+    print(f"wave: {tr.model.pos_encoding.meta.n_levels} levels, "
+          f"march_steps {opts.march_steps}, chunk {opts.chunk}, wave_cap "
+          f"{opts.wave_cap} x march_segments {opts.march_segments}, "
+          f"dispatch_chunks {opts.dispatch_chunks}, wave2_top_bucket "
+          f"{opts.wave2_top_bucket}")
+    paths = {"static": static, "wave device": renderer(wave=True),
+             "wave host fused bulk": renderer(wave=True,
+                                              wave_dispatch="host")}
+    ms = {k: [] for k in paths}
+    imgs = {k: [] for k in paths}
+    k1_wave = 0
+    for _ in range(frames):
+        for what, r in paths.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img, n = _launches_in(lambda: frame(r))
+            torch.cuda.synchronize()
+            ms[what].append((time.perf_counter() - t0) * 1e3)
+            _check_frame(img, W, H)
+            imgs[what].append(img)
+            if what != "static":
+                k1_wave += n["blocked_grid_encode_fwd"]
+                _gate_zero("wave", f"{what}: launches of K2-K5 in an f32 "
+                           "frame", sum(v for k, v in n.items()
+                                        if k != "blocked_grid_encode_fwd"))
+
+    def event_wait():
+        event = torch.cuda.Event()
+        event.record()
+        event.synchronize()
+    _, event_warns = count_syncs(event_wait)
+    syncs = {}
+    for what, r in paths.items():
+        _, sites = count_syncs(lambda: frame(r))
+        torch.cuda.synchronize()
+        n = sum(sites.values())
+        syncs[what] = n + r.last_event_waits
+        samples = f"{r.last_n_samples} samples evaluated"
+        if r._wave_supported():
+            samples += f", {r.last_wave_samples} composited"
+        print(f"wave: {what}: {np.mean(ms[what][1:]):.1f} ms/frame after "
+              f"the first ({', '.join(f'{t:.1f}' for t in ms[what])}); "
+              f"{samples}; {syncs[what]} host syncs per frame ({n} "
+              f"sync-debug warnings + {r.last_event_waits} event waits); "
+              f"warnings by line: " + ", ".join(
+                  f"{k} x{v}" for k, v in sites.most_common()))
+    print(f"wave: syncs counted by torch.cuda.set_sync_debug_mode('warn') "
+          f"warnings, plus the renderer's own event waits "
+          f"(last_event_waits); an event wait alone gave "
+          f"{sum(event_warns.values())} warnings")
+    if profile:
+        device, host = paths["wave device"], paths["wave host fused bulk"]
+        net = [(tr.model, "forward", "network (K1 + MLPs)"),
+               (nr, "stream_slots", "stream_slots")]
+        for what, r, layers in (
+                ("static", static, static_layers(static, nr)),
+                ("wave device", device, [
+                    (nr, "coarse_segments", "coarse_segments"),
+                    (device, "_wave2_stream", "segment stream + fit"),
+                    (device, "_wave2_composite", "stream, network, "
+                     "composite")] + net),
+                ("wave host fused bulk", host, [
+                    (host, "_wave_start", "march + count"),
+                    (host, "_wave_finish", "read count + body"),
+                    (nr, "composite_samples", "composite_samples")] + net)):
+            print(trace_frame(what, lambda: frame(r), layers, top_n=10))
+    mse = float(((imgs["wave device"][0][..., :3].clamp(0, 1)
+                  - imgs["static"][0][..., :3].clamp(0, 1)) ** 2).mean())
+    print(f"wave: PSNR of the default wave frame against the static frame "
+          f"{-10 * math.log10(max(mse, 1e-20)):.2f} dB (not gated: the "
+          f"whole-ray cap and the top-stream decimation may change it)")
+    _gate_some("wave", f"K1 launches in the {2 * frames} f32 wave frames",
+               k1_wave)
+
+    # the gates
+    c = opts.samples_per_chunk_factor
+    seg = frame(renderer(wave=True, wave_dispatch="host", wave_fused=False,
+                         wave_cap=c))
+    _gate_frames("wave", f"host segmented at wave_cap {c} vs static at "
+                 f"samples_per_chunk_factor {c}", seg, imgs["static"][0])
+    cap = min(opts.wave_cap * opts.march_segments, opts.march_steps)
+    dev_free = frame(renderer(wave=True,
+                              wave2_top_bucket=opts.chunk * cap))
+    _gate_frames("wave", f"device (top stream {opts.chunk} x {cap}) vs "
+                 "host fused", dev_free, imgs["wave host fused bulk"][0])
+    n_diff = int((imgs["wave device"][-2] != imgs["wave device"][-1]).sum())
+    _gate_zero("wave", "default wave frame rendered twice: values that "
+               "differ", n_diff)
+    empty = torch.zeros_like(bitfield)
+    bg = torch.tensor(opts.background[:3], device=dev)
+    for dispatch in ("device", "host"):
+        r = renderer(wave=True, wave_dispatch=dispatch, linear_out=False)
+        img = frame(r, empty)
+        _gate_zero("wave", f"{dispatch} dispatch, empty bitfield: samples "
+                   "composited", r.last_wave_samples)
+        off = int(((img[..., :3] != bg).any(-1) | (img[..., 3] != 0)).sum())
+        _gate_zero("wave", f"{dispatch} dispatch, empty bitfield: pixels "
+                   "that are not the background", off)
+    cw, ch = cpu_size
+    small = frame(paths["wave device"], size=cpu_size, f=focal * cw / W)
+    model_cpu, params_cpu = _cpu_copy(tr.model, params)
+    cpu = NerfRenderer(model_cpu, tr.aabb_min, tr.aabb_size, tr.cone_angle,
+                       tr.max_cascade, paths["wave device"].opts).render(
+        params_cpu, bitfield.cpu(), cam, cw, ch,
+        focal=(focal * cw / W, focal * cw / W), spp=1)
+    _gate_frames("wave", f"{cw}x{ch} wave frame, card vs CPU", small.cpu(),
+                 cpu)
+    i8, n = _launches_in(lambda: frame(renderer(wave=True,
+                                                encode_int8="fwd")))
+    _check_frame(i8, W, H)
+    k4 = n["blocked_grid_encode_fwd_i8"]
+    print(f"wave: a wave frame under encode_int8='fwd': launches {n}")
+    _gate_some("wave", "K4 launches in a wave frame under encode_int8="
+               "'fwd'", k4)
+    _gate_max("wave", "host syncs per frame, device dispatch vs static",
+              syncs["wave device"], syncs["static"] - 1)
+
+    # K1 on the wave frame's largest encode call; the segments the coarse
+    # mask keeps, and those of them that hold a live sample
+    seen, segs = [], [0, 0, 0]
+    launch, coarse, stream = (bgc.launch_fwd, nr.coarse_segments,
+                              nr.march_segment_stream)
+
+    def spy(table, pos, meta):
+        seen.append(pos.clone())
+        return launch(table, pos, meta)
+
+    def spy_coarse(*args, **kw):
+        out = coarse(*args, **kw)
+        segs[0] += out[2].numel()
+        segs[1] += int(out[2].sum())
+        return out
+
+    def spy_stream(*args, **kw):
+        out = stream(*args, **kw)
+        segs[2] += int(out[6].any(1).sum())
+        return out
+    with mock.patch.object(bgc, "launch_fwd", spy), \
+            mock.patch.object(nr, "coarse_segments", spy_coarse), \
+            mock.patch.object(nr, "march_segment_stream", spy_stream):
+        frame(paths["wave device"])
+    print(f"wave: segments of the default wave frame: {segs[0]} on the "
+          f"rays, {segs[1]} kept by the coarse mask, {segs[2]} of them "
+          f"holding a live sample")
+    pos = max(seen, key=lambda p: p.shape[0])
+    print(f"wave: the default wave frame's largest encode call took "
+          f"{pos.shape[0]} of its {sum(p.shape[0] for p in seen)} samples "
+          f"over {len(seen)} calls")
+    table, meta = params["pos_encoding.table"], tr.model.pos_encoding.meta
+    err = check_k1(table, pos, meta, "wave frame")
+    entry = time_k1(table, pos, meta, err, "wave frame")
+    entry["launch_name"] = entry["name"]
+    entry["name"] = f"{entry['name']} (wave frame)"
+    entry["launches"] = k1_wave
+    launches = dict(bgc.launches)
+    print(f"wave: launches in the phase {launches}; the phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, entry
+
 def _attribute_kernels(prof, span_names, main_span: str):
     """Device work of a trace by the span that launched it. Each kernel,
     copy or fill is matched through its correlation id to the runtime call
@@ -2550,12 +2841,15 @@ def phase_profile(tr, steps: int = 16):
             sort_by="self_device_time_total", row_limit=40) + "\n")
 
 
-def phase_profile_frame(renderer, bitfield):
-    """Trace one slice frame with torch.profiler: the device time of the
-    work launched inside each render layer's span, and K1's launches."""
+def trace_frame(what: str, render, layers, top_n: int = 0) -> str:
+    """Trace ``render()`` (one frame) with torch.profiler: the wall ms, the
+    device work and busy time, the idle share, and the device time of the
+    work launched inside each layer's span (``layers``: (object,
+    attribute, span name); a kernel counts in every span around its
+    launch), K1's among them, and the ``top_n`` operations by their own
+    device time. Returns the ``profile:`` lines."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    import ngp_tpu_torch.render.nerf_render as nr
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
 
     def span(name, fn):
@@ -2563,41 +2857,58 @@ def phase_profile_frame(renderer, bitfield):
             with record_function(name):
                 return fn(*args, **kwargs)
         return wrapped
-    layers = [(renderer, "render", "frame"),
-              (nr, "march_rays", "march_rays"),
-              (nr, "merge_excess_samples", "merge_excess_samples"),
-              (nr, "compact_samples", "compact_samples"),
-              (renderer.model, "forward", "network (K1 + MLPs)"),
-              (bgc, "launch_fwd", "K1 encode fwd"),
-              (nr, "composite_samples", "composite_samples")]
+    layers = [(bgc, "launch_fwd", "K1 encode fwd")] + list(layers)
     patches = [mock.patch.object(o, a, span(n, getattr(o, a)))
                for o, a, n in layers]
     for p in patches:
         p.start()
     try:
-        _reset_launches()
+        before = bgc.launches["blocked_grid_encode_fwd"]
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            renderer.render(None, bitfield, orbit_camera(0.0), FRAME_W,
-                            FRAME_H, focal=FOCAL, spp=1)
+            with record_function("frame"):
+                render()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         for p in patches:
             p.stop()
-    k1_launches = bgc.launches["blocked_grid_encode_fwd"]
-    per_span, _, total, busy = _attribute_kernels(
-        prof, {n for _, _, n in layers}, "frame")
-    lines = [f"profile: frame 0 {FRAME_W}x{FRAME_H} traced in {wall_ms:.1f} "
+    k1 = bgc.launches["blocked_grid_encode_fwd"] - before
+    names = {n for _, _, n in layers} | {"frame"}
+    per_span, _, total, busy = _attribute_kernels(prof, names, "frame")
+    lines = [f"profile: {what} {FRAME_W}x{FRAME_H} traced in {wall_ms:.1f} "
              f"ms; device work {total:.2f} ms, busy {busy:.2f} ms: idle "
              f"share {1 - busy / wall_ms:.3f}; K1 "
-             f"{per_span.get('K1 encode fwd', 0.0):.3f} ms device in "
-             f"{k1_launches} launches"]
-    lines += [f"profile: frame {n:<24s} {per_span.get(n, 0.0):9.3f} ms device"
-              for _, _, n in layers]
-    print("\n".join(lines))
+             f"{per_span.get('K1 encode fwd', 0.0):.3f} ms device in {k1} "
+             f"launches"]
+    lines += [f"profile: {what}: {n:<28s} {per_span.get(n, 0.0):9.3f} ms "
+              "device" for _, _, n in layers[1:]]
+    top = sorted((e for e in prof.key_averages()
+                  if e.self_device_time_total > 0 and e.key not in names),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:top_n]
+    lines += [f"profile: {what}: top {e.key[:60]:<60s} "
+              f"{e.self_device_time_total / 1e3:9.3f} ms device in "
+              f"{e.count} calls" for e in top]
+    return "\n".join(lines)
+
+
+def phase_profile_frame(renderer, bitfield):
+    """Trace one slice frame (``trace_frame``) by render layer."""
+    import ngp_tpu_torch.render.nerf_render as nr
+    print(trace_frame("frame 0", lambda: renderer.render(
+        None, bitfield, orbit_camera(0.0), FRAME_W, FRAME_H, focal=FOCAL,
+        spp=1), static_layers(renderer, nr)))
+
+
+def static_layers(renderer, nr):
+    """The static render path's layers, for ``trace_frame``."""
+    return [(nr, "march_rays", "march_rays"),
+            (nr, "merge_excess_samples", "merge_excess_samples"),
+            (nr, "compact_samples", "compact_samples"),
+            (renderer.model, "forward", "network (K1 + MLPs)"),
+            (nr, "composite_samples", "composite_samples")]
 
 
 # the image phase: a seeded IMAGE_RES² image fitted by the runner for
@@ -4355,6 +4666,7 @@ def main() -> int:
     del tr
     testbed_launches, normals_k3, view0_psnr = phase_testbed(dev)
     multinerf_launches = phase_multinerf(dev, view0_psnr)
+    wave_launches, wave_k1 = phase_wave(dev, profile="--profile" in args)
     image_launches, kernels_2d, image_f32 = phase_image(dev)
     int8_runs, kernels_int8 = phase_image_int8(dev, image_f32)
     volume_launches = phase_volume(dev)
@@ -4411,9 +4723,12 @@ def main() -> int:
     render_k4["launch_name"] = render_k4["name"]
     render_k4["name"] = f"{render_k4['name']} (nerf render int8)"
     render_k4["launches"] = render_k4.pop("frame_launches")
-    kernels += [e for e, _, _ in slice_entries] + [render_k4]
+    # K1 on the wave renderer's path: its launches in the wave phase's f32
+    # wave frames
+    kernels += [e for e, _, _ in slice_entries] + [render_k4, wave_k1]
     for k in kernels:
         name = k.get("launch_name", k["name"])
+        k["wave_launches"] = wave_launches[name]
         k["mesh_launches"] = mesh_launches[name]
         k["takikawa_launches"] = tak_launches[name]
         k["playback_launches"] = playback_launches[name]

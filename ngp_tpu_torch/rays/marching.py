@@ -41,8 +41,10 @@ def step_lattice_at(t0: torch.Tensor, k: torch.Tensor,
     ta, tb = dm / c, dM / c
     n1 = torch.ceil(torch.clamp(ta - t0, min=0.0) / dm)
     t_p1end = t0 + n1 * dm
-    # f32 like the JAX package, which evaluates log1p(c) on weak-typed f32
-    ratio = torch.log1p(torch.tensor(c, dtype=torch.float32, device=t0.device))
+    # f32 like the JAX package, which evaluates log1p(c) on weak-typed f32;
+    # filled on the device (a host tensor copied to the card waits for it)
+    ratio = torch.log1p(torch.full((), c, dtype=torch.float32,
+                                   device=t0.device))
     n2 = torch.ceil(torch.clamp(torch.log(torch.clamp(
         tb / torch.clamp(t_p1end, min=1e-10), min=1.0)), min=0.0) / ratio)
     t_p2end = t_p1end * torch.exp(n2 * ratio)
@@ -111,6 +113,14 @@ def compact_samples(t, dt, emit):
     offsets = torch.cumsum(counts, 0) - counts
     s_ray, s_k = emit.nonzero(as_tuple=True)
     return t[s_ray, s_k], dt[s_ray, s_k], s_ray, counts, offsets, s_k
+
+
+def merged_count(live: torch.Tensor, cap) -> torch.Tensor:
+    """The samples ``merge_excess_samples`` keeps of a ray with ``live``
+    active samples under ``cap`` (integers, broadcast): ceil(c / m) with
+    m = max(ceil(c / cap), 1), 0 for c = 0."""
+    m = torch.clamp(-torch.div(-live, cap, rounding_mode="floor"), min=1)
+    return -torch.div(-live, m, rounding_mode="floor")
 
 
 def exclusive_depth(sdt, s_ray, s_k, n_rays: int, n_k: int):
@@ -241,3 +251,146 @@ def march_and_compact_hier(bitfield, coarse, o, d, jitter, n_rays: int,
     counts = torch.bincount(s_ray, minlength=n_rays)
     return (t_s[s_seg, s_within], dt_s[s_seg, s_within], s_ray, counts,
             total, seg_total, seg_k[s_seg] * seg + s_within)
+
+
+# --- the wave renderers' marches ---------------------------------------------
+
+def stream_slots(mask: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Ray-major compaction of a (R, K) mask into ``capacity`` slots with
+    no host sync: each slot's flat index r·K + k into the mask, in the
+    order ``compact_samples`` emits them, and R·K in the slots past the
+    kept items. Whole rows that do not fit are dropped, as the JAX
+    package's ``compact_samples`` drops whole rays past its capacity. A
+    caller that knows the live count passes it and keeps every item."""
+    R, K = mask.shape
+    fits = torch.cumsum(mask.sum(1), 0) <= capacity
+    flat = (mask & fits[:, None]).reshape(-1)
+    dst = torch.where(flat, torch.cumsum(flat, 0) - 1, capacity)
+    slots = torch.full((capacity + 1,), R * K, dtype=torch.int64,
+                       device=mask.device)
+    # every kept item has a slot of its own; the rest land on the spare one
+    slots.scatter_(0, dst, torch.arange(R * K, device=mask.device))
+    return slots[:capacity]
+
+
+def march_rays_hier(bitfield, coarse, o, d, jitter: Optional[torch.Tensor],
+                    n_rays: int, march_steps: int, cone_angle: float,
+                    max_cascade: int, aabb_min, aabb_size,
+                    t_start_min: float = 0.0, seg: int = 8,
+                    seg_capacity: int = 0):
+    """``march_rays`` with the two-level occupancy filter of
+    ``march_and_compact_hier``, and the lattice layout out: (t, dt, emit)
+    each (R, K), plus the surviving-segment total (a device scalar).
+
+    Segments of ``seg`` steps are culled at their midpoints on the
+    conservative coarse mask, the survivors go into a stream of
+    ``seg_capacity`` segments (R·K/seg/8 when 0; whole rays past it are
+    dropped, as in the JAX package, so the caller compares the total with
+    the capacity), and only their samples get the fine bitfield test. The
+    emit mask equals ``march_rays``' wherever nothing was dropped: the
+    coarse mask never culls a sample the fine test keeps. No host sync."""
+    K = march_steps
+    if K % seg:
+        raise ValueError(f"march_steps {K} is not a multiple of {seg}")
+    n_seg = K // seg
+    S1 = seg_capacity or (n_rays * n_seg // 8)
+    tmin, tmax = ray_aabb_intersect(o, d, aabb_min, aabb_min + aabb_size)
+    tmin = torch.clamp(tmin, min=t_start_min)
+    t0 = tmin if jitter is None else tmin + calc_dt(tmin, cone_angle) * jitter
+    t = step_lattice(t0, cone_angle, K)                    # (R, K)
+    dt = calc_dt(t, cone_angle)
+    inside = (t < tmax[:, None]) & (tmax > tmin)[:, None]
+
+    # level 1: coarse test at segment midpoints
+    tm = t.view(n_rays, n_seg, seg)[:, :, seg // 2]
+    dm = dt.view(n_rays, n_seg, seg)[:, :, seg // 2]
+    pos_m = (o[:, None, :] + tm[..., None] * d[:, None, :]).reshape(-1, 3)
+    mip_m = occ.mip_from_dt(dm.reshape(-1), pos_m, max_cascade)
+    emit_seg = occ.coarse_occupied_at(coarse, pos_m, mip_m).view(
+        n_rays, n_seg) & inside.view(n_rays, n_seg, seg).any(-1)
+    seg_total = emit_seg.sum()
+    slots = stream_slots(emit_seg, S1)
+    valid = slots < n_rays * n_seg
+    ray = slots // n_seg                      # n_rays past the kept segments
+    rid0 = torch.clamp(ray, max=n_rays - 1)
+
+    # level 2: fine test on the surviving segments' samples
+    ks = (slots % n_seg)[:, None] * seg + torch.arange(seg, device=o.device)
+    t_s = t[rid0[:, None], ks]                             # (S1, seg)
+    pos_s = (o[rid0][:, None, :] + t_s[..., None]
+             * d[rid0][:, None, :]).reshape(-1, 3)
+    mip_s = occ.mip_from_dt(dt[rid0[:, None], ks].reshape(-1), pos_s,
+                            max_cascade)
+    emit_s = inside[rid0[:, None], ks] & valid[:, None] & occ.occupied_at(
+        bitfield, pos_s, mip_s).view(t_s.shape)
+    # back onto the lattice; empty slots write to a spare row
+    emit = torch.zeros((n_rays + 1, K), dtype=torch.bool, device=o.device)
+    emit[ray[:, None], ks] = emit_s
+    return t, dt, emit[:n_rays], seg_total
+
+
+def coarse_segments(coarse, o, d, n_rays: int, march_steps: int,
+                    cone_angle: float, max_cascade: int, aabb_min, aabb_size,
+                    seg: int = 8, t_start_min: float = 0.0):
+    """Level 1 of ``march_segment_stream``: each ray's K/seg segment
+    midpoints, in closed form, against the 16³ conservative coarse mask.
+    Returns (t0, tmax, emit_seg (R, K/seg)); a segment is inside iff its
+    first sample is (t rises)."""
+    K = march_steps
+    if K % seg:
+        raise ValueError(f"march_steps {K} is not a multiple of {seg}")
+    n_seg = K // seg
+    tmin, tmax = ray_aabb_intersect(o, d, aabb_min, aabb_min + aabb_size)
+    t0 = torch.clamp(tmin, min=t_start_min)
+    kf = torch.arange(n_seg, dtype=torch.int32, device=o.device)[None, :]
+    tm = step_lattice_at(t0[:, None], kf * seg + seg // 2, cone_angle)
+    dm = calc_dt(tm, cone_angle)
+    pos_m = (o[:, None, :] + tm[..., None] * d[:, None, :]).reshape(-1, 3)
+    mip_m = occ.mip_from_dt(dm.reshape(-1), pos_m, max_cascade)
+    occ_seg = occ.coarse_occupied_at(coarse, pos_m, mip_m).view(n_rays, n_seg)
+    t_first = step_lattice_at(t0[:, None], kf * seg, cone_angle)
+    inside_seg = (t_first < tmax[:, None]) & (tmax > t0)[:, None]
+    return t0, tmax, occ_seg & inside_seg
+
+
+def march_segment_stream(bitfield, coarse, o, d, n_rays: int,
+                         march_steps: int, cone_angle: float,
+                         max_cascade: int, aabb_min, aabb_size,
+                         seg_capacity: int, seg: int = 8,
+                         t_start_min: float = 0.0, segments=None):
+    """Two-level march straight to a compacted SEGMENT stream, with no
+    (R, K) lattice (the device-dispatch wave renderer's march).
+
+    Level 1 (``coarse_segments``, or its result passed as ``segments``:
+    the renderer takes every chunk's count in one host sync) culls
+    segments on the coarse mask; the survivors go into a stream of
+    ``seg_capacity`` (ray, segment) pairs, whole rays past it dropped as in
+    the JAX package. Level 2 re-derives each surviving segment's ``seg``
+    sample times in closed form from (t0[ray], step index), bit-identical
+    to ``step_lattice``, and runs the fine bitfield test on them only.
+
+    Returns (t0, tmax, seg_ray, seg_k, t_s, dt_s, emit_s, seg_total):
+      t0/tmax      (R,)        per-ray first sample time / AABB exit
+      seg_ray      (S1,)       ray id per stream slot (n_rays past the kept)
+      seg_k        (S1,)       segment index per slot
+      t_s/dt_s     (S1, seg)   sample times / base step sizes
+      emit_s       (S1, seg)   live-sample mask (fine occupancy ∧ inside)
+      seg_total    ()          surviving segments before the capacity"""
+    n_seg = march_steps // seg
+    t0, tmax, emit_seg = segments or coarse_segments(
+        coarse, o, d, n_rays, march_steps, cone_angle, max_cascade,
+        aabb_min, aabb_size, seg, t_start_min)
+    slots = stream_slots(emit_seg, seg_capacity)
+    seg_ray = slots // n_seg
+    seg_k = slots % n_seg
+    rid0 = torch.clamp(seg_ray, max=n_rays - 1)
+    ks = seg_k[:, None] * seg + torch.arange(seg, dtype=torch.int64,
+                                             device=o.device)
+    t_s = step_lattice_at(t0[rid0][:, None], ks, cone_angle)
+    dt_s = calc_dt(t_s, cone_angle)
+    pos_s = (o[rid0][:, None, :] + t_s[..., None]
+             * d[rid0][:, None, :]).reshape(-1, 3)
+    mip_s = occ.mip_from_dt(dt_s.reshape(-1), pos_s, max_cascade)
+    emit_s = occ.occupied_at(bitfield, pos_s, mip_s).view(t_s.shape) \
+        & (t_s < tmax[rid0][:, None]) & (seg_ray < n_rays)[:, None]
+    return t0, tmax, seg_ray, seg_k, t_s, dt_s, emit_s, emit_seg.sum()

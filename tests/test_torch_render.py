@@ -140,12 +140,11 @@ def test_render_from_jax_snapshot_matches_jax(scene, tmp_path):
 
 
 def test_unported_render_options_raise(scene):
-    """Only the wave renderers still raise; the lenses, quilting, parallax
-    and the envmap are ported (tests/test_torch_render_lenses.py); an
-    unknown lens mode or int8 mode is refused."""
+    """Every render option is ported: the lenses, quilting, parallax and
+    the envmap (tests/test_torch_render_lenses.py) and the wave renderers
+    (tests/test_torch_wave_render.py); an unknown lens mode or int8 mode is
+    refused."""
     model = TNerfNetwork(scene["cfg"], aabb_scale=1)
-    with pytest.raises(NotImplementedError, match="wave"):
-        TRenderer(model, 0.0, 1.0, 0.0, 0, TOptions(**OPTS, wave=True))
     for ok in (dict(lens_mode="ftheta"), dict(lens_mode="latlong"),
                dict(quilting_dims=(2, 1)),
                dict(parallax_shift=(0.05, 0.0, 0.0))):
