@@ -2705,6 +2705,9 @@ def phase_wave(dev, root: Path = None, config=None, cpu_size=(64, 36),
             mock.patch.object(nr, "coarse_segments", spy_coarse), \
             mock.patch.object(nr, "march_segment_stream", spy_stream):
         frame(paths["wave device"])
+    # the phase's counts come from its frames alone: the check and the
+    # timing of K1 below launch it too
+    launches = dict(bgc.launches)
     print(f"wave: segments of the default wave frame: {segs[0]} on the "
           f"rays, {segs[1]} kept by the coarse mask, {segs[2]} of them "
           f"holding a live sample")
@@ -2718,7 +2721,6 @@ def phase_wave(dev, root: Path = None, config=None, cpu_size=(64, 36),
     entry["launch_name"] = entry["name"]
     entry["name"] = f"{entry['name']} (wave frame)"
     entry["launches"] = k1_wave
-    launches = dict(bgc.launches)
     print(f"wave: launches in the phase {launches}; the phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches, entry

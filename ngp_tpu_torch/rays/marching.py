@@ -183,6 +183,49 @@ def march_and_compact(bitfield, o, d, jitter, n_rays: int, march_steps: int,
     return s_t, s_dt, s_ray, counts, total, 0, s_k
 
 
+def _hier_coarse(coarse, o, d, jitter, n_rays: int, march_steps: int,
+                 cone_angle: float, max_cascade: int, aabb_min, aabb_size,
+                 seg: int, t_start_min: float, ray_mask=None):
+    """Level 1 of the hierarchical march on the (R, K) lattice: the
+    lattice (t, dt), which of its samples lie inside the AABB (and on a
+    ray of ``ray_mask``), and each ``seg``-step segment's coarse test at
+    its midpoint, (R, K/seg)."""
+    K = march_steps
+    if K % seg:
+        raise ValueError(f"march_steps {K} is not a multiple of {seg}")
+    n_seg = K // seg
+    tmin, tmax = ray_aabb_intersect(o, d, aabb_min, aabb_min + aabb_size)
+    tmin = torch.clamp(tmin, min=t_start_min)
+    t0 = tmin if jitter is None else tmin + calc_dt(tmin, cone_angle) * jitter
+    t = step_lattice(t0, cone_angle, K)                    # (R, K)
+    dt = calc_dt(t, cone_angle)
+    inside = (t < tmax[:, None]) & (tmax > tmin)[:, None]
+    if ray_mask is not None:
+        inside = inside & ray_mask[:, None]
+    tm = t.view(n_rays, n_seg, seg)[:, :, seg // 2]
+    dm = dt.view(n_rays, n_seg, seg)[:, :, seg // 2]
+    pos_m = (o[:, None, :] + tm[..., None] * d[:, None, :]).reshape(-1, 3)
+    mip_m = occ.mip_from_dt(dm.reshape(-1), pos_m, max_cascade)
+    emit_seg = occ.coarse_occupied_at(coarse, pos_m, mip_m).view(
+        n_rays, n_seg) & inside.view(n_rays, n_seg, seg).any(-1)
+    return t, dt, inside, emit_seg
+
+
+def _hier_fine(bitfield, o, d, t, dt, inside, ray, seg_k, seg: int,
+               max_cascade: int):
+    """The fine bitfield test on the ``seg`` samples of each segment
+    (``ray``, ``seg_k``) of the lattice. Returns (lattice columns, t, dt,
+    live mask), each (S1, seg)."""
+    ks = seg_k[:, None] * seg + torch.arange(seg, device=o.device)[None]
+    t_s = t[ray[:, None], ks]
+    dt_s = dt[ray[:, None], ks]
+    pos_s = (o[ray][:, None, :] + t_s[..., None]
+             * d[ray][:, None, :]).reshape(-1, 3)
+    mip_s = occ.mip_from_dt(dt_s.reshape(-1), pos_s, max_cascade)
+    return ks, t_s, dt_s, inside[ray[:, None], ks] & occ.occupied_at(
+        bitfield, pos_s, mip_s).view(t_s.shape)
+
+
 def march_and_compact_hier(bitfield, coarse, o, d, jitter, n_rays: int,
                            march_steps: int, cone_angle: float,
                            max_cascade: int, aabb_min, aabb_size,
@@ -206,41 +249,16 @@ def march_and_compact_hier(bitfield, coarse, o, d, jitter, n_rays: int,
     total of the kept segments before the sample cap, and the
     surviving-segment total before the segment cap, which the trainer
     adapts its live ray count from."""
-    K = march_steps
-    if K % seg:
-        raise ValueError(f"march_steps {K} is not a multiple of {seg}")
-    n_seg = K // seg
-    seg_capacity = capacity // seg * 4
-    tmin, tmax = ray_aabb_intersect(o, d, aabb_min, aabb_min + aabb_size)
-    tmin = torch.clamp(tmin, min=t_start_min)
-    t0 = tmin if jitter is None else tmin + calc_dt(tmin, cone_angle) * jitter
-    t = step_lattice(t0, cone_angle, K)                    # (R, K)
-    dt = calc_dt(t, cone_angle)
-    inside = (t < tmax[:, None]) & (tmax > tmin)[:, None]
-    if ray_mask is not None:
-        inside = inside & ray_mask[:, None]
-
-    # level 1: coarse test at segment midpoints
-    tm = t.view(n_rays, n_seg, seg)[:, :, seg // 2]
-    dm = dt.view(n_rays, n_seg, seg)[:, :, seg // 2]
-    pos_m = (o[:, None, :] + tm[..., None] * d[:, None, :]).reshape(-1, 3)
-    mip_m = occ.mip_from_dt(dm.reshape(-1), pos_m, max_cascade)
-    emit_seg = occ.coarse_occupied_at(coarse, pos_m, mip_m).view(
-        n_rays, n_seg) & inside.view(n_rays, n_seg, seg).any(-1)
+    t, dt, inside, emit_seg = _hier_coarse(
+        coarse, o, d, jitter, n_rays, march_steps, cone_angle, max_cascade,
+        aabb_min, aabb_size, seg, t_start_min, ray_mask)
     seg_counts = emit_seg.sum(1)
     seg_total = int(seg_counts.sum())
-    emit_seg = emit_seg & _cap_prefix(seg_counts, seg_capacity)[:, None]
+    emit_seg = emit_seg & _cap_prefix(seg_counts,
+                                      capacity // seg * 4)[:, None]
     seg_ray, seg_k = emit_seg.nonzero(as_tuple=True)
-
-    # fine test on the surviving segments' samples
-    ks = seg_k[:, None] * seg + torch.arange(seg, device=o.device)[None]
-    t_s = t[seg_ray[:, None], ks]                          # (S1, seg)
-    dt_s = dt[seg_ray[:, None], ks]
-    pos_s = (o[seg_ray][:, None, :] + t_s[..., None]
-             * d[seg_ray][:, None, :]).reshape(-1, 3)
-    mip_s = occ.mip_from_dt(dt_s.reshape(-1), pos_s, max_cascade)
-    emit_fine = inside[seg_ray[:, None], ks] & occ.occupied_at(
-        bitfield, pos_s, mip_s).view(t_s.shape)
+    ks, t_s, dt_s, emit_fine = _hier_fine(bitfield, o, d, t, dt, inside,
+                                          seg_ray, seg_k, seg, max_cascade)
 
     # level 2: the sample stream, whole segments dropped past the cap
     fine_counts = emit_fine.sum(1)
@@ -289,44 +307,20 @@ def march_rays_hier(bitfield, coarse, o, d, jitter: Optional[torch.Tensor],
     the capacity), and only their samples get the fine bitfield test. The
     emit mask equals ``march_rays``' wherever nothing was dropped: the
     coarse mask never culls a sample the fine test keeps. No host sync."""
-    K = march_steps
-    if K % seg:
-        raise ValueError(f"march_steps {K} is not a multiple of {seg}")
-    n_seg = K // seg
-    S1 = seg_capacity or (n_rays * n_seg // 8)
-    tmin, tmax = ray_aabb_intersect(o, d, aabb_min, aabb_min + aabb_size)
-    tmin = torch.clamp(tmin, min=t_start_min)
-    t0 = tmin if jitter is None else tmin + calc_dt(tmin, cone_angle) * jitter
-    t = step_lattice(t0, cone_angle, K)                    # (R, K)
-    dt = calc_dt(t, cone_angle)
-    inside = (t < tmax[:, None]) & (tmax > tmin)[:, None]
-
-    # level 1: coarse test at segment midpoints
-    tm = t.view(n_rays, n_seg, seg)[:, :, seg // 2]
-    dm = dt.view(n_rays, n_seg, seg)[:, :, seg // 2]
-    pos_m = (o[:, None, :] + tm[..., None] * d[:, None, :]).reshape(-1, 3)
-    mip_m = occ.mip_from_dt(dm.reshape(-1), pos_m, max_cascade)
-    emit_seg = occ.coarse_occupied_at(coarse, pos_m, mip_m).view(
-        n_rays, n_seg) & inside.view(n_rays, n_seg, seg).any(-1)
-    seg_total = emit_seg.sum()
-    slots = stream_slots(emit_seg, S1)
-    valid = slots < n_rays * n_seg
+    t, dt, inside, emit_seg = _hier_coarse(
+        coarse, o, d, jitter, n_rays, march_steps, cone_angle, max_cascade,
+        aabb_min, aabb_size, seg, t_start_min)
+    n_seg = march_steps // seg
+    slots = stream_slots(emit_seg, seg_capacity or (n_rays * n_seg // 8))
     ray = slots // n_seg                      # n_rays past the kept segments
-    rid0 = torch.clamp(ray, max=n_rays - 1)
-
-    # level 2: fine test on the surviving segments' samples
-    ks = (slots % n_seg)[:, None] * seg + torch.arange(seg, device=o.device)
-    t_s = t[rid0[:, None], ks]                             # (S1, seg)
-    pos_s = (o[rid0][:, None, :] + t_s[..., None]
-             * d[rid0][:, None, :]).reshape(-1, 3)
-    mip_s = occ.mip_from_dt(dt[rid0[:, None], ks].reshape(-1), pos_s,
-                            max_cascade)
-    emit_s = inside[rid0[:, None], ks] & valid[:, None] & occ.occupied_at(
-        bitfield, pos_s, mip_s).view(t_s.shape)
-    # back onto the lattice; empty slots write to a spare row
-    emit = torch.zeros((n_rays + 1, K), dtype=torch.bool, device=o.device)
+    ks, _, _, emit_s = _hier_fine(
+        bitfield, o, d, t, dt, inside, torch.clamp(ray, max=n_rays - 1),
+        slots % n_seg, seg, max_cascade)
+    # back onto the lattice; the empty slots write to a spare row
+    emit = torch.zeros((n_rays + 1, march_steps), dtype=torch.bool,
+                       device=o.device)
     emit[ray[:, None], ks] = emit_s
-    return t, dt, emit[:n_rays], seg_total
+    return t, dt, emit[:n_rays], emit_seg.sum()
 
 
 def coarse_segments(coarse, o, d, n_rays: int, march_steps: int,

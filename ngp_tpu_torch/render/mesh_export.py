@@ -5,7 +5,9 @@ smoothing, OBJ/PLY export, density slices).
 
 The host parts are numpy copies of the JAX package's, so their output is
 the same bits: marching cubes with case tables derived procedurally at
-first use, marching tetrahedra (each cell → 6 tetrahedra), 1-ring
+first use, marching tetrahedra (each cell → 6 tetrahedra; welded by
+lattice edge, where the JAX package's weld by rounded position can leave
+an edge in one face or three), 1-ring
 Laplacian smoothing, vertex normals, the OBJ, unwrapped-OBJ and PLY
 writers, the density and RGBA PNG slices (through ``data/image_io``) and a
 mesh-optimisation step. The device parts run the network in torch on its
@@ -30,18 +32,29 @@ _TETS = np.array([
     [0, 2, 6, 7], [0, 4, 5, 7], [0, 4, 6, 7]], np.int32)
 
 
-def _tet_triangles(vals, coords, thresh):
-    """vals (M, 4), coords (M, 4, 3) → triangle vertex list (K, 3, 3).
-    Case analysis by inside-count; vertices on sign-crossing edges."""
+def _tet_triangles(vals, coords, nodes, n_nodes: int, thresh):
+    """vals (M, 4), coords (M, 4, 3), lattice node ids (M, 4) of
+    ``n_nodes`` → triangle vertex list (K, 3, 3) and each vertex's lattice
+    edge (K, 3): the pair of node ids, as one int64. Case analysis by inside-count; vertices on
+    sign-crossing edges, interpolated from the inside end (so an edge's
+    cut point has the same bits in every tetrahedron that holds it)."""
     inside = vals < thresh                                  # (M, 4)
     code = (inside * (1 << np.arange(4))).sum(-1)           # (M,)
-    tris = []
+    tris, edges = [], []
 
     def edge_vertex(i, j, sel):
         vi, vj = vals[sel, i], vals[sel, j]
         t = (thresh - vi) / np.where(np.abs(vj - vi) < 1e-12, 1e-12, vj - vi)
         t = np.clip(t, 0.0, 1.0)[:, None]
+        ni, nj = nodes[sel, i], nodes[sel, j]
+        edge_ids.append(np.minimum(ni, nj) * n_nodes + np.maximum(ni, nj))
         return coords[sel, i] * (1 - t) + coords[sel, j] * t
+
+    def emit(*order):
+        """A triangle of the cut points made since the last one, in
+        ``order``."""
+        tris.append(np.stack([points[k] for k in order], 1))
+        edges.append(np.stack([edge_ids[k] for k in order], 1))
 
     # enumerate the 14 non-trivial cases (one-inside ×4, two-inside ×6 and
     # their complements)
@@ -51,26 +64,20 @@ def _tet_triangles(vals, coords, thresh):
             continue
         ins = [k for k in range(4) if (c >> k) & 1]
         outs = [k for k in range(4) if not (c >> k) & 1]
+        edge_ids = []
         if len(ins) == 1:
-            a = ins[0]
-            e = [edge_vertex(a, o, sel) for o in outs]
-            tris.append(np.stack([e[0], e[1], e[2]], 1))
+            points = [edge_vertex(ins[0], o, sel) for o in outs]
+            emit(0, 1, 2)
         elif len(ins) == 3:
-            a = outs[0]
-            e = [edge_vertex(i, a, sel) for i in ins]
-            tris.append(np.stack([e[0], e[2], e[1]], 1))
-        else:  # two inside → quad = 2 triangles
-            i0, i1 = ins
-            o0, o1 = outs
-            e00 = edge_vertex(i0, o0, sel)
-            e01 = edge_vertex(i0, o1, sel)
-            e10 = edge_vertex(i1, o0, sel)
-            e11 = edge_vertex(i1, o1, sel)
-            tris.append(np.stack([e00, e10, e11], 1))
-            tris.append(np.stack([e00, e11, e01], 1))
+            points = [edge_vertex(i, outs[0], sel) for i in ins]
+            emit(0, 2, 1)
+        else:  # two inside → quad = 2 triangles: e00, e01, e10, e11
+            points = [edge_vertex(i, o, sel) for i in ins for o in outs]
+            emit(0, 2, 3)
+            emit(0, 3, 1)
     if not tris:
-        return np.zeros((0, 3, 3), np.float32)
-    return np.concatenate(tris, 0)
+        return np.zeros((0, 3, 3), np.float32), np.zeros((0, 3), np.int64)
+    return np.concatenate(tris, 0), np.concatenate(edges, 0)
 
 
 # --------------------------------------------------------------------------
@@ -234,11 +241,19 @@ def marching_tetrahedra(field: np.ndarray, threshold: float = 0.0,
                         origin=(0, 0, 0), spacing: Optional[float] = None):
     """field (X, Y, Z) scalar grid → (vertices (V,3), faces (F,3)).
     Surface at field == threshold (density grids pass -field or swap sign).
-    """
+
+    The triangles' corners are welded by the lattice edge they cut, so
+    every edge inside the lattice lies in exactly two faces. The JAX
+    package welds by position rounded to 1e-4 of a voxel, which also
+    merges distinct cut points near a node whose value is within a hair
+    of the threshold, and the faces it then drops can leave an edge in
+    one face or three. The vertices keep its order (by that rounded
+    position), so where no two cut points share a rounded position the
+    mesh is its mesh bit for bit."""
     X, Y, Z = field.shape
     if spacing is None:
         spacing = 1.0 / (max(X, Y, Z) - 1)
-    all_tris = []
+    all_tris, all_edges = [], []
     for z0 in range(0, Z - 1, 32):                     # z-slab chunking
         z1 = min(z0 + 32, Z - 1)
         xs, ys, zs = np.meshgrid(np.arange(X - 1), np.arange(Y - 1),
@@ -254,24 +269,31 @@ def marching_tetrahedra(field: np.ndarray, threshold: float = 0.0,
         base, cvals = base[active], cvals[active]
         if len(base) == 0:
             continue
-        ccoords = (base[:, None, :] + _CORNER_OFF[None]).astype(np.float32)
+        corners = base[:, None, :] + _CORNER_OFF[None]          # (M, 8, 3)
+        ccoords = corners.astype(np.float32)
+        nodes = (corners[..., 0].astype(np.int64) * Y
+                 + corners[..., 1]) * Z + corners[..., 2]
         for tet in _TETS:
-            tris = _tet_triangles(cvals[:, tet], ccoords[:, tet], threshold)
+            tris, edges = _tet_triangles(cvals[:, tet], ccoords[:, tet],
+                                         nodes[:, tet], X * Y * Z, threshold)
             if len(tris):
                 all_tris.append(tris)
+                all_edges.append(edges)
     if not all_tris:
         return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32)
     tris = np.concatenate(all_tris, 0) * spacing + np.asarray(origin, np.float32)
-    # weld vertices
+    # weld the corners by their lattice edge, then order the vertices by
+    # their position rounded to 1e-4 of a voxel, as the JAX package does
     flat = tris.reshape(-1, 3)
-    key = np.round(flat / (spacing * 1e-4)).astype(np.int64)
-    _, idx, inv = np.unique(key, axis=0, return_index=True, return_inverse=True)
-    verts = flat[idx]
-    faces = inv.reshape(-1, 3).astype(np.int32)
-    # drop degenerate faces
-    good = (faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) & \
-        (faces[:, 0] != faces[:, 2])
-    return verts.astype(np.float32), faces[good]
+    _, first, inv = np.unique(np.concatenate(all_edges, 0).reshape(-1),
+                              return_index=True, return_inverse=True)
+    verts = flat[first]
+    key = np.round(verts / (spacing * 1e-4)).astype(np.int64)
+    order = np.lexsort((key[:, 2], key[:, 1], key[:, 0]))
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    faces = rank[inv.reshape(-1)].reshape(-1, 3).astype(np.int32)
+    return verts[order].astype(np.float32), faces
 
 
 def smooth_mesh(verts: np.ndarray, faces: np.ndarray,

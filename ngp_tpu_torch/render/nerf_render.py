@@ -226,6 +226,7 @@ class NerfRenderer:
         # set once a chunk's hierarchical segment stream overflowed: the
         # host dispatch then marches flat (the same lattice) from there on
         self._wave_flat_sticky = False
+        self._crop_box = None
 
     @classmethod
     def for_trainer(cls, trainer, opts: Optional[RenderOptions] = None,
@@ -470,24 +471,17 @@ class NerfRenderer:
             s_t, s_dt, s_ray, counts, _, s_k = compact_samples(t[:, sl], dt_m,
                                                                emit_s)
             total += s_ray.numel()
-            pos = o[s_ray] + s_t[:, None] * d[s_ray]
-            pos_w = (pos - self.aabb_min) / self.aabb_size
-            dir_w = d[s_ray] * 0.5 + 0.5
-            rgb_raw, dens_raw = net(pos_w, dir_w)
+            pos, pos_w, rgb, sigma = self._shade(net, o, d, s_ray, s_t)
             if mode == RenderMode.NORMALS:
                 rgb = self._normals_rgb(params, pos_w)
             elif mode == RenderMode.ENCODING_VIS:
                 rgb = self._encoding_rgb(params, pos_w, quantized)
             elif mode == RenderMode.POSITIONS:
                 rgb = self._accel_rgb(pos) if opts.show_accel >= 0 else pos_w
-            else:
-                rgb = torch.sigmoid(rgb_raw.to(torch.float32))
-            sigma = torch.exp(torch.clamp(dens_raw.to(torch.float32),
-                                          -15.0, 15.0))
             if mode == RenderMode.POSITIONS and opts.show_accel >= 0:
                 # every sample opaque, so the first cell wins
                 sigma = torch.full_like(sigma, 1e6)
-            alpha_mult = apply_masks(self.masks, pos) if self.masks else None
+            alpha_mult = self._alpha_mult(pos)
             if opts.glow_mode:
                 rgb, glow_mask = apply_glow(rgb, pos, xf[:, 3],
                                             opts.glow_mode,
@@ -511,15 +505,27 @@ class NerfRenderer:
                                  opacity, depth_acc, cost_acc)
         return rgb_out, opacity, total
 
+    def _shade(self, net, o, d, rid, s_t):
+        """The network on a sample stream, at ray ``rid[i]``'s point at
+        time ``s_t[i]``: (the points, the same in the unit cube, colour
+        (the sigmoid of the network's), density σ)."""
+        pos = o[rid] + s_t[:, None] * d[rid]
+        pos_w = (pos - self.aabb_min) / self.aabb_size
+        rgb_raw, dens_raw = net(pos_w, d[rid] * 0.5 + 0.5)
+        return pos, pos_w, torch.sigmoid(rgb_raw.to(torch.float32)), \
+            torch.exp(torch.clamp(dens_raw.to(torch.float32), -15.0, 15.0))
+
+    def _alpha_mult(self, pos):
+        """The masks' alpha multiplier at each point, or None."""
+        return apply_masks(self.masks, pos) if self.masks else None
+
     def _crop(self, o, d, t, emit, ray=None):
-        """``emit`` cut to the render AABB crop, where there is one: ``t``
-        rows are rays, or ``ray[row]``'s samples."""
-        opts = self.opts
-        if opts.render_aabb_min is None:
+        """``emit`` cut to the render AABB crop, where there is one (its
+        corners on the device, made once a frame by ``render``): ``t`` rows
+        are rays, or ``ray[row]``'s samples."""
+        if self._crop_box is None:
             return emit
-        ct0, ct1 = ray_aabb_intersect(
-            o, d, torch.tensor(opts.render_aabb_min, device=o.device),
-            torch.tensor(opts.render_aabb_max, device=o.device))
+        ct0, ct1 = ray_aabb_intersect(o, d, *self._crop_box)
         if ray is not None:
             ct0, ct1 = ct0[ray], ct1[ray]
         return emit & (t >= ct0[:, None]) & (t <= ct1[:, None])
@@ -713,15 +719,9 @@ class NerfRenderer:
         flat = torch.clamp(slots, max=n_rays * L - 1)
         s_t = t.reshape(-1)[flat]
         s_dt = torch.where(valid, dt.reshape(-1)[flat], 0.0)
-        rid = torch.clamp(s_ray, max=n_rays - 1)
-        pos = o[rid] + s_t[:, None] * d[rid]
-        rgb_raw, dens_raw = net((pos - self.aabb_min) / self.aabb_size,
-                                d[rid] * 0.5 + 0.5)
-        rgb = torch.sigmoid(rgb_raw.to(torch.float32))
-        sigma = torch.exp(torch.clamp(dens_raw.to(torch.float32), -15.0,
-                                      15.0))
-        s_dt = _fold_alpha(sigma, s_dt, apply_masks(self.masks, pos)
-                           if self.masks else None)
+        pos, _, rgb, sigma = self._shade(
+            net, o, d, torch.clamp(s_ray, max=n_rays - 1), s_t)
+        s_dt = _fold_alpha(sigma, s_dt, self._alpha_mult(pos))
         # the slots past the kept samples write to a spare row n_rays
         rgb_seg, opac_seg, w = composite_samples(sigma, rgb, s_dt, s_ray,
                                                  s_k, n_rays + 1, L)
@@ -755,15 +755,17 @@ class NerfRenderer:
         """(steps a segment, segments a ray, per-ray cap, top, candidate
         caps) of the device dispatch: 8-step segments, or one segment of
         the whole ray on the flat march; ``top`` the largest sample stream
-        of a chunk and the halving caps the fit may fall back to, as the
-        JAX package picks them (its top bucket; the buckets below it only
-        size its buffers)."""
+        of a chunk (``wave2_top_bucket`` rounded up to a power of two) and
+        the halving caps the fit may fall back to, as the JAX package picks
+        them (its top bucket; the buckets below it only size its
+        buffers)."""
         o = self.opts
         K = o.march_steps
         seg = K if o.wave_march == "flat" else 8
         cap = min(o.wave_cap * max(o.march_segments, 1), K)
         top = min(max(o.wave2_top_bucket, 4096),
                   1 << (n_rays * cap - 1).bit_length())
+        top = 1 << (top - 1).bit_length()     # the bucket that holds it
         cands = [cap]
         while n_rays * cands[-1] > top and cands[-1] > 1:
             cands.append(max(cands[-1] // 2, 1))
@@ -846,16 +848,9 @@ class NerfRenderer:
         row0 = torch.clamp(row, max=S1 - 1)
         flat = torch.clamp(slots, max=S1 * seg - 1)
         s_t = st["t_s"].reshape(-1)[flat]
-        rid = rid0[row0]
-        pos = o[rid] + s_t[:, None] * d[rid]
-        rgb_raw, dens_raw = net((pos - self.aabb_min) / self.aabb_size,
-                                d[rid] * 0.5 + 0.5)
-        rgb = torch.sigmoid(rgb_raw.to(torch.float32))
-        sigma = torch.exp(torch.clamp(dens_raw.to(torch.float32), -15.0,
-                                      15.0))
+        pos, _, rgb, sigma = self._shade(net, o, d, rid0[row0], s_t)
         s_dt = _fold_alpha(sigma, st["dt_eff"].reshape(-1)[flat],
-                           apply_masks(self.masks, pos) if self.masks
-                           else None)
+                           self._alpha_mult(pos))
         sdt = torch.where(v, sigma * s_dt, 0.0)
 
         def ray_total(x):
@@ -959,6 +954,9 @@ class NerfRenderer:
                                   device=dev) if motion else None)
         rsh = tuple(float(x) for x in rolling_shutter)
         bg = torch.tensor(opts.background, dtype=torch.float32, device=dev)
+        self._crop_box = (None if opts.render_aabb_min is None else tuple(
+            torch.tensor(c, dtype=torch.float32, device=dev)
+            for c in (opts.render_aabb_min, opts.render_aabb_max)))
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
 

@@ -1,5 +1,6 @@
 """Parity of the port's mesh export with the JAX package's: marching cubes,
-marching tetrahedra, smoothing and normals bit for bit; the OBJ, PLY and
+marching tetrahedra (welded as the JAX package welds where the two
+differ), smoothing and normals bit for bit; the OBJ, PLY and
 unwrapped-OBJ writers byte for byte; the density field, the RGBA grid and
 the vertex colours from the same weights (rtol 1e-5 on 99.9 % of values:
 the MLPs round each layer's input to bf16 in both, in other summation
@@ -48,6 +49,40 @@ def _mostly_close(got, ref):
     assert (err / np.maximum(np.abs(ref), 1.0)).max() <= BF16_TOL
 
 
+def _jax_weld(v, f, spacing):
+    """A mesh welded as the JAX package's marching tetrahedra welds its
+    corners: by position rounded to 1e-4 of a voxel, the faces that
+    collapse dropped. Returns (the first vertex of each rounded position,
+    faces)."""
+    key = np.round(v / (spacing * 1e-4)).astype(np.int64)
+    _, idx, inv = np.unique(key, axis=0, return_index=True,
+                            return_inverse=True)
+    f = inv.reshape(-1)[f]
+    good = (f[:, 0] != f[:, 1]) & (f[:, 1] != f[:, 2]) & (f[:, 0] != f[:, 2])
+    return v[idx], f[good].astype(np.int32)
+
+
+def _edges_not_in_two_faces(v, f) -> int:
+    """The mesh's edges in other than two faces, but for those with both
+    ends on the unit lattice's sides, where a surface leaving it is open."""
+    e = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]], f[:, [2, 0]]]),
+                1)
+    edges, counts = np.unique(e, axis=0, return_counts=True)
+    bad = edges[counts != 2]
+    on_side = ((v <= 1e-6) | (v >= 1 - 1e-6)).any(-1)
+    return int((~(on_side[bad[:, 0]] & on_side[bad[:, 1]])).sum())
+
+
+def _assert_tetrahedra_match_jax(v, f, jv, jf, spacing):
+    """The port's tetrahedra mesh, welded by lattice edge, against the JAX
+    package's: welded again as JAX welds, its faces are JAX's and its
+    vertices within the weld's 1e-4 of a voxel of JAX's (a merged pair
+    keeps the first cut point in another order)."""
+    wv, wf = _jax_weld(v, f, spacing)
+    np.testing.assert_array_equal(wf, jf)
+    np.testing.assert_allclose(wv, jv, rtol=0, atol=spacing * 1e-4)
+
+
 def _field(shape=(20, 22, 24), seed=0) -> np.ndarray:
     """Two overlapping balls' signed distance plus seeded noise."""
     rng = np.random.default_rng(seed)
@@ -77,6 +112,28 @@ def test_extraction_smoothing_and_normals_match_jax(extract):
             (-(x - 0.5) / np.maximum(r, 1e-9)).astype(np.float32)
     np.testing.assert_array_equal(tme.mesh_optimization_step(dens, v, f),
                                   jme.mesh_optimization_step(dens, v, f))
+
+
+def test_marching_tetrahedra_welds_by_lattice_edge():
+    """Nodes whose values lie within a hair of the threshold put cut
+    points of several lattice edges within the JAX weld's 1e-4 of a voxel
+    of one another: JAX merges them and the faces it drops leave edges in
+    one face or three. The port welds by lattice edge: its mesh is closed,
+    and welded again as JAX welds it is JAX's mesh."""
+    rng = np.random.default_rng(5)
+    res = 24
+    g = np.stack(np.meshgrid(*[np.linspace(0, 1, res)] * 3, indexing="ij"),
+                 -1)
+    d = np.linalg.norm(g - 0.5, axis=-1) - 0.3
+    pick = (np.abs(d) < 0.05) & (rng.random(d.shape) < 0.3)
+    d[pick] = rng.choice([-1, 1], pick.sum()) * 10 ** rng.uniform(
+        -9, -4, pick.sum())
+    field = d.astype(np.float32)
+    v, f = tme.marching_tetrahedra(field, 0.0)
+    jv, jf = jme.marching_tetrahedra(field, 0.0)
+    assert len(v) > len(jv) and _edges_not_in_two_faces(jv, jf) > 0
+    assert _edges_not_in_two_faces(v, f) == 0
+    _assert_tetrahedra_match_jax(v, f, jv, jf, 1.0 / (res - 1))
 
 
 def test_writers_match_jax_bytes(tmp_path):
@@ -232,8 +289,9 @@ def test_sdf_testbed_mesh_methods(sdf_testbed, tmp_path):
                    -1).reshape(-1, 3)
     v, f = jme.marching_tetrahedra(
         tb.trainer.distance_at(pts).reshape(32, 32, 32), 0.0)
-    np.testing.assert_array_equal(m["V"], v)
-    np.testing.assert_array_equal(m["F"], f)
+    _assert_tetrahedra_match_jax(m["V"], m["F"], v, f, 1.0 / 31)
+    # every edge inside the lattice lies in two faces
+    assert _edges_not_in_two_faces(m["V"], m["F"]) == 0
     np.testing.assert_array_equal(m["C"], np.abs(m["N"]))
     tb.compute_and_save_marching_cubes_mesh(str(tmp_path / "t.obj"), 32)
     assert (tmp_path / "t.obj").read_text().count("\nf ") == len(f)

@@ -34,16 +34,16 @@ OPTS = dict(width=RES, height=RES, fov_axis_focal=FOCAL, chunk=64,
             march_steps=256, background=(0.1, 0.2, 0.3, 0.0),
             linear_out=True)
 # the JAX frames: both host-dispatch strategies, the device dispatch, its
-# decimation when the top stream binds (4096, the least top there is,
-# under the chunks' ~8900 kept samples), and a segment stream bound
-# (R·K/8/10^6) that every chunk overflows, after which the JAX package
-# renders the flat march
+# decimation when the top stream binds (5000, which both packages round up
+# to a bucket of 8192, under two of the four chunks' 7200-9800 kept
+# samples), and a segment stream bound (R·K/8/10^6) that every chunk
+# overflows, after which the JAX package renders the flat march
 JAX_CASES = {
     "host_fused_bulk": dict(wave_dispatch="host"),
     "host_segmented_exact": dict(wave_dispatch="host", wave_fused=False,
                                  wave_sync="exact", wave_cap=32),
     "device": {},
-    "device_top_bucket": dict(wave2_top_bucket=1),
+    "device_top_bucket": dict(wave2_top_bucket=5000),
     "device_stream_overflow": dict(wave2_frac=10 ** 6),
 }
 CAM = _orbit_camera(0.4)
@@ -188,6 +188,25 @@ def test_wave_frame_matches_jax(scene, times_agree, case):
         # bound changes nothing
         assert j_fell_back
         assert torch.equal(img, _render(scene, wave=True)[1])
+
+
+@pytest.mark.parametrize("top", [1, 4096, 5000, 300_000, 1 << 18])
+@pytest.mark.parametrize("march", ["hier", "flat"])
+def test_wave2_layout_matches_jax(scene, top, march):
+    """The device dispatch's top stream and halving caps are the JAX
+    package's: its top bucket is ``wave2_top_bucket`` at least 4096, at
+    most the chunk's whole-ray stream, rounded up to a power of two."""
+    for n_rays, kw in ((64, {}), (16384, {}),
+                       (16384, dict(wave_cap=3, march_segments=1))):
+        opts = dict(OPTS, wave=True, wave2_top_bucket=top, wave_march=march,
+                    **kw)
+        jr = JRenderer(scene["jm"], np.float32(0.0), np.float32(1.0), 0.0, 0,
+                       JOptions(**opts))
+        seg, n_seg, _, cap, buckets, cands = jr._wave2_layout(
+            n_rays, flat=march == "flat")
+        tr = TRenderer(scene["model"], 0.0, 1.0, 0.0, 0, TOptions(**opts))
+        assert tr._wave2_layout(n_rays) == (seg, n_seg, cap, buckets[-1],
+                                            len(cands))
 
 
 def _march_inputs(n=256, seed=3):
@@ -355,6 +374,21 @@ def test_wave_empty_bitfield_evaluates_nothing(scene, dispatch):
     assert torch.equal(img[..., :3], torch.tensor(
         OPTS["background"][:3]).expand(RES, RES, 3))
     assert torch.equal(img[..., 3], torch.zeros(RES, RES))
+
+
+@pytest.mark.parametrize("dispatch", ["host", "device"])
+def test_wave_crop_matches_static(scene, dispatch):
+    """A render AABB crop cuts the same samples on the wave paths as on
+    the static one."""
+    crop = dict(render_aabb_min=(0.3, 0.25, 0.2),
+                render_aabb_max=(0.7, 0.8, 0.65))
+    _, static = _render(scene, march_segments=1,
+                        samples_per_chunk_factor=256, **crop)
+    _, img = _render(scene, wave=True, wave_dispatch=dispatch, **crop)
+    assert not torch.equal(img, _render(scene, wave=True,
+                                        wave_dispatch=dispatch)[1])
+    np.testing.assert_allclose(img.numpy(), static.numpy(), rtol=2e-4,
+                               atol=2e-5)
 
 
 def test_wave_leaves_other_modes_to_the_static_path(scene):
