@@ -115,7 +115,25 @@ Phases, each reported on its own line:
                on the device dispatch than on the static frame; K1 on the
                wave frame's largest encode call against its plain version
                and timed beside its bound.
- 10. image   — the neural image (cell smoke-image-synth): a seeded
+ 10. dist    — the distributed paths (ngp_tpu_torch.dist) on the testbed
+               phase's snapshot at full width: NCCL at world 1 in this
+               process (a DP(1) step against the single-device step on the
+               same rays; render_multichip of held-out view 0 at 640×360
+               against render, mean |Δ| 0), then gloo at world 2, two
+               spawned ranks on this card (NCCL refuses two ranks of one
+               communicator on one device): the DP(2) step against the
+               single-device step on both ranks' rays (means and shares of
+               the parameter entries) and the ranks' state equal after
+               DIST_STEPS steps, render_multichip against render,
+               DpNerfTrainer.train(32) with the ranks' parameters and grid
+               equal, the table-parallel NeRF step against the
+               single-device step (tests/test_tp_nerf.py's rule),
+               TpImageTrainer at full width (configs/image/base.json, a 128
+               MiB shard of the 256 MiB table), the TP encode at 2^20
+               positions against K1 on the whole table; ms per step and per
+               frame, labelled (gloo on one card is no measure of a
+               collective); K1, K2 and K4 must launch on these paths.
+ 11. image   — the neural image (cell smoke-image-synth): a seeded
                2048×2048 PNG (colour gradients, a fine grating, hard-edged
                discs), ``python -m ngp_tpu_torch.run --mode image``'s main
                for IMAGE_STEPS with configs/image/base.json at full width
@@ -132,8 +150,8 @@ Phases, each reported on its own line:
                ``fwd_plan_2d``), K1 also on the first 2^18 pixel centres
                of the 2048² frame (the render's own input); a 64×64 frame
                on the card against the CPU path.
- 11. image-int8 — the image engine under NGP_TPU_ENCODE_INT8 (cell
-               smoke-image-int8): on phase 9's PNG, the runner's ``--mode
+ 12. image-int8 — the image engine under NGP_TPU_ENCODE_INT8 (cell
+               smoke-image-int8): on phase 11's PNG, the runner's ``--mode
                image`` for IMAGE_STEPS under "fwd" and then "full", each
                with compute_image_mse's PSNR rise (≥ PSNR_RISE_DB) and
                ms/step printed beside the f32 run's, and the Testbed
@@ -150,7 +168,7 @@ Phases, each reported on its own line:
                positions and cotangent, K4 also on the first 2^18 pixel
                centres of the 2048² frame, and a 64×64 frame on the card
                is held against the CPU path.
- 12. volume  — the neural volume (cell smoke-volume-plume): the 128³
+ 13. volume  — the neural volume (cell smoke-volume-plume): the 128³
                procedural plume written by the port's write_nvdb, the
                runner's ``--mode volume`` for VOLUME_STEPS with configs/
                volume/base.json at full width (16 levels × 8192 rows, batch
@@ -161,7 +179,7 @@ Phases, each reported on its own line:
                ground-truth density: the IoU of their opacity > 0.5 masks
                ≥ VOLUME_IOU_MIN; K1 and K2 launch in the phase; a 32×32
                frame on the card against the CPU path.
- 13. sdf     — the SDF engine (cell smoke-sdf-synth): a torus OBJ (radii
+ 14. sdf     — the SDF engine (cell smoke-sdf-synth): a torus OBJ (radii
                0.3 and 0.1, 256 × 64 segments, 32,768 triangles), the
                runner's ``--mode sdf`` for SDF_STEPS with configs/sdf/
                base.json at full width (16 levels × 8192 rows, batch
@@ -172,7 +190,7 @@ Phases, each reported on its own line:
                launch in it), each frame's hit mask against the BVH's ray
                casts of its rays (≥ HIT_AGREE_MIN), K1 and K2 launching in
                the phase, and a 64×36 frame against the CPU path.
- 14. mesh    — mesh export (cell smoke-mesh): the runner's --save_mesh of
+ 15. mesh    — mesh export (cell smoke-mesh): the runner's --save_mesh of
                the testbed phase's snapshot at 256³, the Testbed's NeRF
                mesh with vertex colours (.ply; σ in the occupied cells,
                the field's device ms by CUDA events and the host's
@@ -186,7 +204,7 @@ Phases, each reported on its own line:
                exactly two faces) and 64 PNG slices; K1 launches in the
                phase and is held against its plain version on the field's
                own inputs.
- 15. takikawa — the Takikawa octree encoding (cell smoke-takikawa-torus):
+ 16. takikawa — the Takikawa octree encoding (cell smoke-takikawa-torus):
                configs/sdf/takikawa.json at full width on the torus (7
                levels, depths 4..10, level groups of width 1), 8 batches
                of 2^18 from the trainer's sampler pinned with
@@ -195,7 +213,7 @@ Phases, each reported on its own line:
                against the BVH's ray casts (≥ HIT_AGREE_MIN); K1, K2 and
                K3 at L = 7 on a step's and the frame's own inputs against
                their plain versions (K3 bit-equal over two launches).
- 16. playback — frozen-model playback (cell smoke-playback-spheres):
+ 17. playback — frozen-model playback (cell smoke-playback-spheres):
                bake_playback() of the testbed phase's snapshot at D 256
                and D_inner 512, the held-out PSNR within PLAYBACK_PSNR_DB
                of the live renderer's, 640×360 and 1920×1080 frames
@@ -203,7 +221,7 @@ Phases, each reported on its own line:
                cascade holds the two latest orientations, and the runner's
                --video_camera_path --video_playback writing 20 frames; K1
                on the bake's first batch against its plain version.
- 17. captures — real captures (cell smoke-captures-spheres): the spheres
+ 18. captures — real captures (cell smoke-captures-spheres): the spheres
                through an F-theta lens (24 views at 256², 4 held out)
                written with 16-bit depth PNGs under integer_depth_scale,
                alpha sidecars on the even views and a dynamic mask over
@@ -223,8 +241,8 @@ Phases, each reported on its own line:
                against the CPU, K4 on the frame's largest encode call held
                against its plain version and timed); a tcnn-layout model
                and a blocked one train 256 steps (ms/step side by side).
-Every gate of phases 9 and 14–17 prints ``gate <what>: <value> (limit ...;
-<share> of the limit)``.
+Every gate of phases 9, 10 and 15–18 prints ``gate <what>: <value>
+(limit ...; <share> of the limit)``.
 With ``--profile``, torch.profiler traces of one slice frame (K1's device
 ms and launches in it) and of 16 steady training steps are broken down by
 layer as well (the steps' table also to a file, see ``phase_profile``).
@@ -238,9 +256,9 @@ each the entries whose zero patterns differ, their largest Σ|w·g| and
 the largest |value| of the side that is not 0, alone, over Σ|w·g| and
 over its rounding envelope (``zero_patterns``).
 Then the script's total seconds, one JSON line with each kernel's
-figures and its launches in the testbed, multinerf, wave, image, image-int8
-(per run: "fwd", "full", "uv"), volume, sdf, mesh, takikawa, playback and
-captures phases
+figures and its launches in the testbed, multinerf, wave, dist (summed
+over its processes), image, image-int8 (per run: "fwd", "full", "uv"),
+volume, sdf, mesh, takikawa, playback and captures phases
 (K1's, K2's and K3's ray-ordered ones under "ray_ordered", K3's and K5's
 on one pose step under "pose_step", K4's at 2^18 uniform positions under
 "uniform_2e18" and on the sweep's positions under "sweep_ordered"; the 2D
@@ -1342,20 +1360,25 @@ def build_sphere_dataset(dev, n_views: int, res: int, aabb_scale: int = 4,
 
 
 def make_trainer(dataset, dev, config=None, grid_impl: str = "blocked",
-                 **options):
+                 mesh=None, **options):
     """The bench's trainer (bench.py: 4096 rays, dynamic live-ray count,
     both error-map samplers) with the int8 grid sweep, on base.json;
-    ``options`` set further NerfTrainerConfig fields (``grid_int8`` too)."""
+    ``options`` set further NerfTrainerConfig fields (``grid_int8`` too).
+    With a ``mesh`` (``dist.mesh.make_mesh``), a ``DpNerfTrainer`` over
+    it."""
     from ngp_tpu_torch.config import load_network_config
+    from ngp_tpu_torch.dist.nerf_dp import DpNerfTrainer
     from ngp_tpu_torch.train.nerf import NerfTrainer, NerfTrainerConfig
     cfg = config or load_network_config(ROOT / "configs/nerf/base.json")
-    return NerfTrainer(dataset, cfg, seed=SEED, device=dev,
-                       grid_impl=grid_impl, tcfg=NerfTrainerConfig(**{
-                           "n_rays": 4096, "adapt_rays": False,
-                           "dynamic_rays": True,
-                           "sample_image_proportional_to_error": True,
-                           "sample_focal_plane_proportional_to_error": True,
-                           "grid_int8": True, **options}))
+    cls, args = ((NerfTrainer, ()) if mesh is None
+                 else (DpNerfTrainer, (mesh,)))
+    return cls(dataset, cfg, *args, seed=SEED, device=dev,
+               grid_impl=grid_impl, tcfg=NerfTrainerConfig(**{
+                   "n_rays": 4096, "adapt_rays": False,
+                   "dynamic_rays": True,
+                   "sample_image_proportional_to_error": True,
+                   "sample_focal_plane_proportional_to_error": True,
+                   "grid_int8": True, **options}))
 
 
 def view_psnr(tr, view: int = 0, spp: int = 1, motion: bool = False) -> float:
@@ -2724,6 +2747,357 @@ def phase_wave(dev, root: Path = None, config=None, cpu_size=(64, 36),
     print(f"wave: launches in the phase {launches}; the phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return launches, entry
+
+
+# the dist phase: the distributed paths on the one card, NCCL at world 1 in
+# this process and gloo at world 2 (two spawned ranks on cuda:0: NCCL
+# refuses two ranks of one communicator on one device). A data-parallel
+# step is held against the single-device step on the same rays by means and
+# shares of the parameter entries (K2 adds in f32 atomics, so not even the
+# single-device step repeats bit for bit on the card; an entry whose
+# gradient nearly cancels may take Adam's first ±lr the other way): mean
+# |Δ| ≤ DIST_MEAN_TOL·lr, ≥ DIST_SHARE of the entries within
+# DIST_ENTRY_TOL·lr. The table-parallel NeRF step takes
+# tests/test_tp_nerf.py's rule: fewer than TP_OFF_SHARE of the table
+# entries off by more than TP_OFF, none by more than 2.5·lr, the MLPs to
+# rtol TP_MLP_RTOL.
+DIST_MEAN_TOL, DIST_ENTRY_TOL, DIST_SHARE = 0.05, 1e-3, 0.99
+TP_OFF, TP_OFF_SHARE, TP_MLP_RTOL = 5e-5, 1e-3, 2e-4
+# rays a rank: few enough that no rank's step drops rays at its segment
+# capacity (a comparison with the single-device step on all ranks' rays
+# holds only then; the bench's 4096 overflow it on the trained spheres)
+DIST_RAYS, DIST_STEPS, DIST_TRAIN_STEPS, DIST_IMAGE_STEPS = 512, 8, 32, 4
+DIST_TP_POSITIONS = 1 << 20
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _digest(tensors) -> str:
+    """sha256 of the tensors' bytes, in order: ranks compare state by it."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _dist_scene(dev, root: Path, config: Path):
+    """(Testbed from the testbed phase's snapshot, the held-out view 0's
+    NGP camera, its focal length)."""
+    tb = _nerf_testbed(dev, root, config, root / "snapshot.msgpack")
+    test = json.loads((root / "transforms_test.json").read_text())
+    tb.set_nerf_camera_matrix(np.asarray(
+        test["frames"][0]["transform_matrix"], np.float32)[:3])
+    return tb, np.asarray(tb.camera_matrix, np.float32), float(test["fl_x"])
+
+
+def _dist_trainer(tb, dev, root: Path, mesh=None):
+    """make_trainer's trainer (a DpNerfTrainer over ``mesh`` when given)
+    on the testbed phase's scene, from its snapshot."""
+    tr = make_trainer(tb.trainer.dataset, dev, config=tb.network_config,
+                      mesh=mesh)
+    tr.load_snapshot_state(root / "snapshot.msgpack")
+    return tr
+
+
+def _gate_steps(tag: str, what: str, got, ref, lr: float):
+    """A step's parameters and loss against another step's on the same
+    rays: the loss to rtol 1e-4, the sample counts equal, mean |Δ| and the
+    share of entries within DIST_ENTRY_TOL·lr over all parameters."""
+    (gp, gs), (rp, rs) = got, ref
+    _gate_max(tag, f"{what}: |Δ loss| / loss",
+              abs(float(gs.loss) - float(rs.loss)) / abs(float(rs.loss)),
+              1e-4)
+    _gate_zero(tag, f"{what}: samples that differ",
+               abs(int(gs.total) - int(rs.total)))
+    diff = torch.cat([(gp[k] - rp[k]).abs().flatten() for k in rp])
+    equal = all(torch.equal(gp[k], rp[k]) for k in rp)
+    print(f"{tag}: {what}: parameters bit-equal: {equal}; "
+          f"{int((diff > 0).sum())} of {diff.numel()} entries differ, "
+          f"max |Δ| {float(diff.max()) / lr:.3g} lr")
+    _gate_max(tag, f"{what}: mean |Δ| / lr", float(diff.mean()) / lr,
+              DIST_MEAN_TOL)
+    _gate_min(tag, f"{what}: share of entries within {DIST_ENTRY_TOL} lr",
+              float((diff <= DIST_ENTRY_TOL * lr).float().mean()),
+              DIST_SHARE)
+
+
+def _params_of(tr) -> dict:
+    return {k: v.detach().clone() for k, v in tr.params.items()}
+
+
+def _dp_step_pair(tb, dev, root: Path, mesh, tag: str,
+                  n_rays: int = DIST_RAYS) -> tuple:
+    """One data-parallel step of a trainer from the snapshot on this rank's
+    ``n_rays`` rays, held against the single-device step on every rank's
+    rays at n_data times the capacity; then DIST_STEPS - 1 more steps.
+    Returns (the trainer, its launches in the steps, ms per step)."""
+    from ngp_tpu_torch.dist.nerf_dp import make_dp_train_step, rank_generator
+    from ngp_tpu_torch.train.nerf import StepDraws
+    a = _dist_trainer(tb, dev, root)
+    S = a.tcfg.target_batch_size
+    draws = [a.draws(n_rays, rank_generator(a.seed, d, dev))
+             for d in range(mesh.n_data)]
+    step = make_dp_train_step(a, mesh, n_rays, S)
+    err = a._error_state()
+    st, n = _launches_in(lambda: step(err))
+    # the comparison needs every rank's rays kept whole: the ranks'
+    # segments within half their capacities, so none reaches its own
+    _gate_max(tag, f"DP({mesh.n_data}) step: surviving segments of the "
+              f"ranks over their capacity", st.seg_total
+              / (a._seg_capacity * mesh.n_data), 0.5)
+    got = (_params_of(a), st)
+    b = _dist_trainer(tb, dev, root)
+    cat = StepDraws(*(None if x[0] is None else torch.cat(x)
+                      for x in zip(*draws)))
+    ref = b._train_step(cat, b._error_state(), capacity=S * mesh.n_data)
+    _gate_steps(tag, f"DP({mesh.n_data}) step vs the single-device step "
+                f"on {mesh.n_data} x {n_rays} rays", got,
+                (_params_of(b), ref), a.opt_cfg.learning_rate)
+    del b
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(DIST_STEPS - 1):
+        _, m = _launches_in(lambda: step(a._error_state()))
+        n = {k: n[k] + m[k] for k in n}
+    _sync(dev)
+    return a, n, (time.perf_counter() - t0) * 1e3 / (DIST_STEPS - 1)
+
+
+def _multichip_frame(tb, mesh, cam, focal: float, tag: str, limit: float,
+                     size=(FRAME_W, FRAME_H)) -> tuple:
+    """``render_multichip`` of the held-out view at ``size`` over ``mesh``
+    against ``render`` of it: mean |Δ| ≤ ``limit``. Returns (its
+    launches, ms)."""
+    W, H = size
+    r = tb._nerf_renderer(W, H)
+    tr = tb.trainer
+    params, bits = tr.inference_params(), tr.grid.bitfield
+    f = (focal * W / FRAME_W,) * 2
+    _sync(bits.device)
+    t0 = time.perf_counter()
+    multi, n = _launches_in(lambda: r.render_multichip(
+        mesh, params, bits, cam, W, H, focal=f, spp=1))
+    _sync(bits.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    _check_frame(multi, W, H)
+    ref = r.render(params, bits, cam, W, H, focal=f, spp=1)
+    err = float((multi - ref).abs().mean())
+    _gate(tag, f"render_multichip over {mesh.n_data} data rank(s) vs "
+          f"render, {W}x{H}: mean |Δ|", err,
+          f"<= {limit}", err <= limit, err / limit if limit else err)
+    return n, ms
+
+
+def _dist_rank(rank: int, world: int, device: str, root: str, config: str,
+               image_config: str, sizes: dict) -> dict:
+    """What each rank of the gloo world runs on ``device`` (the card's
+    cuda:0); returns its figures, its launches on the distributed paths and
+    digests of its state."""
+    from ngp_tpu_torch.common import srgb_to_linear
+    from ngp_tpu_torch.config import load_network_config
+    from ngp_tpu_torch.dist.mesh import (make_mesh, make_tp_blocked_encode,
+                                         table_sharding)
+    from ngp_tpu_torch.dist.nerf_dp import rank_generator
+    from ngp_tpu_torch.dist.tp_image import TpImageTrainer
+    from ngp_tpu_torch.dist.tp_nerf import make_tp_nerf_train_step
+    from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
+    from ngp_tpu_torch.kernels.blocked_grid import encode_reference
+    # whole lines, so the ranks' lines do not break into each other
+    sys.stdout.reconfigure(line_buffering=True)
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tag = f"dist rank {rank}"
+    root, config = Path(root), Path(config)
+    dp = make_mesh(n_data=world)
+    tp = make_mesh(n_data=1, n_model=world)
+    tb, cam, focal = _dist_scene(dev, root, config)
+    out = {}
+    # DP(2): one step against the single-device step, then 7 more
+    a, n, out["dp_ms"] = _dp_step_pair(tb, dev, root, dp, tag, sizes["rays"])
+    out["dp_digest"] = _digest(list(a.params.values())
+                               + list(a.opt_state.mu.values())
+                               + [a.error_map, a.sharpness_grid])
+    del a
+    # frame-sharded rendering
+    m, out["frame_ms"] = _multichip_frame(tb, dp, cam, focal, tag, 1e-6,
+                                          sizes["frame"])
+    n = {k: n[k] + m[k] for k in n}
+    # DpNerfTrainer: the whole loop (partial sweeps through K4)
+    dt = _dist_trainer(tb, dev, root, mesh=dp)
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss, m = _launches_in(lambda: dt.train(sizes["train_steps"]))
+    _sync(dev)
+    out["train_ms"] = (time.perf_counter() - t0) * 1e3 / sizes["train_steps"]
+    n = {k: n[k] + m[k] for k in n}
+    if not math.isfinite(loss):
+        raise RuntimeError(f"{tag}: DpNerfTrainer loss {loss}")
+    out["train_loss"] = loss
+    out["train_digest"] = _digest(list(dt.params.values())
+                                  + [dt.grid.density, dt.grid.bitfield])
+    del dt
+    # TP NeRF step (model 2; the encode is plain PyTorch) against the
+    # single-device step on the same rays
+    c = _dist_trainer(tb, dev, root)
+    lr = c.opt_cfg.learning_rate
+    draws = c.draws(sizes["rays"], rank_generator(c.seed, 0, dev))
+    S = c.tcfg.target_batch_size
+    st = make_tp_nerf_train_step(c, tp, sizes["rays"], S)(c._error_state(),
+                                                          draws)
+    d = _dist_trainer(tb, dev, root)
+    sr = d._train_step(draws, d._error_state(), capacity=S)
+    rows = table_sharding(tp, c.model.pos_encoding.meta.rows)
+    cp, one = _params_of(c), _params_of(d)
+    diff = (cp["pos_encoding.table"]
+            - one["pos_encoding.table"][:, rows]).abs()
+    _gate_max(tag, "TP step vs the single-device step: |Δ loss| / loss",
+              abs(float(st.loss) - float(sr.loss)) / abs(float(sr.loss)),
+              1e-4)
+    _gate_max(tag, f"TP step: share of the shard's table entries off by "
+              f"more than {TP_OFF}", float((diff > TP_OFF).float().mean()),
+              TP_OFF_SHARE)
+    _gate_max(tag, "TP step: max table |Δ| / lr", float(diff.max()) / lr,
+              2.5)
+    mlp = max(float(((cp[k] - one[k]).abs()
+                     / (one[k].abs() * TP_MLP_RTOL + 2e-5)).max())
+              for k in one if k != "pos_encoding.table")
+    _gate_max(tag, f"TP step: MLP |Δ| over rtol {TP_MLP_RTOL} (atol 2e-5)",
+              mlp, 1.0)
+    out["tp_shard"] = tuple(cp["pos_encoding.table"].shape)
+    del c, d, cp, one
+    # TpImageTrainer at full width (configs/image/base.json)
+    u8 = synth_image(sizes["image_res"])
+    img = srgb_to_linear(torch.from_numpy(u8).float() / 255.0).numpy()
+    ti = TpImageTrainer(img, load_network_config(image_config), tp,
+                        seed=SEED, device=dev)
+    losses, t0 = [], time.perf_counter()
+    for _ in range(DIST_IMAGE_STEPS):
+        losses.append(float(ti.step()))     # float() waits for the step
+    out["image_ms"] = (time.perf_counter() - t0) * 1e3 / DIST_IMAGE_STEPS
+    meta2 = ti.meta
+    full = meta2.n_levels * meta2.rows * 128 * 4
+    out["image"] = {"losses": losses, "shard_bytes": ti.table_shard_bytes(),
+                    "table_bytes": full}
+    if not all(map(math.isfinite, losses)):
+        raise RuntimeError(f"{tag}: TpImageTrainer losses {losses}")
+    _gate_zero(tag, "TpImageTrainer: shard bytes x world - table bytes",
+               ti.table_shard_bytes() * world - full)
+    del ti
+    # the launches of the paths above, before the checks below launch K1
+    out["launches"] = n
+    # the TP encode at DIST_TP_POSITIONS positions against K1 on the whole
+    # table (a comparison launch, not counted)
+    tr = tb.trainer
+    meta = tr.model.pos_encoding.meta
+    table = tr.params["pos_encoding.table"].detach()
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    pos = torch.rand((sizes["tp_positions"], 3), generator=g, device=dev)
+    with torch.no_grad():
+        feats = make_tp_blocked_encode(meta, tp)(
+            table[:, table_sharding(tp, meta.rows)].contiguous(), pos)
+        ref = (bgc.launch_fwd(table, pos, meta) if dev.type == "cuda"
+               else encode_reference(table, pos, meta))
+    err = float((feats - ref).abs().max())
+    _gate_max(tag, f"TP encode (model {world}) vs K1 on the whole table at "
+              f"{pos.shape[0]} positions: max |Δ|", err, KERNEL_TOL)
+    return out
+
+
+def phase_dist(dev, root: Path = None, config=None, image_config=None,
+               sizes: dict = None):
+    """The distributed paths (``ngp_tpu_torch.dist``) on the card: NCCL at
+    world 1 in this process (one DP(1) step against the single-device
+    step; ``render_multichip`` of the held-out view at FRAME_W × FRAME_H
+    against ``render``: mean |Δ| 0), then gloo at world 2, two spawned
+    ranks on this card (``_dist_rank``: the DP(2) step against the
+    single-device step on both ranks' rays, the ranks' state equal after
+    DIST_STEPS steps; ``render_multichip``; ``DpNerfTrainer.train``; the
+    TP NeRF step against the single-device step; ``TpImageTrainer`` at full
+    width; the TP encode against K1). Gloo on one card moves its sums
+    through the host: its ms are no measure of a collective. Returns the
+    phase's K1, K2 and K4 launches on those paths, summed over the
+    processes; each must be at least 1."""
+    import torch.distributed as dist
+
+    from ngp_tpu_torch.dist.mesh import backend_for, make_mesh, run_ranks
+    t_phase = time.perf_counter()
+    # the phase's sizes (a CPU rehearsal passes smaller ones)
+    sizes = {"frame": (FRAME_W, FRAME_H), "rays": DIST_RAYS,
+             "tp_positions": DIST_TP_POSITIONS, "image_res": IMAGE_RES,
+             "train_steps": DIST_TRAIN_STEPS, **(sizes or {})}
+    root = root or ROOT / "build" / "testbed_smoke"
+    config = Path(config or ROOT / "configs/nerf/base.json")
+    image_config = Path(image_config or ROOT / "configs/image/base.json")
+    stores = ROOT / "build" / "dist_smoke"
+    stores.mkdir(parents=True, exist_ok=True)
+    for p in stores.iterdir():
+        p.unlink()
+    backend = backend_for(dev, 1)
+    print(f"dist: world 1 in this process, backend {backend}")
+    kw = {}
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        kw["device_id"] = dev
+    dist.init_process_group(backend, init_method=f"file://{stores}/world1",
+                            world_size=1, rank=0, **kw)
+    try:
+        mesh = make_mesh(n_data=1)
+        tb, cam, focal = _dist_scene(dev, root, config)
+        a, n, ms = _dp_step_pair(tb, dev, root, mesh, "dist", sizes["rays"])
+        del a
+        print(f"dist: {backend} world 1: {ms:.1f} ms per DP(1) step")
+        m, frame_ms = _multichip_frame(tb, mesh, cam, focal, "dist", 0.0,
+                                       sizes["frame"])
+        print(f"dist: {backend} world 1: render_multichip {frame_ms:.1f} ms "
+              "per frame")
+        launches = {k: n[k] + m[k] for k in n}
+        del tb
+    finally:
+        dist.destroy_process_group()
+    world = 2
+    backend = backend_for(dev, world)
+    print(f"dist: world {world}, {world} spawned ranks on {dev}, backend "
+          f"{backend}")
+    t0 = time.perf_counter()
+    ranks = run_ranks(_dist_rank, world, backend, stores / "world2",
+                      args=(str(dev if dev.type == "cpu" else "cuda:0"),
+                            str(root), str(config), str(image_config),
+                            sizes))
+    print(f"dist: the world of {world} ran in {time.perf_counter() - t0:.1f} "
+          "s, its spawn included")
+    for r in ranks:
+        launches = {k: launches[k] + r["launches"][k] for k in launches}
+    r0 = ranks[0]
+    print(f"dist: {backend} world {world} on one card (its sums go through "
+          f"the host: no measure of a collective): {r0['dp_ms']:.1f} ms per "
+          f"DP({world}) step, {r0['frame_ms']:.1f} ms per render_multichip "
+          f"frame, {r0['train_ms']:.1f} ms per DpNerfTrainer step (loss "
+          f"{r0['train_loss']:.4g}), {r0['image_ms']:.1f} ms per "
+          f"TpImageTrainer step at full width (losses "
+          + ", ".join(f"{x:.4g}" for x in r0["image"]["losses"])
+          + f"; table shard {r0['image']['shard_bytes'] / 2**20:.0f} of "
+          f"{r0['image']['table_bytes'] / 2**20:.0f} MiB), TP NeRF table "
+          f"shard {r0['tp_shard']}")
+    for what in ("dp_digest", "train_digest"):
+        digests = [r[what] for r in ranks]
+        _gate_zero("dist", f"ranks whose {what.split('_')[0]} state differs "
+                   f"from rank 0's ({digests[0]})",
+                   sum(d != digests[0] for d in digests))
+    for k in ("blocked_grid_encode_fwd", "blocked_grid_encode_bwd",
+              "blocked_grid_encode_fwd_i8"):
+        _gate_some("dist", f"{k} launches on the distributed paths",
+                   launches[k])
+    print(f"dist: launches on the distributed paths, all processes "
+          f"{launches}; the phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
 
 def _attribute_kernels(prof, span_names, main_span: str):
     """Device work of a trace by the span that launched it. Each kernel,
@@ -4669,6 +5043,7 @@ def main() -> int:
     testbed_launches, normals_k3, view0_psnr = phase_testbed(dev)
     multinerf_launches = phase_multinerf(dev, view0_psnr)
     wave_launches, wave_k1 = phase_wave(dev, profile="--profile" in args)
+    dist_launches = phase_dist(dev)
     image_launches, kernels_2d, image_f32 = phase_image(dev)
     int8_runs, kernels_int8 = phase_image_int8(dev, image_f32)
     volume_launches = phase_volume(dev)
@@ -4731,6 +5106,7 @@ def main() -> int:
     for k in kernels:
         name = k.get("launch_name", k["name"])
         k["wave_launches"] = wave_launches[name]
+        k["dist_launches"] = dist_launches[name]
         k["mesh_launches"] = mesh_launches[name]
         k["takikawa_launches"] = tak_launches[name]
         k["playback_launches"] = playback_launches[name]

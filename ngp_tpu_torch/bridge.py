@@ -12,6 +12,14 @@ has the same tree with a flat (n_params · F,) ``pos_encoding`` table,
 which ``io/snapshot.import_reference_snapshot`` gives and
 ``export_reference_snapshot`` takes.
 
+Under table parallelism (``dist/``) a rank holds its row shard of a
+blocked table, axis 1 of the (L, R, 128) array: the NeRF model's
+``pos_encoding`` and ``TpImageTrainer``'s ``table``, whose JAX tree is
+``{"table": (L, R, 128), "net": (W, ...)}``. ``shard_tree`` and
+``join_trees`` cut a tree's table into a rank's shard and join the ranks'
+shards back; ``shard_adam`` and ``join_adam`` do the same to the Adam
+fields, whose ``mu``, ``nu`` and ``ema_params`` are parameter trees.
+
 The JAX ``EncodedNetwork`` (the image and SDF engines) keeps
 ``{"encoding": <the encoding's tree>, "net": (W, ...)}``: a grid's table,
 ``()`` for an analytic encoding, a tuple of the parts' trees for a
@@ -263,3 +271,49 @@ def camera_state_from_numpy(trainer, cam_params: Mapping, cam_m: Mapping,
                                  f"{tuple(t.shape)}")
             with torch.no_grad():
                 t.copy_(torch.from_numpy(a.copy()))
+
+
+def shard_rows(table: np.ndarray, model_index: int, n_model: int
+               ) -> np.ndarray:
+    """Rank ``model_index``'s rows of an (L, R, 128) table split over
+    ``n_model`` ranks (``dist.mesh.table_sharding``)."""
+    from ngp_tpu_torch.dist.mesh import _range
+    return np.ascontiguousarray(
+        table[:, _range(table.shape[1], n_model, model_index, "rows")])
+
+
+def join_rows(shards) -> np.ndarray:
+    """The (L, R, 128) table of the ranks' row shards, in rank order."""
+    return np.concatenate([np.asarray(s) for s in shards], axis=1)
+
+
+def shard_tree(tree: Mapping, key: str, model_index: int,
+               n_model: int) -> dict:
+    """A JAX parameter tree with its table ``tree[key]`` (``"pos_encoding"``
+    or ``"table"``) cut to rank ``model_index``'s rows."""
+    return {**tree, key: shard_rows(np.asarray(tree[key]), model_index,
+                                    n_model)}
+
+
+def join_trees(trees, key: str) -> dict:
+    """The whole tree of the ranks' trees (one per model index, in order):
+    their tables ``key`` joined, the rest from the first."""
+    return {**trees[0], key: join_rows([t[key] for t in trees])}
+
+
+def shard_adam(adam: Mapping, key: str, model_index: int,
+               n_model: int) -> dict:
+    """The JAX ``AdamState`` fields (``step``, and ``mu``, ``nu``,
+    ``ema_params`` as parameter trees) with each tree's table cut to the
+    rank's rows."""
+    return {"step": adam["step"], **{
+        f: shard_tree(adam[f], key, model_index, n_model)
+        for f in ("mu", "nu", "ema_params")}}
+
+
+def join_adam(adams, key: str) -> dict:
+    """Inverse of ``shard_adam`` over the ranks' fields, in rank order."""
+    return {"step": adams[0]["step"], **{
+        f: join_trees([a[f] for a in adams], key)
+        for f in ("mu", "nu", "ema_params")}}
+

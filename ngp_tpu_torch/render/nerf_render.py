@@ -27,6 +27,9 @@ quantises the table once and encodes every chunk through the int8 table
 Mask3D masks (``render/multi_nerf.py``) scale each sample's alpha, folded
 into its optical depth together with glow mode 4's mask.
 
+``render_multichip`` splits a frame's chunks over the data ranks of a
+``dist.mesh`` grid and gives every rank the whole frame, ``render``'s.
+
 The wave (live-sample) renderers (``wave``; False by default, as in the
 JAX package) evaluate the network on the live samples of a whole ray
 instead of the static path's per-segment slot budget, for SHADE, DEPTH,
@@ -915,6 +918,90 @@ class NerfRenderer:
 
     # ------------------------------------------------------------------
 
+    def _frame_network(self, params):
+        """(params, net, quantized) of a frame: the model's own parameters
+        for None; ``net(*args)`` the model on them; under an int8 encode
+        mode the table quantised once for the frame (else None)."""
+        own = params is None
+        if own:
+            params = dict(self.model.named_parameters())
+        quantized = (quantize_table_i8(params["pos_encoding.table"])
+                     if self.encode_int8 else None)
+        kw = {} if quantized is None else {"quantized": quantized}
+
+        def net(*args):
+            return (self.model(*args, **kw) if own else
+                    functional_call(self.model, params, args, kw))
+        return params, net, quantized
+
+    @torch.no_grad()
+    def render_multichip(self, mesh, params, bitfield, camera_matrix,
+                         width: Optional[int] = None,
+                         height: Optional[int] = None,
+                         focal: Optional[tuple] = None,
+                         spp: Optional[int] = None,
+                         seed: int = 0) -> torch.Tensor:
+        """Frame-parallel rendering over the ``data`` axis of ``mesh``
+        (``dist.mesh.make_mesh``; port of the JAX package's
+        ``render_multichip``): the frame's pixel chunks are split into
+        n_data runs of ``ceil(chunks / n_data)``, the last run padded as
+        the JAX package pads it (the padding past the frame is not
+        rendered), and data rank r renders the r-th run through the static
+        chunk path. Every rank returns the whole (H, W, 4) frame:
+        the runs are summed over the ``data`` group, each pixel's value on
+        one rank and zeros on the others. Each chunk draws what ``render``
+        draws for it: every rank walks ``render``'s work items (spp, then
+        chunk) and draws every item's numbers, keeping those of its own,
+        so any world gives ``render``'s image of a still camera. As in the
+        JAX package, ``linear_out`` is applied and the exposure and the
+        tonemap are not; every rank of the group calls it."""
+        from ngp_tpu_torch.dist.mesh import all_reduce_
+        opts = self.opts
+        W = int(width or opts.width)
+        H = int(height or opts.height)
+        eff_chunk = min(opts.chunk, max(((W * H + 255) // 256) * 256, 256))
+        fx, fy = (focal or (opts.fov_axis_focal,
+                            opts.focal_y or opts.fov_axis_focal))
+        fx, fy = float(fx), float(fy)
+        n_spp = int(spp or opts.spp)
+        dev = bitfield.device
+        xf = torch.as_tensor(np.asarray(camera_matrix, np.float32),
+                             device=dev)
+        bg = torch.tensor(opts.background, dtype=torch.float32, device=dev)
+        self._crop_box = (None if opts.render_aabb_min is None else tuple(
+            torch.tensor(c, dtype=torch.float32, device=dev)
+            for c in (opts.render_aabb_min, opts.render_aabb_max)))
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+        params, net, quantized = self._frame_network(params)
+        n_chunks = -(-H * W // eff_chunk)
+        per_dev = -(-n_chunks // mesh.n_data)
+        mine = range(mesh.data_index * per_dev,
+                     min((mesh.data_index + 1) * per_dev, n_chunks))
+        acc = torch.zeros((per_dev * mesh.n_data * eff_chunk, 4), device=dev)
+        self.last_n_samples = 0
+        for s in range(n_spp):
+            jitter_on = (not opts.snap_to_pixel_centers) and s > 0
+            for c in range(n_chunks):
+                draws = self.draws(generator, eff_chunk, jitter_on, False,
+                                   dev)
+                if c not in mine:
+                    continue
+                rgb, opac, n = self._render_chunk(
+                    net, params, bitfield, xf, bg, draws, c * eff_chunk, fx,
+                    fy, eff_chunk, W, H, None, (0.0, 0.0, 0.0, 1.0),
+                    quantized)
+                self.last_n_samples += n
+                lo = c * eff_chunk
+                acc[lo:lo + eff_chunk] += torch.cat([rgb, opac[:, None]],
+                                                    -1) / n_spp
+        all_reduce_(acc, mesh.data_group)
+        img = acc[:H * W].view(H, W, 4)
+        rgb = img[..., :3]
+        if opts.linear_out:
+            rgb = srgb_to_linear(torch.clamp(rgb, min=0.0))
+        return torch.cat([rgb, img[..., 3:]], -1)
+
     @torch.no_grad()
     def render(self, params: Optional[Mapping[str, torch.Tensor]], bitfield,
                camera_matrix, width: Optional[int] = None,
@@ -959,17 +1046,7 @@ class NerfRenderer:
             for c in (opts.render_aabb_min, opts.render_aabb_max)))
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
-
-        own = params is None
-        if own:
-            params = dict(self.model.named_parameters())
-        quantized = (quantize_table_i8(params["pos_encoding.table"])
-                     if self.encode_int8 else None)
-        kw = {} if quantized is None else {"quantized": quantized}
-
-        def net(*args):
-            return (self.model(*args, **kw) if own else
-                    functional_call(self.model, params, args, kw))
+        params, net, quantized = self._frame_network(params)
 
         n_chunks = -(-H * W // eff_chunk)
         items = [(s, c) for s in range(n_spp) for c in range(n_chunks)]

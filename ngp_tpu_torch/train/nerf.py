@@ -30,6 +30,11 @@ detached rays, the loss takes rays built with gradient, so pose, focal and
 distortion gradients flow through the sample positions (K3 on the card).
 They are trained by their own Adam without bias correction.
 
+With a data-parallel group (``data_group``, ``dist/nerf_dp.py``) a step
+draws this rank's rays and sums the normaliser, the gradients, the loss,
+the counters and the error-map deposits over the group, at the JAX step's
+``axis_name`` points.
+
 None of the JAX package's compile machinery comes across: ``train(n)`` is
 a plain Python loop over single steps, every random draw comes from a
 ``torch.Generator`` on the trainer's device, and the ray batch and
@@ -58,11 +63,13 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from ngp_tpu_torch.common import (LOSS_SCALE, NERF_MIN_OPTICAL_THICKNESS,
                                   linear_to_srgb, loss_type_from_str,
                                   srgb_to_linear)
+from ngp_tpu_torch.dist.mesh import all_reduce_, all_reduce_flat_
 from ngp_tpu_torch.grid import occupancy as occ
 from ngp_tpu_torch.kernels.blocked_grid import eff_tile, quantize_table_i8
 from ngp_tpu_torch.kernels.blocked_grid_cuda import INT8_MODES
@@ -226,7 +233,17 @@ class NerfTrainer:
                           "of the unit box with cone_angle 0; rays will "
                           "terminate early")
 
+        self.seed = seed
+        # the model's initialisation and the grid sweeps draw from
+        # ``generator``, the steps' rays from ``draw_generator``: the same
+        # stream on one device; under data parallelism (dist/nerf_dp.py)
+        # the first is shared by every rank, so the grid stays replicated,
+        # and the second is the rank's own
         self.generator = torch.Generator(device=dev).manual_seed(seed)
+        self.draw_generator = self.generator
+        # the data-parallel group whose ranks' steps are summed (None: this
+        # trainer alone)
+        self.data_group = None
         E = int(getattr(dataset, "n_extra_learnable_dims", 0))
         self.model = NerfNetwork(config, aabb_scale, generator=self.generator,
                                  device=dev, n_extra_dims=E,
@@ -369,9 +386,9 @@ class NerfTrainer:
 
     def draws(self, n_rays: int,
               generator: Optional[torch.Generator] = None) -> StepDraws:
-        """One step's draws from ``generator`` (the trainer's own by
+        """One step's draws from ``generator`` (``draw_generator`` by
         default); the shutter times only for a rolling-shutter capture."""
-        g = generator or self.generator
+        g = generator or self.draw_generator
 
         def u(*shape):
             return torch.rand(shape, generator=g, device=self.device)
@@ -541,19 +558,22 @@ class NerfTrainer:
     # ------------------------------------------------------------------
 
     def _train_step(self, draws: StepDraws, error_state: dict,
-                    capacity: Optional[int] = None) -> StepStats:
+                    capacity: Optional[int] = None,
+                    group=None) -> StepStats:
         """One step on the rays of ``draws`` (all of them: the caller
         slices to the live rays); updates parameters, optimizer state,
-        camera parameters, error map and sharpness grid in place."""
+        camera parameters, error map and sharpness grid in place. With a
+        data-parallel ``group``, ``draws`` are this rank's rays and the
+        step is that of the group's rays together (``_step_grads``)."""
         grads, cam_grads, stats, deposit = self._step_grads(
-            draws, error_state, capacity)
+            draws, error_state, capacity, group)
         self.opt_state = apply_update(self.params, grads, self.opt_state,
                                       self.opt_cfg, self.matrix_names)
         if cam_grads is not None:
             camera_adam(self.cam_params, cam_grads, self.cam_m, self.cam_v,
                         *self._camera_schedule())
         with torch.no_grad():
-            self._deposit_error(*deposit)
+            self._deposit_error(*deposit, group=group)
         return stats
 
     def _camera_schedule(self):
@@ -575,11 +595,20 @@ class NerfTrainer:
         return lrs, enabled
 
     def _step_grads(self, draws: StepDraws, error_state: dict,
-                    capacity: Optional[int] = None):
+                    capacity: Optional[int] = None, group=None):
         """The forward and backward of one step, changing no parameter,
         optimizer or error-map state: (gradients by parameter name, camera
         gradients by key or None, stats, the error-map deposit's
-        arguments)."""
+        arguments).
+
+        With a data-parallel ``group`` the step sums over its ranks where
+        the JAX step's ``axis_name`` does (ngp_tpu/train/nerf.py:563-567,
+        :674-678, :753-756): the count of rays with samples before the
+        backward, so every rank's loss has the global normaliser; the
+        gradients, camera gradients and the RGB loss after it; the sample,
+        segment and ray counts of the stats. The camera L2 term is added on
+        every rank before the sum, as in the JAX step, so N ranks count it
+        N times."""
         tc = self.tcfg
         S = capacity or tc.target_batch_size
         n = draws.u_img.shape[0]
@@ -608,7 +637,8 @@ class NerfTrainer:
         bg = draws.bg if tc.random_bg_color else torch.ones_like(draws.bg)
         bg_linear = srgb_to_linear(bg)
         has_samples = counts > 0
-        n_eff = torch.clamp(has_samples.sum(), min=1)
+        # the global normaliser, summed before the backward
+        n_eff = torch.clamp(all_reduce_(has_samples.sum(), group), min=1)
         reg_on = (self.grid.mean < NERF_MIN_OPTICAL_THICKNESS).to(
             torch.float32)
         # target (ref: :1388-1427), with the per-image exposure scale 2^e
@@ -686,21 +716,36 @@ class NerfTrainer:
             # keys the loss does not reach get zeros, as under jax.grad
             cam_grads = {k: torch.zeros_like(cam[k]) if gk is None else gk
                          for k, gk in zip(cam_keys, g[len(names):])}
+        loss_rgb = loss_rgb.detach()
+        n_with = has_samples.sum()
+        if group is not None:
+            counts_t = torch.stack([n_with, torch.full_like(n_with, total),
+                                    torch.full_like(n_with, seg_total)])
+            all_reduce_flat_([*grads.values(),
+                              *(cam_grads or {}).values(),
+                              loss_rgb[None]], group)
+            all_reduce_(counts_t, group)
+            n_with = counts_t[0]
+            total, seg_total = (int(c) for c in counts_t[1:].tolist())
         with torch.no_grad():
             per_ray_loss = per_c.mean(-1) * ray_mask
-        stats = StepStats(loss_rgb.detach() / 3.0, total, seg_total,
-                          has_samples.sum())
+        stats = StepStats(loss_rgb / 3.0, total, seg_total, n_with)
         return grads, cam_grads, stats, (img, xy, o.detach(), d.detach(),
                                          per_ray_loss, samp_pdf,
                                          depth_ray.detach(), T_end.detach(),
                                          has_samples)
 
     def _deposit_error(self, img, xy, o, d, per_ray_loss, samp_pdf,
-                       depth_ray, T_end, has_samples):
+                       depth_ray, T_end, has_samples, group=None):
         """Bilinear deposit of the per-ray loss into the error map, divided
         by the sampling pdf so oversampled cells do not count twice (ref:
         :1448, :1465-1491), and scaled down for views blurrier than the
-        sharpest one seen at the ray's hit cell (ref: :1476-1481)."""
+        sharpest one seen at the ray's hit cell (ref: :1476-1481). The
+        deposits are summed into a map of their own that is then added to
+        the error map, as the JAX step does; with a data-parallel
+        ``group`` that map is summed over it, and the sharpness grid taken
+        as its maximum over it (ngp_tpu/train/nerf.py:731-732,
+        :747-748)."""
         em = self.tcfg.error_map_res
         dep = per_ray_loss / torch.clamp(samp_pdf, min=1e-12)
         if self._use_sharpness:
@@ -717,19 +762,21 @@ class NerfTrainer:
             old = self.sharpness_grid[cell]
             self.sharpness_grid.scatter_reduce_(
                 0, cell, torch.where(inb, sharp, 0.0), "amax")
+            all_reduce_(self.sharpness_grid, group, dist.ReduceOp.MAX)
             dep = dep * torch.where(
                 inb, torch.clamp(sharp / torch.maximum(sharp, old),
                                  min=0.01), 1.0)
         posf = torch.clamp(xy * em - 0.5, 0.0, em - 1.0 - 1e-4)
         p0 = torch.clamp(posf.to(torch.int64), max=em - 2)
         wxy = posf - p0
+        dep_map = torch.zeros_like(self.error_map)
         for dy in (0, 1):
             for dx in (0, 1):
                 wgt = ((wxy[:, 0] if dx else 1 - wxy[:, 0])
                        * (wxy[:, 1] if dy else 1 - wxy[:, 1]))
-                self.error_map.index_put_(
-                    (img, p0[:, 1] + dy, p0[:, 0] + dx), dep * wgt,
-                    accumulate=True)
+                dep_map.index_put_((img, p0[:, 1] + dy, p0[:, 0] + dx),
+                                   dep * wgt, accumulate=True)
+        self.error_map += all_reduce_(dep_map, group)
 
     # ------------------------------------------------------------------
     # occupancy-grid maintenance
@@ -900,7 +947,8 @@ class NerfTrainer:
                 draws = draws.head(self._n_live)
             cap = self._capacity if tc.adapt_capacity and not warmup \
                 else tc.target_batch_size
-            stats = self._train_step(draws, err_state, capacity=cap)
+            stats = self._train_step(draws, err_state, capacity=cap,
+                                     group=self.data_group)
             if pending is None:
                 pending = [stats.loss, 0, 0, 0, n_rays]
             else:

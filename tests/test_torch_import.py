@@ -21,7 +21,9 @@ def test_port_imports_without_jax():
                  "render.sdf_render", "data.nanovdb", "data.nanovdb_write",
                  "train.volume", "render.volume_render",
                  "render.mesh_export", "render.playback", "nn.takikawa",
-                 "utils.flip", "utils.profiling", "utils.debug"):
+                 "utils.flip", "utils.profiling", "utils.debug",
+                 "dist.mesh", "dist.nerf_dp", "dist.tp_nerf", "dist.tp_image",
+                 "dist.multi_scene"):
         assert f"ngp_tpu_torch.{name}" in names
     code = "\n".join([
         "import importlib, sys",
