@@ -1,0 +1,10 @@
+"""The blocked-grid encode kernels' share of their roofline in the traced
+frames (``readers.encode_roofline``). Layer: the kernels
+(``kernels/blocked_grid_cuda.py``, ``csrc/blocked_grid_encode.cu``).
+Source: device trace. Cell image-view-1080p;
+moves frame_ms.image."""
+from portbench.lib import readers
+
+CAPTURES = readers.ENCODES
+
+read = readers.encode_roofline
