@@ -18,6 +18,7 @@ from ngp_tpu_torch.common import NerfActivation, network_activation
 from ngp_tpu_torch.config import autofill_hashgrid_config
 from ngp_tpu_torch.nn.encodings import create_encoding, encode
 from ngp_tpu_torch.nn.mlp import MLP
+from ngp_tpu_torch.utils.profiling import spanned
 
 # 1 density + 15 latent features fed to the RGB head
 DENSITY_MLP_OUT = 16
@@ -50,6 +51,7 @@ class EncodedNetwork(nn.Module):
                                    n_output_dims, network_cfg, generator,
                                    device)
 
+    @spanned("ngp.network")
     def forward(self, x, int8: str = "", tile: Optional[int] = None):
         return self.net(encode(self.encoding, x, int8, tile))
 
@@ -106,6 +108,7 @@ class NerfNetwork(nn.Module):
             self.dir_encoding.n_output_dims + DENSITY_MLP_OUT, 3,
             config.get("rgb_network", config["network"]), generator, device)
 
+    @spanned("ngp.network")
     def forward(self, pos01, dir01=None, max_level=None, extra=None,
                 int8: str = "", tile: Optional[int] = None, quantized=None):
         h = self.density_net(self.pos_encoding(pos01, max_level=max_level,

@@ -25,6 +25,8 @@ from typing import Mapping, NamedTuple
 
 import torch
 
+from ngp_tpu_torch.utils.profiling import spanned
+
 
 class AdamState(NamedTuple):
     step: int
@@ -112,6 +114,7 @@ def lr_at_step(cfg: AdamConfig, step: int, device=None) -> torch.Tensor:
 
 
 @torch.no_grad()
+@spanned("ngp.adam")
 def apply_update(params: Mapping[str, torch.Tensor],
                  grads: Mapping[str, torch.Tensor], state: AdamState,
                  cfg: AdamConfig, matrix_names=None) -> AdamState:

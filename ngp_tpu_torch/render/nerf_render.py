@@ -97,6 +97,7 @@ from ngp_tpu_torch.rays.marching import (coarse_segments, compact_samples,
                                          ray_sums, stream_slots)
 from ngp_tpu_torch.render.buffer import tonemap
 from ngp_tpu_torch.render.multi_nerf import apply_masks
+from ngp_tpu_torch.utils.profiling import count, span, spanned
 
 
 @dataclasses.dataclass
@@ -244,6 +245,7 @@ class NerfRenderer:
     # ray generation
     # ------------------------------------------------------------------
 
+    @spanned("ngp.sample")
     def draws(self, generator, n_rays: int, jitter_on: bool, motion: bool,
               device) -> RayDraws:
         """One chunk's random numbers from ``generator``, in the order
@@ -255,6 +257,7 @@ class NerfRenderer:
                         u(n_rays, 2) if self.opts.aperture_size > 0.0
                         else None)
 
+    @spanned("ngp.sample")
     def _gen_rays(self, pix0: int, n_rays: int, W: int, H: int, fx: float,
                   fy: float, xf: torch.Tensor, draws: RayDraws = RayDraws(),
                   xf_end: Optional[torch.Tensor] = None,
@@ -451,11 +454,12 @@ class NerfRenderer:
             rgb = torch.cat([0.5 + off * 10.0,
                              torch.full((n_rays, 1), 0.5, device=dev)], -1)
             return rgb, torch.ones((n_rays,), device=dev), 0
-        t, dt, emit = march_rays(
-            bitfield, o, d, None, n_rays, opts.march_steps, self.cone_angle,
-            self.max_cascade, self.aabb_min, self.aabb_size,
-            t_start_min=0.05)
-        emit = self._crop(o, d, t, emit)
+        with span("ngp.march"):
+            t, dt, emit = march_rays(
+                bitfield, o, d, None, n_rays, opts.march_steps,
+                self.cone_angle, self.max_cascade, self.aabb_min,
+                self.aabb_size, t_start_min=0.05)
+            emit = self._crop(o, d, t, emit)
         bg_ray = self._bg_rays(d, bg)
 
         nseg = max(opts.march_segments, 1)
@@ -508,6 +512,7 @@ class NerfRenderer:
                                  opacity, depth_acc, cost_acc)
         return rgb_out, opacity, total
 
+    @spanned("ngp.network")
     def _shade(self, net, o, d, rid, s_t):
         """The network on a sample stream, at ray ``rid[i]``'s point at
         time ``s_t[i]``: (the points, the same in the unit cube, colour
@@ -589,6 +594,7 @@ class NerfRenderer:
         nseg = max(o.march_segments, 1)
         return nseg, o.march_steps // nseg, o.wave_cap
 
+    @spanned("ngp.march")
     def _wave_march(self, bitfield, coarse, o, d, hier: bool):
         """The host dispatch's march of one chunk: (t, dt, emit) on the
         (R, K) lattice, cut to the crop, and the hierarchical march's
@@ -631,6 +637,7 @@ class NerfRenderer:
         event.record()
         return buf, event
 
+    @spanned("ngp.wait")
     def _read_host(self, pending) -> list:
         buf, event = pending
         if event is not None:
@@ -649,10 +656,11 @@ class NerfRenderer:
         st = dict(o=o, d=d, t=t, dt=dt, emit=emit, segs=segs,
                   bg_ray=self._bg_rays(d, bg))
         if opts.wave_sync == "bulk":
-            seg_total = (segs[0] if segs else
-                         emit.new_zeros((), dtype=torch.int64))
-            st["counts"] = self._to_host(torch.cat(
-                [self._wave_bounds(emit), seg_total.view(1)]))
+            with span("ngp.march"):
+                seg_total = (segs[0] if segs else
+                             emit.new_zeros((), dtype=torch.int64))
+                st["counts"] = self._to_host(torch.cat(
+                    [self._wave_bounds(emit), seg_total.view(1)]))
         return st
 
     def _wave_finish(self, net, bitfield, coarse, st):
@@ -680,32 +688,37 @@ class NerfRenderer:
             self._wave_flat_sticky = True
             t, dt, emit, _ = self._wave_march(bitfield, coarse, o, d, False)
             if bulk:
-                bounds = self._wave_bounds(emit).tolist()
+                with span("ngp.wait"):
+                    bounds = self._wave_bounds(emit).tolist()
         n_rays, dev = o.shape[0], o.device
-        logT = torch.zeros((n_rays,), device=dev)
-        rgb_acc = torch.zeros((n_rays, 3), device=dev)
-        depth_acc = torch.zeros((n_rays,), device=dev)
-        cost_acc = torch.zeros((n_rays,), dtype=torch.int64, device=dev)
+        with span("ngp.composite"):
+            logT = torch.zeros((n_rays,), device=dev)
+            rgb_acc = torch.zeros((n_rays, 3), device=dev)
+            depth_acc = torch.zeros((n_rays,), device=dev)
+            cost_acc = torch.zeros((n_rays,), dtype=torch.int64, device=dev)
         evaluated = 0
         for si in range(nseg):
             if bulk and bounds[si] == 0:
                 continue
             sl = slice(si * seg_len, (si + 1) * seg_len)
-            alive = torch.exp(-logT) > opts.min_transmittance
-            keep, dt_m = merge_excess_samples(emit[:, sl] & alive[:, None],
-                                              dt[:, sl], cap)
-            total = bounds[si] if bulk else int(keep.sum())
+            with span("ngp.march"):
+                alive = torch.exp(-logT) > opts.min_transmittance
+                keep, dt_m = merge_excess_samples(
+                    emit[:, sl] & alive[:, None], dt[:, sl], cap)
+                total = bounds[si] if bulk else int(keep.sum())
             if total == 0:
                 continue
             evaluated += total
             logT = self._wave_body(net, o, d, t[:, sl], dt_m, keep, total,
                                    logT, rgb_acc, depth_acc)
-            cost_acc += keep.sum(1)
-        opacity = 1.0 - torch.exp(-logT)
-        rgb = self._mode_rgb(
-            rgb_acc + torch.exp(-logT)[:, None] * st["bg_ray"], opacity,
-            depth_acc, cost_acc)
-        return rgb, opacity, cost_acc.sum(), evaluated
+            with span("ngp.composite"):
+                cost_acc += keep.sum(1)
+        with span("ngp.composite"):
+            opacity = 1.0 - torch.exp(-logT)
+            rgb = self._mode_rgb(
+                rgb_acc + torch.exp(-logT)[:, None] * st["bg_ray"], opacity,
+                depth_acc, cost_acc)
+            return rgb, opacity, cost_acc.sum(), evaluated
 
     def _wave_body(self, net, o, d, t, dt, keep, S: int, logT, rgb_acc,
                    depth_acc):
@@ -716,30 +729,33 @@ class NerfRenderer:
         before it (``rgb_acc``, ``depth_acc`` in place). Returns the
         optical depth behind the segment."""
         n_rays, L = t.shape
-        slots = stream_slots(keep, S)
-        valid = slots < n_rays * L
-        s_ray, s_k = slots // L, slots % L          # row n_rays past them
-        flat = torch.clamp(slots, max=n_rays * L - 1)
-        s_t = t.reshape(-1)[flat]
-        s_dt = torch.where(valid, dt.reshape(-1)[flat], 0.0)
+        with span("ngp.march"):
+            slots = stream_slots(keep, S)
+            valid = slots < n_rays * L
+            s_ray, s_k = slots // L, slots % L      # row n_rays past them
+            flat = torch.clamp(slots, max=n_rays * L - 1)
+            s_t = t.reshape(-1)[flat]
+            s_dt = torch.where(valid, dt.reshape(-1)[flat], 0.0)
         pos, _, rgb, sigma = self._shade(
             net, o, d, torch.clamp(s_ray, max=n_rays - 1), s_t)
-        s_dt = _fold_alpha(sigma, s_dt, self._alpha_mult(pos))
-        # the slots past the kept samples write to a spare row n_rays
-        rgb_seg, opac_seg, w = composite_samples(sigma, rgb, s_dt, s_ray,
-                                                 s_k, n_rays + 1, L)
-        T_in = torch.exp(-logT)
-        rgb_acc += T_in[:, None] * rgb_seg[:n_rays]
-        if self.opts.render_mode == RenderMode.DEPTH:
-            depth_acc += T_in * ray_sums(w * s_t, s_ray, s_k, n_rays + 1,
-                                         L)[:n_rays]
-        return logT - torch.log(torch.clamp(1.0 - opac_seg[:n_rays],
-                                            min=1e-10))
+        with span("ngp.composite"):
+            s_dt = _fold_alpha(sigma, s_dt, self._alpha_mult(pos))
+            # the slots past the kept samples write to a spare row n_rays
+            rgb_seg, opac_seg, w = composite_samples(sigma, rgb, s_dt, s_ray,
+                                                     s_k, n_rays + 1, L)
+            T_in = torch.exp(-logT)
+            rgb_acc += T_in[:, None] * rgb_seg[:n_rays]
+            if self.opts.render_mode == RenderMode.DEPTH:
+                depth_acc += T_in * ray_sums(w * s_t, s_ray, s_k, n_rays + 1,
+                                             L)[:n_rays]
+            return logT - torch.log(torch.clamp(1.0 - opac_seg[:n_rays],
+                                                min=1e-10))
 
     def _render_wave_host(self, net, bitfield, bg, rays, n_items: int, add):
         """The host dispatch over ``n_items`` work items, pipelined: item
         k+1's march and count are enqueued before item k's count is read."""
-        coarse = _coarse_mask(bitfield)
+        with span("ngp.march"):
+            coarse = _coarse_mask(bitfield)
         samples, evaluated = [], 0
         st = self._wave_start(bitfield, coarse, bg, *rays(0))
         for k in range(n_items):
@@ -774,6 +790,7 @@ class NerfRenderer:
             cands.append(max(cands[-1] // 2, 1))
         return seg, K // seg, cap, top, len(cands)
 
+    @spanned("ngp.march")
     def _wave2_stream(self, bitfield, coarse, o, d, segments, n_segs: int):
         """Stage 2 of a device-dispatch item: the segment stream of its
         ``n_segs`` live segments (the whole lattice on the flat march),
@@ -842,44 +859,48 @@ class NerfRenderer:
         n_seg = self.opts.march_steps // seg
         bg_ray = self._bg_rays(d, bg)
         if S == 0:
-            zero = torch.zeros((n_rays,), device=o.device)
-            return self._mode_rgb(bg_ray.expand(n_rays, 3), zero, zero,
-                                  st["dcnt"]), zero
-        slots = stream_slots(st["keep"], S)
-        v = slots < S1 * seg
-        row, kk = slots // seg, slots % seg          # row S1 past the kept
-        row0 = torch.clamp(row, max=S1 - 1)
-        flat = torch.clamp(slots, max=S1 * seg - 1)
-        s_t = st["t_s"].reshape(-1)[flat]
+            with span("ngp.composite"):
+                zero = torch.zeros((n_rays,), device=o.device)
+                return self._mode_rgb(bg_ray.expand(n_rays, 3), zero, zero,
+                                      st["dcnt"]), zero
+        with span("ngp.march"):
+            slots = stream_slots(st["keep"], S)
+            v = slots < S1 * seg
+            row, kk = slots // seg, slots % seg      # row S1 past the kept
+            row0 = torch.clamp(row, max=S1 - 1)
+            flat = torch.clamp(slots, max=S1 * seg - 1)
+            s_t = st["t_s"].reshape(-1)[flat]
         pos, _, rgb, sigma = self._shade(net, o, d, rid0[row0], s_t)
-        s_dt = _fold_alpha(sigma, st["dt_eff"].reshape(-1)[flat],
-                           self._alpha_mult(pos))
-        sdt = torch.where(v, sigma * s_dt, 0.0)
+        with span("ngp.composite"):
+            s_dt = _fold_alpha(sigma, st["dt_eff"].reshape(-1)[flat],
+                               self._alpha_mult(pos))
+            sdt = torch.where(v, sigma * s_dt, 0.0)
 
-        def ray_total(x):
-            """Per-ray sums of the stream's x, in segment then ray order."""
-            per_seg = ray_sums(x, row, kk, S1 + 1, seg)[:S1]
-            return ray_sums(per_seg, seg_ray, seg_k, n_rays + 1,
-                            n_seg)[:n_rays]
+            def ray_total(x):
+                """Per-ray sums of the stream's x, in segment then ray
+                order."""
+                per_seg = ray_sums(x, row, kk, S1 + 1, seg)[:S1]
+                return ray_sums(per_seg, seg_ray, seg_k, n_rays + 1,
+                                n_seg)[:n_rays]
 
-        # the prefixes run down the columns of (step, segment) and
-        # (segment, ray) lattices: the card's scan along rows of 8 or K/8
-        # took ~4 ms a chunk, along the outer dimension a fraction of it
-        lat = sdt.new_zeros((seg, S1 + 1))
-        lat[kk, row] = sdt
-        in_seg = torch.cumsum(lat, 0) - lat
-        lat2 = sdt.new_zeros((n_seg, n_rays + 1))
-        lat2[seg_k, seg_ray] = lat[:, :S1].sum(0)
-        before = torch.cumsum(lat2, 0) - lat2
-        excl = before[seg_k[row0], rid0[row0]] + in_seg[kk, row]
-        w = torch.where(v, torch.exp(-excl) * (1.0 - torch.exp(-sdt)), 0.0)
-        odepth = lat2[:, :n_rays].sum(0)
-        opacity = 1.0 - torch.exp(-odepth)
-        depth = (ray_total(w * s_t)
-                 if self.opts.render_mode == RenderMode.DEPTH else None)
-        return self._mode_rgb(ray_total(w[:, None] * rgb)
-                              + torch.exp(-odepth)[:, None] * bg_ray,
-                              opacity, depth, st["dcnt"]), opacity
+            # the prefixes run down the columns of (step, segment) and
+            # (segment, ray) lattices: the card's scan along rows of 8 or K/8
+            # took ~4 ms a chunk, along the outer dimension a fraction of it
+            lat = sdt.new_zeros((seg, S1 + 1))
+            lat[kk, row] = sdt
+            in_seg = torch.cumsum(lat, 0) - lat
+            lat2 = sdt.new_zeros((n_seg, n_rays + 1))
+            lat2[seg_k, seg_ray] = lat[:, :S1].sum(0)
+            before = torch.cumsum(lat2, 0) - lat2
+            excl = before[seg_k[row0], rid0[row0]] + in_seg[kk, row]
+            w = torch.where(v, torch.exp(-excl) * (1.0 - torch.exp(-sdt)), 0.0)
+            odepth = lat2[:, :n_rays].sum(0)
+            opacity = 1.0 - torch.exp(-odepth)
+            depth = (ray_total(w * s_t)
+                     if self.opts.render_mode == RenderMode.DEPTH else None)
+            return self._mode_rgb(ray_total(w[:, None] * rgb)
+                                  + torch.exp(-odepth)[:, None] * bg_ray,
+                                  opacity, depth, st["dcnt"]), opacity
 
     def _render_wave_device(self, net, bitfield, bg, rays, n_items: int,
                             n_rays: int, add):
@@ -890,7 +911,8 @@ class NerfRenderer:
         group's kept totals, then every item's network and composite."""
         opts = self.opts
         flat = opts.wave_march == "flat"
-        coarse = None if flat else _coarse_mask(bitfield)
+        with span("ngp.march"):
+            coarse = None if flat else _coarse_mask(bitfield)
         group = max(opts.dispatch_chunks, 1)
         top = self._wave2_layout(n_rays)[3]
         samples = evaluated = 0
@@ -899,16 +921,19 @@ class NerfRenderer:
             items = []
             for k in ks:
                 o, d = rays(k)
-                items.append((o, d, None if flat else coarse_segments(
-                    coarse, o, d, n_rays, opts.march_steps,
-                    self.cone_angle, self.max_cascade, self.aabb_min,
-                    self.aabb_size, t_start_min=0.05)))
-            n_segs = ([0] * len(items) if flat else
-                      torch.stack([segs[2].sum() for _, _, segs in items])
-                      .tolist())
+                with span("ngp.march"):
+                    items.append((o, d, None if flat else coarse_segments(
+                        coarse, o, d, n_rays, opts.march_steps,
+                        self.cone_angle, self.max_cascade, self.aabb_min,
+                        self.aabb_size, t_start_min=0.05)))
+            with span("ngp.wait"):
+                n_segs = ([0] * len(items) if flat else
+                          torch.stack([segs[2].sum() for _, _, segs in items])
+                          .tolist())
             streams = [self._wave2_stream(bitfield, coarse, o, d, segs, n)
                        for (o, d, segs), n in zip(items, n_segs)]
-            totals = torch.stack([st["total"] for st in streams]).tolist()
+            with span("ngp.wait"):
+                totals = torch.stack([st["total"] for st in streams]).tolist()
             for k, st, total in zip(ks, streams, totals):
                 add(k, *self._wave2_composite(net, st, min(total, top), bg))
                 samples += total
@@ -1003,6 +1028,7 @@ class NerfRenderer:
         return torch.cat([rgb, img[..., 3:]], -1)
 
     @torch.no_grad()
+    @spanned("ngp.frame")
     def render(self, params: Optional[Mapping[str, torch.Tensor]], bitfield,
                camera_matrix, width: Optional[int] = None,
                height: Optional[int] = None, focal: Optional[tuple] = None,
@@ -1058,8 +1084,9 @@ class NerfRenderer:
 
         def add(k, rgb, opac):
             lo = items[k][1] * eff_chunk
-            acc[lo:lo + eff_chunk] += torch.cat([rgb, opac[:, None]],
-                                                -1) / n_spp
+            with span("ngp.composite"):
+                acc[lo:lo + eff_chunk] += torch.cat([rgb, opac[:, None]],
+                                                    -1) / n_spp
 
         self.last_n_samples = self.last_event_waits = 0
         if self._wave_supported():
@@ -1081,16 +1108,18 @@ class NerfRenderer:
                     quantized)
                 self.last_n_samples += n
                 add(k, rgb, opac)
+        count("samples", self.last_n_samples)
 
-        img = acc[:H * W].view(H, W, 4)
-        rgb = img[..., :3]
-        if opts.exposure != 0.0:
-            rgb = rgb * (2.0 ** opts.exposure)
-        if opts.tonemap_curve != TonemapCurve.IDENTITY:
-            rgb = tonemap(torch.clamp(rgb, min=0.0), opts.tonemap_curve)
-        if opts.linear_out:
-            rgb = srgb_to_linear(torch.clamp(rgb, min=0.0))
-        return torch.cat([rgb, img[..., 3:]], -1)
+        with span("ngp.composite"):
+            img = acc[:H * W].view(H, W, 4)
+            rgb = img[..., :3]
+            if opts.exposure != 0.0:
+                rgb = rgb * (2.0 ** opts.exposure)
+            if opts.tonemap_curve != TonemapCurve.IDENTITY:
+                rgb = tonemap(torch.clamp(rgb, min=0.0), opts.tonemap_curve)
+            if opts.linear_out:
+                rgb = srgb_to_linear(torch.clamp(rgb, min=0.0))
+            return torch.cat([rgb, img[..., 3:]], -1)
 
 def _coarse_mask(bitfield: torch.Tensor) -> torch.Tensor:
     """The 16³ conservative coarse mask of a bitfield (the hierarchical

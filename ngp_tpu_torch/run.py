@@ -20,7 +20,9 @@ it from the baked playback cache; the frames are encoded by ffmpeg where
 it is installed). It runs on the card unless ``--device cpu`` asks for the
 CPU. ``--depth_supervision_lambda`` sets the NeRF trainer's depth
 supervision, which the JAX runner reaches only through the Testbed's
-attributes.
+attributes. ``--trace_dir DIR`` traces the whole run with
+``torch.profiler`` and writes one Chrome trace, ``DIR/trace.json``, that
+holds the program's named spans and the card's kernels on one clock.
 
 Intended divergences: ``--n_steps`` is exact (the JAX package's NeRF
 trainer runs on to a 16-step boundary); the NeRF mesh is cut from σ in
@@ -32,6 +34,7 @@ into the working directory).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import shutil
@@ -85,6 +88,9 @@ def parse_args(argv=None):
                    "maps (testbed.nerf.training.depth_supervision_lambda)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default: the card)")
+    p.add_argument("--trace_dir", default="",
+                   help="write a Chrome trace of the run (the program's "
+                        "spans and the card's kernels) to DIR/trace.json")
     return p.parse_args(argv)
 
 
@@ -125,6 +131,13 @@ def ssim(a: np.ndarray, b: np.ndarray) -> float:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    from ngp_tpu_torch.utils.profiling import device_trace
+    with (device_trace(args.trace_dir) if args.trace_dir
+          else contextlib.nullcontext()):
+        return _run(args)
+
+
+def _run(args) -> int:
     from ngp_tpu_torch.api.testbed import Testbed, mode_from_scene
     from ngp_tpu_torch.common import ColorSpace, TestbedMode
 

@@ -40,6 +40,7 @@ from ngp_tpu_torch.opt.losses import create_loss
 from ngp_tpu_torch.opt.optimizers import (AdamConfig, apply_update,
                                           inference_params, init_state)
 from ngp_tpu_torch.rays.sampling import sample_positions
+from ngp_tpu_torch.utils.profiling import count, span, spanned
 
 # positions per network call when rendering or evaluating
 EVAL_CHUNK = 1 << 18
@@ -131,25 +132,31 @@ class ImageTrainer:
                                 self.batch_size, self.training_step,
                                 device=self.device)
 
+    @spanned("ngp.step")
     def step(self, pos: Optional[torch.Tensor] = None) -> torch.Tensor:
         """One step on ``pos`` (N, 2) (the next sampled batch when None):
         targets, forward, loss × LOSS_SCALE, backward, Adam + EMA in place.
         Returns the loss (0-d, unscaled) without a host sync."""
-        if pos is None:
-            pos = self.sample_batch()
-        targets, pos = _eval_image(self.image, pos,
-                                   self.snap_to_pixel_centers,
-                                   self.linear_colors)
+        with span("ngp.sample"):
+            if pos is None:
+                pos = self.sample_batch()
+            targets, pos = _eval_image(self.image, pos,
+                                       self.snap_to_pixel_centers,
+                                       self.linear_colors)
+        count("samples", pos.shape[0])
         pred = self.model(pos, int8=self.encode_int8)
-        scaled = torch.mean(self.loss(targets, pred.to(torch.float32))) \
-            * LOSS_SCALE
+        with span("ngp.loss"):
+            scaled = torch.mean(self.loss(targets, pred.to(torch.float32))) \
+                * LOSS_SCALE
+            loss = scaled.detach() / LOSS_SCALE
         names = list(self.params)
-        grads = dict(zip(names, torch.autograd.grad(
-            scaled, [self.params[k] for k in names])))
+        with span("ngp.backward"):
+            grads = dict(zip(names, torch.autograd.grad(
+                scaled, [self.params[k] for k in names])))
         self.opt_state = apply_update(self.params, grads, self.opt_state,
                                       self.opt_cfg, self.matrix_names)
         self.training_step += 1
-        return scaled.detach() / LOSS_SCALE
+        return loss
 
     def train(self, n_steps: int) -> float:
         """Train exactly ``n_steps`` steps; returns the last step's loss."""
@@ -157,7 +164,8 @@ class ImageTrainer:
         for _ in range(n_steps):
             loss = self.step()
         if loss is not None:
-            self.last_loss = float(loss)
+            with span("ngp.stats"):
+                self.last_loss = float(loss)
         return self.last_loss
 
     # -- inference ---------------------------------------------------------
@@ -171,14 +179,19 @@ class ImageTrainer:
         in chunks of EVAL_CHUNK, in the trainer's int8 mode; (N, 3) f32."""
         p = self.inference_params()
         mode = {"int8": self.encode_int8}
-        return torch.cat([functional_call(self.model, p, (c,), mode).to(
-            torch.float32) for c in pos.split(EVAL_CHUNK)])
+        count("samples", pos.shape[0])
+        with span("ngp.network"):
+            return torch.cat([functional_call(self.model, p, (c,), mode).to(
+                torch.float32) for c in pos.split(EVAL_CHUNK)])
 
     def eval_positions(self, pos: np.ndarray) -> np.ndarray:
         """The network's output at (N, 2) positions, as numpy."""
-        return self._predict(torch.as_tensor(
-            np.asarray(pos, np.float32), device=self.device)).cpu().numpy()
+        out = self._predict(torch.as_tensor(np.asarray(pos, np.float32),
+                                            device=self.device))
+        with span("ngp.to_host"):
+            return out.cpu().numpy()
 
+    @spanned("ngp.frame")
     def render(self, width: Optional[int] = None,
                height: Optional[int] = None,
                linear: bool = True) -> np.ndarray:
@@ -187,10 +200,14 @@ class ImageTrainer:
         when ``linear`` (ref: shade_kernel_image)."""
         W = width or self.resolution[0]
         H = height or self.resolution[1]
-        img = self._predict(pixel_centres(W, H, self.device)).reshape(H, W, 3)
+        with span("ngp.sample"):
+            pos = pixel_centres(W, H, self.device)
+        img = self._predict(pos).reshape(H, W, 3)
         if linear and not self.linear_colors:
-            img = srgb_to_linear(img)
-        return img.cpu().numpy()
+            with span("ngp.composite"):
+                img = srgb_to_linear(img)
+        with span("ngp.to_host"):
+            return img.cpu().numpy()
 
     @torch.inference_mode()
     def compute_mse(self, quantize_to_byte: bool = False) -> float:

@@ -83,6 +83,7 @@ from ngp_tpu_torch.rays.marching import (cone_angle_for, exclusive_depth,
                                          march_and_compact,
                                          march_and_compact_hier, ray_sums)
 from ngp_tpu_torch.utils.debug import find_nonfinite
+from ngp_tpu_torch.utils.profiling import count, span, spanned
 
 SHARPNESS_RES = 64  # per-image sharpness-map resolution
 SWEEP_CHUNK = 1 << 18  # density evaluations per network call in a sweep
@@ -191,6 +192,7 @@ def check_numerics() -> bool:
     return os.environ.get("NGP_TPU_CHECK_NUMERICS", "0") == "1"
 
 
+@spanned("ngp.adam")
 def camera_adam(cam: dict, grads: dict, m: dict, v: dict, lrs: dict,
                 enabled: dict):
     """One step of the camera Adam (ref: AdamOptimizer /
@@ -384,6 +386,7 @@ class NerfTrainer:
     # sampling
     # ------------------------------------------------------------------
 
+    @spanned("ngp.sample")
     def draws(self, n_rays: int,
               generator: Optional[torch.Generator] = None) -> StepDraws:
         """One step's draws from ``generator`` (``draw_generator`` by
@@ -395,6 +398,7 @@ class NerfTrainer:
         return StepDraws(u(n_rays), u(n_rays, 2), u(n_rays), u(n_rays, 3),
                          u(n_rays) if self._xforms_end is not None else None)
 
+    @spanned("ngp.sample")
     def _error_state(self) -> dict:
         """Normalised CDFs of the error map, with the MIN_PMF = 0.1 floor
         (ref: construct_cdf_1d/2d)."""
@@ -537,26 +541,32 @@ class NerfTrainer:
                                                       keepdim=True), min=1e-9)
         return o, d_raw / d_norm, d_norm[:, 0]
 
+    @spanned("ngp.march")
     def _march(self, o, d, jitter, n_rays: int, capacity: int, ray_mask):
         """(s_t, s_dt, s_ray, counts, total, seg_total, s_k) of the rays;
-        ``counts`` are the kept samples per ray."""
+        ``counts`` are the kept samples per ray. Counts the samples the
+        march emitted (``total``, already on the host)."""
         tc = self.tcfg
         if tc.hierarchical_march:
             self._seg_capacity = capacity // 8 * 4
-            return march_and_compact_hier(
+            out = march_and_compact_hier(
                 self.grid.bitfield, self.grid.coarse, o, d, jitter, n_rays,
                 tc.march_steps, self.cone_angle, self.max_cascade,
                 self.aabb_min, self.aabb_size, capacity, ray_mask=ray_mask)
-        self._seg_capacity = 0
-        return march_and_compact(
-            self.grid.bitfield, o, d, jitter, n_rays, tc.march_steps,
-            self.cone_angle, self.max_cascade, self.aabb_min, self.aabb_size,
-            capacity, ray_mask=ray_mask)
+        else:
+            self._seg_capacity = 0
+            out = march_and_compact(
+                self.grid.bitfield, o, d, jitter, n_rays, tc.march_steps,
+                self.cone_angle, self.max_cascade, self.aabb_min,
+                self.aabb_size, capacity, ray_mask=ray_mask)
+        count("samples", out[4])
+        return out
 
     # ------------------------------------------------------------------
     # one training step
     # ------------------------------------------------------------------
 
+    @spanned("ngp.step")
     def _train_step(self, draws: StepDraws, error_state: dict,
                     capacity: Optional[int] = None,
                     group=None) -> StepStats:
@@ -612,104 +622,115 @@ class NerfTrainer:
         tc = self.tcfg
         S = capacity or tc.target_batch_size
         n = draws.u_img.shape[0]
-        img, xy, texsamp, samp_pdf = self._sample_pixels(
-            error_state, draws.u_img, draws.u_xy)
         # whether the camera parameters join the loss
         train_cam = (tc.optimize_extrinsics or tc.optimize_exposure
                      or tc.optimize_focal_length or tc.optimize_extra_dims
                      or tc.train_envmap or tc.optimize_distortion)
-        cam = ({k: v.detach().requires_grad_() for k, v in
-                self.cam_params.items()} if train_cam else self.cam_params)
-        o, d, d_norm = self._build_rays(img, xy, cam, draws.time)
-        # each ray's depth target in distance along the unit ray; ≤ 0
-        # where the capture has no depth (ref: target_depth, :1450)
-        depth_tgt = None
-        if tc.depth_supervision_lambda > 0.0 and self._depths is not None:
-            depth_tgt = d_norm.detach() \
-                * self._depths[self._pixel_index(img, xy)]
-        # masked-away pixels (negative red sentinel) never train
-        ray_ok = texsamp[:, 0] >= 0.0
+        with span("ngp.sample"):
+            img, xy, texsamp, samp_pdf = self._sample_pixels(
+                error_state, draws.u_img, draws.u_xy)
+            cam = ({k: v.detach().requires_grad_() for k, v in
+                    self.cam_params.items()} if train_cam else self.cam_params)
+            o, d, d_norm = self._build_rays(img, xy, cam, draws.time)
+            # each ray's depth target in distance along the unit ray; ≤ 0
+            # where the capture has no depth (ref: target_depth, :1450)
+            depth_tgt = None
+            if tc.depth_supervision_lambda > 0.0 and self._depths is not None:
+                depth_tgt = d_norm.detach() \
+                    * self._depths[self._pixel_index(img, xy)]
+            # masked-away pixels (negative red sentinel) never train
+            ray_ok = texsamp[:, 0] >= 0.0
         # the march's sample times stay fixed (piecewise-constant sampling);
         # the loss takes the rays with their camera gradient
         s_t, s_dt, s_ray, counts, total, seg_total, s_k = self._march(
             o.detach(), d.detach(), draws.u_march, n, S, ray_ok)
 
-        bg = draws.bg if tc.random_bg_color else torch.ones_like(draws.bg)
-        bg_linear = srgb_to_linear(bg)
-        has_samples = counts > 0
-        # the global normaliser, summed before the backward
-        n_eff = torch.clamp(all_reduce_(has_samples.sum(), group), min=1)
-        reg_on = (self.grid.mean < NERF_MIN_OPTICAL_THICKNESS).to(
-            torch.float32)
-        # target (ref: :1388-1427), with the per-image exposure scale 2^e
-        # and the envmap over the background, in sRGB unless training in
-        # linear
-        if tc.train_envmap:
-            env = self.envmap.sample(cam["envmap"], d)
-            bg_lin = env[:, :3] + bg_linear * (1.0 - env[:, 3:4])
-        else:
-            bg_lin = bg_linear
-        rgb_in = texsamp[:, :3]
-        if tc.optimize_exposure:
-            rgb_in = torch.exp2(cam["exposure"][img]) * rgb_in
-        rgbtarget = rgb_in + (1.0 - texsamp[:, 3:4]) * bg_lin
-        if tc.train_in_linear_colors:
-            bg_out = bg_linear      # the JAX package's choice, envmap or not
-        else:
-            rgbtarget = linear_to_srgb(rgbtarget)
-            bg_out = linear_to_srgb(bg_lin)
+        with span("ngp.network"):
+            pos_w = (o[s_ray] + s_t[:, None] * d[s_ray] - self.aabb_min) \
+                / self.aabb_size
+            extra = (cam["extra_dims"][img][s_ray]
+                     if self.model.n_extra_dims > 0 else None)
+            # the int8 backward's tiles are those of the JAX step's stream of
+            # capacity S, not of the live samples
+            rgb_raw, dens_raw = self.model.apply(
+                pos_w, d[s_ray] * 0.5 + 0.5, extra=extra, int8=tc.encode_int8,
+                tile=eff_tile(S))
+            rgb = torch.sigmoid(rgb_raw.to(torch.float32))
+            sigma = torch.exp(torch.clamp(dens_raw.to(torch.float32), -15.0,
+                                          15.0))
+        with span("ngp.loss"):
+            bg = draws.bg if tc.random_bg_color else torch.ones_like(draws.bg)
+            bg_linear = srgb_to_linear(bg)
+            has_samples = counts > 0
+            # the global normaliser, summed before the backward
+            n_eff = torch.clamp(all_reduce_(has_samples.sum(), group), min=1)
+            reg_on = (self.grid.mean < NERF_MIN_OPTICAL_THICKNESS).to(
+                torch.float32)
+            # target (ref: :1388-1427), with the per-image exposure scale 2^e
+            # and the envmap over the background, in sRGB unless training in
+            # linear
+            if tc.train_envmap:
+                env = self.envmap.sample(cam["envmap"], d)
+                bg_lin = env[:, :3] + bg_linear * (1.0 - env[:, 3:4])
+            else:
+                bg_lin = bg_linear
+            rgb_in = texsamp[:, :3]
+            if tc.optimize_exposure:
+                rgb_in = torch.exp2(cam["exposure"][img]) * rgb_in
+            rgbtarget = rgb_in + (1.0 - texsamp[:, 3:4]) * bg_lin
+            if tc.train_in_linear_colors:
+                bg_out = bg_linear  # the JAX package's choice, envmap or not
+            else:
+                rgbtarget = linear_to_srgb(rgbtarget)
+                bg_out = linear_to_srgb(bg_lin)
 
-        pos_w = (o[s_ray] + s_t[:, None] * d[s_ray] - self.aabb_min) \
-            / self.aabb_size
-        extra = (cam["extra_dims"][img][s_ray]
-                 if self.model.n_extra_dims > 0 else None)
-        # the int8 backward's tiles are those of the JAX step's stream of
-        # capacity S, not of the live samples
-        rgb_raw, dens_raw = self.model.apply(
-            pos_w, d[s_ray] * 0.5 + 0.5, extra=extra, int8=tc.encode_int8,
-            tile=eff_tile(S))
-        rgb = torch.sigmoid(rgb_raw.to(torch.float32))
-        sigma = torch.exp(torch.clamp(dens_raw.to(torch.float32), -15.0, 15.0))
-        sdt = sigma * s_dt
-        # per-ray transmittance from a lattice cumsum; one global stream
-        # cumsum loses f32 precision once σ sharpens (see exclusive_depth)
-        excl = exclusive_depth(sdt, s_ray, s_k, n, tc.march_steps)
-        w = torch.exp(-torch.clamp(excl, 0.0, 88.0)) * (1.0 - torch.exp(-sdt))
-        zeros = torch.zeros(n, device=self.device)
-        rgb_ray = torch.zeros((n, 3), device=self.device).index_add(
-            0, s_ray, w[:, None] * rgb)
-        T_end = torch.exp(-zeros.index_add(0, s_ray,
-                                           torch.clamp(sdt, max=88.0)))
-        rgb_ray = rgb_ray + T_end[:, None] * bg_out
-        per_c = self.rgb_loss(rgbtarget, rgb_ray)               # (R, 3)
-        ray_mask = has_samples.to(torch.float32)
-        loss_rgb = torch.sum(per_c * ray_mask[:, None]) / n_eff
-        # the expected depth Σ w·t of each ray, summed in a fixed order: the
-        # depth loss's input and the sharpness deposit's hit point
-        depth_ray = ray_sums(w * s_t, s_ray, s_k, n, tc.march_steps)
-        if depth_tgt is not None:
-            # the depth term joins the RGB loss (and its reported value),
-            # where the target is > 0 (ref: lg_depth, :1451-1452)
-            dloss = self.depth_loss(depth_tgt[:, None],
-                                    depth_ray[:, None])[:, 0]
-            dmask = ray_mask * (depth_tgt > 0.0).to(torch.float32)
-            loss_rgb = loss_rgb + tc.depth_supervision_lambda * torch.sum(
-                dloss * dmask) / n_eff
-        # density regularisers (ref: :1495-1547), added to dL/draw without
-        # the loss scale
-        near_pen = torch.where((dens_raw > -10.0) & (s_t < tc.near_distance),
-                               1e-4 * dens_raw, 0.0).sum()
-        l1_pen = reg_on * (-1e-4 * torch.clamp(dens_raw, max=0.0)).sum()
-        reg = (near_pen + l1_pen) / LOSS_SCALE
-        if tc.optimize_extrinsics:
-            reg = reg + tc.extrinsic_l2_reg * (torch.sum(cam["rot"] ** 2)
-                                               + torch.sum(cam["trans"] ** 2))
-        scaled_loss = (loss_rgb + reg) * LOSS_SCALE
+            sdt = sigma * s_dt
+            # per-ray transmittance from a lattice cumsum; one global stream
+            # cumsum loses f32 precision once σ sharpens (see
+            # exclusive_depth)
+            excl = exclusive_depth(sdt, s_ray, s_k, n, tc.march_steps)
+            w = torch.exp(-torch.clamp(excl, 0.0, 88.0)) \
+                * (1.0 - torch.exp(-sdt))
+            zeros = torch.zeros(n, device=self.device)
+            rgb_ray = torch.zeros((n, 3), device=self.device).index_add(
+                0, s_ray, w[:, None] * rgb)
+            T_end = torch.exp(-zeros.index_add(0, s_ray,
+                                               torch.clamp(sdt, max=88.0)))
+            rgb_ray = rgb_ray + T_end[:, None] * bg_out
+            per_c = self.rgb_loss(rgbtarget, rgb_ray)               # (R, 3)
+            ray_mask = has_samples.to(torch.float32)
+            loss_rgb = torch.sum(per_c * ray_mask[:, None]) / n_eff
+            # the expected depth Σ w·t of each ray, summed in a fixed order:
+            # the depth loss's input and the sharpness deposit's hit point
+            depth_ray = ray_sums(w * s_t, s_ray, s_k, n, tc.march_steps)
+            if depth_tgt is not None:
+                # the depth term joins the RGB loss (and its reported
+                # value), where the target is > 0 (ref: lg_depth,
+                # :1451-1452)
+                dloss = self.depth_loss(depth_tgt[:, None],
+                                        depth_ray[:, None])[:, 0]
+                dmask = ray_mask * (depth_tgt > 0.0).to(torch.float32)
+                loss_rgb = loss_rgb + tc.depth_supervision_lambda * torch.sum(
+                    dloss * dmask) / n_eff
+            # density regularisers (ref: :1495-1547), added to dL/draw
+            # without the loss scale
+            near_pen = torch.where(
+                (dens_raw > -10.0) & (s_t < tc.near_distance),
+                1e-4 * dens_raw, 0.0).sum()
+            l1_pen = reg_on * (-1e-4 * torch.clamp(dens_raw, max=0.0)).sum()
+            reg = (near_pen + l1_pen) / LOSS_SCALE
+            if tc.optimize_extrinsics:
+                reg = reg + tc.extrinsic_l2_reg * (
+                    torch.sum(cam["rot"] ** 2) + torch.sum(cam["trans"] ** 2))
+            scaled_loss = (loss_rgb + reg) * LOSS_SCALE
+            with torch.no_grad():
+                per_ray_loss = per_c.mean(-1) * ray_mask
         names = list(self.params)
         cam_keys = list(cam) if train_cam else []
-        g = torch.autograd.grad(
-            scaled_loss, [self.params[k] for k in names]
-            + [cam[k] for k in cam_keys], allow_unused=True)
+        with span("ngp.backward"):
+            g = torch.autograd.grad(
+                scaled_loss, [self.params[k] for k in names]
+                + [cam[k] for k in cam_keys], allow_unused=True)
         grads = dict(zip(names, g[:len(names)]))
         cam_grads = None
         if train_cam:
@@ -727,14 +748,13 @@ class NerfTrainer:
             all_reduce_(counts_t, group)
             n_with = counts_t[0]
             total, seg_total = (int(c) for c in counts_t[1:].tolist())
-        with torch.no_grad():
-            per_ray_loss = per_c.mean(-1) * ray_mask
         stats = StepStats(loss_rgb / 3.0, total, seg_total, n_with)
         return grads, cam_grads, stats, (img, xy, o.detach(), d.detach(),
                                          per_ray_loss, samp_pdf,
                                          depth_ray.detach(), T_end.detach(),
                                          has_samples)
 
+    @spanned("ngp.error_map")
     def _deposit_error(self, img, xy, o, d, per_ray_loss, samp_pdf,
                        depth_ray, T_end, has_samples, group=None):
         """Bilinear deposit of the per-ray loss into the error map, divided
@@ -783,6 +803,7 @@ class NerfTrainer:
     # ------------------------------------------------------------------
 
     @torch.no_grad()
+    @spanned("ngp.sweep")
     def _grid_update(self, full_sweep: bool, jitter=None):
         """Sweep the occupancy grid with the training parameters, in
         network calls of SWEEP_CHUNK positions."""
@@ -817,16 +838,19 @@ class NerfTrainer:
         rays, from a fixed seed (no network)."""
         g = torch.Generator(device=self.device).manual_seed(0x5E6)
         dr = self.draws(n_rays, g)
-        img, xy, texsamp, _ = self._sample_pixels(self._error_state(),
-                                                  dr.u_img, dr.u_xy)
-        o, d, _ = self._build_rays(img, xy)
-        out = march_and_compact_hier(
-            self.grid.bitfield, self.grid.coarse, o, d, dr.u_march, n_rays,
-            self.tcfg.march_steps, self.cone_angle, self.max_cascade,
-            self.aabb_min, self.aabb_size, self.tcfg.target_batch_size,
-            ray_mask=texsamp[:, 0] >= 0.0)
+        with span("ngp.sample"):
+            img, xy, texsamp, _ = self._sample_pixels(self._error_state(),
+                                                      dr.u_img, dr.u_xy)
+            o, d, _ = self._build_rays(img, xy)
+        with span("ngp.march"):
+            out = march_and_compact_hier(
+                self.grid.bitfield, self.grid.coarse, o, d, dr.u_march,
+                n_rays, self.tcfg.march_steps, self.cone_angle,
+                self.max_cascade, self.aabb_min, self.aabb_size,
+                self.tcfg.target_batch_size, ray_mask=texsamp[:, 0] >= 0.0)
         return out[5], out[4]
 
+    @spanned("ngp.stats")
     def _probe_ray_budget(self):
         """Size the ray count to the segment and sample budgets before the
         first step, so no step trains at a truncating ray count (the
@@ -925,8 +949,9 @@ class NerfTrainer:
         for i in range(n_steps):
             at_boundary = self.training_step % cadence == 0
             if at_boundary and pending is not None:
-                loss = self._fetch_stats(float(pending[0]) / pending[1],
-                                         *pending[2:])
+                with span("ngp.stats"):
+                    loss = self._fetch_stats(float(pending[0]) / pending[1],
+                                             *pending[2:])
                 pending = None
             if (at_boundary or i == 0) and importance and \
                     self._steps_since_error_map_update >= \
@@ -952,13 +977,15 @@ class NerfTrainer:
             if pending is None:
                 pending = [stats.loss, 0, 0, 0, n_rays]
             else:
-                pending[0] = pending[0] + stats.loss
+                with span("ngp.stats"):
+                    pending[0] = pending[0] + stats.loss
             pending[1:4] = [pending[1] + 1, stats.total, stats.seg_total]
             self.training_step += 1
             self._steps_since_error_map_update += 1
         if pending is not None:
-            loss = self._fetch_stats(float(pending[0]) / pending[1],
-                                     *pending[2:])
+            with span("ngp.stats"):
+                loss = self._fetch_stats(float(pending[0]) / pending[1],
+                                         *pending[2:])
         return loss
 
     def inference_params(self) -> dict:

@@ -1,7 +1,6 @@
 """The port's utilities against the JAX package's: the FLIP metric (a
-numpy copy: its map and mean agree to 1e-6) and the profiling helpers
-(the EMA phase meters as the JAX package's; the torch.profiler trace
-written as a Chrome trace)."""
+numpy copy: its map and mean agree to 1e-6) and the torch.profiler trace
+written as a Chrome trace."""
 import json
 
 import numpy as np
@@ -9,7 +8,6 @@ import pytest
 import torch
 
 from ngp_tpu.utils import flip as jflip
-from ngp_tpu.utils import profiling as jprof
 from ngp_tpu_torch.utils import flip as tflip
 from ngp_tpu_torch.utils import profiling as tprof
 
@@ -39,22 +37,6 @@ def test_flip_under_standard_viewing_matches_jax():
     ref, test = _pair(1)
     assert abs(tflip.flip(test, ref) - jflip.flip(test, ref)) <= 1e-6
     assert tflip.flip(ref, ref) == pytest.approx(0.0, abs=1e-6)
-
-
-def test_phase_timers_match_jax():
-    ours, theirs = tprof.PhaseTimers(0.5), jprof.PhaseTimers(0.5)
-    for name in ("train", "render"):
-        with ours.scope(name):
-            pass
-        with theirs.scope(name):
-            pass
-    assert set(ours.meters) == set(theirs.meters) == {"train", "render"}
-    # the meters' EMA from the same first value on
-    a_meter, b_meter = (type(t.meters["train"])(0.5) for t in (ours, theirs))
-    for value in (3.0, 5.0, 4.0):
-        assert a_meter.update(value) == pytest.approx(b_meter.update(value),
-                                                      rel=1e-12)
-    assert ours.report().startswith("render=") and "train=" in ours.report()
 
 
 def test_device_trace_writes_a_chrome_trace(tmp_path):
