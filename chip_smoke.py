@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``ngp_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile] [--kernels] [--k2-zeros N]
+    python3 chip_smoke.py [--profile] [--kernels] [--adam] [--k2-zeros N]
 
 Phases, each reported on its own line:
   1. device  — requires CUDA; prints the card and its power limit as
@@ -249,6 +249,20 @@ layer as well (the steps' table also to a file, see ``phase_profile``).
 ``--kernels`` runs phases 1, 2 and 4 alone, on a scene of its own (K4's
 sweep positions from an untrained trainer), with the 2D K1–K5 on seeded
 image-width inputs, and ends with the kernels' JSON line.
+``--adam`` runs phases 1, 2 and the adam phase alone and ends with its
+entries' JSON line. The adam phase (also after the kernel phases with
+``--kernels``, and last in a full run) checks and times the fused Adam
+kernel (``csrc/fused_adam.cu``, which replaces no Pallas kernel: the JAX
+package leaves Adam to XLA) against the eager update on one real step of
+an ImageTrainer on an 8192² image (configs/image/base.json: the 2 GiB
+table, no Ema, 2^18 positions) and of a NerfTrainer (configs/nerf/
+base.json: the 64 MiB table, Ema 0.95): p, m, v and Ema bit-equal after
+one step from the same state, one launch and no host sync a step, its
+``adam_fused`` count, the kernel by CUDA-graph replays and the eager
+update by CUDA events in turns, beside its bound: the bytes the step
+needs at the card's memory rate (every gradient entry read; p, m and v
+read and written where updated; the Ema's reads and writes), and a dense
+pass's (7 × 4 bytes an entry, plus the Ema's).
 ``--k2-zeros N`` runs phases 1, 2 and the train phase, then the train
 phase's one-step K2 check on the draws of N seeds, then the image
 phase's K2 check on N more steps of an image trainer, and prints for
@@ -396,7 +410,8 @@ def phase_device() -> dict:
 
 def kernel_registers(build_log: str) -> str:
     """Each kernel's spills and registers, from nvcc's ``-Xptxas -v``
-    output (entry function, then spills, then registers)."""
+    output (entry function, then spills, then registers): K1–K5 and the
+    fused Adam."""
     info = []
     for ln in build_log.splitlines():
         name = re.search(r"blocked_grid_encode_(?:fwd|bwd)\w*?kernel"
@@ -409,6 +424,8 @@ def kernel_registers(build_log: str) -> str:
                     if name.group(1) == "i" else
                     "<int8>" if name.group(2) == "1" else "<f32>")
             info.append(name.group(0).split("kernel")[0] + "kernel" + dims)
+        elif "entry function" in ln and "fused_adam_kernel" in ln:
+            info.append("fused_adam_kernel")
         elif info and (regs or spill):
             info[-1] += (f" {regs.group(1)} registers" if regs
                          else f" {spill.group(1)} B spilled,")
@@ -1150,8 +1167,22 @@ def _check_frame(img, W, H):
 
 def _reset_launches():
     from ngp_tpu_torch.kernels import blocked_grid_cuda as bgc
-    for k in bgc.launches:
-        bgc.launches[k] = 0
+    from ngp_tpu_torch.kernels import fused_adam_cuda as fa
+    for counts in (bgc.launches, fa.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def _adam_launches(tag: str, launches: dict, steps: int, cuda: bool = True):
+    """Add the fused Adam's launches since the last reset to ``launches``;
+    ``steps`` training steps on the card must have launched it once each
+    (on the CPU, never)."""
+    from ngp_tpu_torch.kernels import fused_adam_cuda as fa
+    n = launches["fused_adam"] = fa.launches["fused_adam"]
+    print(f"{tag}: fused Adam launched {n} times in {steps} training steps")
+    if n != (steps if cuda else 0):
+        raise RuntimeError(f"{tag}: {n} fused Adam launches in {steps} "
+                           f"training steps")
 
 
 def phase_slice(dev):
@@ -1556,6 +1587,7 @@ def phase_train(dev, n_views: int = TRAIN_VIEWS, res: int = TRAIN_RES,
     sync()
     t2 = time.perf_counter()
     launches = dict(bgc.launches)
+    _adam_launches("train", launches, steps, cuda)
     ms_warm = (t1 - t0) * 1e3 / warmup
     ms = (t2 - t1) * 1e3 / (steps - warmup)
     n_s = tr.last_samples
@@ -3632,6 +3664,7 @@ def phase_image(dev, steps: int = IMAGE_STEPS, res: int = IMAGE_RES,
     for w, h in frames:
         _timed_render("image", lambda: tb.render(w, h), "Testbed frame", w, h)
     launches = dict(bgc.launches)
+    _adam_launches("image", launches, steps)
     print(f"image: launches in the phase {launches}")
     missing = [k for k in ("blocked_grid_encode_fwd_2d",
                            "blocked_grid_encode_bwd_2d") if launches[k] <= 0]
@@ -4990,6 +5023,188 @@ def phase_captures(dev, config=None, res: int = CAPTURE_RES,
     return launches, k4
 
 
+# the adam phase: the image-train-8k cell's image (a 2 GiB table) and the
+# steps each trainer takes before its gradient is captured
+ADAM_IMAGE_RES, ADAM_WARM_STEPS = 8192, 4
+
+
+def adam_bytes(params, grads, state, cfg, matrix_names) -> tuple:
+    """(the bytes one fused Adam step needs at these inputs, a dense
+    pass's): every gradient entry read; p, m and v read and written at each
+    entry the step updates (every entry of a matrix, those with g ≠ 0
+    elsewhere); with an Ema, e read and written and p read where not
+    updated; with no Ema, nothing where the Ema is the parameters, else e
+    written and p read where not updated. A dense pass: 7 × 4 bytes an
+    entry and the same Ema."""
+    need = dense = 0
+    for name, p in params.items():
+        n = p.numel()
+        if (matrix_names is None or name in matrix_names
+                or not cfg.skip_zero_grad):
+            upd = n
+        else:
+            upd = int((grads[name] != 0).sum())
+        same = state.ema_params[name].data_ptr() == p.data_ptr()
+        ema, ema_dense = ((2 * n, 2 * n) if cfg.ema_decay > 0.0
+                          else (0, 0) if same else (n, n))
+        if ema:
+            ema += n - upd
+        need += 4 * (n + 6 * upd + ema)
+        dense += 4 * (7 * n + ema_dense)
+    return need, dense
+
+
+def _capture_update(tr, module):
+    """Run one more training step of ``tr`` under a profiler and return
+    what its ``apply_update`` (looked up in ``module``) was given, before
+    the update: parameters, gradients, state, config and matrix names, as
+    copies; and the step's fused Adam launches and ``adam_fused`` count."""
+    from ngp_tpu_torch.kernels import fused_adam_cuda as fa
+    from ngp_tpu_torch.utils import profiling
+    seen = {}
+    real = module.apply_update
+
+    def spy(params, grads, state, cfg, matrix_names=None):
+        seen["args"] = (
+            {k: p.detach().clone() for k, p in params.items()},
+            {k: g.clone() for k, g in grads.items()},
+            state, cfg, matrix_names)
+        seen["state"] = _copy_state(state, params, seen["args"][0])
+        return real(params, grads, state, cfg, matrix_names)
+    _reset_launches()
+    with mock.patch.object(module, "apply_update", spy), \
+            torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU]):
+        tr.train(1)
+    # read once the profiler has stopped: that ends the window, so the
+    # next one counts afresh
+    counted = profiling.counters().get("adam_fused", 0)
+    torch.cuda.synchronize()
+    params, grads, _, cfg, names = seen["args"]
+    step = {"launches": fa.launches["fused_adam"], "adam_fused": counted}
+    return params, grads, seen["state"], cfg, names, step
+
+
+def _copy_state(state, params: dict, new_params: dict):
+    """A copy of the Adam ``state`` of ``params`` for ``new_params``: an
+    Ema entry that is its parameter stays the (new) parameter."""
+    return state._replace(
+        mu={k: t.clone() for k, t in state.mu.items()},
+        nu={k: t.clone() for k, t in state.nu.items()},
+        ema_params={k: new_params[k] if e is params[k] else e.clone()
+                    for k, e in state.ema_params.items()})
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_time_adam(what: str, params, grads, state, cfg, matrix_names,
+                    step: dict) -> dict:
+    """The fused Adam step on these inputs against the eager update: the
+    training step they came from (``step``, from ``_capture_update``) must
+    have launched it once and counted every entry under ``adam_fused``;
+    then p, m, v and Ema bit-equal after one step from copies of the same
+    state, again one launch and no host sync; then both timed in turns,
+    beside the bound (``adam_bytes``)."""
+    from ngp_tpu_torch.kernels import fused_adam_cuda as fa
+    from ngp_tpu_torch.opt import optimizers as topt
+    from ngp_tpu_torch.utils import profiling
+
+    def copies():
+        p = {k: t.clone() for k, t in params.items()}
+        return p, _copy_state(state, params, p)
+    kp, ks = copies()
+    pp, ps = copies()
+    torch.cuda.synchronize()
+    before = fa.launches["fused_adam"]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU]):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ks2 = topt.apply_update(kp, grads, ks, cfg, matrix_names)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        counted = profiling.counters().get("adam_fused", 0)
+    side = fa.launches["fused_adam"] - before
+    ps2 = topt.apply_update_plain(pp, grads, ps, cfg, matrix_names)
+    torch.cuda.synchronize()
+    equal = {f: all(_bits_equal(a[k], b[k]) for k in params)
+             for f, a, b in (("p", kp, pp), ("m", ks2.mu, ps2.mu),
+                             ("v", ks2.nu, ps2.nu),
+                             ("e", ks2.ema_params, ps2.ema_params))}
+    n = sum(p.numel() for p in params.values())
+    need, dense = adam_bytes(params, grads, state, cfg, matrix_names)
+    skipped = [k for k in params if cfg.skip_zero_grad and not (
+        matrix_names is None or k in matrix_names)]
+    touched = sum(int((grads[k] != 0).sum()) for k in skipped)
+    vecs = sum(int((grads[k].view(-1, 4) != 0).any(1).sum())
+               if grads[k].numel() % 4 == 0 else grads[k].numel()
+               for k in skipped)
+    in_skipped = sum(params[k].numel() for k in skipped)
+    (k1, k2), (p1, p2) = _time_in_turns(
+        lambda: topt.apply_update(kp, grads, ks, cfg, matrix_names),
+        lambda: topt.apply_update_plain(pp, grads, ps, cfg, matrix_names),
+        kern_iters=20, plain_iters=3)
+    bound = need / HBM_BYTES_PER_S * 1e3
+    print(f"adam: {what}: {n} entries in {len(params)} tensors; of the "
+          f"{in_skipped} with the zero-gradient skip {touched} touched "
+          f"({100.0 * touched / max(in_skipped, 1):.2f} %; "
+          f"{100.0 * 4 * vecs / max(in_skipped, 1):.2f} % in touched "
+          f"float4s); kernel {k1:.4f} / {k2:.4f} ms (CUDA-graph replays), "
+          f"eager {p1:.4f} / {p2:.4f} ms (events); bound {bound:.4f} ms "
+          f"({need / 1e6:.1f} MB at 3.35 TB/s), share "
+          f"{100.0 * bound / min(k1, k2):.1f} %; dense pass "
+          f"{dense / HBM_BYTES_PER_S * 1e3:.4f} ms ({dense / 1e6:.1f} MB); "
+          f"bit-equal {equal}; in the training step {step['launches']} "
+          f"launches, adam_fused {step['adam_fused']}; in the step alone "
+          f"{side} launches, adam_fused {counted}, no sync")
+    if not all(equal.values()):
+        raise AssertionError(f"adam: {what}: the kernel's step differs from "
+                             f"the eager update's: {equal}")
+    if (step["launches"], step["adam_fused"], side, counted) != (1, n, 1, n):
+        raise AssertionError(f"adam: {what}: {step['launches']} launches and "
+                             f"adam_fused {step['adam_fused']} in a training "
+                             f"step of {n} entries ({side} and {counted} in "
+                             f"the step alone)")
+    return {"name": f"fused_adam ({what})", "launch_name": "fused_adam",
+            "card_ms": [k1, k2], "plain_ms": [p1, p2], "bound_ms": bound,
+            "bytes": need, "dense_bound_ms": dense / HBM_BYTES_PER_S * 1e3,
+            "entries": n, "touched": touched, "launches": step["launches"],
+            "adam_fused": step["adam_fused"],
+            "bit_equal": all(equal.values())}
+
+
+def phase_adam(dev, image_res: int = ADAM_IMAGE_RES,
+               nerf_views: int = 8, nerf_res: int = 64) -> list:
+    """The fused Adam kernel on one real step of each trainer that the
+    benchmark's training cells run: the image (configs/image/base.json on
+    an image_res² seeded image, batch 2^18: its 2 GiB table at 8192²) and
+    the NeRF (configs/nerf/base.json on nerf_views sphere views: the 64
+    MiB table, Ema 0.95); each ``check_time_adam``."""
+    import ngp_tpu_torch.train.image as timage
+    import ngp_tpu_torch.train.nerf as tnerf
+    from ngp_tpu_torch.config import load_network_config
+    t0 = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    img = torch.rand((image_res, image_res, 3), generator=g,
+                     device=dev).cpu().numpy()
+    tr = timage.ImageTrainer(
+        img, load_network_config(ROOT / "configs/image/base.json"),
+        seed=SEED, batch_size=1 << 18, device=dev)
+    del img
+    tr.train(ADAM_WARM_STEPS)
+    entries = [check_time_adam(f"image step ({image_res}², 2^18 positions)",
+                               *_capture_update(tr, timage))]
+    del tr
+    torch.cuda.empty_cache()
+    tr = make_trainer(build_sphere_dataset(dev, nerf_views, nerf_res), dev)
+    tr.train(ADAM_WARM_STEPS)
+    entries.append(check_time_adam("NeRF step", *_capture_update(tr, tnerf)))
+    print(f"adam: phase {time.perf_counter() - t0:.1f} s")
+    return entries
+
+
 def kernel_phases(dev, ray) -> list:
     """K1–K5 against their plain versions, timed; K1, K2 and K3 on the
     render path's ray-ordered inputs too."""
@@ -5016,8 +5231,11 @@ def main() -> int:
         tr = make_trainer(build_sphere_dataset(dev, 2, 32), dev)
         phase_k4_sweep(dev, _named(kernels, "blocked_grid_encode_fwd_i8"),
                        sweep_ordered_inputs(tr))
-        kernels += phase_k12_2d(dev) + phase_k345_2d(dev)
+        kernels += phase_k12_2d(dev) + phase_k345_2d(dev) + phase_adam(dev)
         print(json.dumps({"kernels": kernels}))
+        return 0
+    if "--adam" in args:
+        print(json.dumps({"kernels": phase_adam(dev)}))
         return 0
     if "--k2-zeros" in args:
         # the train phase, then its one-step K2 check on the draws of
@@ -5111,6 +5329,16 @@ def main() -> int:
         k["takikawa_launches"] = tak_launches[name]
         k["playback_launches"] = playback_launches[name]
         k["captures_launches"] = captures_launches[name]
+    # the fused Adam: "launches" is its launches in the training step its
+    # inputs came from; here its launches in the train and image phases'
+    # runs too (each phase fails unless once a step)
+    adam = phase_adam(dev)
+    for k in adam:
+        k["train_launches"], k["train_steps"] = (launches["fused_adam"],
+                                                 TRAIN_STEPS)
+        k["image_launches"], k["image_steps"] = (image_launches["fused_adam"],
+                                                 IMAGE_STEPS)
+    kernels += adam
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

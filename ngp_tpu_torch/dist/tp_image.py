@@ -68,7 +68,7 @@ class TpImageTrainer:
         self.loss = create_loss(config.get("loss", {"otype": "L2"}))
         self.opt_cfg = AdamConfig.from_config(config.get("optimizer", {}),
                                               loss_scale=LOSS_SCALE)
-        self.state = init_state(self.params)
+        self.state = init_state(self.params, self.opt_cfg)
         self.batch_size = batch_size
         self.training_step = 0
         self.linear_colors = False

@@ -171,9 +171,11 @@ def load_encoded_snapshot_state(path, trainer) -> dict:
     doc = load_snapshot(path)
     snap = doc["snapshot"]
     with torch.no_grad():
-        for dst, tree in ((trainer.params, snap["ngp_tpu_params"]),
-                          (trainer.opt_state.ema_params,
-                           snap["ngp_tpu_ema_params"])):
+        # the Ema first: with no Ema its tensors are the parameters
+        # (optimizers.init_state), whose own values must win
+        for dst, tree in ((trainer.opt_state.ema_params,
+                           snap["ngp_tpu_ema_params"]),
+                          (trainer.params, snap["ngp_tpu_params"])):
             for k, v in bridge.encoded_params_from_numpy(
                     tree, trainer.model).items():
                 dst[k].copy_(v)

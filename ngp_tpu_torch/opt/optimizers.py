@@ -17,6 +17,20 @@ parameters and moments in place (the JAX package returns new pytrees):
 
 Learning rate and bias corrections are computed in f32, as the JAX package
 computes them.
+
+``apply_update`` picks by the device of the tensors it is given: CPU
+tensors take the eager update (``apply_update_plain``), CUDA tensors the
+hand-written fused kernel (``kernels/fused_adam_cuda.py``), one launch a
+step over every tensor, bit-identical to the eager update on the card;
+anything else raises. There is no fallback from the kernel to the eager
+update.
+
+With no Ema (``ema_decay`` 0) the JAX package's step returns ``ema =
+params_out``: here ``init_state`` given the config makes each Ema entry
+the parameter tensor itself, so no step copies it. A state whose Ema
+entries are tensors of their own (a shard's, or one built with
+``state._replace(ema_params=...)``) is still set to the parameters every
+step.
 """
 from __future__ import annotations
 
@@ -25,7 +39,8 @@ from typing import Mapping, NamedTuple
 
 import torch
 
-from ngp_tpu_torch.utils.profiling import spanned
+from ngp_tpu_torch.kernels import fused_adam_cuda
+from ngp_tpu_torch.utils.profiling import count, spanned
 
 
 class AdamState(NamedTuple):
@@ -84,15 +99,20 @@ class AdamConfig:
         )
 
 
-def init_state(params: Mapping[str, torch.Tensor]) -> AdamState:
-    """Zero moments and an EMA that starts as a copy of the parameters."""
+def init_state(params: Mapping[str, torch.Tensor],
+               cfg: AdamConfig) -> AdamState:
+    """Zero moments and an EMA that starts as a copy of the parameters; the
+    parameter tensors themselves where ``cfg`` has no Ema (a restore then
+    writes the Ema before the parameters, so the parameters win)."""
+    alias = cfg.ema_decay <= 0.0
     return AdamState(
         step=0,
         mu={k: torch.zeros_like(p, dtype=torch.float32)
             for k, p in params.items()},
         nu={k: torch.zeros_like(p, dtype=torch.float32)
             for k, p in params.items()},
-        ema_params={k: p.detach().clone() for k, p in params.items()})
+        ema_params={k: p if alias else p.detach().clone()
+                    for k, p in params.items()})
 
 
 def _f32_pow(base: float, exponent: int, device) -> torch.Tensor:
@@ -121,7 +141,62 @@ def apply_update(params: Mapping[str, torch.Tensor],
     """One Adam(+decay+EMA) step, in place on ``params`` and the state's
     tensors; returns the state with its step advanced. ``matrix_names``:
     the parameters that get L2 regularisation and no zero-gradient skip
-    (None: all)."""
+    (None: all). CPU tensors take the eager update, CUDA tensors the fused
+    kernel."""
+    dev = next(iter(params.values())).device
+    if dev.type == "cpu":
+        return apply_update_plain(params, grads, state, cfg, matrix_names)
+    if dev.type != "cuda":
+        raise ValueError(f"apply_update takes CPU or CUDA tensors, got "
+                         f"{dev}")
+    return apply_update_fused(params, grads, state, cfg, matrix_names)
+
+
+def apply_update_fused(params: Mapping[str, torch.Tensor],
+                       grads: Mapping[str, torch.Tensor], state: AdamState,
+                       cfg: AdamConfig, matrix_names=None) -> AdamState:
+    """``apply_update`` as one launch of the fused kernel over every tensor
+    (which must lie on one CUDA device); counts the entries it updated
+    under ``adam_fused``. With no Ema an Ema entry that is its parameter's
+    memory is left alone, any other set to the parameter."""
+    step = state.step + 1
+    rows = []
+    for name, p in params.items():
+        is_matrix = matrix_names is None or name in matrix_names
+        e = state.ema_params[name]
+        ema = (fused_adam_cuda.EMA_DECAY if cfg.ema_decay > 0.0
+               else fused_adam_cuda.EMA_NONE if e.data_ptr() == p.data_ptr()
+               else fused_adam_cuda.EMA_COPY)
+        rows.append(fused_adam_cuda.Entry(
+            p, grads[name], state.mu[name], state.nu[name], e,
+            dense=not (cfg.skip_zero_grad and not is_matrix),
+            l2=cfg.l2_reg > 0.0 and is_matrix, ema=ema))
+    count("adam_fused", fused_adam_cuda.launch(rows, _scalars(cfg, step)))
+    return state._replace(step=step)
+
+
+def _scalars(cfg: AdamConfig, step: int) -> "fused_adam_cuda.AdamScalars":
+    """The kernel's scalars: each Python float rounded to f32 as PyTorch
+    rounds a scalar operand (1 - x taken in double first, as the eager
+    expressions do); the kernel computes the learning rate and the bias
+    corrections from ``step`` as ``lr_at_step`` and ``_f32_pow`` do."""
+    return fused_adam_cuda.AdamScalars(
+        lr=cfg.learning_rate, decay_base=cfg.decay_base,
+        b1=cfg.beta1, omb1=1.0 - cfg.beta1, b2=cfg.beta2,
+        omb2=1.0 - cfg.beta2, eps=cfg.epsilon, l2=cfg.l2_reg,
+        inv_ls=1.0 / cfg.loss_scale, ema_d=cfg.ema_decay,
+        ema_omd=1.0 - cfg.ema_decay, step=step,
+        decay_on=int(cfg.decay_interval > 0 and cfg.decay_base != 1.0),
+        decay_start=cfg.decay_start, decay_interval=cfg.decay_interval,
+        decay_end=cfg.decay_end)
+
+
+@torch.no_grad()
+def apply_update_plain(params: Mapping[str, torch.Tensor],
+                       grads: Mapping[str, torch.Tensor], state: AdamState,
+                       cfg: AdamConfig, matrix_names=None) -> AdamState:
+    """``apply_update`` as eager PyTorch, on any device: the plain version
+    that the CPU takes and the fused kernel is held to."""
     step = state.step + 1
     dev = next(iter(params.values())).device
     lr = lr_at_step(cfg, step, dev)
@@ -155,7 +230,8 @@ def apply_update(params: Mapping[str, torch.Tensor],
             e.copy_(d * e + (1.0 - d) * params[name])
     else:
         for name, e in state.ema_params.items():
-            e.copy_(params[name])
+            if e is not params[name]:
+                e.copy_(params[name])
     return state._replace(step=step)
 
 

@@ -115,7 +115,7 @@ class ImageTrainer:
         self.opt_cfg = AdamConfig.from_config(config.get("optimizer", {}),
                                               loss_scale=LOSS_SCALE)
         self.params = dict(self.model.named_parameters())
-        self.opt_state = init_state(self.params)
+        self.opt_state = init_state(self.params, self.opt_cfg)
         self.matrix_names = self.model.matrix_param_names()
         self.batch_size = batch_size
         self.random_mode = "stratified"

@@ -256,7 +256,7 @@ class NerfTrainer:
         self.opt_cfg = AdamConfig.from_config(config.get("optimizer", {}),
                                               loss_scale=LOSS_SCALE)
         self.params = dict(self.model.named_parameters())
-        self.opt_state = init_state(self.params)
+        self.opt_state = init_state(self.params, self.opt_cfg)
         self.matrix_names = self.model.matrix_param_names()
 
         def t(a, dtype=torch.float32):
@@ -1070,8 +1070,10 @@ class NerfTrainer:
                 for k, v in bridge.nerf_params_from_numpy(
                         tree, self.model).items():
                     dst[k].copy_(v)
-        restore(self.params, snap["ngp_tpu_params"])
+        # the Ema first: with no Ema its tensors are the parameters
+        # (init_state), whose own values must win
         restore(self.opt_state.ema_params, snap["ngp_tpu_ema_params"])
+        restore(self.params, snap["ngp_tpu_params"])
         if "ngp_tpu_optimizer" in snap:
             opt = _unpack_tree(snap["ngp_tpu_optimizer"])
             restore(self.opt_state.mu, opt["mu"])

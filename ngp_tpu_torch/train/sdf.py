@@ -90,7 +90,7 @@ class SdfTrainer:
         self.opt_cfg = AdamConfig.from_config(config.get("optimizer", {}),
                                               loss_scale=LOSS_SCALE)
         self.params = dict(self.model.named_parameters())
-        self.opt_state = init_state(self.params)
+        self.opt_state = init_state(self.params, self.opt_cfg)
         self.matrix_names = self.model.matrix_param_names()
         self.rng = np.random.default_rng(seed)
         self.batch_size = batch_size

@@ -69,8 +69,9 @@ SPAN_NAMES = (
     "ngp.to_host",
 )
 # host-known integers a step or frame counts: the samples its march
-# emitted (a renderer's: those it evaluated)
-COUNTER_NAMES = ("samples",)
+# emitted (a renderer's: those it evaluated); the parameter entries the
+# fused Adam kernel updated (apply_update on CUDA tensors, in ngp.adam)
+COUNTER_NAMES = ("samples", "adam_fused")
 _KNOWN = frozenset(SPAN_NAMES + COUNTER_NAMES)
 _NULL = contextlib.nullcontext()
 

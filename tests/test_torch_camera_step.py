@@ -83,7 +83,7 @@ def make_pair(tcfg_kw: dict, n_extra: int = 0, seed: int = 0,
     with torch.no_grad():
         for k, v in bridge.nerf_params_from_numpy(tree, ttr.model).items():
             ttr.params[k].copy_(v)
-    ttr.opt_state = init_state(ttr.params)
+    ttr.opt_state = init_state(ttr.params, ttr.opt_cfg)
     jtr.grid = analytic_grid(jtr)
     ttr.grid = bridge.grid_from_numpy(**jax.tree.map(np.asarray,
                                                      jtr.grid._asdict()))

@@ -48,7 +48,7 @@ def test_apply_update_matches_jax_over_five_steps():
     p0 = {k: (rng.standard_normal(s) * 0.1).astype(np.float32)
           for k, s in shapes.items()}
     t_params = {k: torch.from_numpy(v.copy()) for k, v in p0.items()}
-    t_state = topt.init_state(t_params)
+    t_state = topt.init_state(t_params, t_cfg)
     j_params = {k: jnp.asarray(v) for k, v in p0.items()}
     j_state = jopt.init_state(j_params, j_cfg)
     j_mask = {k: k in matrix for k in shapes}
@@ -77,7 +77,7 @@ def test_apply_update_matches_jax_over_five_steps():
 def test_zero_gradient_entries_freeze():
     cfg = topt.AdamConfig(loss_scale=1.0)
     params = {"table": torch.ones(8), "w": torch.ones(8)}
-    state = topt.init_state(params)
+    state = topt.init_state(params, cfg)
     g = torch.tensor([0.0, 1.0] * 4)
     state = topt.apply_update(params, {"table": g, "w": g}, state, cfg,
                               {"w"})

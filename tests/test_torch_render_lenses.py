@@ -248,7 +248,7 @@ def _testbeds(capture):
     with torch.no_grad():
         for k, v in bridge.nerf_params_from_numpy(tree, ttr.model).items():
             ttr.params[k].copy_(v)
-    ttr.opt_state = init_state(ttr.params)
+    ttr.opt_state = init_state(ttr.params, ttr.opt_cfg)
     dens = _ball_density(jtr.max_cascade)
     jtr.grid = jocc.rebuild_bitfield(jtr.grid._replace(
         density=jnp.asarray(dens)), jtr.max_cascade)

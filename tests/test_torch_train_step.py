@@ -73,7 +73,7 @@ def step_pair():
     with torch.no_grad():
         for k, v in bridge.nerf_params_from_numpy(tree, ttr.model).items():
             ttr.params[k].copy_(v)
-    ttr.opt_state = init_state(ttr.params)
+    ttr.opt_state = init_state(ttr.params, ttr.opt_cfg)
     jtr.grid = jtr._grid_update(jtr.params, jtr.grid, jax.random.PRNGKey(3),
                                 full_sweep=True)
     jg = jax.tree.map(np.asarray, jtr.grid._asdict())

@@ -42,7 +42,7 @@ def nerf_trainer(setup: dict, **tcfg):
         for k, v in bridge.nerf_params_from_numpy(setup["tree"],
                                                   tr.model).items():
             tr.params[k].copy_(v)
-    tr.opt_state = init_state(tr.params)
+    tr.opt_state = init_state(tr.params, tr.opt_cfg)
     tr.grid = bridge.grid_from_numpy(**setup["grid"])
     return tr
 
